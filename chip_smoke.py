@@ -1,0 +1,472 @@
+#!/usr/bin/env python3
+"""Run the PyTorch/CUDA port of the STrack fabric on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero; nothing is caught):
+  1. build the three CUDA kernels (nvcc, sm_90a) from src/repro_torch;
+  2. hold each kernel against its plain PyTorch version on the card (ints
+     and bools exact, float32 bit for bit): at perm1024 and perm8k shapes
+     captured a few ticks into the run; at incast1024 ticks where the
+     standing queue drops, marks ECN on the dither and sends flows into
+     SACK recovery (each of these must happen, or the check fails as
+     vacuous); the transition on random flow states at 1024 lanes, where
+     RTOs fire, probes go out and flows enter recovery; and the ranker at
+     M = 255 ... 32768;
+  3. goldens perm16_strack / incast8_strack (tests/golden/*.json) through
+     repro_torch.sim.workloads.run on the card;
+  4. the main path at full width: perm1024 (1024 hosts, 64 KiB, 400 Gbps)
+     with launch counts reset before and read after, held exactly against
+     src/repro_torch/testdata/perm1024_strack_ref.json (made by the JAX
+     package); then incast1024 (256 of those hosts send 16 KiB each to
+     host 0) held against incast1024_strack_ref.json the same way: drops,
+     ECN marks, retransmits, SACK recoveries, every done tick;
+  5. scale: perm8k (8192 hosts) must finish every flow;
+  6. a `kernels` JSON line (launches on the main path; each kernel's
+     device time per call from torch.profiler, and the wrapper's wall time
+     per call; the plain version's device and wall time; the bound), the
+     card's name and power limit, and the final `{"ok": true, ...}` line.
+
+It needs a CUDA device and the repository around it: without either it
+exits non-zero before printing any result.
+"""
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+TESTDATA = ROOT / "src" / "repro_torch" / "testdata"
+
+#: Published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and float32
+#: rate outside the tensor cores, for the per-kernel bound.
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+
+#: Each wrapper's own CUDA kernels (csrc/*.cu); a wrapper call launches
+#: these and memsets, nothing else.
+OWN_KERNELS = {
+    "flow_transition": ("apply_kernel", "commit_kernel"),
+    "serve_enqueue": ("serve_kernel", "accept_kernel", "place_kernel",
+                      "count_kernel", "scan_kernel", "resolve_kernel"),
+    "rank_in_queue": ("count_kernel", "scan_kernel", "resolve_kernel"),
+}
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def leaves(tree, prefix=""):
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        for name, v in zip(tree._fields, tree):
+            yield from leaves(v, f"{prefix}{name}.")
+    elif isinstance(tree, (tuple, list)):
+        for i, v in enumerate(tree):
+            yield from leaves(v, f"{prefix}{i}.")
+    else:
+        yield prefix.rstrip("."), tree
+
+
+def assert_same(what: str, a, b) -> float:
+    """Exact equality of two output trees (float32 compared bit for bit);
+    returns the largest absolute difference of the float leaves (0.0)."""
+    import torch
+    la, lb = dict(leaves(a)), dict(leaves(b))
+    assert la.keys() == lb.keys(), (what, la.keys() ^ lb.keys())
+    err = 0.0
+    for k in la:
+        x, y = la[k], lb[k]
+        if not isinstance(x, torch.Tensor):
+            assert x == y, (what, k, x, y)
+            continue
+        assert x.dtype == y.dtype and x.shape == y.shape, (
+            what, k, x.dtype, y.dtype, tuple(x.shape), tuple(y.shape))
+        if x.dtype == torch.float32:
+            d = (x - y).abs().nan_to_num(nan=float("inf"))
+            err = max(err, float(d.max()) if d.numel() else 0.0)
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        if not torch.equal(x, y):
+            bad = (x != y).nonzero()[0].tolist()
+            raise AssertionError(f"{what}: kernel and plain version differ "
+                                 f"at {k}{bad}")
+    return err
+
+
+def nbytes(tree) -> int:
+    import torch
+    return sum(t.numel() * t.element_size() for _, t in leaves(tree)
+               if isinstance(t, torch.Tensor))
+
+
+def wall_ms(fn, reps: int = 30) -> float:
+    """Mean time of one ``fn()`` call over ``reps`` back-to-back calls,
+    between two CUDA events (warmed up first): host work included."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def device_ms(fn, reps: int = 20) -> tuple:
+    """Mean device time of one ``fn()`` call: the self device time of
+    every kernel and memset it ran, summed from ``torch.profiler`` over
+    ``reps`` calls (warmed up first).  Returns ``(ms, device event
+    names)``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us, names = 0.0, set()
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0))
+        if us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
+            total_us += us
+            names.add(ev.key)
+    assert total_us > 0, "torch.profiler recorded no device time"
+    return total_us / reps / 1e3, names
+
+
+def bound_ms(n_bytes: float, n_ops: float) -> tuple:
+    tb = n_bytes / HBM_BYTES_PER_S * 1e3
+    to = n_ops / FP32_OPS_PER_S * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
+                         "this script runs the port on an NVIDIA GPU")
+    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(ROOT / "tests"))
+    import numpy as np
+    from repro_torch.core.cc import CCState
+    from repro_torch.core.lb import SprayState
+    from repro_torch.core.params import NetworkSpec
+    from repro_torch.core.reliability import RelState, SackMsg
+    from repro_torch.core.transport import FlowState
+    from repro_torch.kernels import fabric_kernels as fk
+    from repro_torch.numerics import Now
+    from repro_torch.sim.fabric import FabricProgram, run_fabric_trace, \
+        summarize, _flow_arrays, _arrival_array
+    from repro_torch.sim.topology import full_bisection
+    from repro_torch.sim.workloads import (RunConfig, _fabric_cfg,
+                                           _scenario_ticks,
+                                           incast_scenario,
+                                           permutation_scenario, run)
+    from torch_states import random_cc, random_rel, random_sack, \
+        random_spray
+
+    dev = torch.device("cuda")
+    kind = torch.cuda.get_device_name(0)
+    log(f"device: {kind} x{torch.cuda.device_count()}; torch "
+        f"{torch.__version__}, CUDA {torch.version.cuda}")
+    net400 = NetworkSpec(link_gbps=400.0)
+
+    # ---- 1. build ---------------------------------------------------------
+    t0 = time.time()
+    paths = fk.build_all(verbose=True)
+    log(f"[build] {len(paths)} kernels in {time.time() - t0:.1f}s: "
+        + ", ".join(p.name for p in paths.values()))
+
+    # ---- 2. kernels vs plain versions on the card -------------------------
+    def program(sc, cfg):
+        fcfg = _fabric_cfg(sc, cfg)
+        prog = FabricProgram(sc.topo, len(sc.messages),
+                             _scenario_ticks(sc, cfg), fcfg, dev)
+        src, dst, total, tails = _flow_arrays(sc.flows, fcfg)
+        prog.bind(src, dst, total, tails, _arrival_array(sc.messages),
+                  fcfg.lb_mode)
+        return prog
+
+    timing = {}
+    max_err = {"flow_transition": 0.0, "serve_enqueue": 0.0,
+               "rank_in_queue": 0.0}
+
+    def same(key, what, a, b):
+        max_err[key] = max(max_err[key], assert_same(what, a, b))
+
+    def check_transition(what, targs):
+        out_k = fk.flow_transition(*targs)
+        same("flow_transition", f"{what} flow_transition", out_k,
+             fk.flow_transition_plain(*targs))
+        return out_k
+
+    def check_ticks(name, sc, ticks, time_at=None, congested=False):
+        """Kernels vs plain versions at ``ticks`` of a dense run; with
+        ``congested``, fail unless those ticks dropped, marked ECN both
+        ways on the dither, and saw flows in recovery with claimed bits."""
+        prog = program(sc, RunConfig())
+        sd = prog.serve_dims
+        st = prog.init_state()
+        seen = dict.fromkeys(("drops", "marks", "dither_rows",
+                              "dither_marks", "in_recovery", "claimed",
+                              "probes"), 0)
+        for t in range(max(ticks) + 1):
+            if t in ticks:
+                targs = prog.transport_args(st, t, prog.sendable_msg(st, t))
+                out_k = check_transition(f"{name} t={t}", targs)
+                _, tx, ptx, pv, sel, _ = out_k
+                sargs, _, _ = prog.serve_args(st, t, tx, ptx, sel, pv)
+                rings = [type(st.q)(*[f.clone() for f in st.q])
+                         for _ in range(2)]
+                res_k = fk.serve_enqueue(rings[0], *sargs[1:])
+                res_p = fk.serve_enqueue_plain(rings[1], *sargs[1:])
+                same("serve_enqueue", f"{name} serve_enqueue t={t}", res_k,
+                     res_p)
+                same("serve_enqueue", f"{name} ring t={t}",
+                     [f[:prog.Q] for f in rings[0]],
+                     [f[:prog.Q] for f in rings[1]])
+                qid, accept = res_k[6], res_k[7]
+                for flag in (accept, res_k[3].new_ones(qid.shape)):
+                    same("rank_in_queue", f"{name} rank_in_queue t={t}",
+                         fk.rank_in_queue(qid, flag, prog.Q),
+                         fk.rank_in_queue_plain(qid, flag, prog.Q))
+                pop, has, ecn_out = res_k[2], res_k[3], res_k[4]
+                new_mark = has & ecn_out & ~pop.ecn
+                residual = (st.qsize[:prog.Q] - 1).clamp_min(0).float()
+                decided = (has & ~pop.probe & (residual > sd.kmin_p)
+                           & (residual < sd.kmax_p))
+                rel_in, rel_out = targs[0].rel, out_k[0].rel
+                seen["drops"] += int(res_k[8])
+                seen["marks"] += int(new_mark.sum())
+                seen["dither_rows"] += int(decided.sum())
+                seen["dither_marks"] += int((decided & new_mark).sum())
+                seen["in_recovery"] += int(
+                    (rel_in.in_recovery | rel_out.in_recovery).sum())
+                seen["claimed"] += int((rel_in.claimed.any(1)
+                                        | rel_out.claimed.any(1)).sum())
+                seen["probes"] += int(pv.sum())
+                if t == time_at:
+                    timing["transition"] = (targs, out_k)
+                    timing["serve"] = (sargs, res_k, type(st.q)(
+                        *[f.clone() for f in st.q]))
+                    timing["rank"] = (qid, accept, prog.Q)
+            st, _, _ = prog.tick(st, t)
+        torch.cuda.synchronize()
+        if congested:
+            assert seen["drops"] > 0 and seen["marks"] > 0, (name, seen)
+            assert 0 < seen["dither_marks"] < seen["dither_rows"], (name,
+                                                                    seen)
+            assert seen["in_recovery"] > 0 and seen["claimed"] > 0, (name,
+                                                                     seen)
+            assert seen["probes"] > 0, (name, seen)
+        log(f"[kernels] {name}: transition, serve_enqueue and rank_in_queue "
+            f"match their plain versions at ticks {sorted(ticks)}; summed "
+            f"over those ticks {seen}")
+        return prog
+
+    perm1024 = permutation_scenario(full_bisection(32, 32), 64 * 2 ** 10,
+                                    net=net400, seed=0)
+    incast1024 = incast_scenario(full_bisection(32, 32), 256, 16 * 2 ** 10,
+                                 net=net400)
+    perm8k = permutation_scenario(full_bisection(128, 64), 64 * 2 ** 10,
+                                  net=net400, seed=0)
+    prog1024 = check_ticks("perm1024", perm1024, {3, 8, 16, 40},
+                           time_at=16)
+    # drops at 42-56; the dither decides at 590-630 and 1200-1260; flows
+    # in recovery with claimed bits at 700-740 and 1160-1260; timer ticks
+    # (t % 8 == 0) among them send probes.
+    check_ticks("incast1024", incast1024,
+                {42, 48, 56, 400, 590, 600, 610, 620, 630, 700, 740, 1160,
+                 1200, 1210, 1220, 1230, 1240, 1250, 1260}, congested=True)
+    check_ticks("perm8k", perm8k, {8, 16})
+
+    dims = prog1024.trans_dims
+    n, rng = prog1024.N, np.random.default_rng(0)
+    seen = dict(rto=0, recoveries=0, probes=0, lost_nic=0)
+    cuda = lambda d: {k: torch.from_numpy(np.array(v)).to(dev)
+                      for k, v in d.items()}
+    for t in (2400, 2401, 2403, 2408):   # timer ticks: t % 8 == 0
+        now = float(Now(t, dims.tick_us))
+        rel_d = random_rel(rng, n, dims.p)
+        flows = FlowState(cc=CCState(**cuda(random_cc(rng, n, dims.p))),
+                          spray=SprayState(**cuda(random_spray(rng, n,
+                                                               dims.p))),
+                          rel=RelState(**cuda(rel_d)))
+        due = SackMsg(**cuda(random_sack(rng, n, dims.p, rel_d, now)))
+        sendable = torch.from_numpy(rng.random(n) < 0.9).to(dev)
+        src = torch.from_numpy(rng.integers(0, n // 4, n).astype(np.int32)
+                               ).to(dev)
+        out = check_transition(f"random flows t={t}",
+                               (flows, due, sendable, src, t, dims))
+        seen["rto"] += int((out[0].rel.rto_fires
+                            > flows.rel.rto_fires).sum())
+        seen["recoveries"] += int((out[0].rel.recoveries
+                                   > flows.rel.recoveries).sum())
+        seen["probes"] += int(out[3].sum())
+        seen["lost_nic"] += int((out[5] & ~out[4]).sum())
+    torch.cuda.synchronize()
+    assert all(v > 0 for v in seen.values()), seen
+    log(f"[kernels] flow_transition matches its plain version on random "
+        f"flow states at {n} lanes (timer and other ticks): {seen}")
+
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    for n_queues in (3072, 24576):
+        for m in (255, 256, 257, 511, 512, 513, 4096, 32768):
+            for span, density in ((n_queues, 0.5), (7, 0.5), (3, 1.0),
+                                  (3, 0.0)):
+                qid = torch.randint(0, span, (m,), generator=gen,
+                                    dtype=torch.int32).to(dev)
+                flag = (torch.rand((m,), generator=gen) < density).to(dev)
+                same("rank_in_queue", f"rank_in_queue m={m} q={n_queues}",
+                     fk.rank_in_queue(qid, flag, n_queues),
+                     fk.rank_in_queue_plain(qid, flag, n_queues))
+    torch.cuda.synchronize()
+    log("[kernels] rank_in_queue matches its plain version at M = 255, 256, "
+        "257, 511, 512, 513, 4096, 32768 (Q = 3072 and 24576; empty, "
+        "all-flagged and duplicate-heavy cases)")
+
+    # ---- 3. goldens --------------------------------------------------------
+    t44 = full_bisection(4, 4)
+    goldens = {
+        "perm16_strack": permutation_scenario(t44, 256 * 2 ** 10, net=net400,
+                                              seed=0),
+        "incast8_strack": incast_scenario(t44, 8, 512 * 2 ** 10, net=net400),
+    }
+    for name, sc in goldens.items():
+        want = json.loads((ROOT / "tests" / "golden" / f"{name}.json")
+                          .read_text())
+        t0 = time.time()
+        got = run(sc, RunConfig(), device="cuda")
+        for k, v in want.items():
+            if isinstance(v, float):
+                assert math.isclose(got[k], v, rel_tol=1e-6), (name, k,
+                                                               got[k], v)
+            else:
+                assert got[k] == v, (name, k, got[k], v)
+        log(f"[golden] {name}: {want} matched in {time.time() - t0:.2f}s "
+            f"({got['warp_trips']} warp trips)")
+
+    # ---- 4. full width: perm1024 (the main path), then incast1024 ----------
+    def hold_against_reference(name, sc):
+        ref = json.loads((TESTDATA / f"{name}_strack_ref.json").read_text())
+        cfg = RunConfig()
+        n_ticks = _scenario_ticks(sc, cfg)
+        assert n_ticks == ref["n_ticks"], (name, n_ticks, ref["n_ticks"])
+        torch.cuda.synchronize()
+        fk.reset_launches()
+        t0 = time.time()
+        _, m = run_fabric_trace(sc.topo, sc.messages, n_ticks,
+                                _fabric_cfg(sc, cfg), device="cuda")
+        wall = time.time() - t0
+        launches = dict(fk.launches)
+        s = summarize(m)
+        got = {k: s[k] for k in ref if k in s}
+        got.update(warp_trips=m["warp_trips"], end_tick=m["end_tick"],
+                   n_ticks=n_ticks,
+                   done_tick=[int(v) for v in m["done_tick"]])
+        for k, v in ref.items():
+            if isinstance(v, float):
+                assert math.isclose(got[k], v, rel_tol=1e-6), (name, k,
+                                                               got[k], v)
+            else:
+                assert got[k] == v, (name, k)
+        for k, c in launches.items():
+            assert c > 0, f"{name} never launched the {k} kernel"
+        log(f"[{name}] matches the JAX reference (unfinished, drops "
+            f"{s['drops']}, ecn_marks {s['ecn_marks']}, retransmits "
+            f"{s['retransmits']}, sack_recoveries {s['sack_recoveries']}, "
+            f"warp_trips={m['warp_trips']}, end_tick, all "
+            f"{len(got['done_tick'])} done ticks); wall {wall:.3f}s, "
+            f"{m['warp_trips'] / wall:.1f} trips/s; launches {launches}")
+        return launches
+
+    launches = hold_against_reference("perm1024", perm1024)
+    hold_against_reference("incast1024", incast1024)
+
+    # ---- 5. scale: perm8k --------------------------------------------------
+    t0 = time.time()
+    r8k = run(perm8k, RunConfig(), device="cuda")
+    torch.cuda.synchronize()
+    wall8k = time.time() - t0
+    assert r8k["unfinished"] == 0, r8k["unfinished"]
+    log(f"[perm8k] 8192 flows, unfinished 0, max_fct {r8k['max_fct']:.4f} us, "
+        f"drops {r8k['drops']}; wall {wall8k:.3f}s, warp trips "
+        f"{r8k['warp_trips']}, {r8k['warp_trips'] / wall8k:.1f} trips/s, "
+        f"{r8k['end_tick'] / wall8k:.1f} ticks/s")
+
+    # ---- 6. kernel times and bounds at the perm1024 shapes ------------------
+    targs, out_k = timing["transition"]
+    sargs, res_k, ring0 = timing["serve"]
+    ring_k = type(ring0)(*[f.clone() for f in ring0])
+    ring_p = type(ring0)(*[f.clone() for f in ring0])
+    qid, accept, nq = timing["rank"]
+    calls = {
+        "flow_transition": (lambda: fk.flow_transition(*targs),
+                            lambda: fk.flow_transition_plain(*targs)),
+        "serve_enqueue": (lambda: fk.serve_enqueue(ring_k, *sargs[1:]),
+                          lambda: fk.serve_enqueue_plain(ring_p,
+                                                         *sargs[1:])),
+        "rank_in_queue": (lambda: fk.rank_in_queue(qid, accept, nq),
+                          lambda: fk.rank_in_queue_plain(qid, accept, nq)),
+    }
+    n = prog1024.N
+    Q, M = prog1024.Q, res_k[6].numel()
+    slot_bytes = sum(f.element_size() for f in ring0)
+    n_acc = int(res_k[7].sum())
+    s_bytes = (2 * 4 * (Q + 1) + Q * slot_bytes + nbytes(sargs[3:17])
+               + nbytes(res_k) + n_acc * slot_bytes)
+    bounds = {
+        "flow_transition": bound_ms(nbytes(targs[:4]) + nbytes(out_k),
+                                    n * 2 * 512 + n * 64),
+        "serve_enqueue": bound_ms(s_bytes, Q * 40 + M * 20),
+        "rank_in_queue": bound_ms(M * (4 + 1) + M * 4, M * 128),
+    }
+    csrc = "src/repro_torch/kernels/csrc"
+    sources = {"flow_transition": ("transition.cu", 191),
+               "serve_enqueue": ("serve_enqueue.cu", 184),
+               "rank_in_queue": ("rank.cu", 117)}
+    kernels = []
+    for name, (kern, plain) in calls.items():
+        ms, names = device_ms(kern)
+        for own in OWN_KERNELS[name]:
+            assert any(own in k for k in names), (name, own, names)
+        foreign = [k for k in names if "emset" not in k
+                   and not any(own in k for own in OWN_KERNELS[name])]
+        assert not foreign, (name, foreign)
+        plain_ms, _ = device_ms(plain, reps=10)
+        src, line = sources[name]
+        bnd, by = bounds[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"{csrc}/{src}",
+            "replaces": f"src/repro/kernels/fabric_kernels.py:{line}",
+            "launches": launches[name], "max_abs_err": max_err[name],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd,
+            "bound_by": by, "library_ms": None,
+            "wall_ms": wall_ms(kern), "plain_wall_ms": wall_ms(plain,
+                                                               reps=10)})
+    print(json.dumps({"kernels": kernels}), flush=True)
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    print(f"gpu: {smi.stdout.strip().splitlines()[0]}", flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

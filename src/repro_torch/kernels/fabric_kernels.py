@@ -1,0 +1,444 @@
+"""The fabric hot path's three kernels: CUDA on the card, plain PyTorch on
+the CPU.
+
+Each kernel of the reference (``repro/kernels/fabric_kernels.py``, all
+Pallas) has here a wrapper, a plain PyTorch version of the same function
+and a hand-written CUDA kernel under ``csrc/``:
+
+==========================  =====================================  ==========================
+wrapper                     reference kernel (Pallas)              CUDA source
+==========================  =====================================  ==========================
+:func:`flow_transition`     ``flow_transition_kernel`` over        ``csrc/transition.cu``
+                            ``fabric.dense_trans_core``
+:func:`serve_enqueue`       ``serve_enqueue_kernel`` over          ``csrc/serve_enqueue.cu``
+                            ``fabric.serve_enqueue_core``
+:func:`rank_in_queue`       ``rank_in_queue_kernel`` /             ``csrc/rank.cu``
+                            ``rank_in_queue_core``
+==========================  =====================================  ==========================
+
+Dispatch is by the device of the tensors: a wrapper runs the plain version
+for CPU tensors and launches its kernel for CUDA tensors, or raises; there
+is no fallback and no switch.  Every launch adds one to
+``launches[name]``.  The CUDA sources are compiled with ``nvcc`` for
+``sm_90a`` at first use into ``build/repro_torch_kernels/`` at the repo
+root (one ``nvcc`` per source, all started together) and bound with
+``ctypes``; they run on PyTorch's current stream.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import NamedTuple
+
+import torch
+
+from ..core.params import ACK_WIRE_BYTES, STrackParams
+from ..core.reliability import SackMsg
+from ..core.transport import FlowState, TxPacket, tree_where
+from ..numerics import Now, ecn_dither, f32, recip32
+
+#: Launches of each wrapper's kernel since the last :func:`reset_launches`.
+launches = {"flow_transition": 0, "serve_enqueue": 0, "rank_in_queue": 0}
+
+#: Block width of the chunked ranker.
+RANK_CHUNK = 256
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+class PktQ(NamedTuple):
+    """Ring-buffer packet fields, shape [n_queues + 1, cap] (last row
+    trash; its contents are never read)."""
+
+    flow: torch.Tensor   # i32
+    psn: torch.Tensor    # i32
+    ts: torch.Tensor     # f32 (send timestamp, us)
+    probe: torch.Tensor  # bool
+    ecn: torch.Tensor    # bool (accumulated across hops)
+    ent: torch.Tensor    # i32 (path entropy)
+    ready: torch.Tensor  # i32 (departure-time lane: earliest service tick)
+    spine: torch.Tensor  # i32 (spine chosen at injection; 0 for same-ToR)
+
+
+class TransDims(NamedTuple):
+    """Static inputs of the transition stage: the STrack parameters, and
+    the fabric's protocol record (``sim.fabric.Protocol``) whose batched
+    ``on_ack`` / ``on_timer`` (with the probe gate) / ``next_packet`` the
+    plain version runs."""
+
+    p: STrackParams
+    proto: object
+    tick_us: float
+    timer_every: int
+    n_hosts: int      # NH: NIC arbitration segments
+    n_real: int       # NR: round-robin modulus
+
+
+class ServeDims(NamedTuple):
+    """Static inputs of the serve/enqueue stage (lossy queues, no faults)."""
+
+    n_tor: int
+    n_spine: int
+    n_hosts: int
+    n_flows: int
+    cap: int
+    K: int                 # per-link propagation, ticks
+    data_drop_pkts: int
+    hard_pkts: int
+    kmin_p: float
+    kmax_p: float
+    mtu_bytes: int
+    tick_us: float
+
+
+def _check(name, t, dtype, shape=None, device=None):
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+    if device is not None and t.device != device:
+        raise ValueError(f"{name}: expected device {device}, got {t.device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def _route(t: torch.Tensor) -> str:
+    if t.device.type == "cpu":
+        return "plain"
+    if t.device.type == "cuda":
+        return "cuda"
+    raise ValueError(f"no kernel for device {t.device}")
+
+
+# --------------------------------------------------------------------------- #
+# Kernel 3 of the reference: the stable per-queue ranker
+# --------------------------------------------------------------------------- #
+
+def rank_in_queue_plain(qid: torch.Tensor, flag: torch.Tensor,
+                        n_queues: int) -> torch.Tensor:
+    """Rank of each flagged candidate among flagged candidates of the same
+    queue, in candidate-index order; ``-1`` where unflagged.  Chunked: a
+    per-(block, queue) count table, an exclusive cumsum down the block
+    axis, and a strictly-lower-triangle count inside each block."""
+    m = qid.shape[0]
+    dev = qid.device
+    if m == 0:
+        return torch.zeros((0,), dtype=torch.int32, device=dev)
+    c = RANK_CHUNK
+    pad = (-m) % c
+    qid_p = torch.cat([qid.to(torch.int32),
+                       torch.full((pad,), n_queues, dtype=torch.int32,
+                                  device=dev)])
+    flag_p = torch.cat([flag, torch.zeros((pad,), dtype=torch.bool,
+                                          device=dev)])
+    nb = qid_p.shape[0] // c
+    qw = n_queues + 1
+    blk = torch.arange(nb, dtype=torch.int64, device=dev).repeat_interleave(c)
+    slot = blk * qw + torch.where(flag_p, qid_p, n_queues).long()
+    tbl = torch.zeros(nb * qw, dtype=torch.int32, device=dev)
+    tbl.index_add_(0, slot, flag_p.to(torch.int32))
+    tbl = tbl.view(nb, qw)
+    start = torch.cumsum(tbl, 0, dtype=torch.int32) - tbl
+    base = start.view(-1)[blk * qw + qid_p.long()]
+    qc, fc = qid_p.view(nb, c), flag_p.view(nb, c)
+    tril = torch.ones((c, c), dtype=torch.bool, device=dev).tril(-1)
+    intra = ((qc[:, :, None] == qc[:, None, :]) & fc[:, None, :]
+             & tril[None]).sum(2, dtype=torch.int32)
+    ranks = base + intra.view(-1)
+    return torch.where(flag, ranks[:m], -1).to(torch.int32)
+
+
+def rank_in_queue(qid: torch.Tensor, flag: torch.Tensor,
+                  n_queues: int) -> torch.Tensor:
+    """The ranker: plain version on CPU tensors, ``csrc/rank.cu`` on CUDA
+    tensors (three launches: per-block counts, block-axis scan, resolve)."""
+    m = qid.shape[0]
+    _check("qid", qid, torch.int32, (m,))
+    _check("flag", flag, torch.bool, (m,), qid.device)
+    if _route(qid) == "plain":
+        return rank_in_queue_plain(qid, flag, n_queues)
+    if qid.numel() and int(n_queues) < 1:
+        raise ValueError("n_queues must be positive")
+    out = torch.empty((m,), dtype=torch.int32, device=qid.device)
+    if m == 0:
+        return out
+    nb = -(-m // RANK_CHUNK)
+    tbl = torch.empty((nb * (n_queues + 1),), dtype=torch.int32,
+                      device=qid.device)
+    _launch(_lib("rank").rank_in_queue, _ptr(qid), _ptr(flag), _ptr(out),
+            _ptr(tbl), ctypes.c_int(m), ctypes.c_int(int(n_queues)),
+            _stream(qid))
+    launches["rank_in_queue"] += 1
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# Kernel 1 of the reference: per-flow transport transitions
+# --------------------------------------------------------------------------- #
+
+def _empty_tx(n: int, device) -> TxPacket:
+    z = lambda dt: torch.zeros((n,), dtype=dt, device=device)
+    return TxPacket(valid=z(torch.bool), psn=z(torch.int32),
+                    entropy=z(torch.int32), is_rtx=z(torch.bool),
+                    is_probe=z(torch.bool))
+
+
+def flow_transition_plain(flows: FlowState, due: SackMsg,
+                          sendable: torch.Tensor, src: torch.Tensor, t: int,
+                          d: TransDims):
+    """``dense_trans_core`` for lossy queues: apply the due SACK, run the
+    timer sweep on timer ticks (a probe only once the flow has sent data),
+    offer the next packet, and arbitrate each NIC round-robin (the lowest
+    ``(lane - t) % NR`` of the flows that can send wins).
+
+    Returns ``(flows, tx, probe_tx, probe_valid, sel, can_tx)``."""
+    proto = d.proto
+    n = sendable.shape[0]
+    dev = sendable.device
+    now = Now(t, d.tick_us)
+    fl = proto.on_ack(flows, due, now)
+    if t % d.timer_every == 0:
+        fl_t, probe_tx = proto.on_timer(fl, now)
+    else:
+        fl_t, probe_tx = fl, _empty_tx(n, dev)
+    probe_valid = probe_tx.valid & sendable
+    fl = tree_where(sendable, fl_t, fl)
+    fl_sent, tx = proto.next_packet(fl, now)
+    can_tx = tx.valid & sendable
+    lanes = torch.arange(n, dtype=torch.int32, device=dev)
+    score = torch.where(can_tx, (lanes - t) % d.n_real, d.n_real
+                        ).to(torch.int32)
+    best = torch.full((d.n_hosts,), torch.iinfo(torch.int32).max,
+                      dtype=torch.int32, device=dev)
+    best = best.scatter_reduce(0, src.long(), score, "amin")
+    sel = can_tx & (score == best[src.long()])
+    fl = tree_where(sel, fl_sent, fl)
+    return fl, tx, probe_tx, probe_valid, sel, can_tx
+
+
+def flow_transition(flows: FlowState, due: SackMsg, sendable: torch.Tensor,
+                    src: torch.Tensor, t: int, d: TransDims):
+    """The transition stage: plain version on CPU tensors,
+    ``csrc/transition.cu`` on CUDA tensors (two launches: apply + arbitrate
+    then commit the NIC winners)."""
+    n = sendable.shape[0]
+    _check("sendable", sendable, torch.bool, (n,))
+    _check("src", src, torch.int32, (n,), sendable.device)
+    if _route(sendable) == "plain":
+        return flow_transition_plain(flows, due, sendable, src, t, d)
+    from . import _cuda_bind
+    out = _cuda_bind.transition(_lib("transition"), flows, due, sendable,
+                                src, t, d)
+    launches["flow_transition"] += 1
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# Kernel 2 of the reference: ring service + two-pass enqueue
+# --------------------------------------------------------------------------- #
+
+def _wire(flow, psn, probe, total_pkts, tail_b, mtu):
+    """Per-packet wire size: probes are ACK-sized, a message's final PSN
+    is its odd tail, everything else a full MTU."""
+    f = flow.clamp(0, total_pkts.shape[0] - 1).long()
+    tail = psn >= total_pkts[f] - 1
+    return torch.where(probe, f32(ACK_WIRE_BYTES),
+                       torch.where(tail, tail_b[f], f32(mtu)))
+
+
+def serve_enqueue_plain(q: PktQ, qhead, qsize, dst, dst_tor, total_pkts,
+                        tail_b, tx_psn, probe_psn, ent_d, ent_p, spine,
+                        spine_p, sel, probe_valid, inj_q, inj_qp, t: int,
+                        d: ServeDims):
+    """``serve_enqueue_core`` for lossy queues without faults.
+
+    Serve: each queue pops its head once the head's departure-time lane
+    says it has arrived, ECN-marking on the occupancy fraction against the
+    sin dither.  Enqueue: fabric advances plus NIC data and probe
+    injections rank among same-queue candidates, drop on occupancy, rank
+    again among the accepted and land in the ring rows.  The ring ``q`` is
+    updated IN PLACE; returns ``(qhead, qsize, pop, has, ecn_out,
+    pop_bytes, cand_qid, accept, drops_add)``."""
+    T, S, NH, N, cap = d.n_tor, d.n_spine, d.n_hosts, d.n_flows, d.cap
+    TS = T * S
+    Q = 2 * TS + NH
+    dev = qhead.device
+    now = Now(t, d.tick_us)
+    qrows = torch.arange(Q, dtype=torch.int32, device=dev)
+    is_up = qrows < TS
+    spine_row = torch.where(is_up, qrows % S, (qrows - TS) // T)
+
+    qs = qsize[:Q]
+    hidx = (qhead[:Q] % cap).long()
+    pop = PktQ(*[f[qrows.long(), hidx] for f in q])
+    has = (qs > 0) & (pop.ready <= t)
+    residual = torch.clamp_min(qs - 1, 0).to(torch.float32)
+    frac = torch.clamp((residual - f32(d.kmin_p))
+                       * recip32(max(d.kmax_p - d.kmin_p, 1e-9)), 0.0, 1.0)
+    dither = ecn_dither(t, qrows)
+    mark = has & (~pop.probe) & (frac > dither * f32(0.999))
+    ecn_out = pop.ecn | mark
+    served = has.to(torch.int32)
+    qhead1 = qhead.clone()
+    qsize1 = qsize.clone()
+    qhead1[:Q] += served
+    qsize1[:Q] -= served
+
+    fclip = pop.flow.clamp(0, N - 1).long()
+    pop_bytes = _wire(pop.flow, pop.psn, pop.probe, total_pkts, tail_b,
+                      d.mtu_bytes)
+    adv_tgt = torch.where(is_up, TS + spine_row * T + dst_tor[fclip],
+                          2 * TS + dst[fclip])[:2 * TS]
+    lanes = torch.arange(N, dtype=torch.int32, device=dev)
+    cand_qid = torch.cat([adv_tgt, inj_q, inj_qp]).to(torch.int32)
+    cand_valid = torch.cat([has[:2 * TS], sel, probe_valid])
+    zb = torch.zeros((N,), dtype=torch.bool, device=dev)
+    now_l = torch.full((N,), now, dtype=torch.float32, device=dev)
+    M = 2 * TS + 2 * N
+    cand = PktQ(
+        flow=torch.cat([pop.flow[:2 * TS], lanes, lanes]),
+        psn=torch.cat([pop.psn[:2 * TS], tx_psn, probe_psn]),
+        ts=torch.cat([pop.ts[:2 * TS], now_l, now_l]),
+        probe=torch.cat([pop.probe[:2 * TS], zb, ~zb]),
+        ecn=torch.cat([ecn_out[:2 * TS], zb, zb]),
+        ent=torch.cat([pop.ent[:2 * TS], ent_d, ent_p]),
+        ready=torch.full((M,), t + 1 + d.K, dtype=torch.int32, device=dev),
+        spine=torch.cat([pop.spine[:2 * TS], spine, spine_p]))
+
+    # The reference counts all pairs up to 256 candidates and runs the
+    # ranker above; both give the same rank wherever the flag is set, and
+    # only flagged entries are read.
+    rank_among = lambda flag: rank_in_queue_plain(cand_qid, flag, Q)
+    qid_l = cand_qid.long()
+    occ = qsize1[qid_l] + rank_among(cand_valid)
+    dropped = cand_valid & (((~cand.probe) & (occ >= d.data_drop_pkts))
+                            | (occ >= d.hard_pkts))
+    accept = cand_valid & (~dropped)
+    pos = (qhead1[qid_l] + qsize1[qid_l] + rank_among(accept)) % cap
+    flat = torch.where(accept, qid_l * cap + pos, Q * cap)
+    for f, v in zip(q, cand):
+        f.view(-1)[flat] = v
+    added = torch.zeros((Q + 1,), dtype=torch.int32, device=dev)
+    added.index_add_(0, torch.where(accept, qid_l, Q),
+                     accept.to(torch.int32))
+    qsize2 = qsize1 + added
+    qsize2[Q] = 0
+    qhead1[Q] = 0
+    drops_add = dropped.sum(dtype=torch.int32)
+    return (qhead1, qsize2, pop, has, ecn_out, pop_bytes, cand_qid, accept,
+            drops_add)
+
+
+def serve_enqueue(q: PktQ, qhead, qsize, dst, dst_tor, total_pkts, tail_b,
+                  tx_psn, probe_psn, ent_d, ent_p, spine, spine_p, sel,
+                  probe_valid, inj_q, inj_qp, t: int, d: ServeDims):
+    """The serve/enqueue stage: plain version on CPU tensors,
+    ``csrc/serve_enqueue.cu`` on CUDA tensors (serve + candidate build,
+    rank, drop/accept, rank, ring placement; both rank passes are
+    :func:`rank_in_queue`).  The ring
+    ``q`` is updated in place either way."""
+    args = (q, qhead, qsize, dst, dst_tor, total_pkts, tail_b, tx_psn,
+            probe_psn, ent_d, ent_p, spine, spine_p, sel, probe_valid,
+            inj_q, inj_qp, t, d)
+    if _route(qhead) == "plain":
+        return serve_enqueue_plain(*args)
+    from . import _cuda_bind
+    out = _cuda_bind.serve_enqueue(_lib("serve_enqueue"), *args)
+    launches["serve_enqueue"] += 1
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# Build and bind (nvcc -> shared library with a plain C interface -> ctypes)
+# --------------------------------------------------------------------------- #
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+SOURCES = ("transition", "serve_enqueue", "rank")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-lineinfo")
+
+_LIBS: dict = {}  # loaded libraries, by source name
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels are built on "
+                           "the machine with the card")
+    return path
+
+
+def _lib_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes() + (CSRC / "common.cuh"
+                                                ).read_bytes()
+    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}-{tag}.so"
+
+
+def build_all(verbose: bool = False) -> dict:
+    """Compile every kernel source that is not built yet, one ``nvcc`` per
+    source, all started together.  Returns ``{name: path}``."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    todo = {n: _lib_path(n) for n in SOURCES}
+    procs = {}
+    for name, out in todo.items():
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
+        if verbose:
+            cmd.insert(1, "-Xptxas=-v")
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out)
+    failed = []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"--- {name}.cu ---\n{log}")
+            continue
+        if verbose and log:
+            print(f"--- nvcc {name}.cu ---\n{log}", flush=True)
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return todo
+
+
+def _lib(name: str) -> ctypes.CDLL:
+    """The loaded library of one source, building all of them first."""
+    if name not in _LIBS:
+        from . import _cuda_bind
+        for n, path in build_all().items():
+            lib = ctypes.CDLL(str(path))
+            _cuda_bind.declare(n, lib)
+            _LIBS[n] = lib
+    return _LIBS[name]
+
+
+def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _stream(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def _launch(fn, *args) -> None:
+    err = fn(*args)
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel launch failed: error {err} "
+                           f"({fn.__name__})")
+

@@ -1,0 +1,856 @@
+"""The multi-queue fat-tree fabric on PyTorch: the port's main path.
+
+The port of ``repro.sim.fabric`` for STrack over lossy queues (the
+reference's default): a 2-tier Clos fabric (host NICs -> per-ToR uplink
+queues -> per-spine downlink queues -> per-host downlink queues) held as
+fixed-shape ring-buffer tensors, ticked in the reference's stage order:
+
+  0. dependency gate (deps-free traces: every message is sendable),
+  1. transport lanes — due SACKs, timer sweep, next packet, NIC
+     round-robin (``kernels.flow_transition``),
+  2. spray/ECMP injection targets,
+  3. ring service + two-pass enqueue (``kernels.serve_enqueue``, ranking
+     through ``kernels.rank_in_queue`` past 256 candidates),
+  4. deliveries -> receivers -> the per-flow SACK return pipe,
+  5. completion and observability counters.
+
+Time model: 1 tick = 1 MTU serialization time; every hop adds one tick of
+serialization plus ``K`` ticks of propagation (the departure-time lane
+``PktQ.ready``); SACKs return through a per-flow pipe of the reverse
+path's latency.  The event-horizon loop (``FabricConfig.time_warp``)
+skips ticks that are provably idle and is bit-identical to dense ticking.
+
+Everything the reference supports beyond this slice — RoCEv2, PFC,
+faults, the active set, sharding, sub-flow striping, dependency edges and
+the per-tick trace — raises ``NotImplementedError`` naming its ROADMAP
+item.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..core import reliability as rel
+from ..core import transport as tp
+from ..core.params import NetworkSpec, STrackParams, make_strack_params
+from ..core.reliability import SackMsg
+from ..kernels.fabric_kernels import (PktQ, ServeDims, TransDims,
+                                      flow_transition, serve_enqueue)
+from ..numerics import f32, recip32
+from .topology import FatTree
+
+LB_MODES = ("adaptive", "oblivious", "fixed")
+ACK_PATHS = ("perhop", "folded")
+
+
+def ecmp_mix(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor
+             ) -> torch.Tensor:
+    """Tensor mirror of ``topology._mix``: the uint32 wrap-around hash,
+    computed in int64 with a 32-bit mask after every multiply."""
+    m = 0xFFFFFFFF
+    u = lambda x: x.to(torch.int64) & m
+    h = (u(a) * 2654435761) & m
+    h = h ^ ((u(b) * 2246822519) & m)
+    h = (h * 3266489917) & m
+    h = h ^ ((u(c) * 668265263) & m)
+    h = (h * 374761393) & m
+    return ((h >> 8) ^ (h & 0xFF)).to(torch.int32)
+
+
+class ArrayTopo(NamedTuple):
+    """Array-ized FatTree: everything the fabric needs as tensors."""
+
+    n_tor: int
+    n_spine: int
+    hosts_per_tor: int
+    n_hosts: int
+    live_mask: torch.Tensor   # bool[T, S]: (tor, spine) link is up
+    live_list: torch.Tensor   # i32[T, S]: i-th live spine of tor (padded)
+    n_live: torch.Tensor      # i32[T]
+
+    @classmethod
+    def from_fat_tree(cls, topo: FatTree, device="cpu") -> "ArrayTopo":
+        T, S = topo.n_tor, topo.n_spine
+        mask = [[(t, s) not in topo.dead_links for s in range(S)]
+                for t in range(T)]
+        llist, nlive = [], []
+        for t in range(T):
+            ups = topo.live_up[t]
+            llist.append(ups + [ups[0]] * (S - len(ups)))
+            nlive.append(len(ups))
+        return cls(n_tor=T, n_spine=S, hosts_per_tor=topo.hosts_per_tor,
+                   n_hosts=topo.n_hosts,
+                   live_mask=torch.tensor(mask, dtype=torch.bool,
+                                          device=device),
+                   live_list=torch.tensor(llist, dtype=torch.int32,
+                                          device=device),
+                   n_live=torch.tensor(nlive, dtype=torch.int32,
+                                       device=device))
+
+    def tor_of(self, host: torch.Tensor) -> torch.Tensor:
+        return torch.div(host, self.hosts_per_tor, rounding_mode="floor")
+
+    def ecmp_spine(self, src: torch.Tensor, dst: torch.Tensor,
+                   entropy: torch.Tensor) -> torch.Tensor:
+        """ECMP onto a live uplink (bit-exact vs FatTree.ecmp_spine)."""
+        tor = self.tor_of(src).long()
+        k = ecmp_mix(src, dst, entropy) % self.n_live[tor]
+        return self.live_list[tor, k.long()]
+
+
+# --------------------------------------------------------------------------- #
+# Protocol record: the per-flow transport plugged into the fabric
+# --------------------------------------------------------------------------- #
+
+class Protocol(NamedTuple):
+    """Per-flow transport engine record (every function is batched over
+    flows).  The fabric's hot transitions run through the transition
+    kernel; these entries serve set-up, deliveries, the warp target and
+    the final statistics."""
+
+    name: str
+    uses_spray: bool
+    init: Callable           # (total_pkts[N], tail_bytes[N]) -> (flows, rcv)
+    empty_msgs: Callable     # (h, n, device) -> SackMsg with dims (h, n)
+    on_data: Callable        # (rcv, psn, size, ecn, ent, ts, probe) -> ...
+    on_ack: Callable         # (flows, msg, now) -> flows
+    on_timer: Callable       # (flows, now) -> (flows, TxPacket), probe-gated
+    next_packet: Callable    # (flows, now) -> (flows, TxPacket)
+    done: Callable           # flows -> bool[N]
+    cong_pkts: Callable      # flows -> f32[N]
+    next_event: Callable     # flows -> (timer_us[N], send_us[N])
+    stat_retx: Callable      # flows -> i32[N]
+    stat_recovery: Callable  # flows -> {rto_fires, sack_recoveries, ...}
+
+
+def _empty_sack_pipe(p: STrackParams, h: int, n: int, device) -> SackMsg:
+    z = lambda dt: torch.zeros((h, n), dtype=dt, device=device)
+    return SackMsg(valid=z(torch.bool), epsn=z(torch.int32),
+                   sack_base=z(torch.int32),
+                   sack_bits=torch.zeros((h, n, p.sack_bitmap_bits),
+                                         dtype=torch.bool, device=device),
+                   bytes_recvd=z(torch.float32), ooo_cnt=z(torch.int32),
+                   ecn=z(torch.bool), entropy=z(torch.int32),
+                   ts=z(torch.float32), probe_reply=z(torch.bool))
+
+
+def make_strack_protocol(p: STrackParams) -> Protocol:
+    """STrack: window CC (Algo 3/4) + spray (Algo 2) + SACK reliability."""
+
+    def init(total_pkts, tail_bytes):
+        return (tp.init_flow(p, total_pkts, tail_bytes),
+                rel.init_receiver(total_pkts))
+
+    def on_timer(f, now):
+        # the oracle arms a flow's timers when the flow is added; hold
+        # probes until the flow has actually sent data
+        f2, tx = tp.flow_on_timer(f, p, now)
+        probe = tx.valid & (f.rel.bytes_sent > 0)
+        return f2, tx._replace(valid=probe, is_probe=probe)
+
+    def stat_retx(f):
+        mtu = f32(p.mtu_bytes)
+        wire = (f.rel.total_pkts - 1).to(torch.float32) * mtu \
+            + f.rel.tail_bytes
+        extra = torch.round((f.rel.bytes_sent - wire) * recip32(mtu))
+        return torch.where(f.rel.total_pkts > 0,
+                           torch.clamp_min(extra, 0.0).to(torch.int32), 0)
+
+    return Protocol(
+        name="strack", uses_spray=True, init=init,
+        empty_msgs=lambda h, n, dev: _empty_sack_pipe(p, h, n, dev),
+        on_data=lambda r, psn, size, ecn, ent, ts, probe:
+            rel.receiver_on_data(r, p, psn, size, ecn, ent, ts, probe),
+        on_ack=lambda f, m, now: tp.flow_on_sack(f, p, m, now),
+        on_timer=on_timer,
+        next_packet=lambda f, now: tp.flow_next_packet(f, p, now),
+        done=tp.flow_done,
+        cong_pkts=lambda f: f.cc.cwnd,
+        next_event=lambda f: tp.flow_next_event(f, p),
+        stat_retx=stat_retx,
+        stat_recovery=lambda f: {
+            "rto_fires": f.rel.rto_fires,
+            "sack_recoveries": f.rel.recoveries,
+            "gbn_rewinds": torch.zeros_like(f.rel.rto_fires)})
+
+
+# --------------------------------------------------------------------------- #
+# Messages and state
+# --------------------------------------------------------------------------- #
+
+class _FlowMsg(NamedTuple):
+    """Minimal message record for the deps-free ``run_fabric`` wrapper."""
+
+    mid: int
+    src: int
+    dst: int
+    size: float
+    deps: tuple = ()
+    group: int = 0
+    arrival: int = 0
+
+
+class DepSpec(NamedTuple):
+    """Static message structure a fabric program closes over (this slice:
+    one message per flow, no dependency edges)."""
+
+    n_msgs: int
+    n_groups: int
+    msg_of_flow: torch.Tensor   # i32[N]
+    group_of_msg: torch.Tensor  # i32[n_msgs]
+    init_pending: torch.Tensor  # i32[n_msgs]
+    edge_parent: torch.Tensor   # i32[E]
+    edge_child: torch.Tensor    # i32[E]
+    msg_ids: tuple
+    group_ids: tuple
+
+
+def _trivial_dep(n: int, device="cpu") -> DepSpec:
+    """Deps-free 1:1 flow<->message mapping (the plain-flow case)."""
+    iota = torch.arange(n, dtype=torch.int32, device=device)
+    e = torch.zeros((0,), dtype=torch.int32, device=device)
+    z = torch.zeros((n,), dtype=torch.int32, device=device)
+    return DepSpec(n_msgs=n, n_groups=1, msg_of_flow=iota, group_of_msg=z,
+                   init_pending=z.clone(), edge_parent=e, edge_child=e,
+                   msg_ids=tuple(range(n)), group_ids=(0,))
+
+
+class FabricState(NamedTuple):
+    flows: tp.FlowState      # [N]
+    rcv: rel.ReceiverState   # [N]
+    q: PktQ                  # [Q+1, cap]
+    qhead: torch.Tensor      # i32[Q+1]
+    qsize: torch.Tensor      # i32[Q+1]
+    pipe: SackMsg            # [H, N]: per-flow SACK return pipe
+    obl_rr: torch.Tensor     # i32[N]: oblivious-spray round robin
+    drops: torch.Tensor      # i32
+    delivered: torch.Tensor  # f32[N]
+    done_tick: torch.Tensor  # i32[N], -1 until message completion
+    # --- PFC (all-zero and untouched on lossy queues) ---
+    qbytes: torch.Tensor
+    ing_host: torch.Tensor
+    ing_sd: torch.Tensor
+    ing_up: torch.Tensor
+    paused_nic: torch.Tensor
+    paused_sd: torch.Tensor
+    paused_up: torch.Tensor
+    pfc_line: torch.Tensor
+    pauses: torch.Tensor
+    # --- dependency scheduling (trivial without deps) ---
+    pending: torch.Tensor
+    msg_done: torch.Tensor
+    msg_release_tick: torch.Tensor
+    msg_done_tick: torch.Tensor
+    group_done_tick: torch.Tensor
+    act_overflow: torch.Tensor
+    # --- observability counters ---
+    ecn_marks: torch.Tensor
+    qdepth_hi: torch.Tensor
+    # --- chaos counters (zeros without faults) ---
+    blackholed: torch.Tensor
+    corrupt_drops: torch.Tensor
+    tx_rows: torch.Tensor
+    win_retx: torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class FabricConfig:
+    """The reference's ``FabricConfig`` with the fields this slice honours;
+    the others keep their defaults and raise when set."""
+
+    net: NetworkSpec = dataclasses.field(default_factory=NetworkSpec)
+    max_paths: int = 64
+    lb_mode: str = "adaptive"        # adaptive | oblivious | fixed
+    timer_every: int = 8             # ticks between timer sweeps
+    delay_ticks: Optional[int] = None  # return-pipe latency override
+    protocol: str = "strack"
+    pfc: Optional[bool] = None       # None -> lossless iff rocev2
+    ack_path: str = "perhop"         # perhop | folded
+    hop_prop_us: Optional[float] = None
+    pfc_delay_ticks: Optional[int] = None
+    subflows: int = 1
+    time_warp: bool = False
+    trace_every: int = 1
+    active_cap: Optional[int] = None
+    shard: int = 0
+    faults: Optional[object] = None
+
+    @property
+    def pfc_enabled(self) -> bool:
+        return self.pfc if self.pfc is not None else (
+            self.protocol == "rocev2")
+
+
+def check_slice(cfg: FabricConfig) -> None:
+    """Raise ``NotImplementedError`` for what the port does not run yet,
+    naming the ROADMAP item that brings it."""
+    trace_every = 0 if cfg.time_warp else cfg.trace_every
+    todo = [
+        (cfg.protocol != "strack", f"protocol={cfg.protocol!r}", "A7"),
+        (cfg.pfc_enabled, "pfc=True", "A7"),
+        (cfg.faults is not None, "faults", "A9"),
+        (bool(cfg.active_cap), "active_cap", "A8"),
+        (int(cfg.shard) > 1, "shard > 1", "A11"),
+        (int(cfg.subflows) > 1, "subflows > 1", "A6"),
+        (trace_every > 0, "trace_every > 0 (per-tick trace)", "A5"),
+    ]
+    for bad, what, item in todo:
+        if bad:
+            raise NotImplementedError(
+                f"repro_torch does not port {what} yet (ROADMAP {item})")
+    if cfg.lb_mode not in LB_MODES:
+        raise ValueError(f"unknown lb_mode {cfg.lb_mode!r}; "
+                         f"expected one of {LB_MODES}")
+    if cfg.ack_path not in ACK_PATHS:
+        raise ValueError(f"unknown ack_path {cfg.ack_path!r}; "
+                         f"expected one of {ACK_PATHS}")
+    if cfg.trace_every < 0:
+        raise ValueError(f"trace_every must be >= 0, got {cfg.trace_every}")
+
+
+def _hop_delays(cfg: FabricConfig) -> dict:
+    """Per-hop delay constants: K (per-link propagation, whole ticks),
+    D_same/D_cross (SACK return-pipe ticks), PD (PFC frame ticks), H (pipe
+    depth).  Rounded once here, as in the reference."""
+    net = cfg.net
+    tick_us = net.mtu_serialize_us
+    folded = cfg.ack_path == "folded" or cfg.delay_ticks is not None
+    if folded:
+        if cfg.delay_ticks is not None:
+            d = int(cfg.delay_ticks)
+        else:
+            d = max(1, round(net.base_rtt_us / tick_us) - 3)
+        K, D_same, D_cross = 0, d, d
+    else:
+        prop_us = (cfg.hop_prop_us if cfg.hop_prop_us is not None
+                   else net.hop_prop_effective_us)
+        k_f = prop_us / tick_us
+        a_f = net.ack_serialize_us / tick_us
+        K = int(round(k_f))
+
+        def ret(hops):
+            rtt_f = hops * (1.0 + a_f + 2.0 * k_f)
+            return max(1, int(round(rtt_f - (hops - 1) * (1 + K))))
+
+        D_same, D_cross = ret(2), ret(4)
+    if cfg.pfc_delay_ticks is not None:
+        PD = max(0, int(cfg.pfc_delay_ticks))
+    else:
+        PD = K
+    return dict(K=K, D_same=D_same, D_cross=D_cross, PD=PD,
+                H=max(D_same, D_cross) + 2)
+
+
+def _make_protocol(cfg: FabricConfig):
+    """cfg -> (Protocol, STrackParams, kmin/kmax in packets)."""
+    net = cfg.net
+    p = make_strack_params(net, max_paths=cfg.max_paths)
+    kmin_p = net.ecn_kmin_bytes / net.mtu_bytes
+    kmax_p = net.ecn_kmax_bytes / net.mtu_bytes
+    return make_strack_protocol(p), p, kmin_p, kmax_p
+
+
+def _scatter_rows(tree_all, tree_rows, idx: torch.Tensor, n: int):
+    """Scatter rows into per-flow state tuples; ``idx == n`` hits a trash
+    row that is dropped."""
+    def one(a, b):
+        pad = torch.zeros((1,) + tuple(a.shape[1:]), dtype=a.dtype,
+                          device=a.device)
+        out = torch.cat([a, pad], 0)
+        out[idx.long()] = b
+        return out[:n]
+    return type(tree_all)(*[one(a, b) for a, b in zip(tree_all, tree_rows)])
+
+
+def _scatter_pipe(pipe: SackMsg, rows: SackMsg, slot, fidx, valid, h, n):
+    """Write per-delivery SACK rows into the [H, N] return pipe at per-flow
+    slots; invalid entries hit a trash slot past the flattened pipe."""
+    flat_idx = torch.where(valid, slot * n + fidx, h * n).long()
+
+    def one(a, b):
+        flat = a.reshape((h * n,) + tuple(a.shape[2:]))
+        pad = torch.zeros((1,) + tuple(flat.shape[1:]), dtype=a.dtype,
+                          device=a.device)
+        out = torch.cat([flat, pad], 0)
+        out[flat_idx] = b
+        return out[:h * n].reshape(a.shape)
+
+    return SackMsg(*[one(a, b) for a, b in zip(pipe, rows)])
+
+
+class FabricProgram:
+    """One fabric program for fixed (topology, flows, ticks, config):
+    the initial state, ``tick``, ``warp_target`` and the two loops."""
+
+    def __init__(self, topo: FatTree, n_flows: int, n_ticks: int,
+                 cfg: FabricConfig, device, dep: Optional[DepSpec] = None):
+        check_slice(cfg)
+        if n_flows <= 0:
+            raise ValueError("fabric program needs at least one flow")
+        self.cfg, self.n_ticks, self.device = cfg, int(n_ticks), device
+        net = cfg.net
+        self.proto, self.p, kmin_p, kmax_p = _make_protocol(cfg)
+        self.at = ArrayTopo.from_fat_tree(topo, device)
+        T, S, NH = topo.n_tor, topo.n_spine, topo.n_hosts
+        HPT = topo.hosts_per_tor
+        TS = T * S
+        Q = 2 * TS + NH
+        N = n_flows
+        self.dep = dep if dep is not None else _trivial_dep(N, device)
+        if int(self.dep.edge_parent.shape[0]) > 0:
+            raise NotImplementedError(
+                "repro_torch does not port dependency edges yet (ROADMAP A6)")
+        tick_us = net.mtu_serialize_us
+        drop_pkts = int(net.drop_bytes // net.mtu_bytes)
+        max_extra = max(T, S + 2 * HPT)
+        hard_pkts = drop_pkts + max_extra   # probes squeeze past data drop
+        cap = hard_pkts + max_extra + 2
+        hd = _hop_delays(cfg)
+        self.K, self.H, self.PD = hd["K"], hd["H"], hd["PD"]
+        self.D_same, self.D_cross = hd["D_same"], hd["D_cross"]
+        self.T, self.S, self.NH, self.HPT = T, S, NH, HPT
+        self.TS, self.Q, self.N, self.cap = TS, Q, N, cap
+        self.tick_us = tick_us
+        self.trans_dims = TransDims(p=self.p, proto=self.proto,
+                                    tick_us=tick_us,
+                                    timer_every=cfg.timer_every,
+                                    n_hosts=NH, n_real=N)
+        self.serve_dims = ServeDims(
+            n_tor=T, n_spine=S, n_hosts=NH, n_flows=N, cap=cap, K=self.K,
+            data_drop_pkts=drop_pkts, hard_pkts=hard_pkts, kmin_p=kmin_p,
+            kmax_p=kmax_p, mtu_bytes=net.mtu_bytes, tick_us=tick_us)
+        self.dims = dict(T=T, S=S, NH=NH, TS=TS, Q=Q, cap=cap, H=self.H,
+                         K=self.K, D_same=self.D_same, D_cross=self.D_cross,
+                         PD=self.PD, shard=1, active_cap=0)
+
+    # ---- set-up ---------------------------------------------------------
+    def bind(self, src, dst, total_pkts, tail_b, arrival, lb_mode: str):
+        """Per-run inputs (tensors on the program's device)."""
+        dev, N, HPT = self.device, self.N, self.HPT
+        self.src = src.to(dev, torch.int32)
+        self.dst = dst.to(dev, torch.int32)
+        self.total_pkts = total_pkts.to(dev, torch.int32)
+        self.tail_b = tail_b.to(dev, torch.float32)
+        self.arrival = arrival.to(dev, torch.int32)
+        self.lb_code = LB_MODES.index(lb_mode)
+        self.src_tor = torch.div(self.src, HPT, rounding_mode="floor")
+        self.dst_tor = torch.div(self.dst, HPT, rounding_mode="floor")
+        self.same_tor = self.src_tor == self.dst_tor
+        iota = torch.arange(N, dtype=torch.int32, device=dev)
+        self.fixed_ent = ecmp_mix(self.src, self.dst, iota) \
+            % self.cfg.max_paths
+        self.dflow = torch.where(self.same_tor, self.D_same, self.D_cross
+                                 ).to(torch.int32)
+
+    def init_state(self) -> FabricState:
+        dev, N, Q, cap, H = self.device, self.N, self.Q, self.cap, self.H
+        T, S, NH = self.T, self.S, self.NH
+        fl0, rcv0 = self.proto.init(self.total_pkts, self.tail_b)
+        zi = lambda *s: torch.zeros(s, dtype=torch.int32, device=dev)
+        zf = lambda *s: torch.zeros(s, dtype=torch.float32, device=dev)
+        zb = lambda *s: torch.zeros(s, dtype=torch.bool, device=dev)
+        neg = lambda n: torch.full((n,), -1, dtype=torch.int32, device=dev)
+        q0 = PktQ(flow=torch.full((Q + 1, cap), -1, dtype=torch.int32,
+                                  device=dev),
+                  psn=zi(Q + 1, cap), ts=zf(Q + 1, cap), probe=zb(Q + 1, cap),
+                  ecn=zb(Q + 1, cap), ent=zi(Q + 1, cap),
+                  ready=zi(Q + 1, cap), spine=zi(Q + 1, cap))
+        dep = self.dep
+        return FabricState(
+            flows=fl0, rcv=rcv0, q=q0, qhead=zi(Q + 1), qsize=zi(Q + 1),
+            pipe=self.proto.empty_msgs(H, N, dev),
+            obl_rr=torch.arange(N, dtype=torch.int32, device=dev)
+            % self.cfg.max_paths,
+            drops=zi(), delivered=zf(N), done_tick=neg(N),
+            qbytes=zf(Q + 1), ing_host=zf(NH), ing_sd=zf(S, T),
+            ing_up=zf(T, S), paused_nic=zb(NH), paused_sd=zb(S, T),
+            paused_up=zb(T, S),
+            pfc_line=zb(max(self.PD, 1), NH + 2 * self.TS), pauses=zi(),
+            pending=dep.init_pending.to(dev).clone(),
+            msg_done=zb(dep.n_msgs), msg_release_tick=neg(dep.n_msgs),
+            msg_done_tick=neg(dep.n_msgs),
+            group_done_tick=neg(dep.n_groups), act_overflow=zi(),
+            ecn_marks=zi(), qdepth_hi=zi(Q + 1), blackholed=zi(),
+            corrupt_drops=zi(), tx_rows=zi(Q + 1), win_retx=zi(0))
+
+    # ---- one tick -------------------------------------------------------
+    def sendable_msg(self, st: FabricState, t: int) -> torch.Tensor:
+        """Messages released at tick ``t``: dependencies met and open-loop
+        arrival reached.  A tick leaves ``pending`` as it is (dependency
+        edges are not ported), so the mask of a tick's input state serves
+        the transition, the warp loop's idle test and ``warp_target``."""
+        return (st.pending <= 0) & (self.arrival <= t)
+
+    def transport_args(self, st: FabricState, t: int,
+                       sendable_msg: torch.Tensor) -> tuple:
+        """Arguments of the transition stage at tick ``t`` (stage 1)."""
+        due = SackMsg(*[a[t % self.H] for a in st.pipe])
+        return (st.flows, due, sendable_msg[self.dep.msg_of_flow.long()],
+                self.src, t, self.trans_dims)
+
+    def serve_args(self, st: FabricState, t: int, tx, probe_tx, sel,
+                   probe_valid) -> tuple:
+        """Stage 2 (spray/ECMP injection targets) and the arguments of the
+        serve/enqueue stage at tick ``t``; also returns the new oblivious
+        round-robin pointers and the data injection rows."""
+        TS, S = self.TS, self.S
+        obl_rr = st.obl_rr
+        if self.lb_code == 1:       # oblivious spray
+            ent_obl = (st.obl_rr + 1) % self.cfg.max_paths
+            ent, ent_probe = ent_obl, ent_obl
+            obl_rr = torch.where(sel, ent_obl, st.obl_rr)
+        elif self.lb_code == 2:     # fixed single path
+            ent, ent_probe = self.fixed_ent, self.fixed_ent
+        else:                       # adaptive spray (the transport's pick)
+            ent, ent_probe = tx.entropy, probe_tx.entropy
+        spine = self.at.ecmp_spine(self.src, self.dst, ent)
+        inj_q = torch.where(self.same_tor, 2 * TS + self.dst,
+                            self.src_tor * S + spine).to(torch.int32)
+        spine_p = self.at.ecmp_spine(self.src, self.dst, ent_probe)
+        inj_qp = torch.where(self.same_tor, 2 * TS + self.dst,
+                             self.src_tor * S + spine_p).to(torch.int32)
+        args = (st.q, st.qhead, st.qsize, self.dst, self.dst_tor,
+                self.total_pkts, self.tail_b, tx.psn, probe_tx.psn,
+                ent.to(torch.int32), ent_probe.to(torch.int32), spine,
+                spine_p, sel, probe_valid, inj_q, inj_qp, t, self.serve_dims)
+        return args, obl_rr, inj_q
+
+    def tick(self, st: FabricState, t: int):
+        """One dense tick at tick index ``t`` -> (new_state, can_any,
+        sendable_msg), in the reference's stage order.  ``can_any`` (a bool
+        tensor) is whether any released flow offered a data packet this
+        tick; ``sendable_msg`` is :meth:`sendable_msg` of the input state."""
+        N, Q, TS, H = self.N, self.Q, self.TS, self.H
+        dep = self.dep
+
+        # 0. dependency gate (+ open-loop arrival ticks)
+        sendable_msg = self.sendable_msg(st, t)
+        msg_release_tick = torch.where(
+            sendable_msg & (st.msg_release_tick < 0), t,
+            st.msg_release_tick).to(torch.int32)
+
+        # 1. transport lanes: due SACKs, timers, sends, NIC arbitration
+        flows, tx, probe_tx, probe_valid, sel, can_tx = flow_transition(
+            *self.transport_args(st, t, sendable_msg))
+        pipe_valid = st.pipe.valid.clone()
+        pipe_valid[t % H] = False
+        pipe = st.pipe._replace(valid=pipe_valid)
+
+        # 2. spray / ECMP injection targets; 3. ring service + two-pass
+        # enqueue (the ring is updated in place)
+        args, obl_rr, inj_q = self.serve_args(st, t, tx, probe_tx, sel,
+                                              probe_valid)
+        (qhead, qsize, pop, has, ecn_out, pop_bytes, _cand_qid, accept,
+         drops_add) = serve_enqueue(*args)
+        fclip = pop.flow.clamp(0, N - 1)
+        drops = st.drops + drops_add
+
+        # 4. deliveries -> receivers -> SACK return pipe
+        del_has = has[2 * TS:]
+        del_flow = fclip[2 * TS:]
+        slot_del = (t + self.dflow[del_flow.long()]) % H
+        rrows = type(st.rcv)(*[a[del_flow.long()] for a in st.rcv])
+        d_probe = pop.probe[2 * TS:]
+        rnew, sack = self.proto.on_data(
+            rrows, pop.psn[2 * TS:], pop_bytes[2 * TS:], ecn_out[2 * TS:],
+            pop.ent[2 * TS:], pop.ts[2 * TS:], d_probe)
+        rnew = tp.tree_where(del_has, rnew, rrows)
+        rcv = _scatter_rows(st.rcv, rnew,
+                            torch.where(del_has, del_flow, N), N)
+        delivered = st.delivered.clone()
+        didx = torch.where(del_has & (~d_probe), del_flow, N).long()
+        delivered = torch.cat([delivered, delivered.new_zeros(1)])
+        delivered.index_add_(0, didx, pop_bytes[2 * TS:])
+        delivered = delivered[:N]
+        ecn_add = (del_has & ecn_out[2 * TS:] & (~d_probe)
+                   ).sum(dtype=torch.int32)
+        sack_valid = sack.valid & del_has
+        pipe = _scatter_pipe(pipe, sack._replace(valid=sack_valid), slot_del,
+                             del_flow, sack_valid, H, N)
+
+        # 5. completion + metrics
+        done = self.proto.done(flows)
+        done_tick = torch.where(done & (st.done_tick < 0), t,
+                                st.done_tick).to(torch.int32)
+        undone = torch.zeros(dep.n_msgs, dtype=torch.int32,
+                             device=self.device)
+        undone.index_add_(0, dep.msg_of_flow.long(), (~done).to(torch.int32))
+        msg_done = undone == 0
+        newly = msg_done & (~st.msg_done)
+        msg_done_tick = torch.where(newly, t, st.msg_done_tick
+                                    ).to(torch.int32)
+        g_undone = torch.zeros(dep.n_groups, dtype=torch.int32,
+                               device=self.device)
+        g_undone.index_add_(0, dep.group_of_msg.long(),
+                            (~msg_done).to(torch.int32))
+        group_done_tick = torch.where(
+            (g_undone == 0) & (st.group_done_tick < 0), t,
+            st.group_done_tick).to(torch.int32)
+        acc_data = accept[2 * TS:2 * TS + N]
+        tx_rows = st.tx_rows.clone()
+        tx_rows.index_add_(0, torch.where(acc_data, inj_q, Q).long(),
+                           torch.ones_like(inj_q))
+
+        new_st = st._replace(
+            flows=flows, rcv=rcv, qhead=qhead, qsize=qsize, pipe=pipe,
+            obl_rr=obl_rr, drops=drops, delivered=delivered,
+            done_tick=done_tick, msg_done=msg_done,
+            msg_release_tick=msg_release_tick, msg_done_tick=msg_done_tick,
+            group_done_tick=group_done_tick,
+            ecn_marks=st.ecn_marks + ecn_add,
+            qdepth_hi=torch.maximum(st.qdepth_hi, qsize), tx_rows=tx_rows)
+        return new_st, can_tx.any(), sendable_msg
+
+    # ---- event horizon ----------------------------------------------------
+    def warp_target(self, st: FabricState, t: int,
+                    sendable_msg: torch.Tensor) -> torch.Tensor:
+        """Earliest tick > t that could change state given an idle fabric:
+        the first timer sweep with an expired deadline, a return-pipe slot
+        holding a SACK, the earliest head-of-queue arrival, or a pending
+        open-loop arrival (an int32 scalar tensor).  ``sendable_msg`` is
+        the release mask at ``t`` (:meth:`sendable_msg`)."""
+        n_ticks, H, Q, cap = self.n_ticks, self.H, self.Q, self.cap
+        dev = self.device
+        timer_ev, send_ev = self.proto.next_event(st.flows)
+        sendable = sendable_msg[self.dep.msg_of_flow.long()]
+        inf = float("inf")
+        timer_ev = torch.where(sendable, timer_ev, inf)
+        send_ev = torch.where(sendable, send_ev, inf)
+
+        def ev_tick(ev, half_early):
+            e = ev.min()
+            ratio = e * recip32(self.tick_us) - f32(half_early)
+            tk = torch.where(
+                torch.isfinite(e),
+                torch.floor(torch.clamp_max(ratio, f32(n_ticks))
+                            ).to(torch.int32),
+                n_ticks)
+            return torch.clamp_min(tk, t + 1)
+
+        every = self.cfg.timer_every
+        t_timer = ev_tick(timer_ev, 0.0)
+        t_timer = torch.div(t_timer + every - 1, every,
+                            rounding_mode="floor") * every
+        t_send = ev_tick(send_ev, 0.5)
+        slots = torch.arange(H, dtype=torch.int32, device=dev)
+        due = t + 1 + (slots - t - 1) % H
+        t_pipe = torch.where(st.pipe.valid.any(1), due, n_ticks).min()
+        qrows = torch.arange(Q, device=dev)
+        rdy = st.q.ready[qrows, (st.qhead[:Q] % cap).long()]
+        t_queue = torch.clamp_min(
+            torch.where(st.qsize[:Q] > 0, rdy, n_ticks).min(), t + 1)
+        t_arr = torch.clamp_min(torch.where(
+            (st.pending <= 0) & (st.msg_release_tick < 0), self.arrival,
+            n_ticks).min(), t + 1)
+        tgt = torch.minimum(torch.minimum(t_timer, t_send),
+                            torch.minimum(t_pipe, t_queue))
+        tgt = torch.minimum(tgt, t_arr)
+        return torch.clamp_max(tgt, n_ticks).to(torch.int32)
+
+    def run(self):
+        """Run to ``n_ticks``: (final_state, {"warp_trips", "end_tick"} for
+        the warp loop, {} for dense ticking)."""
+        st = self.init_state()
+        if not self.cfg.time_warp:
+            for t in range(self.n_ticks):
+                st, _, _ = self.tick(st, t)
+            return st, {}
+        t, trips = 0, 0
+        while t < self.n_ticks:
+            st, can_any, sendable_msg = self.tick(st, t)
+            idle = (~can_any) & ~(sendable_msg
+                                  & (st.msg_release_tick < 0)).any()
+            t_next = torch.where(idle, self.warp_target(st, t, sendable_msg),
+                                 t + 1)
+            trips += 1
+            t = int(t_next)   # one host read per trip
+        return st, {"warp_trips": trips, "end_tick": t}
+
+
+# --------------------------------------------------------------------------- #
+# Host-side inputs and metrics
+# --------------------------------------------------------------------------- #
+
+def _check_flows(flows, n_hosts: int) -> None:
+    for s_, d_, _ in flows:
+        if not (0 <= s_ < n_hosts and 0 <= d_ < n_hosts and s_ != d_):
+            raise ValueError(f"bad flow endpoint (src={s_}, dst={d_}) for "
+                             f"{n_hosts} hosts")
+
+
+def _flow_arrays(flows, cfg: FabricConfig):
+    """Host-side inputs for one flow list: ``(src, dst, total_pkts,
+    tail_bytes)``; ``tail_bytes`` is the wire size of each flow's final
+    PSN.  (The reference's ``ent0`` feeds only RoCEv2 pinned entropy.)"""
+    mtu = cfg.net.mtu_bytes
+    src = torch.tensor([f[0] for f in flows], dtype=torch.int32)
+    dst = torch.tensor([f[1] for f in flows], dtype=torch.int32)
+    npkts = [max(1, int(math.ceil(f[2] / mtu))) for f in flows]
+    total_pkts = torch.tensor(npkts, dtype=torch.int32)
+    tail_bytes = torch.tensor(
+        [max(1.0, float(f[2]) - (n - 1) * mtu)
+         for f, n in zip(flows, npkts)], dtype=torch.float32)
+    return src, dst, total_pkts, tail_bytes
+
+
+def _arrival_array(messages) -> torch.Tensor:
+    """Per-message earliest-launch ticks (i32[n_msgs], input order)."""
+    return torch.tensor([max(0, int(getattr(m, "arrival", 0)))
+                         for m in messages], dtype=torch.int32)
+
+
+def _us_or_none(ticks, ok, tick_us: float) -> list:
+    us = np.asarray(ticks, dtype=np.float64) * tick_us
+    return [float(v) if o else None
+            for v, o in zip(us, np.asarray(ok, dtype=bool))]
+
+
+def _finish_metrics(metrics: dict, fin: dict, cfg: FabricConfig,
+                    dims: dict, dep: DepSpec) -> dict:
+    """Host-side derived metrics for one run (``fin``: final-state arrays
+    as numpy).  ``fct_us`` is message-level: release to completion."""
+    T, S, TS = dims["T"], dims["S"], dims["TS"]
+    tick_us = cfg.net.mtu_serialize_us
+    p = make_strack_params(cfg.net, max_paths=cfg.max_paths)
+    metrics["tick_us"] = tick_us
+    metrics["trace_every"] = 0
+    metrics["target_qdelay_pkts"] = p.target_qdelay_us / tick_us
+    dt = np.asarray(fin["done_tick"])
+    metrics["done_tick"] = dt
+    metrics["subflow_fct_us"] = _us_or_none(dt + 1, dt >= 0, tick_us)
+    mdt = np.asarray(fin["msg_done_tick"])
+    mrt = np.asarray(fin["msg_release_tick"])
+    metrics["fct_us"] = _us_or_none(mdt + 1 - np.maximum(mrt, 0),
+                                    mdt >= 0, tick_us)
+    metrics["msg_release_us"] = _us_or_none(mrt, mrt >= 0, tick_us)
+    metrics["msg_ids"] = dep.msg_ids
+    gof = np.asarray(dep.group_of_msg.cpu())
+    metrics["msg_group_ids"] = tuple(dep.group_ids[g] for g in gof)
+    metrics["drops"] = int(fin["drops"])
+    metrics["pauses"] = int(fin["pauses"])
+    metrics["delivered_final"] = np.asarray(fin["delivered"])
+    metrics["ecn_marks"] = int(fin["ecn_marks"])
+    metrics["qdepth_hi_pkts"] = np.asarray(fin["qdepth_hi"])[:dims["Q"]]
+    metrics["retransmits"] = int(np.sum(fin["retx"]))
+    for k in ("rto_fires", "sack_recoveries", "gbn_rewinds"):
+        metrics[k] = int(np.sum(fin[k]))
+    metrics["blackholed_pkts"] = int(fin["blackholed"])
+    metrics["corrupt_drops"] = int(fin["corrupt_drops"])
+    metrics["tx_rows_pkts"] = np.asarray(fin["tx_rows"])[:dims["Q"]]
+    metrics["win_retx"] = np.asarray(fin["win_retx"])
+    metrics["queue_ids"] = {
+        "tor_up": lambda t_, s_: t_ * S + s_,
+        "spine_down": lambda s_, t_: TS + s_ * T + t_,
+        "host_down": lambda h_: 2 * TS + h_,
+    }
+    return metrics
+
+
+_FINAL_KEYS = ("done_tick", "msg_done_tick", "msg_release_tick",
+               "group_done_tick", "drops", "pauses", "delivered",
+               "act_overflow", "ecn_marks", "qdepth_hi", "blackholed",
+               "corrupt_drops", "tx_rows", "win_retx")
+
+
+def run_fabric_trace(topo: FatTree, messages, n_ticks: int,
+                     cfg: FabricConfig = FabricConfig(), device="cuda"):
+    """Simulate a message trace on the fat-tree -> (final_state, metrics).
+
+    ``messages`` are records with ``mid/src/dst/size/deps/group/arrival``
+    (``workloads.Message``).  Runs on ``device`` ("cuda" by default; raises
+    without a GPU)."""
+    dev = resolve_device(device)
+    check_slice(cfg)
+    messages = list(messages)
+    if not messages:
+        raise ValueError("run_fabric_trace() needs at least one message")
+    if any(getattr(m, "deps", ()) for m in messages):
+        raise NotImplementedError(
+            "repro_torch does not port dependency edges yet (ROADMAP A6)")
+    if len({m.mid for m in messages}) != len(messages):
+        raise ValueError("duplicate message ids in trace")
+    flows = [(m.src, m.dst, m.size) for m in messages]
+    _check_flows(flows, topo.n_hosts)
+    group_ids = tuple(sorted({getattr(m, "group", 0) for m in messages}))
+    gix = {g: i for i, g in enumerate(group_ids)}
+    n = len(messages)
+    dep = _trivial_dep(n, dev)._replace(
+        n_groups=len(group_ids),
+        group_of_msg=torch.tensor([gix[getattr(m, "group", 0)]
+                                   for m in messages], dtype=torch.int32,
+                                  device=dev),
+        msg_ids=tuple(m.mid for m in messages), group_ids=group_ids)
+    src, dst, total_pkts, tails = _flow_arrays(flows, cfg)
+    prog = FabricProgram(topo, n, n_ticks, cfg, dev, dep)
+    prog.bind(src, dst, total_pkts, tails, _arrival_array(messages),
+              cfg.lb_mode)
+    final, metrics = prog.run()
+    fin = {k: getattr(final, k).cpu().numpy() for k in _FINAL_KEYS}
+    fin["retx"] = prog.proto.stat_retx(final.flows).cpu().numpy()
+    fin.update({k: v.cpu().numpy() for k, v in
+                prog.proto.stat_recovery(final.flows).items()})
+    metrics = _finish_metrics(dict(metrics), fin, cfg, prog.dims, dep)
+    return final, metrics
+
+
+def run_fabric(topo: FatTree, flows: Sequence[Tuple[int, int, float]],
+               n_ticks: int, cfg: FabricConfig = FabricConfig(),
+               device="cuda"):
+    """Simulate ``flows`` = [(src_host, dst_host, msg_bytes), ...]; the
+    deps-free special case of :func:`run_fabric_trace`."""
+    msgs = [_FlowMsg(mid=i, src=s, dst=d, size=b)
+            for i, (s, d, b) in enumerate(flows)]
+    return run_fabric_trace(topo, msgs, n_ticks, cfg, device=device)
+
+
+def summarize(metrics: dict) -> dict:
+    """Event-oracle-style summary (max/avg FCT, unfinished, drops, pauses
+    and the observability counters), keyed as the reference's."""
+    fcts = [f for f in metrics["fct_us"] if f is not None]
+    out = {
+        "max_fct": max(fcts) if fcts else float("nan"),
+        "avg_fct": sum(fcts) / len(fcts) if fcts else float("nan"),
+        "unfinished": sum(1 for f in metrics["fct_us"] if f is None),
+        "drops": int(metrics["drops"]),
+        "pauses": int(metrics["pauses"]),
+    }
+    if "ecn_marks" in metrics:
+        out["ecn_marks"] = int(metrics["ecn_marks"])
+    for k in ("retransmits", "rto_fires", "sack_recoveries",
+              "gbn_rewinds", "blackholed_pkts", "corrupt_drops"):
+        out[k] = int(metrics.get(k, 0))
+    txr = metrics.get("tx_rows_pkts")
+    if txr is not None:
+        out["tx_rows_pkts"] = tuple(int(v)
+                                    for v in np.asarray(txr).reshape(-1))
+    qhi = metrics.get("qdepth_hi_pkts")
+    if qhi is not None:
+        qhi = np.asarray(qhi)
+        out["qdepth_max_pkts"] = int(qhi.max()) if qhi.size else 0
+        out["qdepth_p99_pkts"] = (float(np.percentile(qhi, 99))
+                                  if qhi.size else 0.0)
+    mgids = metrics.get("msg_group_ids")
+    if mgids is not None:
+        by_g: dict = {}
+        for g, f in zip(mgids, metrics["fct_us"]):
+            by_g.setdefault(g, []).append(f)
+        tenant = {}
+        for g, fs in by_g.items():
+            done = [f for f in fs if f is not None]
+            row = {"count": len(fs), "unfinished": len(fs) - len(done)}
+            if done:
+                arr = np.asarray(done, dtype=np.float64)
+                row.update(p50=float(np.percentile(arr, 50)),
+                           p99=float(np.percentile(arr, 99)),
+                           avg=float(arr.mean()), max=float(arr.max()))
+            else:
+                row.update(p50=float("nan"), p99=float("nan"),
+                           avg=float("nan"), max=float("nan"))
+            tenant[g] = row
+        out["tenant_fct"] = tenant
+    return out

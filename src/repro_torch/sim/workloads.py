@@ -1,0 +1,196 @@
+"""The experiment front door of the port: Scenario + RunConfig + run().
+
+The port of ``repro.sim.workloads`` for the fabric backend: the same
+:class:`Message` / :class:`Scenario` records and builders, a
+:class:`RunConfig` with the fields this slice honours, and :func:`run`,
+which returns the reference's summary dict.  ``run`` takes ``device``
+("cuda" by default; it raises without a GPU).
+"""
+from __future__ import annotations
+
+import math
+import random
+from dataclasses import dataclass
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+
+from ..core.params import NetworkSpec
+from .fabric import FabricConfig, run_fabric_trace, summarize
+from .topology import FatTree
+
+
+def permutation_pairs(n_hosts: int, seed: int = 0) -> list[tuple[int, int]]:
+    """Random derangement: every host sends one flow and receives one."""
+    rng = random.Random(seed)
+    while True:
+        perm = list(range(n_hosts))
+        rng.shuffle(perm)
+        if all(perm[i] != i for i in range(n_hosts)):
+            return [(i, perm[i]) for i in range(n_hosts)]
+
+
+@dataclass(frozen=True)
+class Message:
+    """One message of a workload trace: ``src``/``dst`` host ids,
+    ``deps`` (mids that must complete first), ``group`` and the earliest
+    launch tick ``arrival``."""
+
+    mid: int
+    src: int
+    dst: int
+    size: float
+    deps: Tuple[int, ...] = ()
+    group: int = 0
+    arrival: int = 0
+
+    def __post_init__(self):
+        object.__setattr__(self, "deps", tuple(self.deps))
+
+
+@dataclass(frozen=True)
+class Scenario:
+    """A workload: who sends what, after whom, where."""
+
+    name: str
+    topo: FatTree
+    net: NetworkSpec
+    messages: Tuple[Message, ...]
+    faults: Optional[object] = None
+
+    @classmethod
+    def from_flows(cls, name: str, topo: FatTree, net: NetworkSpec,
+                   flows: Sequence[Tuple[int, int, float]]) -> "Scenario":
+        return cls(name=name, topo=topo, net=net,
+                   messages=tuple(Message(mid=i, src=s, dst=d, size=float(b))
+                                  for i, (s, d, b) in enumerate(flows)))
+
+    @property
+    def flows(self) -> Tuple[Tuple[int, int, float], ...]:
+        return tuple((m.src, m.dst, m.size) for m in self.messages)
+
+    def default_ticks(self) -> int:
+        """Tick budget: the larger of the worst per-destination
+        serialisation and the dependency critical path, with convergence
+        margin (the reference's formula)."""
+        mtu = self.net.mtu_bytes
+        rtt_ticks = self.net.base_rtt_us / self.net.mtu_serialize_us + 2
+        pkts: dict[int, float] = {}
+        per_dst: dict[int, float] = {}
+        for m in self.messages:
+            pkts[m.mid] = math.ceil(m.size / mtu)
+            per_dst[m.dst] = per_dst.get(m.dst, 0.0) + pkts[m.mid]
+        bottleneck = max(per_dst.values()) if per_dst else 1.0
+        by_mid = {m.mid: m for m in self.messages}
+        depth: dict[int, float] = {}
+        visiting: set[int] = set()
+        for root in by_mid:
+            stack = [root]
+            while stack:
+                mid = stack[-1]
+                if mid in depth:
+                    stack.pop()
+                    visiting.discard(mid)
+                    continue
+                visiting.add(mid)
+                todo = [d for d in by_mid[mid].deps
+                        if d in by_mid and d not in depth
+                        and d not in visiting]
+                if todo:
+                    stack.extend(todo)
+                    continue
+                stack.pop()
+                visiting.discard(mid)
+                base = max((depth[d] for d in by_mid[mid].deps
+                            if d in depth), default=0.0)
+                base = max(base, float(by_mid[mid].arrival))
+                depth[mid] = base + pkts[mid] + rtt_ticks
+        crit = max(depth.values()) if depth else 1.0
+        return int(4 * max(bottleneck, crit) + 30 * rtt_ticks + 1000)
+
+
+def permutation_scenario(topo: FatTree, msg_bytes: float,
+                         net: Optional[NetworkSpec] = None,
+                         seed: int = 0) -> Scenario:
+    net = net or NetworkSpec()
+    pairs = permutation_pairs(topo.n_hosts, seed)
+    return Scenario.from_flows(
+        f"permutation_{topo.n_hosts}", topo, net,
+        [(s, d, float(msg_bytes)) for s, d in pairs])
+
+
+def incast_scenario(topo: FatTree, fan_in: int, msg_bytes: float,
+                    dst: int = 0, net: Optional[NetworkSpec] = None,
+                    seed: int = 0) -> Scenario:
+    """fan_in sources -> one destination."""
+    net = net or NetworkSpec()
+    rng = random.Random(seed)
+    candidates = [h for h in range(topo.n_hosts) if h != dst]
+    srcs = rng.sample(candidates, min(fan_in, len(candidates)))
+    return Scenario.from_flows(
+        f"incast_{fan_in}to1", topo, net,
+        [(s, dst, float(msg_bytes)) for s in srcs])
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    """How a scenario runs: the reference's fields that this slice
+    honours.  Unported settings raise ``NotImplementedError`` naming their
+    ROADMAP item when the run starts."""
+
+    backend: str = "fabric"
+    protocol: str = "strack"
+    lb_mode: str = "adaptive"
+    pfc: Optional[bool] = None
+    max_paths: int = 64
+    subflows: int = 1
+    n_ticks: Optional[int] = None
+    ack_path: str = "perhop"
+    hop_prop_us: Optional[float] = None
+    time_warp: bool = True
+    trace_every: int = 0
+    active_cap: Optional[int] = None
+    shard: int = 0
+    faults: Optional[object] = None
+
+
+def _scenario_ticks(sc: Scenario, cfg: RunConfig) -> int:
+    """Fabric horizon: explicit n_ticks, else ``default_ticks()``."""
+    return cfg.n_ticks if cfg.n_ticks is not None else sc.default_ticks()
+
+
+def _fabric_cfg(sc: Scenario, cfg: RunConfig) -> FabricConfig:
+    if cfg.backend != "fabric":
+        raise NotImplementedError(
+            f"repro_torch does not port backend={cfg.backend!r} "
+            f"(the event oracle, ROADMAP A10)")
+    faults = cfg.faults if cfg.faults is not None else sc.faults
+    time_warp = cfg.time_warp and not cfg.trace_every
+    return FabricConfig(
+        net=sc.net, max_paths=cfg.max_paths, lb_mode=cfg.lb_mode,
+        protocol=cfg.protocol, pfc=cfg.pfc, subflows=cfg.subflows,
+        ack_path=cfg.ack_path, hop_prop_us=cfg.hop_prop_us,
+        time_warp=time_warp, trace_every=cfg.trace_every,
+        active_cap=cfg.active_cap, shard=cfg.shard, faults=faults)
+
+
+def run(sc: Scenario, cfg: RunConfig = RunConfig(), device="cuda") -> dict:
+    """Run one scenario under one config on ``device``; the reference's
+    summary dict (plus ``warp_trips`` / ``end_tick`` under time warp)."""
+    fcfg = _fabric_cfg(sc, cfg)
+    _, metrics = run_fabric_trace(sc.topo, sc.messages,
+                                  _scenario_ticks(sc, cfg), fcfg,
+                                  device=device)
+    out = summarize(metrics)
+    out.update(backend="fabric", name=sc.name, protocol=cfg.protocol,
+               lb_mode=cfg.lb_mode, subflows=cfg.subflows)
+    if "warp_trips" in metrics:
+        out["warp_trips"] = int(np.asarray(metrics["warp_trips"]))
+        out["end_tick"] = int(np.asarray(metrics["end_tick"]))
+    return out
+
+
+def sweep(scenarios, cfg=RunConfig(), device="cuda"):
+    """The reference's batched sweep is not ported yet."""
+    raise NotImplementedError(
+        "repro_torch does not port sweep() yet (ROADMAP A5); loop run()")

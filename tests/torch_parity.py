@@ -1,0 +1,111 @@
+"""Shared helpers for the port's parity tests (JAX reference vs repro_torch).
+
+Run as a script to regenerate the committed perm1024 and incast1024
+reference files from the JAX package:
+
+    PYTHONPATH=src JAX_PLATFORMS=cpu python tests/torch_parity.py
+"""
+from __future__ import annotations
+
+import json
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from repro_torch.convert import leaves
+
+# The port's CPU tests run many tiny tensor ops; intra-op threads only
+# contend with the other test workers for the cores.
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parents[1]
+REF_DIR = ROOT / "src" / "repro_torch" / "testdata"
+REF_PATH = REF_DIR / "perm1024_strack_ref.json"
+INCAST_REF_PATH = REF_DIR / "incast1024_strack_ref.json"
+
+#: Summary keys the reference files pin (ints exact, floats to 1e-6).
+REF_SUMMARY_KEYS = ("max_fct", "avg_fct", "unfinished", "drops", "pauses",
+                    "ecn_marks", "retransmits", "rto_fires",
+                    "sack_recoveries", "qdepth_max_pkts")
+
+
+def _bits(a: np.ndarray) -> np.ndarray:
+    if a.dtype.kind == "f":
+        return a.view(np.int32 if a.dtype.itemsize == 4 else np.int64)
+    return a
+
+
+def diff_leaves(ref_tree, port_tree, ring_rows=None) -> list:
+    """Leaves that differ between a reference pytree and the port's
+    (floats compared bit for bit).  ``ring_rows`` trims the queue ring
+    ``q.*`` leaves to their real rows: the trash row's contents are
+    unspecified and never read."""
+    ref, port = leaves(ref_tree), leaves(port_tree)
+    if set(ref) != set(port):
+        return [("<fields>", sorted(set(ref) ^ set(port)))]
+    bad = []
+    for name in ref:
+        a, b = np.asarray(ref[name]), np.asarray(port[name])
+        if ring_rows is not None and name.startswith("q."):
+            a, b = a[:ring_rows], b[:ring_rows]
+        if a.shape != b.shape or a.dtype != b.dtype:
+            bad.append((name, (a.shape, a.dtype), (b.shape, b.dtype)))
+        elif not np.array_equal(_bits(a), _bits(b)):
+            first = np.argwhere(_bits(a) != _bits(b))[0]
+            bad.append((name, tuple(int(i) for i in first)))
+    return bad
+
+
+def perm1024_reference() -> dict:
+    """The JAX package's perm1024 run (benchmarks/perf.py canonical
+    scenario: full_bisection(32, 32), 64 KiB, 400 Gbps, seed 0) under the
+    default RunConfig: summary keys, warp trips, end tick, done ticks."""
+    from repro.core.params import NetworkSpec
+    from repro.sim.topology import full_bisection
+    from repro.sim.workloads import permutation_scenario
+    return _reference(permutation_scenario(
+        full_bisection(32, 32), 64 * 2 ** 10,
+        net=NetworkSpec(link_gbps=400.0), seed=0))
+
+
+def incast1024_reference() -> dict:
+    """The JAX package's incast1024 run: 256 hosts of the perm1024 fabric
+    send 16 KiB each to host 0 (400 Gbps, seed 0).  Its standing queue
+    drops at the data threshold, marks ECN on the dither and sends the
+    senders into SACK recovery, which the permutation never does."""
+    from repro.core.params import NetworkSpec
+    from repro.sim.topology import full_bisection
+    from repro.sim.workloads import incast_scenario
+    return _reference(incast_scenario(
+        full_bisection(32, 32), 256, 16 * 2 ** 10,
+        net=NetworkSpec(link_gbps=400.0)))
+
+
+def _reference(sc) -> dict:
+    """One scenario through the JAX package under the default RunConfig:
+    summary keys, warp trips, end tick, done ticks."""
+    from repro.sim.fabric import run_fabric_trace, summarize
+    from repro.sim.workloads import RunConfig, _fabric_cfg, _scenario_ticks
+    cfg = RunConfig()
+    n_ticks = _scenario_ticks(sc, cfg)
+    _, m = run_fabric_trace(sc.topo, sc.messages, n_ticks,
+                            _fabric_cfg(sc, cfg))
+    s = summarize(m)
+    out = {k: s[k] for k in REF_SUMMARY_KEYS}
+    out.update(n_ticks=int(n_ticks), warp_trips=int(m["warp_trips"]),
+               end_tick=int(m["end_tick"]),
+               done_tick=[int(v) for v in np.asarray(m["done_tick"])])
+    return out
+
+
+def write_references() -> None:
+    REF_DIR.mkdir(parents=True, exist_ok=True)
+    for path, make in ((REF_PATH, perm1024_reference),
+                       (INCAST_REF_PATH, incast1024_reference)):
+        path.write_text(json.dumps(make(), sort_keys=True) + "\n")
+        print(f"wrote {path}")
+
+
+if __name__ == "__main__":
+    write_references()
