@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Run the PyTorch/CUDA port of the STrack fabric on one NVIDIA GPU.
+"""Run the PyTorch/CUDA port on one NVIDIA GPU: the STrack fabric, then
+LM serving (llama3-8b at full width through the flash-attention kernel).
 
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing is caught):
-  1. build the three CUDA kernels (nvcc, sm_90a) from src/repro_torch;
+  1. build the four CUDA kernels (nvcc, sm_90a) from src/repro_torch;
   2. hold each kernel against its plain PyTorch version on the card (ints
      and bools exact, float32 bit for bit): at perm1024 and perm8k shapes
      captured a few ticks into the run; at incast1024 ticks where the
@@ -22,16 +23,41 @@ Phases (any failure exits non-zero; nothing is caught):
      host 0) held against incast1024_strack_ref.json the same way: drops,
      ECN marks, retransmits, SACK recoveries, every done tick;
   5. scale: perm8k (8192 hosts) must finish every flow;
-  6. a `kernels` JSON line (launches on the main path; each kernel's
+  6. fabric kernel times and bounds at the perm1024 shapes;
+  7. serve: llama3-8b, bf16, attn_impl="pallas", random weights from a
+     CUDA generator (seed 0; 16 GB):
+     (a) the flash-attention kernel against its plain version on the card
+         at the q/k/v of layers 0 and 31 of both prefills below, at decode
+         with q_offset 0, 511 and 543, and on random inputs (non-causal,
+         window 96, MQA, f32, f32 queries on bf16 k/v, head dims 64 and
+         16, ragged Tq = Tk = 100): 2e-5 in f32, 2e-2 in bf16;
+     (b) prefill of 4 x 1000 tokens and 1 x 4096: finite logits, within
+         SERVE_REL_L2 of the same model with attention through the plain
+         version;
+     (c) greedy_generate of 4 requests (512-token prompts, 32 new tokens,
+         cache 544): the decode logits at the last prompt position (the
+         kernel with q_offset) within SERVE_REL_L2 of make_prefill_step's,
+         and greedy_generate's tokens equal to a step-by-step decode's;
+     (d) the llama3-8b SMOKE config in f32 against the JAX-made
+         src/repro_torch/testdata/llama3_smoke_serve_ref.json (1e-4; the
+         bf16-cache decode 2e-2);
+     the serve path (both prefills and greedy_generate) runs once more with
+     the launch count reset before and read after: prefill tokens/s,
+     decode ms per step, peak memory;
+  8. a `kernels` JSON line (launches on the main path; each kernel's
      device time per call from torch.profiler, and the wrapper's wall time
-     per call; the plain version's device and wall time; the bound), the
-     card's name and power limit, and the final `{"ok": true, ...}` line.
+     per call; the plain version's device and wall time; the bound; for
+     flash attention SDPA's time as `library_ms`, at the prefill-1000 and
+     decode-544 shapes), the card's name and power limit, and the final
+     `{"ok": true, ...}` line.
 
 It needs a CUDA device and the repository around it: without either it
 exits non-zero before printing any result.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import math
 import subprocess
@@ -46,6 +72,22 @@ TESTDATA = ROOT / "src" / "repro_torch" / "testdata"
 #: rate outside the tensor cores, for the per-kernel bound.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+#: bf16 tensor-core peak (dense), for attention's bound.
+BF16_OPS_PER_S = 989e12
+
+#: Flash attention vs its plain version, as tests/test_kernels.py holds the
+#: Pallas kernel: one f32 summation order against another, or one bf16
+#: rounding of the output.
+FA_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+#: bf16 llama3-8b logits of two evaluations that differ in where bf16
+#: rounds (kernel vs plain attention; 512 decode steps vs one prefill):
+#: ||a - b|| / ||b|| over all logits.  Rounding differences compound over
+#: 32 layers; a wrong mask or position gives O(1) (ROADMAP C6: 4.06 on
+#: logits of scale ~3).
+SERVE_REL_L2 = 5e-2
+#: The f32 SMOKE config against the JAX-made reference; the decode from a
+#: bf16 cache may round a cached value to the other bf16 neighbour.
+SMOKE_TOL, SMOKE_BF16_CACHE_TOL = 1e-4, 2e-2
 
 #: Each wrapper's own CUDA kernels (csrc/*.cu); a wrapper call launches
 #: these and memsets, nothing else.
@@ -54,6 +96,7 @@ OWN_KERNELS = {
     "serve_enqueue": ("serve_kernel", "accept_kernel", "place_kernel",
                       "count_kernel", "scan_kernel", "resolve_kernel"),
     "rank_in_queue": ("count_kernel", "scan_kernel", "resolve_kernel"),
+    "flash_attention": ("fa_kernel",),
 }
 
 
@@ -124,32 +167,326 @@ def device_ms(fn, reps: int = 20) -> tuple:
     """Mean device time of one ``fn()`` call: the self device time of
     every kernel and memset it ran, summed from ``torch.profiler`` over
     ``reps`` calls (warmed up first).  Returns ``(ms, device event
-    names)``."""
+    names)``.  A profile that recorded no device event at all is taken
+    again, at most twice; then the time comes from CUDA events around
+    ``reps`` back-to-back calls (host gaps included) and the names are
+    ``None``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    for attempt in range(3):
         torch.cuda.synchronize()
-    total_us, names = 0.0, set()
-    for ev in prof.key_averages():
-        us = getattr(ev, "self_device_time_total",
-                     getattr(ev, "self_cuda_time_total", 0))
-        if us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
-            total_us += us
-            names.add(ev.key)
-    assert total_us > 0, "torch.profiler recorded no device time"
-    return total_us / reps / 1e3, names
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total_us, names = 0.0, set()
+        for ev in prof.key_averages():
+            us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0))
+            if us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
+                total_us += us
+                names.add(ev.key)
+        if total_us > 0:
+            return total_us / reps / 1e3, names
+        log(f"[profile] no device time recorded (attempt {attempt + 1}); "
+            f"events: {sorted(ev.key for ev in prof.key_averages())[:20]}")
+    log("[profile] falling back to CUDA events for this measurement")
+    return wall_ms(fn, reps), None
 
 
-def bound_ms(n_bytes: float, n_ops: float) -> tuple:
+def bound_ms(n_bytes: float, n_ops: float,
+             ops_per_s: float = FP32_OPS_PER_S) -> tuple:
     tb = n_bytes / HBM_BYTES_PER_S * 1e3
-    to = n_ops / FP32_OPS_PER_S * 1e3
+    to = n_ops / ops_per_s * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def own_device_ms(name: str, fn, reps: int = 20) -> float:
+    """``device_ms`` of a wrapper call that may run its own kernels and
+    memsets only."""
+    ms, names = device_ms(fn, reps)
+    if names is None:
+        return ms
+    for own in OWN_KERNELS[name]:
+        assert any(own in k for k in names), (name, own, names)
+    foreign = [k for k in names if "emset" not in k
+               and not any(own in k for own in OWN_KERNELS[name])]
+    assert not foreign, (name, foreign)
+    return ms
+
+
+def rel_l2(a, b) -> float:
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm())
+
+
+def model_layout_ref(q, k, v, **kw):
+    """The kernel's plain version on model-layout (B, T, H, hd) tensors."""
+    from repro_torch.kernels.ref import flash_attention_ref
+    return flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                               v.transpose(1, 2), **kw).transpose(1, 2)
+
+
+def serve(dev) -> dict:
+    """Phase 7: llama3-8b served through the flash-attention kernel.
+    Returns the kernel's entry of the ``kernels`` line."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.convert import lm_params_from_jax
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.ref import flash_attention_ref
+    from repro_torch.models import lm
+    from repro_torch.runtime.serve import (greedy_generate, make_decode_step,
+                                           make_prefill_step)
+    from torch_lm_weights import lm_weights
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("llama3-8b"), attn_impl="pallas")
+    assert cfg.dtype == "bfloat16"
+    t0 = time.time()
+    params = lm.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    w_bytes = sum(t.numel() * t.element_size() for t in
+                  [params["embed"], params["lm_head"], params["final_norm"]]
+                  + [t for lp in params["layers"] for part in lp.values()
+                     for t in (part.values() if isinstance(part, dict)
+                               else [part])])
+    log(f"[serve] llama3-8b (32 layers, d 4096, 32/8 heads, hd 128, ff "
+        f"14336, vocab 128256), bf16, attn_impl=pallas: {w_bytes / 1e9:.3f} "
+        f"GB of random weights in {time.time() - t0:.1f}s")
+    tok_gen = torch.Generator(device=dev).manual_seed(1)
+
+    def tokens(b, t):
+        return torch.randint(0, cfg.vocab, (b, t), generator=tok_gen,
+                             device=dev, dtype=torch.int32)
+
+    p1000, p4096, p512 = tokens(4, 1000), tokens(1, 4096), tokens(4, 512)
+    prefill = make_prefill_step(cfg)
+    decode = make_decode_step(cfg)
+    kernel = kops.flash_attention
+    captured = {}
+
+    @contextlib.contextmanager
+    def attention(fn, capture=None):
+        """Route the model's attention through ``fn``; keep a copy of the
+        inputs of the calls numbered in ``capture`` (call i = layer i)."""
+        calls = [0]
+
+        def call(q, k, v, **kw):
+            if calls[0] in (capture or {}):
+                captured[capture[calls[0]]] = (q.clone(), k.clone(),
+                                               v.clone(), kw)
+            calls[0] += 1
+            return fn(q, k, v, **kw)
+
+        kops.flash_attention = call
+        try:
+            yield
+        finally:
+            kops.flash_attention = kernel
+
+    def layers(name):
+        return {0: f"{name} layer 0", 31: f"{name} layer 31"}
+
+    # (b) prefills: finite, and within SERVE_REL_L2 of the plain attention
+    logits = {}
+    for name, toks in (("prefill-1000", p1000), ("prefill-4096", p4096)):
+        with attention(kernel, layers(name)):
+            got = prefill(params, {"tokens": toks})
+        with attention(model_layout_ref):
+            want = prefill(params, {"tokens": toks})
+        naive = make_prefill_step(dataclasses.replace(
+            cfg, attn_impl="naive"))(params, {"tokens": toks})
+        assert got.shape == (toks.shape[0], cfg.vocab)
+        assert bool(torch.isfinite(got).all()), name
+        err = rel_l2(got, want)
+        assert err <= SERVE_REL_L2, (name, err)
+        logits[name] = got
+        log(f"[serve] (b) {name}: logits finite, |max| "
+            f"{float(got.abs().max()):.4f}; kernel vs plain attention: "
+            f"rel L2 {err:.3e} (limit {SERVE_REL_L2}), max abs "
+            f"{float((got - want).abs().max()):.4e}; vs the naive path "
+            f"(p cast to bf16 before p @ v): rel L2 {rel_l2(got, naive):.3e}; "
+            f"argmax agrees with the plain path in "
+            f"{int((got.argmax(-1) == want.argmax(-1)).sum())}/"
+            f"{toks.shape[0]} rows")
+
+    # (c) decode step by step: the prompt teacher-forced, then greedy, with
+    # the inputs of q_offset 0, 511 and 543 kept
+    pre512 = prefill(params, {"tokens": p512})
+    cache = lm.init_cache(cfg, 4, 544)
+    for t in range(512):
+        with attention(kernel, layers(f"decode q_offset={t}")
+                       if t in (0, 511) else None):
+            out, cache = decode(params, cache, p512[:, t:t + 1], t)
+    err = rel_l2(out, pre512)
+    assert err <= SERVE_REL_L2, ("decode vs prefill", err)
+    log(f"[serve] (c) decode at the last prompt position (q_offset 511) vs "
+        f"make_prefill_step: rel L2 {err:.3e} (limit {SERVE_REL_L2}), max "
+        f"abs {float((out - pre512).abs().max()):.4e}, argmax agrees in "
+        f"{int((out.argmax(-1) == pre512.argmax(-1)).sum())}/4 rows")
+    steps = []
+    for t in range(512, 544):
+        steps.append(out.argmax(-1)[:, None].to(torch.int32))
+        with attention(kernel, layers(f"decode q_offset={t}")
+                       if t == 543 else None):
+            out, cache = decode(params, cache, steps[-1], t)
+    stepwise = torch.cat(steps, dim=1)
+    del cache
+
+    # the serve path, counted and timed
+    torch.cuda.synchronize()
+    fa.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    wall = {}
+    for name, toks in (("prefill-1000", p1000), ("prefill-4096", p4096)):
+        t0 = time.time()
+        got = prefill(params, {"tokens": toks})
+        torch.cuda.synchronize()
+        wall[name] = time.time() - t0
+        assert torch.equal(got, logits[name]), name
+    t0 = time.time()
+    gen = greedy_generate(params, cfg, p512, 32, 544)
+    torch.cuda.synchronize()
+    wall["generate"] = time.time() - t0
+    launches = fa.launches["flash_attention"]
+    peak = torch.cuda.max_memory_allocated()
+    n_steps = 512 + 32 - 1
+    assert launches == cfg.n_layers * (2 + n_steps), launches
+    assert torch.equal(gen, stepwise), (gen, stepwise)
+    log(f"[serve] serve path: prefill 4x1000 {wall['prefill-1000']:.4f}s "
+        f"({4000 / wall['prefill-1000']:.1f} tokens/s), 1x4096 "
+        f"{wall['prefill-4096']:.4f}s ({4096 / wall['prefill-4096']:.1f} "
+        f"tokens/s); greedy_generate 4 x (512 + 32) in "
+        f"{wall['generate']:.3f}s: {wall['generate'] / n_steps * 1e3:.3f} ms "
+        f"per decode step of 4 requests ({4 * n_steps / wall['generate']:.1f} "
+        f"tokens/s); tokens equal the step-by-step decode's; peak memory "
+        f"{peak / 2 ** 30:.3f} GiB; flash_attention launches {launches}")
+
+    # (a) the kernel against its plain version on the card
+    max_err = 0.0
+
+    def check(what, fn, ref, q, k, v, **kw):
+        nonlocal max_err
+        got, want = fn(q, k, v, **kw), ref(q, k, v, **kw)
+        tol = FA_TOL[str(q.dtype).split(".")[-1]]
+        assert got.dtype == want.dtype == q.dtype and got.shape == want.shape
+        d = (got.float() - want.float()).abs()
+        bad = d > tol + tol * want.float().abs()
+        assert not bool(bad.any()), (what, float(d.max()))
+        max_err = max(max_err, float(d.max()))
+        return float(d.max())
+
+    errs = {name: check(name, kernel, model_layout_ref, *captured[name][:3],
+                        **captured[name][3]) for name in sorted(captured)}
+    g = torch.Generator(device=dev).manual_seed(2)
+    f32, bf16 = torch.float32, torch.bfloat16
+    for what, (B, H, K, Tq, Tk, hd), qdt, kvdt, kw in (
+            ("non-causal", (2, 32, 8, 100, 100, 128), bf16, bf16,
+             dict(causal=False)),
+            ("window=96", (2, 32, 8, 100, 100, 128), bf16, bf16,
+             dict(window=96)),
+            ("MQA", (2, 32, 1, 100, 100, 128), bf16, bf16, {}),
+            ("f32", (2, 32, 8, 100, 100, 128), f32, f32, {}),
+            ("f32 q, bf16 k/v", (2, 32, 8, 100, 100, 128), f32, bf16, {}),
+            ("hd=64 window=40 q_offset=37", (1, 4, 2, 100, 150, 64), f32,
+             f32, dict(window=40, q_offset=37)),
+            ("hd=16 decode q_offset=99", (3, 4, 1, 1, 100, 16), f32, bf16,
+             dict(q_offset=99))):
+        q = torch.randn((B, H, Tq, hd), generator=g, device=dev).to(qdt)
+        k = torch.randn((B, K, Tk, hd), generator=g, device=dev).to(kvdt)
+        v = torch.randn((B, K, Tk, hd), generator=g, device=dev).to(kvdt)
+        errs[f"random {what}"] = check(what, fa.flash_attention,
+                                       flash_attention_ref, q, k, v, **kw)
+    torch.cuda.synchronize()
+    log("[serve] (a) flash_attention matches its plain version (max abs "
+        "error): " + "; ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+
+    # (d) the SMOKE config in f32 against the JAX-made reference
+    ref = json.loads((TESTDATA / "llama3_smoke_serve_ref.json").read_text())
+    scfg = dataclasses.replace(get_config(ref["arch"], smoke=True),
+                               dtype="float32", attn_impl="pallas")
+    sp = lm_params_from_jax(lm_weights(scfg, ref["seed"]), scfg)
+    stoks = torch.tensor(ref["prompt"], dtype=torch.int32, device=dev)
+    shape = (ref["steps"], ref["batch"], scfg.vocab)
+    errs = {}
+
+    def hold(what, got, key, tol):
+        want = torch.tensor(ref[key], device=dev).reshape(got.shape)
+        d = (got - want).abs()
+        assert not bool((d > tol + tol * want.abs()).any()), (what,
+                                                              float(d.max()))
+        errs[what] = float(d.max())
+
+    hold("pallas prefill", make_prefill_step(scfg)(sp, {"tokens": stoks}),
+         "prefill_last_logits", SMOKE_TOL)
+    for impl, cdt, key, tol in (
+            ("pallas", f32, "decode_logits_f32_cache", SMOKE_TOL),
+            ("naive", f32, "decode_logits_f32_cache", SMOKE_TOL),
+            ("naive", bf16, "decode_logits_bf16_cache",
+             SMOKE_BF16_CACHE_TOL)):
+        c = dataclasses.replace(scfg, attn_impl=impl)
+        step = make_decode_step(c)
+        cache = lm.init_cache(c, ref["batch"], ref["steps"], dtype=cdt)
+        out = []
+        for t in range(ref["steps"]):
+            lg, cache = step(sp, cache, stoks[:, t:t + 1], t)
+            out.append(lg)
+        hold(f"{impl} decode, {str(cdt).split('.')[-1]} cache",
+             torch.stack(out), key, tol)
+    log(f"[serve] (d) llama3-8b SMOKE, f32, on the card vs the JAX "
+        f"reference (max abs error): {errs}")
+
+    # kernel times and bounds at the prefill-1000 and decode-544 shapes
+    def timing(name):
+        q, k, v, kw = captured[name]
+        B, Tq, H, hd = q.shape
+        Tk, K = k.shape[1], k.shape[2]
+        off = kw.get("q_offset", 0)
+        live = sum(min(Tk, max(0, i + off + 1)) for i in range(Tq))
+        flops = 4 * hd * live * B * H
+        moved = 2 * q.numel() * q.element_size() + 2 * k.numel() * \
+            k.element_size()
+        bnd, by = bound_ms(moved, flops, BF16_OPS_PER_S)
+        mask = None if off == 0 else (
+            torch.arange(Tk, device=dev)[None, :]
+            <= torch.arange(Tq, device=dev)[:, None] + off)
+        qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        run = lambda: kernel(q, k, v, **kw)
+        plain = lambda: model_layout_ref(q, k, v, **kw)
+        library = lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=mask, is_causal=mask is None,
+            enable_gqa=True)
+        return {"shape": f"q {tuple(q.shape)}, k/v {tuple(k.shape)} (B,T,H,hd)"
+                         f", {str(q.dtype).split('.')[-1]}, q_offset {off}",
+                "ms": own_device_ms("flash_attention", run),
+                "plain_ms": device_ms(plain, reps=10)[0],
+                "bound_ms": bnd, "bound_by": by,
+                "library_ms": device_ms(library)[0],
+                "wall_ms": wall_ms(run), "plain_wall_ms": wall_ms(plain,
+                                                                  reps=10),
+                "flops": flops, "bytes": moved}
+
+    prefill_t = timing("prefill-1000 layer 0")
+    decode_t = timing("decode q_offset=543 layer 0")
+    entry = {"name": "flash_attention", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+             "replaces": "src/repro/kernels/flash_attention.py:90",
+             "launches": launches, "max_abs_err": max_err}
+    entry.update({k: v for k, v in prefill_t.items() if k not in
+                  ("flops", "bytes")})
+    entry["decode_544"] = {k: v for k, v in decode_t.items()
+                           if k not in ("flops", "bytes")}
+    log(f"[serve] flash_attention at prefill-1000: {prefill_t}; at "
+        f"decode-544: {decode_t}")
+    return entry
 
 
 def main() -> int:
@@ -166,6 +503,7 @@ def main() -> int:
     from repro_torch.core.reliability import RelState, SackMsg
     from repro_torch.core.transport import FlowState
     from repro_torch.kernels import fabric_kernels as fk
+    from repro_torch.kernels._build import build_all
     from repro_torch.numerics import Now
     from repro_torch.sim.fabric import FabricProgram, run_fabric_trace, \
         summarize, _flow_arrays, _arrival_array
@@ -185,7 +523,7 @@ def main() -> int:
 
     # ---- 1. build ---------------------------------------------------------
     t0 = time.time()
-    paths = fk.build_all(verbose=True)
+    paths = build_all(verbose=True)
     log(f"[build] {len(paths)} kernels in {time.time() - t0:.1f}s: "
         + ", ".join(p.name for p in paths.values()))
 
@@ -439,12 +777,7 @@ def main() -> int:
                "rank_in_queue": ("rank.cu", 117)}
     kernels = []
     for name, (kern, plain) in calls.items():
-        ms, names = device_ms(kern)
-        for own in OWN_KERNELS[name]:
-            assert any(own in k for k in names), (name, own, names)
-        foreign = [k for k in names if "emset" not in k
-                   and not any(own in k for own in OWN_KERNELS[name])]
-        assert not foreign, (name, foreign)
+        ms = own_device_ms(name, kern)
         plain_ms, _ = device_ms(plain, reps=10)
         src, line = sources[name]
         bnd, by = bounds[name]
@@ -456,6 +789,9 @@ def main() -> int:
             "bound_by": by, "library_ms": None,
             "wall_ms": wall_ms(kern), "plain_wall_ms": wall_ms(plain,
                                                                reps=10)})
+
+    # ---- 7. serve: llama3-8b through the flash-attention kernel -----------
+    kernels.append(serve(dev))
     print(json.dumps({"kernels": kernels}), flush=True)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

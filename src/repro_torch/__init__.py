@@ -5,8 +5,11 @@ never ``jax`` or anything of ``repro``.  Its layout mirrors the reference
 so that each module's counterpart is easy to find:
 ``core/{params,cc,lb,reliability,transport}.py`` (per-flow STrack logic,
 batched over flows), ``sim/{topology,fabric,workloads}.py`` (the
-multi-queue fat-tree and its front door) and ``kernels/fabric_kernels.py``
-(the three fabric kernels, CUDA sources under ``kernels/csrc/``).
+multi-queue fat-tree and its front door), ``kernels/fabric_kernels.py``
+(the three fabric kernels, CUDA sources under ``kernels/csrc/``), and the
+dense language models' serving path: ``configs/``,
+``models/{config,layers,lm}.py``, ``runtime/serve.py`` and
+``kernels/flash_attention.py``.
 
 Entry points take ``device`` and default to ``"cuda"``; without a GPU
 they raise rather than fall back to the CPU.  The tests pass

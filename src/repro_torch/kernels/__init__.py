@@ -1,2 +1,2 @@
-"""Hand-written CUDA kernels of the fabric hot path and their plain
-PyTorch versions."""
+"""Hand-written CUDA kernels (the fabric hot path's three, flash
+attention) and their plain PyTorch versions."""

@@ -19,19 +19,12 @@ wrapper                     reference kernel (Pallas)              CUDA source
 Dispatch is by the device of the tensors: a wrapper runs the plain version
 for CPU tensors and launches its kernel for CUDA tensors, or raises; there
 is no fallback and no switch.  Every launch adds one to
-``launches[name]``.  The CUDA sources are compiled with ``nvcc`` for
-``sm_90a`` at first use into ``build/repro_torch_kernels/`` at the repo
-root (one ``nvcc`` per source, all started together) and bound with
-``ctypes``; they run on PyTorch's current stream.
+``launches[name]``.  The sources are built and bound by :mod:`._build`;
+they run on PyTorch's current stream.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 from typing import NamedTuple
 
 import torch
@@ -40,6 +33,8 @@ from ..core.params import ACK_WIRE_BYTES, STrackParams
 from ..core.reliability import SackMsg
 from ..core.transport import FlowState, TxPacket, tree_where
 from ..numerics import Now, ecn_dither, f32, recip32
+from ._build import check as _check, launch as _launch, load, \
+    ptr as _ptr, route as _route, stream as _stream
 
 #: Launches of each wrapper's kernel since the last :func:`reset_launches`.
 launches = {"flow_transition": 0, "serve_enqueue": 0, "rank_in_queue": 0}
@@ -96,28 +91,6 @@ class ServeDims(NamedTuple):
     kmax_p: float
     mtu_bytes: int
     tick_us: float
-
-
-def _check(name, t, dtype, shape=None, device=None):
-    if not isinstance(t, torch.Tensor):
-        raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
-    if shape is not None and tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
-                         f"got {tuple(t.shape)}")
-    if device is not None and t.device != device:
-        raise ValueError(f"{name}: expected device {device}, got {t.device}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: must be contiguous")
-
-
-def _route(t: torch.Tensor) -> str:
-    if t.device.type == "cpu":
-        return "plain"
-    if t.device.type == "cuda":
-        return "cuda"
-    raise ValueError(f"no kernel for device {t.device}")
 
 
 # --------------------------------------------------------------------------- #
@@ -358,87 +331,7 @@ def serve_enqueue(q: PktQ, qhead, qsize, dst, dst_tor, total_pkts, tail_b,
     return out
 
 
-# --------------------------------------------------------------------------- #
-# Build and bind (nvcc -> shared library with a plain C interface -> ctypes)
-# --------------------------------------------------------------------------- #
-
-CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("transition", "serve_enqueue", "rank")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-lineinfo")
-
-_LIBS: dict = {}  # loaded libraries, by source name
-
-
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the CUDA kernels are built on "
-                           "the machine with the card")
-    return path
-
-
-def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes() + (CSRC / "common.cuh"
-                                                ).read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{tag}.so"
-
-
-def build_all(verbose: bool = False) -> dict:
-    """Compile every kernel source that is not built yet, one ``nvcc`` per
-    source, all started together.  Returns ``{name: path}``."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    todo = {n: _lib_path(n) for n in SOURCES}
-    procs = {}
-    for name, out in todo.items():
-        if out.exists():
-            continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-               str(CSRC / f"{name}.cu")]
-        if verbose:
-            cmd.insert(1, "-Xptxas=-v")
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, out)
-    failed = []
-    for name, (proc, tmp, out) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"--- {name}.cu ---\n{log}")
-            continue
-        if verbose and log:
-            print(f"--- nvcc {name}.cu ---\n{log}", flush=True)
-        os.replace(tmp, out)
-    if failed:
-        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
-    return todo
-
-
 def _lib(name: str) -> ctypes.CDLL:
-    """The loaded library of one source, building all of them first."""
-    if name not in _LIBS:
-        from . import _cuda_bind
-        for n, path in build_all().items():
-            lib = ctypes.CDLL(str(path))
-            _cuda_bind.declare(n, lib)
-            _LIBS[n] = lib
-    return _LIBS[name]
-
-
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
-
-
-def _stream(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
-
-
-def _launch(fn, *args) -> None:
-    err = fn(*args)
-    if err != 0:
-        raise RuntimeError(f"CUDA kernel launch failed: error {err} "
-                           f"({fn.__name__})")
-
+    """The loaded library of one fabric source."""
+    from . import _cuda_bind
+    return load(name, lambda lib: _cuda_bind.declare(name, lib))

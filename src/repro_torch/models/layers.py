@@ -1,0 +1,254 @@
+"""Transformer building blocks on a params dict (the reference's
+``repro/models/layers.py``).
+
+Weights keep the reference's layout, ``(d_in, d_out)`` with ``x @ w``, so
+carrying weights across is a copy
+(:func:`repro_torch.convert.lm_params_from_jax`).
+The reference keeps f32 masters and casts them to ``cfg.dtype`` at every
+use; the port stores matrix weights in ``cfg.dtype`` once (the same
+numbers) and norm weights in f32.
+
+Attention implementations, as in the reference:
+  * ``naive``   — materialise the (T, S) scores;
+  * ``chunked`` — online softmax over KV chunks in plain PyTorch;
+  * ``pallas``  — the hand-written flash-attention kernel
+    (:func:`repro_torch.kernels.ops.flash_attention`).
+
+Two faults of the reference are not carried over (ROADMAP C6, C7): its
+``pallas`` branch passes no ``q_offset`` in decode, so the query sits at
+position 0 and reads cache slot 0 only; and its chunked path pads a
+ragged last chunk with keys at position ``-10**9``, which a causal mask
+lets through.  MoE layers are not ported yet (ROADMAP A13).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..kernels import ops as kops
+from .config import ModelConfig
+
+F32 = torch.float32
+
+
+def dtype_of(cfg: ModelConfig) -> torch.dtype:
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16}[cfg.dtype]
+
+
+def _mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` with JAX's type promotion (bf16 @ f32 -> f32)."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return x.to(dt) @ w.to(dt)
+
+
+# --------------------------------------------------------------------------- #
+# primitives
+# --------------------------------------------------------------------------- #
+
+def init_linear(gen: torch.Generator, d_in: int, d_out: int,
+                dtype: torch.dtype, scale=None) -> torch.Tensor:
+    """N(0, 1) * scale (default 1/sqrt(d_in)), drawn in f32 on the
+    generator's device, stored in ``dtype``."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
+    w = torch.randn((d_in, d_out), generator=gen, dtype=F32,
+                    device=gen.device)
+    return w.mul_(scale).to(dtype)
+
+
+def rms_norm(x, w, eps, f32=True):
+    dt = x.dtype
+    if f32:
+        x = x.to(F32)
+    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    return (x * w.to(x.dtype)).to(dt)
+
+
+def rope_angles(positions, hd, theta):
+    """positions: int[...]. Returns (cos, sin) of shape (..., hd//2), f32."""
+    freqs = torch.exp(-torch.arange(0, hd, 2, dtype=F32,
+                                    device=positions.device) / hd
+                      * math.log(theta))
+    ang = positions.to(F32)[..., None] * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x, cos, sin):
+    """x: (..., T, n, hd); cos/sin: (..., T, hd//2) broadcast over heads.
+    Computed in f32 (bf16 x promotes), returned in ``x.dtype``."""
+    x1, x2 = x.chunk(2, dim=-1)
+    c = cos[..., None, :]
+    s = sin[..., None, :]
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
+
+
+# --------------------------------------------------------------------------- #
+# attention
+# --------------------------------------------------------------------------- #
+
+def init_attention(gen: torch.Generator, cfg: ModelConfig,
+                   dtype: torch.dtype) -> dict:
+    d, hd = cfg.d_model, cfg.hd
+    p = {
+        "wq": init_linear(gen, d, cfg.n_heads * hd, dtype),
+        "wk": init_linear(gen, d, cfg.n_kv_heads * hd, dtype),
+        "wv": init_linear(gen, d, cfg.n_kv_heads * hd, dtype),
+        "wo": init_linear(gen, cfg.n_heads * hd, d, dtype),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones((hd,), dtype=F32, device=gen.device)
+        p["k_norm"] = torch.ones((hd,), dtype=F32, device=gen.device)
+    return p
+
+
+def _live(q_pos, k_pos, causal, window):
+    """bool (B, T, S) from query/key positions, or None (all live)."""
+    m = (k_pos[:, None, :] <= q_pos[:, :, None]) if causal else None
+    if window is not None:
+        w = k_pos[:, None, :] > (q_pos[:, :, None] - window)
+        m = w if m is None else (m & w)
+    return m
+
+
+def _sdpa_naive(q, k, v, q_pos, k_pos, causal, window):
+    """q: (B,T,H,hd)  k,v: (B,S,K,hd)  GQA via head grouping.  Scores in
+    f32; the probabilities are cast to ``v.dtype`` before ``p @ v``, as in
+    the reference."""
+    B, T, H, hd = q.shape
+    S, K = k.shape[1], k.shape[2]
+    G = H // K
+    qg = q.reshape(B, T, K, G, hd)
+    scores = torch.einsum("btkgh,bskh->bkgts", qg.to(F32), k.to(F32))
+    scores = scores / math.sqrt(hd)
+    live = _live(q_pos, k_pos, causal, window)
+    if live is not None:
+        scores = scores.masked_fill(~live[:, None, None], float("-inf"))
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgts,bskh->btkgh", probs, v)
+    return out.reshape(B, T, H, hd)
+
+
+def _sdpa_chunked(q, k, v, q_pos, k_pos, causal, window, chunk, f32=True):
+    """Online softmax over KV chunks (flash algorithm, plain PyTorch).  The
+    keys padded onto a ragged last chunk are masked (ROADMAP C7)."""
+    acc_dt = F32 if f32 else torch.bfloat16
+    B, T, H, hd = q.shape
+    S, K = k.shape[1], k.shape[2]
+    G = H // K
+    nc = max(1, math.ceil(S / chunk))
+    qg = q.reshape(B, T, K, G, hd).to(F32)
+    scale = 1.0 / math.sqrt(hd)
+    m = torch.full((B, K, G, T), float("-inf"), dtype=F32, device=q.device)
+    l = torch.zeros((B, K, G, T), dtype=acc_dt, device=q.device)
+    acc = torch.zeros((B, K, G, T, hd), dtype=acc_dt, device=q.device)
+    for c in range(nc):
+        cs = slice(c * chunk, (c + 1) * chunk)
+        kb, vb = k[:, cs], v[:, cs]
+        s = torch.einsum("btkgh,bskh->bkgts", qg, kb.to(F32)) * scale
+        live = _live(q_pos, k_pos[:, cs], causal, window)
+        if live is not None:
+            s = s.masked_fill(~live[:, None, None], float("-inf"))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        # guard fully-masked rows
+        m_safe = torch.where(torch.isinf(m_new), 0.0, m_new)
+        p = torch.exp(s - m_safe[..., None])
+        p = torch.where(torch.isinf(s), 0.0, p)
+        corr = torch.exp(torch.where(torch.isinf(m), float("-inf"), m)
+                         - m_safe)
+        corr = torch.where(torch.isnan(corr), 0.0, corr).to(acc_dt)
+        l = l * corr + p.sum(dim=-1).to(acc_dt)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bkgts,bskh->bkgth", p.to(vb.dtype), vb).to(acc_dt)
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-20)[..., None]
+    out = out.permute(0, 3, 1, 2, 4).reshape(B, T, H, hd)
+    return out.to(q.dtype)
+
+
+def apply_attention(p, x, cfg: ModelConfig, *, positions, cache=None,
+                    causal=True, window=None):
+    """Self-attention.
+
+    x: (B, T, d).  positions: (B, T) int absolute positions; without a
+    cache they are ``arange(T)`` in every row (the ``pallas`` kernel puts
+    query ``t`` at ``t`` and key ``s`` at ``s``).  cache: optional dict
+    ``k``, ``v`` (B, S, K, hd) and ``pos`` (int) for decode, updated in
+    place (the reference returns a new one) and returned.
+    Returns (out, cache).
+    """
+    dt = dtype_of(cfg)
+    B, T, _ = x.shape
+    hd = cfg.hd
+    xq = x.to(dt)
+    q = _mm(xq, p["wq"]).reshape(B, T, cfg.n_heads, hd)
+    k = _mm(xq, p["wk"]).reshape(B, T, cfg.n_kv_heads, hd)
+    v = _mm(xq, p["wv"]).reshape(B, T, cfg.n_kv_heads, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    cos, sin = rope_angles(positions, hd, cfg.rope_theta)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+
+    q_offset = 0
+    if cache is not None:
+        # decode: write this step's k/v at the cache position (ring for SWA)
+        S = cache["k"].shape[1]
+        pos = int(cache["pos"])
+        if window is not None and cfg.attn_impl == "pallas":
+            raise NotImplementedError(
+                "repro_torch: the pallas kernel against a sliding-window "
+                "ring cache (slots are not positions) is not ported yet "
+                "(ROADMAP A13: MoE with mixtral's SWA decode ring)")
+        slot = pos % S if window is not None else pos
+        if slot + T > S:
+            raise ValueError(f"decode: positions {pos}..{pos + T - 1} do not "
+                             f"fit a cache of {S} slots")
+        cache["k"][:, slot:slot + T] = k.to(cache["k"].dtype)
+        cache["v"][:, slot:slot + T] = v.to(cache["v"].dtype)
+        idx = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
+        if window is not None:
+            base = pos - (pos % S)
+            k_pos = idx + base
+            k_pos = torch.where(k_pos > pos, k_pos - S, k_pos)
+        else:
+            k_pos = torch.where(idx <= pos, idx, 10 ** 9)  # mask unwritten
+        k_pos = k_pos.expand(B, S)
+        cache["pos"] = pos + T
+        k, v = cache["k"], cache["v"]
+        q_offset = pos
+    else:
+        k_pos = positions
+    q_pos = positions
+
+    impl = cfg.attn_impl
+    if impl == "pallas":
+        out = kops.flash_attention(q, k, v, causal=causal, window=window,
+                                   q_offset=q_offset)
+    elif impl == "chunked" and k.shape[1] > cfg.attn_chunk and T > 1:
+        out = _sdpa_chunked(q, k, v, q_pos, k_pos, causal, window,
+                            cfg.attn_chunk, f32=cfg.attn_f32)
+    else:
+        out = _sdpa_naive(q, k, v, q_pos, k_pos, causal, window)
+    out = out.reshape(B, T, cfg.n_heads * hd)
+    return _mm(out, p["wo"]), cache
+
+
+# --------------------------------------------------------------------------- #
+# MLP (SwiGLU)
+# --------------------------------------------------------------------------- #
+
+def init_mlp(gen: torch.Generator, d: int, ff: int,
+             dtype: torch.dtype) -> dict:
+    return {"wg": init_linear(gen, d, ff, dtype),
+            "wu": init_linear(gen, d, ff, dtype),
+            "wd": init_linear(gen, ff, d, dtype)}
+
+
+def apply_mlp(p, x, cfg: ModelConfig):
+    dt = dtype_of(cfg)
+    x = x.to(dt)
+    g = _mm(x, p["wg"])
+    g = g * torch.sigmoid(g)  # silu, as x * sigmoid(x) like the reference
+    u = _mm(x, p["wu"])
+    return _mm(g * u, p["wd"])

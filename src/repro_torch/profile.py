@@ -1,17 +1,24 @@
-"""Where a fabric run's time goes on the GPU.
+"""Where a run's time goes on the GPU: a fabric scenario or a serve cell.
 
     PYTHONPATH=src python -m repro_torch.profile [--scenario perm1024]
+    PYTHONPATH=src python -m repro_torch.profile --scenario prefill-1000 \
+        prefill-4096 decode-544
 
-Runs one scenario through ``run_fabric_trace`` on the card twice (the
-first run warms up: it builds the kernels and PyTorch's caches) and
-profiles the second with ``torch.profiler``: wall time, warp trips, the
-device-busy share (summed kernel time over wall time), the three
-hand-written fabric kernels' device time, and device time by kernel for
-the 25 largest.  It needs a GPU.
+Runs each scenario on the card twice (the first run warms up: it builds
+the kernels and PyTorch's caches) and profiles the second with
+``torch.profiler``: wall time, the device-busy share (summed kernel time
+over wall time), the hand-written kernels' device time, and device time by
+kernel for the 25 largest.  Fabric scenarios (perm1024, perm8k) run
+through ``run_fabric_trace``; serve cells run llama3-8b (bf16,
+``attn_impl="pallas"``, random weights from seed 0): ``prefill-1000``
+(4 x 1000 tokens), ``prefill-4096`` (1 x 4096) and ``decode-544`` (8
+decode steps of 4 requests at positions 536-543 of a 544-slot cache).  It
+needs a GPU.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 
@@ -23,34 +30,63 @@ from .sim.topology import full_bisection
 from .sim.workloads import (RunConfig, _fabric_cfg, _scenario_ticks,
                             permutation_scenario)
 
-SCENARIOS = {"perm1024": (32, 32), "perm8k": (128, 64)}
-#: CUDA kernel names of the three fabric kernels (csrc/*.cu).
+FABRIC = {"perm1024": (32, 32), "perm8k": (128, 64)}
+SERVE = {"prefill-1000": (4, 1000), "prefill-4096": (1, 4096),
+         "decode-544": (4, 544)}
+#: CUDA kernel names of the hand-written kernels (csrc/*.cu).
 OWN_KERNELS = ("apply_kernel", "commit_kernel", "serve_kernel",
                "accept_kernel", "place_kernel", "count_kernel",
-               "scan_kernel", "resolve_kernel")
+               "scan_kernel", "resolve_kernel", "fa_kernel")
 
 
-def profile(name: str) -> dict:
-    if not torch.cuda.is_available():
-        raise SystemExit("repro_torch.profile needs a CUDA device")
-    from torch.profiler import ProfilerActivity, profile as tprofile
-    sc = permutation_scenario(full_bisection(*SCENARIOS[name]),
-                              64 * 2 ** 10,
+def _fabric_run(name: str):
+    sc = permutation_scenario(full_bisection(*FABRIC[name]), 64 * 2 ** 10,
                               net=NetworkSpec(link_gbps=400.0), seed=0)
     cfg = RunConfig()
     fcfg, n_ticks = _fabric_cfg(sc, cfg), _scenario_ticks(sc, cfg)
 
     def once():
-        t0 = time.time()
         _, m = run_fabric_trace(sc.topo, sc.messages, n_ticks, fcfg,
                                 device="cuda")
-        torch.cuda.synchronize()
-        return time.time() - t0, m
+        return {"warp_trips": m["warp_trips"]}
 
+    return once
+
+
+def _serve_run(name: str, params, cfg):
+    from .models import lm
+    from .runtime.serve import make_decode_step, make_prefill_step
+    B, T = SERVE[name]
+    g = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, (B, T), generator=g, device="cuda")
+    if name.startswith("prefill"):
+        prefill = make_prefill_step(cfg)
+        return lambda: {"tokens": B * T,
+                        "logits": tuple(prefill(params, {"tokens": tokens})
+                                        .shape)}
+    decode, steps = make_decode_step(cfg), 8
+
+    def once():
+        cache = lm.init_cache(cfg, B, T)
+        for lc in cache["layers"]:
+            lc["pos"] = T - steps
+        for t in range(T - steps, T):
+            decode(params, cache, tokens[:, t:t + 1], t)
+        return {"decode_steps": steps, "requests": B}
+
+    return once
+
+
+def profile(name: str, once) -> dict:
+    from torch.profiler import ProfilerActivity, profile as tprofile
     once()
+    torch.cuda.synchronize()
     with tprofile(activities=[ProfilerActivity.CPU,
                               ProfilerActivity.CUDA]) as prof:
-        wall, m = once()
+        t0 = time.time()
+        info = once()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
     rows = []
     for ev in prof.key_averages():
         dev_us = getattr(ev, "self_device_time_total",
@@ -62,10 +98,11 @@ def profile(name: str) -> dict:
     own = [r for r in rows if any(k in r[0] for k in OWN_KERNELS)]
     return {
         "scenario": name, "device": torch.cuda.get_device_name(0),
-        "wall_s": wall, "warp_trips": m["warp_trips"],
+        "wall_s": wall, **info,
         "device_busy_s": busy_us / 1e6,
         "device_busy_share": busy_us / 1e6 / wall,
-        "fabric_kernels_device_s": sum(r[1] for r in own) / 1e6,
+        "own_kernels_device_s": sum(r[1] for r in own) / 1e6,
+        "device_launches": sum(r[2] for r in rows),
         "kernels": [{"name": k[:90], "device_ms": us / 1e3, "calls": c}
                     for k, us, c in rows[:25]],
     }
@@ -73,9 +110,23 @@ def profile(name: str) -> dict:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--scenario", choices=sorted(SCENARIOS),
-                    default="perm1024")
-    print(json.dumps(profile(ap.parse_args().scenario), indent=1))
+    ap.add_argument("--scenario", nargs="+", choices=sorted({**FABRIC,
+                                                             **SERVE}),
+                    default=["perm1024"])
+    names = ap.parse_args().scenario
+    if not torch.cuda.is_available():
+        raise SystemExit("repro_torch.profile needs a CUDA device")
+    params = cfg = None
+    if any(n in SERVE for n in names):
+        from .configs import get_config
+        from .models import lm
+        cfg = dataclasses.replace(get_config("llama3-8b"), attn_impl="pallas")
+        params = lm.init_params(torch.Generator(device="cuda").manual_seed(0),
+                                cfg)
+    for name in names:
+        once = (_fabric_run(name) if name in FABRIC
+                else _serve_run(name, params, cfg))
+        print(json.dumps(profile(name, once), indent=1), flush=True)
 
 
 if __name__ == "__main__":

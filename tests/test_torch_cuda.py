@@ -3,17 +3,29 @@
 Skips without a CUDA device (and imports no JAX, so it also runs on the
 card's machine): ``PYTHONPATH=src python -m pytest -m cuda
 tests/test_torch_cuda.py``.  ``chip_smoke.py`` runs the same checks at the
-full perm1024 / perm8k shapes.
+full perm1024 / perm8k shapes and at llama3-8b's.
 """
+import dataclasses
+import json
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core.params import NetworkSpec
+from repro_torch.configs import get_config
+from repro_torch.convert import lm_params_from_jax
 from repro_torch.kernels import fabric_kernels as fk
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels.ref import flash_attention_ref
+from repro_torch.runtime.serve import make_decode_step, make_prefill_step
+from repro_torch.models import lm
 from repro_torch.sim import fabric as TF
 from repro_torch.sim.topology import full_bisection
 from repro_torch.sim.workloads import permutation_scenario
+
+from torch_lm_weights import lm_weights
+from torch_parity import SERVE_REF_PATH
 
 pytestmark = [pytest.mark.torch, pytest.mark.cuda]
 
@@ -49,3 +61,69 @@ def test_fabric_on_the_card_equals_the_cpu(cuda):
     np.testing.assert_array_equal(m_gpu["done_tick"], m_cpu["done_tick"])
     assert m_gpu["warp_trips"] == m_cpu["warp_trips"]
     assert m_gpu["ecn_marks"] == m_cpu["ecn_marks"]
+
+
+@pytest.mark.parametrize("B,H,K,Tq,Tk,hd,causal,window,q_offset", [
+    (1, 4, 4, 128, 128, 64, True, None, 0),
+    (2, 8, 2, 256, 256, 64, True, None, 0),
+    (1, 4, 1, 128, 384, 128, True, None, 0),
+    (2, 2, 2, 100, 100, 32, True, None, 0),
+    (1, 2, 2, 64, 192, 64, False, None, 0),
+    (1, 2, 2, 256, 256, 64, True, 96, 0),
+    (2, 4, 2, 1, 512, 64, True, None, 300),
+    (3, 4, 1, 1, 100, 16, True, None, 99),
+    (1, 2, 1, 8, 8, 16, True, None, -4),
+])
+@pytest.mark.parametrize("dtypes", [("float32", "float32"),
+                                    ("bfloat16", "bfloat16"),
+                                    ("float32", "bfloat16")])
+def test_flash_attention_kernel_matches_plain(cuda, B, H, K, Tq, Tk, hd,
+                                              causal, window, q_offset,
+                                              dtypes):
+    """The CUDA kernel against its plain version on the card, on the cases
+    of tests/test_torch_flash.py: 2e-5 in f32, 2e-2 in bf16."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=cuda).manual_seed(Tq * 7 + Tk)
+    qdt, kvdt = (getattr(torch, d) for d in dtypes)
+    q = torch.randn((B, H, Tq, hd), generator=g, device=cuda).to(qdt)
+    k = torch.randn((B, K, Tk, hd), generator=g, device=cuda).to(kvdt)
+    v = torch.randn((B, K, Tk, hd), generator=g, device=cuda).to(kvdt)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    fa.reset_launches()
+    got = fa.flash_attention(q, k, v, **kw)
+    assert fa.launches["flash_attention"] == 1
+    want = flash_attention_ref(q, k, v, **kw)
+    assert got.dtype == qdt and got.shape == want.shape
+    tol = 2e-5 if qdt == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    # model layout: strided views, no copy
+    got_t = fa.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
+                               k, v, **kw)
+    torch.testing.assert_close(got_t, got, rtol=0, atol=0)
+
+
+def test_llama3_smoke_serve_on_the_card_matches_the_jax_reference(cuda):
+    """The f32 SMOKE model on the card: pallas prefill and pallas decode
+    (the kernel, q_offset = pos) from an f32 cache against the JAX-made
+    reference, 1e-4."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ref = json.loads(SERVE_REF_PATH.read_text())
+    cfg = dataclasses.replace(get_config(ref["arch"], smoke=True),
+                              dtype="float32", attn_impl="pallas")
+    params = lm_params_from_jax(lm_weights(cfg, ref["seed"]), cfg)
+    toks = torch.tensor(ref["prompt"], dtype=torch.int32, device=cuda)
+    fa.reset_launches()
+    got = make_prefill_step(cfg)(params, {"tokens": toks})
+    want = torch.tensor(ref["prefill_last_logits"], device=cuda)
+    torch.testing.assert_close(got.ravel(), want, rtol=1e-4, atol=1e-4)
+    cache = lm.init_cache(cfg, ref["batch"], ref["steps"],
+                          dtype=torch.float32)
+    step = make_decode_step(cfg)
+    out = []
+    for t in range(ref["steps"]):
+        logits, cache = step(params, cache, toks[:, t:t + 1], t)
+        out.append(logits)
+    want = torch.tensor(ref["decode_logits_f32_cache"], device=cuda)
+    torch.testing.assert_close(torch.stack(out).ravel(), want, rtol=1e-4,
+                               atol=1e-4)
+    assert fa.launches["flash_attention"] == cfg.n_layers * (1 + ref["steps"])

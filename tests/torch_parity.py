@@ -1,7 +1,7 @@
 """Shared helpers for the port's parity tests (JAX reference vs repro_torch).
 
-Run as a script to regenerate the committed perm1024 and incast1024
-reference files from the JAX package:
+Run as a script to regenerate the committed reference files (perm1024,
+incast1024 and the llama3-8b SMOKE serve reference) from the JAX package:
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/torch_parity.py
 """
@@ -23,6 +23,7 @@ ROOT = Path(__file__).resolve().parents[1]
 REF_DIR = ROOT / "src" / "repro_torch" / "testdata"
 REF_PATH = REF_DIR / "perm1024_strack_ref.json"
 INCAST_REF_PATH = REF_DIR / "incast1024_strack_ref.json"
+SERVE_REF_PATH = REF_DIR / "llama3_smoke_serve_ref.json"
 
 #: Summary keys the reference files pin (ints exact, floats to 1e-6).
 REF_SUMMARY_KEYS = ("max_fct", "avg_fct", "unfinished", "drops", "pauses",
@@ -99,10 +100,71 @@ def _reference(sc) -> dict:
     return out
 
 
+def jax_lm(arch: str, dtype: str, seed: int, **over):
+    """(config, params) of the JAX package: the SMOKE config of ``arch``
+    in ``dtype`` with ``over`` replaced, and ``torch_lm_weights`` from
+    ``seed`` as jnp arrays."""
+    import dataclasses
+    import jax
+    import jax.numpy as jnp
+    from repro.configs import get_config
+    from torch_lm_weights import lm_weights
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype=dtype,
+                              **over)
+    return cfg, jax.tree.map(jnp.asarray, lm_weights(cfg, seed))
+
+
+def jax_teacher_forced(cfg, params, tokens, cache_dtype) -> np.ndarray:
+    """The JAX package's decode logits (T, B, vocab) with the prompt fed
+    one token at a time from an empty cache of ``cache_dtype``."""
+    import jax
+    import jax.numpy as jnp
+    from repro.models import lm
+    from repro.runtime.serve import make_decode_step
+    B, T = tokens.shape
+    step = jax.jit(make_decode_step(cfg))
+    cache = lm.init_cache(cfg, B, T, dtype=cache_dtype)
+    out = []
+    for t in range(T):
+        logits, cache = step(params, cache, jnp.asarray(tokens[:, t:t + 1]),
+                             jnp.asarray(t, jnp.int32))
+        out.append(np.asarray(logits))
+    return np.stack(out)
+
+
+def llama3_smoke_serve_reference() -> dict:
+    """The JAX package serving llama3-8b SMOKE in f32, weights and prompt
+    from ``torch_lm_weights`` (numpy seed ``SERVE_REF``): the prefill's
+    last-position logits with ``attn_impl="pallas"`` (interpret mode), and
+    the teacher-forced decode logits at every prompt step with
+    ``attn_impl="naive"`` (the reference's pallas decode is ROADMAP C6),
+    from a bf16 cache (``init_cache``'s default) and from an f32 one."""
+    import dataclasses
+    import jax
+    import jax.numpy as jnp
+    from repro.runtime.serve import make_prefill_step
+    from torch_lm_weights import SERVE_REF, prompt
+    seed, B, T = SERVE_REF["seed"], SERVE_REF["batch"], SERVE_REF["steps"]
+    cfg, params = jax_lm(SERVE_REF["arch"], "float32", seed,
+                         attn_impl="pallas")
+    tokens = prompt(cfg, seed, B, T)
+    pre = jax.jit(make_prefill_step(cfg))(params,
+                                          {"tokens": jnp.asarray(tokens)})
+    naive = dataclasses.replace(cfg, attn_impl="naive")
+    rnd = lambda a: [float(f"{x:.9g}") for x in np.asarray(a).ravel()]
+    return dict(SERVE_REF, dtype="float32", prompt=tokens.tolist(),
+                prefill_last_logits=rnd(pre),
+                decode_logits_bf16_cache=rnd(jax_teacher_forced(
+                    naive, params, tokens, jnp.bfloat16)),
+                decode_logits_f32_cache=rnd(jax_teacher_forced(
+                    naive, params, tokens, jnp.float32)))
+
+
 def write_references() -> None:
     REF_DIR.mkdir(parents=True, exist_ok=True)
     for path, make in ((REF_PATH, perm1024_reference),
-                       (INCAST_REF_PATH, incast1024_reference)):
+                       (INCAST_REF_PATH, incast1024_reference),
+                       (SERVE_REF_PATH, llama3_smoke_serve_reference)):
         path.write_text(json.dumps(make(), sort_keys=True) + "\n")
         print(f"wrote {path}")
 
