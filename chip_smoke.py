@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
 """Run the PyTorch/CUDA port on one NVIDIA GPU: the STrack fabric, then
-LM serving (llama3-8b at full width through the flash-attention kernel).
+LM serving: llama3-8b at full width through the flash-attention kernel,
+mamba2-2.7b and zamba2-2.7b at full width and depth through the SSD scan
+kernel (and zamba2's shared attention through the flash kernel).
 
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing is caught):
-  1. build the four CUDA kernels (nvcc, sm_90a) from src/repro_torch;
-  2. hold each kernel against its plain PyTorch version on the card (ints
-     and bools exact, float32 bit for bit): at perm1024 and perm8k shapes
-     captured a few ticks into the run; at incast1024 ticks where the
-     standing queue drops, marks ECN on the dither and sends flows into
+  1. build the five CUDA kernels (nvcc, sm_90a) from src/repro_torch;
+  2. hold each fabric kernel against its plain PyTorch version on the card
+     (ints and bools exact, float32 bit for bit): at perm1024 and perm8k
+     shapes captured a few ticks into the run; at incast1024 ticks where
+     the standing queue drops, marks ECN on the dither and sends flows into
      SACK recovery (each of these must happen, or the check fails as
      vacuous); the transition on random flow states at 1024 lanes, where
      RTOs fire, probes go out and flows enter recovery; and the ranker at
@@ -44,12 +46,39 @@ Phases (any failure exits non-zero; nothing is caught):
      the serve path (both prefills and greedy_generate) runs once more with
      the launch count reset before and read after: prefill tokens/s,
      decode ms per step, peak memory;
-  8. a `kernels` JSON line (launches on the main path; each kernel's
+  8. serve, Mamba2 (the llama3 weights freed first): mamba2-2.7b (64
+     layers, ~5.4 GB) and zamba2-2.7b (54 layers and the shared block,
+     attn_impl="pallas"), bf16, random weights (seed 0):
+     (b) mamba2 prefill 4 x 1024 and 1 x 4096 through the SSD kernel:
+         finite, within SERVE_REL_L2 of the same model with the plain SSD
+         (and, the rounding floor, within SSM_REL_L2 of the same model at
+         chunk 64); decode against prefill at the last prompt position
+         (SSM_REL_L2); the tokens of
+         greedy_generate (4 requests, 512-token prompts, 32 new) equal to
+         a step-by-step decode's;
+     (c) zamba2 prefill 4 x 1024 through both kernels against both plain
+         versions (SSM_REL_L2); the flash kernel against its plain version at hd 80 on
+         the q/k/v of the first and last application of the shared block
+         and at decode offsets 0, 63, 79; a short greedy_generate (4 x 64
+         prompt tokens, 16 new) equal to a step-by-step decode;
+     (a) the SSD kernel against its plain version, y and final state, on
+         the captured inputs of layer 0 and the last layer of mamba2's
+         prefills and layer 0 of zamba2's, on the cases of
+         tests/test_kernels.py in f32 and bf16, at T = 45 (an odd L), and
+         at T = 128 against the sequential ssd_ref: 1e-4 in f32, 5e-2 in
+         bf16;
+     (d) the f32 SMOKE configs of both against the JAX-made
+         src/repro_torch/testdata/{mamba2,zamba2}_smoke_serve_ref.json
+         (SSM_SMOKE_TOL; greedy tokens exact);
+     each serve path runs once more with the launch counts reset before
+     and read after: prefill tokens/s, decode ms per step, peak memory;
+  9. a `kernels` JSON line (launches on the main paths; each kernel's
      device time per call from torch.profiler, and the wrapper's wall time
      per call; the plain version's device and wall time; the bound; for
      flash attention SDPA's time as `library_ms`, at the prefill-1000 and
-     decode-544 shapes), the card's name and power limit, and the final
-     `{"ok": true, ...}` line.
+     decode-544 shapes and at zamba2's hd 80; for the SSD scan at mamba2's
+     prefill 4 x 1024 and 1 x 4096 inputs), the card's name and power
+     limit, and the final `{"ok": true, ...}` line.
 
 It needs a CUDA device and the repository around it: without either it
 exits non-zero before printing any result.
@@ -88,6 +117,24 @@ SERVE_REL_L2 = 5e-2
 #: The f32 SMOKE config against the JAX-made reference; the decode from a
 #: bf16 cache may round a cached value to the other bf16 neighbour.
 SMOKE_TOL, SMOKE_BF16_CACHE_TOL = 1e-4, 2e-2
+#: The SSD kernel against its plain version, as tests/test_kernels.py holds
+#: the Pallas kernel: one f32 summation order against another (and exp of
+#: differences of cumulative sums), or one bf16 rounding of y.
+SSD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+#: The f32 SMOKE configs of mamba2/zamba2 against the JAX-made references:
+#: their block input and Mamba2 projections are bf16, as in the reference,
+#: so an element that rounds to the other bf16 neighbour on the card moves
+#: the logits by ~1e-4 (tests/test_torch_ssm.py: 1.7e-4 on the CPU).
+SSM_SMOKE_TOL = 2e-3
+#: bf16 mamba2/zamba2 logits of two evaluations that round differently:
+#: decode against prefill, and zamba2's kernels against their plain
+#: versions.  Random-weight stacks of 54-64 Mamba2 layers amplify the
+#: bf16 roundings of the projections (bf16 even in an f32 config): two
+#: prefills of the same model that differ only in the chunk length (the
+#: same function) differ by 5-8% relative L2 on the card, as this phase
+#: logs and holds.  A wrong state, conv window, position or skip term
+#: gives O(1).
+SSM_REL_L2 = 0.15
 
 #: Each wrapper's own CUDA kernels (csrc/*.cu); a wrapper call launches
 #: these and memsets, nothing else.
@@ -97,6 +144,7 @@ OWN_KERNELS = {
                       "count_kernel", "scan_kernel", "resolve_kernel"),
     "rank_in_queue": ("count_kernel", "scan_kernel", "resolve_kernel"),
     "flash_attention": ("fa_kernel",),
+    "ssd_scan": ("ssd_kernel",),
 }
 
 
@@ -111,6 +159,9 @@ def leaves(tree, prefix=""):
     elif isinstance(tree, (tuple, list)):
         for i, v in enumerate(tree):
             yield from leaves(v, f"{prefix}{i}.")
+    elif isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from leaves(v, f"{prefix}{k}.")
     else:
         yield prefix.rstrip("."), tree
 
@@ -167,10 +218,13 @@ def device_ms(fn, reps: int = 20) -> tuple:
     """Mean device time of one ``fn()`` call: the self device time of
     every kernel and memset it ran, summed from ``torch.profiler`` over
     ``reps`` calls (warmed up first).  Returns ``(ms, device event
-    names)``.  A profile that recorded no device event at all is taken
-    again, at most twice; then the time comes from CUDA events around
-    ``reps`` back-to-back calls (host gaps included) and the names are
-    ``None``."""
+    names)``.  Every call runs the same device events, so a profile in
+    which some event was recorded a number of times that is not a
+    multiple of ``reps`` has lost records (late in a long process the
+    profiler has returned a third of them) and is taken again, as is one
+    that recorded no device event; after three such profiles the time
+    comes from CUDA events around ``reps`` back-to-back calls (host gaps
+    included) and the names are ``None``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
@@ -182,17 +236,18 @@ def device_ms(fn, reps: int = 20) -> tuple:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        total_us, names = 0.0, set()
+        total_us, counts = 0.0, {}
         for ev in prof.key_averages():
             us = getattr(ev, "self_device_time_total",
                          getattr(ev, "self_cuda_time_total", 0))
             if us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
                 total_us += us
-                names.add(ev.key)
-        if total_us > 0:
-            return total_us / reps / 1e3, names
-        log(f"[profile] no device time recorded (attempt {attempt + 1}); "
-            f"events: {sorted(ev.key for ev in prof.key_averages())[:20]}")
+                counts[ev.key] = ev.count
+        if total_us > 0 and all(c % reps == 0 for c in counts.values()):
+            return total_us / reps / 1e3, set(counts)
+        log(f"[profile] device events recorded for {reps} calls (attempt "
+            f"{attempt + 1}): "
+            f"{ {k[:60]: c for k, c in counts.items()} or 'none'}")
     log("[profile] falling back to CUDA events for this measurement")
     return wall_ms(fn, reps), None
 
@@ -230,20 +285,84 @@ def model_layout_ref(q, k, v, **kw):
                                v.transpose(1, 2), **kw).transpose(1, 2)
 
 
+def plain_ssd(x, dt, A, B_, C_, chunk=128, *, final_state=False):
+    """``kernels.ops.ssd_scan`` through the kernel's plain version."""
+    from repro_torch.kernels.ref import ssd_chunked_ref
+    y, state = ssd_chunked_ref(x, dt, A, B_, C_, chunk)
+    return (y.to(x.dtype), state) if final_state else y.to(x.dtype)
+
+
+@contextlib.contextmanager
+def routed(name, fn, capture=None, store=None):
+    """Route the models' calls of ``repro_torch.kernels.ops.<name>``
+    (flash_attention, ssd_scan) through ``fn``; keep a copy of the
+    arguments of the calls numbered in ``capture`` (call i: layer i, or
+    the i-th application of a shared block) in ``store``."""
+    import torch
+    from repro_torch.kernels import ops as kops
+    kernel, calls = getattr(kops, name), [0]
+
+    def call(*args, **kw):
+        if calls[0] in (capture or {}):
+            store[capture[calls[0]]] = (
+                tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                      for a in args), dict(kw))
+        calls[0] += 1
+        return fn(*args, **kw)
+
+    setattr(kops, name, call)
+    try:
+        yield
+    finally:
+        setattr(kops, name, kernel)
+
+
+def flash_timing(q, k, v, kw) -> dict:
+    """The flash-attention kernel, its plain version and SDPA on one call's
+    model-layout inputs: device and wall ms, the bound (the causal live
+    part of the products at the bf16 rate, or the bytes)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops as kops
+    B, Tq, H, hd = q.shape
+    Tk, K = k.shape[1], k.shape[2]
+    off = kw.get("q_offset", 0)
+    live = sum(min(Tk, max(0, i + off + 1)) for i in range(Tq))
+    flops = 4 * hd * live * B * H
+    moved = 2 * q.numel() * q.element_size() + 2 * k.numel() * \
+        k.element_size()
+    bnd, by = bound_ms(moved, flops, BF16_OPS_PER_S)
+    mask = None if off == 0 else (
+        torch.arange(Tk, device=q.device)[None, :]
+        <= torch.arange(Tq, device=q.device)[:, None] + off)
+    qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    run = lambda: kops.flash_attention(q, k, v, **kw)
+    plain = lambda: model_layout_ref(q, k, v, **kw)
+    library = lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, attn_mask=mask, is_causal=mask is None,
+        enable_gqa=K != H)
+    return {"shape": f"q {tuple(q.shape)}, k/v {tuple(k.shape)} (B,T,H,hd)"
+                     f", {str(q.dtype).split('.')[-1]}, q_offset {off}",
+            "ms": own_device_ms("flash_attention", run),
+            "plain_ms": device_ms(plain, reps=10)[0],
+            "bound_ms": bnd, "bound_by": by,
+            "library_ms": device_ms(library)[0],
+            "wall_ms": wall_ms(run), "plain_wall_ms": wall_ms(plain,
+                                                              reps=10)}
+
+
 def serve(dev) -> dict:
     """Phase 7: llama3-8b served through the flash-attention kernel.
     Returns the kernel's entry of the ``kernels`` line."""
     import numpy as np
     import torch
-    import torch.nn.functional as F
     from repro_torch.configs import get_config
     from repro_torch.convert import lm_params_from_jax
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels.ref import flash_attention_ref
     from repro_torch.models import lm
-    from repro_torch.runtime.serve import (greedy_generate, make_decode_step,
-                                           make_prefill_step)
+    from repro_torch.runtime.serve import make_decode_step, make_prefill_step
     from torch_lm_weights import lm_weights
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -269,28 +388,11 @@ def serve(dev) -> dict:
 
     p1000, p4096, p512 = tokens(4, 1000), tokens(1, 4096), tokens(4, 512)
     prefill = make_prefill_step(cfg)
-    decode = make_decode_step(cfg)
     kernel = kops.flash_attention
     captured = {}
 
-    @contextlib.contextmanager
     def attention(fn, capture=None):
-        """Route the model's attention through ``fn``; keep a copy of the
-        inputs of the calls numbered in ``capture`` (call i = layer i)."""
-        calls = [0]
-
-        def call(q, k, v, **kw):
-            if calls[0] in (capture or {}):
-                captured[capture[calls[0]]] = (q.clone(), k.clone(),
-                                               v.clone(), kw)
-            calls[0] += 1
-            return fn(q, k, v, **kw)
-
-        kops.flash_attention = call
-        try:
-            yield
-        finally:
-            kops.flash_attention = kernel
+        return routed("flash_attention", fn, capture, captured)
 
     def layers(name):
         return {0: f"{name} layer 0", 31: f"{name} layer 31"}
@@ -320,55 +422,21 @@ def serve(dev) -> dict:
 
     # (c) decode step by step: the prompt teacher-forced, then greedy, with
     # the inputs of q_offset 0, 511 and 543 kept
-    pre512 = prefill(params, {"tokens": p512})
-    cache = lm.init_cache(cfg, 4, 544)
-    for t in range(512):
-        with attention(kernel, layers(f"decode q_offset={t}")
-                       if t in (0, 511) else None):
-            out, cache = decode(params, cache, p512[:, t:t + 1], t)
-    err = rel_l2(out, pre512)
-    assert err <= SERVE_REL_L2, ("decode vs prefill", err)
-    log(f"[serve] (c) decode at the last prompt position (q_offset 511) vs "
-        f"make_prefill_step: rel L2 {err:.3e} (limit {SERVE_REL_L2}), max "
-        f"abs {float((out - pre512).abs().max()):.4e}, argmax agrees in "
-        f"{int((out.argmax(-1) == pre512.argmax(-1)).sum())}/4 rows")
-    steps = []
-    for t in range(512, 544):
-        steps.append(out.argmax(-1)[:, None].to(torch.int32))
-        with attention(kernel, layers(f"decode q_offset={t}")
-                       if t == 543 else None):
-            out, cache = decode(params, cache, steps[-1], t)
-    stepwise = torch.cat(steps, dim=1)
-    del cache
+    steps = stepwise("[serve] (c) llama3-8b", cfg, params, p512, 32,
+                     SERVE_REL_L2, lambda t: layers(f"decode q_offset={t}")
+                     if t in (0, 511, 543) else None, captured)
 
     # the serve path, counted and timed
-    torch.cuda.synchronize()
-    fa.reset_launches()
-    torch.cuda.reset_peak_memory_stats()
-    wall = {}
-    for name, toks in (("prefill-1000", p1000), ("prefill-4096", p4096)):
-        t0 = time.time()
-        got = prefill(params, {"tokens": toks})
-        torch.cuda.synchronize()
-        wall[name] = time.time() - t0
-        assert torch.equal(got, logits[name]), name
-    t0 = time.time()
-    gen = greedy_generate(params, cfg, p512, 32, 544)
-    torch.cuda.synchronize()
-    wall["generate"] = time.time() - t0
-    launches = fa.launches["flash_attention"]
-    peak = torch.cuda.max_memory_allocated()
-    n_steps = 512 + 32 - 1
-    assert launches == cfg.n_layers * (2 + n_steps), launches
-    assert torch.equal(gen, stepwise), (gen, stepwise)
-    log(f"[serve] serve path: prefill 4x1000 {wall['prefill-1000']:.4f}s "
-        f"({4000 / wall['prefill-1000']:.1f} tokens/s), 1x4096 "
-        f"{wall['prefill-4096']:.4f}s ({4096 / wall['prefill-4096']:.1f} "
-        f"tokens/s); greedy_generate 4 x (512 + 32) in "
-        f"{wall['generate']:.3f}s: {wall['generate'] / n_steps * 1e3:.3f} ms "
-        f"per decode step of 4 requests ({4 * n_steps / wall['generate']:.1f} "
-        f"tokens/s); tokens equal the step-by-step decode's; peak memory "
-        f"{peak / 2 ** 30:.3f} GiB; flash_attention launches {launches}")
+    gen, launches = serve_path(
+        "llama3-8b", cfg, params,
+        {"prefill-1000": (p1000, logits["prefill-1000"]),
+         "prefill-4096": (p4096, logits["prefill-4096"])}, p512, 32)
+    assert launches == {"flash_attention": cfg.n_layers * (2 + 512 + 32 - 1),
+                        "ssd_scan": 0}, launches
+    assert torch.equal(gen, steps), (gen, steps)
+    launches = launches["flash_attention"]
+    log("[serve] (c) llama3-8b greedy_generate's tokens equal the "
+        "step-by-step decode's")
 
     # (a) the kernel against its plain version on the card
     max_err = 0.0
@@ -384,8 +452,8 @@ def serve(dev) -> dict:
         max_err = max(max_err, float(d.max()))
         return float(d.max())
 
-    errs = {name: check(name, kernel, model_layout_ref, *captured[name][:3],
-                        **captured[name][3]) for name in sorted(captured)}
+    errs = {name: check(name, kernel, model_layout_ref, *captured[name][0],
+                        **captured[name][1]) for name in sorted(captured)}
     g = torch.Generator(device=dev).manual_seed(2)
     f32, bf16 = torch.float32, torch.bfloat16
     for what, (B, H, K, Tq, Tk, hd), qdt, kvdt, kw in (
@@ -446,33 +514,8 @@ def serve(dev) -> dict:
 
     # kernel times and bounds at the prefill-1000 and decode-544 shapes
     def timing(name):
-        q, k, v, kw = captured[name]
-        B, Tq, H, hd = q.shape
-        Tk, K = k.shape[1], k.shape[2]
-        off = kw.get("q_offset", 0)
-        live = sum(min(Tk, max(0, i + off + 1)) for i in range(Tq))
-        flops = 4 * hd * live * B * H
-        moved = 2 * q.numel() * q.element_size() + 2 * k.numel() * \
-            k.element_size()
-        bnd, by = bound_ms(moved, flops, BF16_OPS_PER_S)
-        mask = None if off == 0 else (
-            torch.arange(Tk, device=dev)[None, :]
-            <= torch.arange(Tq, device=dev)[:, None] + off)
-        qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-        run = lambda: kernel(q, k, v, **kw)
-        plain = lambda: model_layout_ref(q, k, v, **kw)
-        library = lambda: F.scaled_dot_product_attention(
-            qh, kh, vh, attn_mask=mask, is_causal=mask is None,
-            enable_gqa=True)
-        return {"shape": f"q {tuple(q.shape)}, k/v {tuple(k.shape)} (B,T,H,hd)"
-                         f", {str(q.dtype).split('.')[-1]}, q_offset {off}",
-                "ms": own_device_ms("flash_attention", run),
-                "plain_ms": device_ms(plain, reps=10)[0],
-                "bound_ms": bnd, "bound_by": by,
-                "library_ms": device_ms(library)[0],
-                "wall_ms": wall_ms(run), "plain_wall_ms": wall_ms(plain,
-                                                                  reps=10),
-                "flops": flops, "bytes": moved}
+        (q, k, v), kw = captured[name]
+        return flash_timing(q, k, v, kw)
 
     prefill_t = timing("prefill-1000 layer 0")
     decode_t = timing("decode q_offset=543 layer 0")
@@ -480,13 +523,354 @@ def serve(dev) -> dict:
              "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
              "replaces": "src/repro/kernels/flash_attention.py:90",
              "launches": launches, "max_abs_err": max_err}
-    entry.update({k: v for k, v in prefill_t.items() if k not in
-                  ("flops", "bytes")})
-    entry["decode_544"] = {k: v for k, v in decode_t.items()
-                           if k not in ("flops", "bytes")}
+    entry.update(prefill_t)
+    entry["decode_544"] = decode_t
     log(f"[serve] flash_attention at prefill-1000: {prefill_t}; at "
         f"decode-544: {decode_t}")
     return entry
+
+
+def stepwise(label, cfg, params, prompt, new, limit, capture=None,
+             store=None):
+    """Decode step by step through make_decode_step: the prompt
+    teacher-forced, then ``new`` greedy tokens.  The logits at the last
+    prompt position are held within ``limit`` (relative L2) of
+    make_prefill_step's; ``capture(t)`` names the flash-attention calls of
+    step t whose inputs are kept in ``store``.  Returns the greedy tokens
+    (B, new)."""
+    import torch
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import lm
+    from repro_torch.runtime.serve import make_decode_step, make_prefill_step
+    decode = make_decode_step(cfg)
+    B, T = prompt.shape
+    pre = make_prefill_step(cfg)(params, {"tokens": prompt})
+    cache = lm.init_cache(cfg, B, T + new)
+    toks, out = [], None
+    for t in range(T + new):
+        if t >= T:
+            toks.append(out.argmax(-1)[:, None].to(torch.int32))
+        with routed("flash_attention", kops.flash_attention,
+                    capture(t) if capture else None, store):
+            out, cache = decode(params, cache, toks[-1] if t >= T
+                                else prompt[:, t:t + 1], t)
+        if t == T - 1:
+            err = rel_l2(out, pre)
+            assert err <= limit, (label, "decode vs prefill", err)
+            log(f"{label} decode at the last prompt position ({T - 1}) vs "
+                f"make_prefill_step: rel L2 {err:.3e} (limit {limit}), max "
+                f"abs {float((out - pre).abs().max()):.4e}, argmax agrees in "
+                f"{int((out.argmax(-1) == pre.argmax(-1)).sum())}/{B} rows")
+    return torch.cat(toks, dim=1)
+
+
+def serve_path(arch, cfg, params, prefills, prompt, new) -> tuple:
+    """The serve path with every kernel's launch count set to 0 just
+    before and read just after: the prefills ``{name: (tokens, the checked
+    run's logits)}``, which must give those logits again, then
+    greedy_generate of ``new`` tokens after ``prompt``.  Logs prefill
+    tokens/s, decode ms per step and peak memory.  Returns (generated
+    tokens, launches by kernel)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.runtime.serve import greedy_generate, make_prefill_step
+    torch.cuda.synchronize()
+    ssd.reset_launches()
+    fa.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    prefill = make_prefill_step(cfg)
+    rates = []
+    for name, (toks, want) in prefills.items():
+        t0 = time.time()
+        got = prefill(params, {"tokens": toks})
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        assert torch.equal(got, want), (arch, name)
+        rates.append(f"{name} {toks.shape[0]}x{toks.shape[1]} {wall:.4f}s "
+                     f"({toks.numel() / wall:.1f} tokens/s)")
+    B, T = prompt.shape
+    t0 = time.time()
+    gen = greedy_generate(params, cfg, prompt, new, T + new)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {"flash_attention": fa.launches["flash_attention"],
+                "ssd_scan": ssd.launches["ssd_scan"]}
+    n_steps = T + new - 1
+    log(f"[serve] {arch} serve path: prefill " + ", ".join(rates)
+        + f"; greedy_generate {B} x ({T} + {new}) in {wall:.3f}s: "
+        f"{wall / n_steps * 1e3:.3f} ms per decode step of {B} requests "
+        f"({B * n_steps / wall:.1f} tokens/s); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB; "
+        f"launches {launches}")
+    return gen, launches
+
+
+def ssd_timing(x, dt, A, B_, C_, chunk) -> dict:
+    """The SSD kernel and its plain version on one call's inputs: device
+    and wall ms, and the bound.  Operations counted as the function needs
+    them: per (b, h, chunk) the causal half of the intra product P @ dt*x
+    (2 P L(L+1)/2), C @ state in every chunk but the first (whose state is
+    0) and the state update (2 L N P each); C B^T once per (b, chunk),
+    lower triangle (B and C are shared across heads); float32 at the
+    CUDA cores' rate.  Bytes: x, dt, A, B, C read and y and the final
+    state written once."""
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.kernels.ref import ssd_chunked_ref
+    Bb, T, H, P = x.shape
+    N = B_.shape[-1]
+    L = min(chunk, T)
+    nc = T // L
+    flops = (Bb * H * nc * (P * L * (L + 1) + 2 * L * N * P)
+             + Bb * H * (nc - 1) * 2 * L * N * P + Bb * nc * N * L * (L + 1))
+    moved = (2 * x.numel() * x.element_size()
+             + sum(t.numel() * t.element_size() for t in (dt, A, B_, C_))
+             + Bb * H * N * P * 4)
+    bnd, by = bound_ms(moved, flops)
+    run = lambda: ssd.ssd_scan(x, dt, A, B_, C_, chunk=chunk)
+    plain = lambda: ssd_chunked_ref(x, dt, A, B_, C_, chunk)
+    return {"shape": f"x {tuple(x.shape)}, B/C {tuple(B_.shape)}, "
+                     f"{str(x.dtype).split('.')[-1]}, chunk {L}",
+            "ms": own_device_ms("ssd_scan", run),
+            "plain_ms": device_ms(plain, reps=5)[0],
+            "bound_ms": bnd, "bound_by": by, "library_ms": None,
+            "wall_ms": wall_ms(run), "plain_wall_ms": wall_ms(plain, reps=5),
+            "gflop": flops / 1e9, "mbytes": moved / 1e6}
+
+
+def serve_ssm(dev) -> tuple:
+    """Phase 8: mamba2-2.7b and zamba2-2.7b served through the SSD kernel
+    (and zamba2's shared attention through the flash kernel).  Returns the
+    SSD kernel's entry of the ``kernels`` line and what it adds to flash
+    attention's (the zamba2 path's launches, hd-80 checks and times)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.convert import lm_params_from_jax
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.kernels.ref import ssd_chunked_ref, ssd_ref
+    from repro_torch.models import lm
+    from repro_torch.runtime.serve import (greedy_generate, make_decode_step,
+                                           make_prefill_step)
+    from torch_lm_weights import SSM_SERVE_REF, lm_weights
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tok_gen = torch.Generator(device=dev).manual_seed(1)
+    captured, ssd_errs, fa_errs = {}, {}, {}
+
+    def tokens(cfg, b, t):
+        return torch.randint(0, cfg.vocab, (b, t), generator=tok_gen,
+                             device=dev, dtype=torch.int32)
+
+    def model(arch, **over):
+        cfg = dataclasses.replace(get_config(arch), **over)
+        assert cfg.dtype == "bfloat16"
+        t0 = time.time()
+        params = lm.init_params(torch.Generator(device=dev).manual_seed(0),
+                                cfg)
+        torch.cuda.synchronize()
+        n_bytes = nbytes(params)
+        log(f"[ssm] {arch} ({cfg.n_layers} Mamba2 layers, d {cfg.d_model}, "
+            f"{cfg.ssm_heads} heads x {cfg.ssm_head_dim}, state "
+            f"{cfg.ssm_state}, chunk {cfg.ssm_chunk}, vocab {cfg.vocab}"
+            + (f", shared attention+MLP after every {cfg.hybrid_attn_every}:"
+               f" {cfg.n_heads} heads x hd {cfg.hd}, ff {cfg.d_ff}, "
+               f"attn_impl={cfg.attn_impl}" if cfg.kind == "hybrid" else "")
+            + f"), bf16: {n_bytes / 1e9:.3f} GB of random weights in "
+            f"{time.time() - t0:.1f}s")
+        return cfg, params
+
+    def ssd_check(what, x, dt, A, B_, C_, chunk, seq=False):
+        """The kernel against its plain version (and, with ``seq``, the
+        sequential oracle): y and the final state."""
+        x, dt, A, B_, C_ = (t.contiguous() for t in (x, dt, A, B_, C_))
+        y, st = ssd.ssd_scan(x, dt, A, B_, C_, chunk=chunk)
+        wants = [ssd_chunked_ref(x, dt, A, B_, C_, chunk)]
+        if seq:
+            wants.append(ssd_ref(x, dt, A, B_, C_))
+        tol = SSD_TOL[str(x.dtype).split(".")[-1]]
+        assert y.dtype == x.dtype and y.shape == x.shape, what
+        err = 0.0
+        for wy, ws in wants:
+            for got, want in ((y.float(), wy.to(x.dtype).float()), (st, ws)):
+                d = (got - want).abs()
+                assert not bool((d > tol + tol * want.abs()).any()), (
+                    what, float(d.max()))
+                err = max(err, float(d.max()))
+        ssd_errs[what] = err
+
+    def fa_check(what, q, k, v, **kw):
+        got, want = kops.flash_attention(q, k, v, **kw), \
+            model_layout_ref(q, k, v, **kw)
+        tol = FA_TOL[str(q.dtype).split(".")[-1]]
+        d = (got.float() - want.float()).abs()
+        assert not bool((d > tol + tol * want.float().abs()).any()), (
+            what, float(d.max()))
+        fa_errs[what] = float(d.max())
+
+    def prefill_vs_plain(arch, cfg, params, name, toks, limit, ssd_cap=None,
+                         fa_cap=None):
+        prefill = make_prefill_step(cfg)
+        with routed("ssd_scan", kops.ssd_scan, ssd_cap, captured), \
+                routed("flash_attention", kops.flash_attention, fa_cap,
+                       captured):
+            got = prefill(params, {"tokens": toks})
+        with routed("ssd_scan", plain_ssd), \
+                routed("flash_attention", model_layout_ref):
+            want = prefill(params, {"tokens": toks})
+        chunk64 = make_prefill_step(dataclasses.replace(cfg, ssm_chunk=64))(
+            params, {"tokens": toks})
+        assert got.shape == (toks.shape[0], cfg.vocab)
+        assert bool(torch.isfinite(got).all()), (arch, name)
+        err, floor = rel_l2(got, want), rel_l2(chunk64, got)
+        assert err <= limit, (arch, name, err)
+        assert floor <= SSM_REL_L2, (arch, name, "chunk 64", floor)
+        log(f"[ssm] (b) {arch} {name}: logits finite, |max| "
+            f"{float(got.abs().max()):.4f}; kernels vs plain versions: rel "
+            f"L2 {err:.3e} (limit {limit}), max abs "
+            f"{float((got - want).abs().max()):.4e}; argmax agrees in "
+            f"{int((got.argmax(-1) == want.argmax(-1)).sum())}/"
+            f"{toks.shape[0]} rows; the rounding floor, chunk 64 vs 128: "
+            f"rel L2 {floor:.3e} (limit {SSM_REL_L2})")
+        return got
+
+    # ---- mamba2-2.7b: (b) prefills and decode, the serve path -------------
+    cfg, params = model("mamba2-2.7b")
+    last = cfg.n_layers - 1
+    p1024, p4096, p512 = (tokens(cfg, 4, 1024), tokens(cfg, 1, 4096),
+                          tokens(cfg, 4, 512))
+    logits = {name: prefill_vs_plain(
+        "mamba2-2.7b", cfg, params, name, toks, SERVE_REL_L2,
+        {0: f"mamba2 {name} layer 0", last: f"mamba2 {name} layer {last}"})
+        for name, toks in (("prefill-1024", p1024), ("prefill-4096", p4096))}
+    steps = stepwise("[ssm] (b) mamba2-2.7b", cfg, params, p512, 32,
+                     SSM_REL_L2)
+    gen, launches = serve_path(
+        "mamba2-2.7b", cfg, params,
+        {"prefill-1024": (p1024, logits["prefill-1024"]),
+         "prefill-4096": (p4096, logits["prefill-4096"])}, p512, 32)
+    assert torch.equal(gen, steps), (gen, steps)
+    assert launches == {"ssd_scan": 2 * cfg.n_layers,
+                        "flash_attention": 0}, launches
+    ssd_launches = {"mamba2-2.7b": launches["ssd_scan"]}
+    log("[ssm] (b) mamba2-2.7b greedy_generate's tokens equal the "
+        "step-by-step decode's")
+    del params, logits
+
+    # ---- zamba2-2.7b, attn_impl="pallas": (c) ----------------------------
+    cfg, params = model("zamba2-2.7b", attn_impl="pallas")
+    n_app = cfg.n_layers // cfg.hybrid_attn_every
+    pz, p64 = tokens(cfg, 4, 1024), tokens(cfg, 4, 64)
+    got = prefill_vs_plain(
+        "zamba2-2.7b", cfg, params, "prefill-1024", pz, SSM_REL_L2,
+        {0: "zamba2 prefill-1024 layer 0"},
+        {0: "zamba2 prefill-1024 attention 0",
+         n_app - 1: f"zamba2 prefill-1024 attention {n_app - 1}"})
+    steps = stepwise("[ssm] (c) zamba2-2.7b", cfg, params, p64, 16,
+                     SSM_REL_L2, lambda t: {0: f"zamba2-2.7b decode q_offset="
+                                            f"{t}"} if t in (0, 63, 79)
+                     else None, captured)
+    gen, launches = serve_path("zamba2-2.7b", cfg, params,
+                               {"prefill-1024": (pz, got)}, p64, 16)
+    assert torch.equal(gen, steps), (gen, steps)
+    assert launches == {"ssd_scan": cfg.n_layers,
+                        "flash_attention": n_app * (1 + 64 + 16 - 1)}, \
+        launches
+    ssd_launches["zamba2-2.7b"] = launches["ssd_scan"]
+    fa_launches = launches["flash_attention"]
+    log("[ssm] (c) zamba2-2.7b greedy_generate's tokens equal the "
+        "step-by-step decode's")
+    del params
+    for name in sorted(k for k in captured if "attention" in k
+                       or "decode" in k):
+        (q, k, v), kw = captured[name]
+        assert q.shape[-1] == cfg.hd, (name, q.shape)
+        fa_check(name, q, k, v, **kw)
+    torch.cuda.synchronize()
+    log(f"[ssm] (c) flash_attention at hd {cfg.hd} matches its plain version "
+        f"(max abs error): " + "; ".join(f"{k} {v:.3e}" for k, v in fa_errs.items()))
+
+    # ---- (a) the SSD kernel against its plain version ---------------------
+    for name in sorted(k for k in captured if "layer" in k):
+        (x, dt, A, B_, C_, chunk), _ = captured[name]
+        ssd_check(name, x, dt, A, B_, C_, chunk)
+    g = torch.Generator(device=dev).manual_seed(3)
+    for (B, T, H, P, N, chunk) in ((1, 128, 2, 32, 16, 32),
+                                   (2, 256, 4, 64, 64, 128),
+                                   (1, 64, 8, 16, 32, 64),
+                                   (2, 45, 3, 16, 8, 128)):
+        for dtype in (torch.float32, torch.bfloat16):
+            rnd = lambda *shape: torch.randn(shape, generator=g, device=dev)
+            x = rnd(B, T, H, P).to(dtype)
+            dt = torch.nn.functional.softplus(rnd(B, T, H))
+            A = -torch.exp(rnd(H) * 0.3)
+            B_ = (rnd(B, T, N) / N ** 0.5).to(dtype)
+            C_ = (rnd(B, T, N) / N ** 0.5).to(dtype)
+            ssd_check(f"random {(B, T, H, P, N)} chunk {chunk} "
+                      f"{str(dtype).split('.')[-1]}", x, dt, A, B_, C_,
+                      chunk, seq=T == 128)
+    torch.cuda.synchronize()
+    log("[ssm] (a) ssd_scan matches its plain version, y and final state "
+        "(max abs error; T = 128 also the sequential ssd_ref): "
+        + "; ".join(f"{k} {v:.3e}" for k, v in ssd_errs.items()))
+
+    # ---- (d) the f32 SMOKE configs against the JAX-made references --------
+    for arch, path in (("mamba2-2.7b", "mamba2_smoke_serve_ref.json"),
+                       ("zamba2-2.7b", "zamba2_smoke_serve_ref.json")):
+        ref = json.loads((TESTDATA / path).read_text())
+        assert {k: ref[k] for k in SSM_SERVE_REF[arch]} == SSM_SERVE_REF[arch]
+        scfg = dataclasses.replace(get_config(arch, smoke=True),
+                                   dtype="float32", attn_impl="pallas")
+        sp = lm_params_from_jax(lm_weights(scfg, ref["seed"]), scfg)
+        stoks = torch.tensor(ref["prompt"], dtype=torch.int32, device=dev)
+        errs = {}
+
+        def hold(what, got, key):
+            want = torch.tensor(ref[key], device=dev).reshape(got.shape)
+            d = (got - want).abs()
+            assert not bool((d > SSM_SMOKE_TOL + SSM_SMOKE_TOL
+                             * want.abs()).any()), (arch, what, float(d.max()))
+            errs[what] = float(d.max())
+
+        ssd.reset_launches()
+        hold("prefill", make_prefill_step(scfg)(sp, {"tokens": stoks}),
+             "prefill_last_logits")
+        assert ssd.launches["ssd_scan"] == scfg.n_layers
+        step = make_decode_step(scfg)
+        cache = lm.init_cache(scfg, ref["batch"], ref["steps"],
+                              dtype=torch.float32)
+        out = []
+        for t in range(ref["steps"]):
+            lg, cache = step(sp, cache, stoks[:, t:t + 1], t)
+            out.append(lg)
+        hold("decode, f32 cache", torch.stack(out), "decode_logits_f32_cache")
+        gen = greedy_generate(sp, scfg, stoks, ref["new"],
+                              ref["steps"] + ref["new"])
+        assert gen.tolist() == ref["greedy_tokens"], (arch, gen.tolist())
+        log(f"[ssm] (d) {arch} SMOKE, f32, on the card vs the JAX reference "
+            f"(max abs error, limit {SSM_SMOKE_TOL}): {errs}; greedy tokens "
+            f"equal")
+
+    # ---- (e) times ---------------------------------------------------------
+    timing = {name: ssd_timing(*captured[f"mamba2 {name} layer 0"][0])
+              for name in ("prefill-1024", "prefill-4096")}
+    (q, k, v), kw = captured["zamba2 prefill-1024 attention 0"]
+    fa_t = flash_timing(q, k, v, kw)
+    log(f"[ssm] ssd_scan at mamba2 prefill-1024: {timing['prefill-1024']}; "
+        f"at prefill-4096: {timing['prefill-4096']}; flash_attention at "
+        f"zamba2 prefill-1024 (hd 80): {fa_t}")
+    entry = {"name": "ssd_scan", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+             "replaces": "src/repro/kernels/ssd_scan.py:63",
+             "launches": sum(ssd_launches.values()),
+             "launches_by_path": ssd_launches,
+             "max_abs_err": max(ssd_errs.values())}
+    entry.update(timing["prefill-1024"])
+    entry["prefill_4096"] = timing["prefill-4096"]
+    return entry, {"launches_zamba2": fa_launches,
+                   "max_abs_err_hd80": max(fa_errs.values()),
+                   "zamba2_prefill_1024_hd80": fa_t}
 
 
 def main() -> int:
@@ -792,6 +1176,14 @@ def main() -> int:
 
     # ---- 7. serve: llama3-8b through the flash-attention kernel -----------
     kernels.append(serve(dev))
+    torch.cuda.empty_cache()
+
+    # ---- 8. serve: mamba2-2.7b and zamba2-2.7b through the SSD kernel -----
+    ssd_entry, fa_zamba2 = serve_ssm(dev)
+    kernels[-1].update(fa_zamba2)
+    kernels[-1]["max_abs_err"] = max(kernels[-1]["max_abs_err"],
+                                     fa_zamba2["max_abs_err_hd80"])
+    kernels.append(ssd_entry)
     print(json.dumps({"kernels": kernels}), flush=True)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -7,9 +7,9 @@ so that each module's counterpart is easy to find:
 batched over flows), ``sim/{topology,fabric,workloads}.py`` (the
 multi-queue fat-tree and its front door), ``kernels/fabric_kernels.py``
 (the three fabric kernels, CUDA sources under ``kernels/csrc/``), and the
-dense language models' serving path: ``configs/``,
-``models/{config,layers,lm}.py``, ``runtime/serve.py`` and
-``kernels/flash_attention.py``.
+serving path of the dense, Mamba2 and hybrid language models:
+``configs/``, ``models/{config,layers,ssm,lm}.py``, ``runtime/serve.py``,
+``kernels/flash_attention.py`` and ``kernels/ssd_scan.py``.
 
 Entry points take ``device`` and default to ``"cuda"``; without a GPU
 they raise rather than fall back to the CPU.  The tests pass

@@ -20,7 +20,8 @@ from .core.reliability import ReceiverState, RelState, SackMsg
 from .core.transport import FlowState
 from .models import layers as L
 from .models.config import ModelConfig
-from .models.lm import require_dense
+from .models.lm import require_ported
+from .models.ssm import BF16, PROJECTIONS
 from .sim.fabric import FabricState, PktQ
 
 #: Sub-tree classes of the nested state tuples, by field name.
@@ -69,31 +70,41 @@ def leaves(tree, prefix: str = "") -> dict:
 
 
 
-#: Norm weights (kept in f32); every other leaf is a matrix.
+#: Norm weights (kept in f32); every other dense-block leaf is a matrix.
 _NORMS = ("final_norm", "ln1", "ln2", "q_norm", "k_norm")
 
 
 def lm_params_from_jax(np_params, cfg: ModelConfig, device="cuda") -> dict:
-    """The reference's dense-LM params (``repro.models.lm.init_params``'s
-    tree with array-like leaves: f32 masters, layers stacked on a leading
-    axis, e.g. ``layers/attn/wq`` of shape (n_layers, d, H*hd)) -> the
-    port's params dict on ``device``, one dict per layer.  Matrix weights
-    are cast once to ``cfg.dtype`` (the reference casts the same masters at
-    every use), norm weights stay f32."""
-    require_dense(cfg)
+    """The reference's LM params (``repro.models.lm.init_params``'s tree
+    with array-like leaves: f32 masters, layers stacked on a leading axis,
+    e.g. ``layers/attn/wq`` of shape (n_layers, d, H*hd) or
+    ``layers/ssm/w_x`` of shape (n_layers, d, d_in); the hybrid's
+    ``shared_attn``, one unstacked dense block) -> the port's params dict
+    on ``device``, one dict per layer.  The reference casts the same f32
+    masters at every use; the port casts once: dense matrices to
+    ``cfg.dtype``, the Mamba2 projections to bf16 (``ssm.py`` casts them
+    to bf16 whatever ``cfg.dtype`` is); norm weights and the Mamba2
+    block's other leaves (conv kernels and biases, ``A_log``, ``D``,
+    ``dt_bias``, ``norm_w``) stay f32."""
+    require_ported(cfg)
     dev = resolve_device(device)
     dt = L.dtype_of(cfg)
 
-    def leaf(a, name):
+    def leaf(a, name, in_ssm=False):
         t = torch.from_numpy(np.array(a, dtype=np.float32)).to(dev)
+        if in_ssm:
+            return t.to(BF16) if name in PROJECTIONS else t
         return t if name in _NORMS else t.to(dt)
 
-    def layer(tree, i):
-        return {name: layer(v, i) if isinstance(v, dict) else leaf(v[i], name)
+    def block(tree, pick=lambda a: a, in_ssm=False):
+        return {name: (block(v, pick, in_ssm or name == "ssm")
+                       if isinstance(v, dict) else leaf(pick(v), name, in_ssm))
                 for name, v in tree.items()}
 
     out = {name: leaf(np_params[name], name)
            for name in ("embed", "final_norm", "lm_head") if name in np_params}
-    out["layers"] = [layer(np_params["layers"], i)
+    out["layers"] = [block(np_params["layers"], lambda a, i=i: a[i])
                      for i in range(cfg.n_layers)]
+    if cfg.kind == "hybrid":
+        out["shared_attn"] = block(np_params["shared_attn"])
     return out

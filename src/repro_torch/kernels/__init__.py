@@ -1,2 +1,2 @@
 """Hand-written CUDA kernels (the fabric hot path's three, flash
-attention) and their plain PyTorch versions."""
+attention, the Mamba2 SSD scan) and their plain PyTorch versions."""

@@ -1,13 +1,22 @@
-"""The dense language model (the reference's ``repro/models/lm.py``,
-``kind="dense"``): pre-norm GQA transformer blocks with a SwiGLU MLP
-(llama3, qwen3 with qk_norm and tied embeddings, deepseek, command-r).
+"""Language-model assembly (the reference's ``repro/models/lm.py``) for
+the kinds the port serves:
+
+  dense   pre-norm GQA transformer blocks with a SwiGLU MLP (llama3,
+          qwen3 with qk_norm and tied embeddings, deepseek, command-r);
+  ssm     a stack of Mamba2 SSD blocks (mamba2);
+  hybrid  a Mamba2 backbone with one *shared* attention+MLP block applied
+          after every ``hybrid_attn_every`` SSM layers (zamba2: its
+          parameters are held once; each application has its own KV
+          cache).
 
 Parameters are a plain dict: ``embed`` (V, d), ``final_norm`` (d,),
-``lm_head`` (d, V) unless tied, and ``layers``, a list with one dict per
-layer (``ln1``, ``attn``, ``ln2``, ``mlp``) where the reference stacks the
-layers on a leading axis and scans.  Matrix weights are in ``cfg.dtype``,
-norm weights in f32.  The other kinds raise ``NotImplementedError`` naming
-their ROADMAP item.
+``lm_head`` (d, V) unless tied, ``layers``, a list with one dict per layer
+where the reference stacks the layers on a leading axis and scans (dense:
+``ln1``, ``attn``, ``ln2``, ``mlp``; ssm: ``ln1``, ``ssm``), and for the
+hybrid ``shared_attn``, one dense block.  Matrix weights are in
+``cfg.dtype`` except the Mamba2 projections (bf16, see ``models/ssm.py``);
+norm weights and the Mamba2 block's other leaves are f32.  The other kinds
+raise ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -15,19 +24,19 @@ import torch
 
 from .. import resolve_device
 from . import layers as L
+from . import ssm as S
 from .config import ModelConfig
 
 _NOT_PORTED = {
     "moe": "ROADMAP A13: MoE, with mixtral's SWA decode ring",
-    "ssm": "ROADMAP A13: ssm/hybrid, carrying B6 ssd_scan",
-    "hybrid": "ROADMAP A13: ssm/hybrid, carrying B6 ssd_scan",
     "encdec": "ROADMAP A13: encdec and vlm",
     "vlm": "ROADMAP A13: encdec and vlm",
 }
+PORTED_KINDS = ("dense", "ssm", "hybrid")
 
 
-def require_dense(cfg: ModelConfig) -> None:
-    if cfg.kind != "dense":
+def require_ported(cfg: ModelConfig) -> None:
+    if cfg.kind not in PORTED_KINDS:
         raise NotImplementedError(
             f"repro_torch: model kind {cfg.kind!r} ({cfg.name}) is not ported "
             f"yet ({_NOT_PORTED.get(cfg.kind, 'unknown kind')})")
@@ -37,18 +46,21 @@ def require_dense(cfg: ModelConfig) -> None:
 # init
 # --------------------------------------------------------------------------- #
 
-def _init_block(gen: torch.Generator, cfg: ModelConfig) -> dict:
+def _init_block(gen: torch.Generator, cfg: ModelConfig, kind: str) -> dict:
+    """One layer's params. kind: dense | ssm."""
     dt = L.dtype_of(cfg)
     ones = lambda: torch.ones((cfg.d_model,), dtype=L.F32, device=gen.device)
+    if kind == "ssm":
+        return {"ln1": ones(), "ssm": S.init_mamba2(gen, cfg)}
     return {"ln1": ones(), "attn": L.init_attention(gen, cfg, dt),
             "ln2": ones(), "mlp": L.init_mlp(gen, cfg.d_model, cfg.d_ff, dt)}
 
 
 def init_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
     """Random weights on the generator's device, with the reference's
-    distributions (``lm.py:61``): embed N(0, 1) * 0.02, every matrix
-    N(0, 1) / sqrt(d_in), norms 1."""
-    require_dense(cfg)
+    distributions (``lm.py:61``, ``ssm.py:25``): embed N(0, 1) * 0.02,
+    every matrix N(0, 1) / sqrt(d_in), norms 1."""
+    require_ported(cfg)
     dt = L.dtype_of(cfg)
     embed = torch.randn((cfg.vocab, cfg.d_model), generator=gen, dtype=L.F32,
                         device=gen.device)
@@ -57,7 +69,10 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
                                   device=gen.device)}
     if not cfg.tie_embeddings:
         p["lm_head"] = L.init_linear(gen, cfg.d_model, cfg.vocab, dt)
-    p["layers"] = [_init_block(gen, cfg) for _ in range(cfg.n_layers)]
+    kind = "dense" if cfg.kind == "dense" else "ssm"
+    p["layers"] = [_init_block(gen, cfg, kind) for _ in range(cfg.n_layers)]
+    if cfg.kind == "hybrid":
+        p["shared_attn"] = _init_block(gen, cfg, "dense")
     return p
 
 
@@ -75,14 +90,42 @@ def _dense_block(lp, x, cfg: ModelConfig, positions, *, cache=None,
     return x + L.apply_mlp(lp["mlp"], xn, cfg), cache
 
 
+def _ssm_block(lp, x, cfg: ModelConfig, cache=None):
+    h, cache = S.apply_mamba2(lp["ssm"], L.rms_norm(x, lp["ln1"],
+                                                    cfg.norm_eps,
+                                                    cfg.norm_f32),
+                              cfg, cache=cache)
+    return x + h, cache
+
+
+def _groups(cfg: ModelConfig):
+    """The hybrid's groups of SSM layer indices, each followed by one
+    application of the shared block; as in the reference, layers past the
+    last whole group are not run (zamba2: 54 = 9 x 6)."""
+    every = cfg.hybrid_attn_every
+    return [range(g * every, (g + 1) * every)
+            for g in range(cfg.n_layers // every)]
+
+
 def forward_hidden(params, embeds, positions, cfg: ModelConfig):
     """embeds: (B,T,d) -> (final hidden (B,T,d), aux loss).  A loop over
-    the layers; the aux loss (MoE routing) is 0 for a dense model."""
-    require_dense(cfg)
+    the layers; the aux loss (MoE routing) is 0 for the kinds ported."""
+    require_ported(cfg)
     x = embeds
-    for lp in params["layers"]:
-        x, _ = _dense_block(lp, x, cfg, positions, causal=True,
-                            window=cfg.window)
+    layers = params["layers"]
+    if cfg.kind == "dense":
+        for lp in layers:
+            x, _ = _dense_block(lp, x, cfg, positions, causal=True,
+                                window=cfg.window)
+    elif cfg.kind == "ssm":
+        for lp in layers:
+            x, _ = _ssm_block(lp, x, cfg)
+    else:
+        for grp in _groups(cfg):
+            for i in grp:
+                x, _ = _ssm_block(layers[i], x, cfg)
+            x, _ = _dense_block(params["shared_attn"], x, cfg, positions,
+                                causal=True)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps, cfg.norm_f32)
     return x, torch.zeros((), dtype=L.F32, device=x.device)
 
@@ -102,35 +145,57 @@ def lm_head_weight(params, cfg: ModelConfig):
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                dtype=torch.bfloat16, device="cuda") -> dict:
-    """Per-layer KV cache for decode: ``{"layers": [{"k", "v", "pos"}]}``
-    with k/v (batch, S, n_kv_heads, hd) zeros and ``pos`` 0.  bf16 whatever
-    ``cfg.dtype`` is, as in the reference."""
-    require_dense(cfg)
+    """Decode cache.  dense: ``{"layers": [{"k", "v", "pos"}]}`` with k/v
+    (batch, S, n_kv_heads, hd) zeros in ``dtype`` (bf16 whatever
+    ``cfg.dtype`` is, as in the reference) and ``pos`` 0.  ssm:
+    ``{"layers": [Mamba2 cache]}`` (f32 state and conv windows,
+    :func:`repro_torch.models.ssm.init_ssm_cache`).  hybrid: those, and
+    ``"shared"``, one KV cache per application of the shared block."""
+    require_ported(cfg)
     dev = resolve_device(device)
     S_len = min(max_seq, cfg.window) if cfg.window else max_seq
     shape = (batch, S_len, cfg.n_kv_heads, cfg.hd)
-    return {"layers": [
-        {"k": torch.zeros(shape, dtype=dtype, device=dev),
-         "v": torch.zeros(shape, dtype=dtype, device=dev), "pos": 0}
-        for _ in range(cfg.n_layers)]}
+
+    def kv():
+        return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+                "v": torch.zeros(shape, dtype=dtype, device=dev), "pos": 0}
+
+    if cfg.kind == "dense":
+        return {"layers": [kv() for _ in range(cfg.n_layers)]}
+    cache = {"layers": [S.init_ssm_cache(cfg, batch, device=dev)
+                        for _ in range(cfg.n_layers)]}
+    if cfg.kind == "hybrid":
+        cache["shared"] = [kv() for _ in _groups(cfg)]
+    return cache
 
 
 def decode_step(params, cache, tokens, pos: int, cfg: ModelConfig):
     """One decode step. tokens: (B,1) int; pos: the position of this
-    token, which every layer's cache ``pos`` must equal.  The cache is
-    updated in place.  Returns (logits (B, vocab) f32, cache)."""
-    require_dense(cfg)
+    token, which every cache's ``pos`` must equal.  The cache is updated
+    in place.  Returns (logits (B, vocab) f32, cache)."""
+    require_ported(cfg)
     pos = int(pos)
-    for lc in cache["layers"]:
+    for lc in cache["layers"] + cache.get("shared", []):
         if lc["pos"] != pos:
             raise ValueError(f"decode_step at position {pos} with a cache at "
                              f"position {lc['pos']}")
     B = tokens.shape[0]
     x = embed_tokens(params, tokens, cfg)
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
-    for lp, lc in zip(params["layers"], cache["layers"]):
-        x, _ = _dense_block(lp, x, cfg, positions, cache=lc, causal=True,
-                            window=cfg.window)
+    layers, caches = params["layers"], cache["layers"]
+    if cfg.kind == "dense":
+        for lp, lc in zip(layers, caches):
+            x, _ = _dense_block(lp, x, cfg, positions, cache=lc, causal=True,
+                                window=cfg.window)
+    elif cfg.kind == "ssm":
+        for lp, lc in zip(layers, caches):
+            x, _ = _ssm_block(lp, x, cfg, cache=lc)
+    else:
+        for grp, sc in zip(_groups(cfg), cache["shared"]):
+            for i in grp:
+                x, _ = _ssm_block(layers[i], x, cfg, cache=caches[i])
+            x, _ = _dense_block(params["shared_attn"], x, cfg, positions,
+                                cache=sc, causal=True)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps, cfg.norm_f32)
     logits = x[:, 0] @ lm_head_weight(params, cfg).to(x.dtype)
     return logits.to(L.F32), cache

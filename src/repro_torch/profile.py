@@ -3,17 +3,24 @@
     PYTHONPATH=src python -m repro_torch.profile [--scenario perm1024]
     PYTHONPATH=src python -m repro_torch.profile --scenario prefill-1000 \
         prefill-4096 decode-544
+    PYTHONPATH=src python -m repro_torch.profile --scenario \
+        mamba2-prefill-1024 mamba2-prefill-4096 mamba2-decode \
+        zamba2-prefill-1024 zamba2-decode
 
 Runs each scenario on the card twice (the first run warms up: it builds
 the kernels and PyTorch's caches) and profiles the second with
 ``torch.profiler``: wall time, the device-busy share (summed kernel time
 over wall time), the hand-written kernels' device time, and device time by
 kernel for the 25 largest.  Fabric scenarios (perm1024, perm8k) run
-through ``run_fabric_trace``; serve cells run llama3-8b (bf16,
-``attn_impl="pallas"``, random weights from seed 0): ``prefill-1000``
-(4 x 1000 tokens), ``prefill-4096`` (1 x 4096) and ``decode-544`` (8
-decode steps of 4 requests at positions 536-543 of a 544-slot cache).  It
-needs a GPU.
+through ``run_fabric_trace``; serve cells run a model in bf16 with
+``attn_impl="pallas"`` and random weights from seed 0 (one model on the
+card at a time): llama3-8b ``prefill-1000`` (4 x 1000 tokens),
+``prefill-4096`` (1 x 4096) and ``decode-544`` (8 decode steps of 4
+requests at positions 536-543 of a 544-slot cache); mamba2-2.7b
+``mamba2-prefill-1024`` (4 x 1024), ``mamba2-prefill-4096`` (1 x 4096) and
+``mamba2-decode`` (8 steps of 4 requests); zamba2-2.7b
+``zamba2-prefill-1024`` and ``zamba2-decode`` (8 steps at positions
+536-543).  It needs a GPU.
 """
 from __future__ import annotations
 
@@ -31,12 +38,19 @@ from .sim.workloads import (RunConfig, _fabric_cfg, _scenario_ticks,
                             permutation_scenario)
 
 FABRIC = {"perm1024": (32, 32), "perm8k": (128, 64)}
-SERVE = {"prefill-1000": (4, 1000), "prefill-4096": (1, 4096),
-         "decode-544": (4, 544)}
+#: serve cell -> (model, requests, tokens).
+SERVE = {"prefill-1000": ("llama3-8b", 4, 1000),
+         "prefill-4096": ("llama3-8b", 1, 4096),
+         "decode-544": ("llama3-8b", 4, 544),
+         "mamba2-prefill-1024": ("mamba2-2.7b", 4, 1024),
+         "mamba2-prefill-4096": ("mamba2-2.7b", 1, 4096),
+         "mamba2-decode": ("mamba2-2.7b", 4, 544),
+         "zamba2-prefill-1024": ("zamba2-2.7b", 4, 1024),
+         "zamba2-decode": ("zamba2-2.7b", 4, 544)}
 #: CUDA kernel names of the hand-written kernels (csrc/*.cu).
 OWN_KERNELS = ("apply_kernel", "commit_kernel", "serve_kernel",
                "accept_kernel", "place_kernel", "count_kernel",
-               "scan_kernel", "resolve_kernel", "fa_kernel")
+               "scan_kernel", "resolve_kernel", "fa_kernel", "ssd_kernel")
 
 
 def _fabric_run(name: str):
@@ -56,10 +70,10 @@ def _fabric_run(name: str):
 def _serve_run(name: str, params, cfg):
     from .models import lm
     from .runtime.serve import make_decode_step, make_prefill_step
-    B, T = SERVE[name]
+    _, B, T = SERVE[name]
     g = torch.Generator(device="cuda").manual_seed(1)
     tokens = torch.randint(0, cfg.vocab, (B, T), generator=g, device="cuda")
-    if name.startswith("prefill"):
+    if "prefill" in name:
         prefill = make_prefill_step(cfg)
         return lambda: {"tokens": B * T,
                         "logits": tuple(prefill(params, {"tokens": tokens})
@@ -68,7 +82,7 @@ def _serve_run(name: str, params, cfg):
 
     def once():
         cache = lm.init_cache(cfg, B, T)
-        for lc in cache["layers"]:
+        for lc in cache["layers"] + cache.get("shared", []):
             lc["pos"] = T - steps
         for t in range(T - steps, T):
             decode(params, cache, tokens[:, t:t + 1], t)
@@ -117,13 +131,16 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("repro_torch.profile needs a CUDA device")
     params = cfg = None
-    if any(n in SERVE for n in names):
-        from .configs import get_config
-        from .models import lm
-        cfg = dataclasses.replace(get_config("llama3-8b"), attn_impl="pallas")
-        params = lm.init_params(torch.Generator(device="cuda").manual_seed(0),
-                                cfg)
     for name in names:
+        if name in SERVE and (cfg is None or cfg.name != SERVE[name][0]):
+            from .configs import get_config
+            from .models import lm
+            params = None
+            torch.cuda.empty_cache()
+            cfg = dataclasses.replace(get_config(SERVE[name][0]),
+                                      attn_impl="pallas")
+            params = lm.init_params(
+                torch.Generator(device="cuda").manual_seed(0), cfg)
         once = (_fabric_run(name) if name in FABRIC
                 else _serve_run(name, params, cfg))
         print(json.dumps(profile(name, once), indent=1), flush=True)

@@ -1,5 +1,8 @@
-"""Serving steps: batched prefill and single-token decode with a KV cache
-(the reference's ``repro/runtime/serve.py``, dense models).
+"""Serving steps: batched prefill and single-token decode with KV and SSM
+caches (the reference's ``repro/runtime/serve.py``; dense, ssm and hybrid
+models).  As in the reference, prefill returns logits and no cache, and
+``greedy_generate`` consumes the prompt one token a step through the
+decode step.
 
 Each entry point takes ``device`` and defaults to ``"cuda"``: without a
 GPU it raises, and it runs on the CPU only when the caller passes
@@ -34,7 +37,7 @@ def _on(params, dev: torch.device) -> None:
 def make_prefill_step(cfg: ModelConfig, device="cuda"):
     """prefill(params, batch) -> last-position logits (B, vocab) f32;
     ``batch["tokens"]`` is (B, T) int."""
-    lm.require_dense(cfg)
+    lm.require_ported(cfg)
     dev = _device(device)
 
     def prefill(params, batch):
@@ -54,7 +57,7 @@ def make_prefill_step(cfg: ModelConfig, device="cuda"):
 def make_decode_step(cfg: ModelConfig, device="cuda"):
     """decode(params, cache, tokens (B,1), pos) -> (logits, cache); the
     cache (:func:`repro_torch.models.lm.init_cache`) is updated in place."""
-    lm.require_dense(cfg)
+    lm.require_ported(cfg)
     dev = _device(device)
 
     def decode(params, cache, tokens, pos):

@@ -3,7 +3,8 @@
 Skips without a CUDA device (and imports no JAX, so it also runs on the
 card's machine): ``PYTHONPATH=src python -m pytest -m cuda
 tests/test_torch_cuda.py``.  ``chip_smoke.py`` runs the same checks at the
-full perm1024 / perm8k shapes and at llama3-8b's.
+full perm1024 / perm8k shapes and at llama3-8b's, mamba2-2.7b's and
+zamba2-2.7b's.
 """
 import dataclasses
 import json
@@ -17,15 +18,18 @@ from repro_torch.configs import get_config
 from repro_torch.convert import lm_params_from_jax
 from repro_torch.kernels import fabric_kernels as fk
 from repro_torch.kernels import flash_attention as fa
-from repro_torch.kernels.ref import flash_attention_ref
-from repro_torch.runtime.serve import make_decode_step, make_prefill_step
+from repro_torch.kernels import ssd_scan as ssd
+from repro_torch.kernels.ref import (flash_attention_ref, ssd_chunked_ref,
+                                     ssd_ref)
+from repro_torch.runtime.serve import (greedy_generate, make_decode_step,
+                                       make_prefill_step)
 from repro_torch.models import lm
 from repro_torch.sim import fabric as TF
 from repro_torch.sim.topology import full_bisection
 from repro_torch.sim.workloads import permutation_scenario
 
 from torch_lm_weights import lm_weights
-from torch_parity import SERVE_REF_PATH
+from torch_parity import SERVE_REF_PATH, SSM_SERVE_REF_PATHS
 
 pytestmark = [pytest.mark.torch, pytest.mark.cuda]
 
@@ -127,3 +131,69 @@ def test_llama3_smoke_serve_on_the_card_matches_the_jax_reference(cuda):
     torch.testing.assert_close(torch.stack(out).ravel(), want, rtol=1e-4,
                                atol=1e-4)
     assert fa.launches["flash_attention"] == cfg.n_layers * (1 + ref["steps"])
+
+
+@pytest.mark.parametrize("B,T,H,P,N,chunk", [
+    (1, 128, 2, 32, 16, 32), (2, 256, 4, 64, 64, 128), (1, 64, 8, 16, 32, 64),
+    (2, 45, 3, 16, 8, 128), (1, 512, 3, 72, 128, 128), (2, 96, 2, 8, 20, 48),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_scan_kernel_matches_plain(cuda, B, T, H, P, N, chunk, dtype):
+    """The CUDA kernel against its plain version on the card: y and the
+    final state, 1e-4 in f32 and 5e-2 in bf16 (the reference's own
+    tolerances), on the cases of tests/test_torch_ssd.py and on ragged
+    shapes (P = 72: a partial column slice; N = 20; L = 48)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=cuda).manual_seed(T * 7 + N)
+    dt_ = getattr(torch, dtype)
+    x = torch.randn((B, T, H, P), generator=g, device=cuda).to(dt_)
+    dt = torch.nn.functional.softplus(torch.randn((B, T, H), generator=g,
+                                                  device=cuda))
+    A = -torch.exp(torch.randn((H,), generator=g, device=cuda) * 0.3)
+    Bm = (torch.randn((B, T, N), generator=g, device=cuda) / N ** 0.5).to(dt_)
+    Cm = (torch.randn((B, T, N), generator=g, device=cuda) / N ** 0.5).to(dt_)
+    ssd.reset_launches()
+    y, state = ssd.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
+    assert ssd.launches["ssd_scan"] == 1
+    want_y, want_s = ssd_chunked_ref(x, dt, A, Bm, Cm, chunk)
+    assert y.dtype == dt_ and state.dtype == torch.float32
+    tol = 1e-4 if dtype == "float32" else 5e-2
+    torch.testing.assert_close(y.float(), want_y.to(dt_).float(), rtol=tol,
+                               atol=tol)
+    torch.testing.assert_close(state, want_s, rtol=tol, atol=tol)
+    if T <= 128:
+        seq_y, seq_s = ssd_ref(x, dt, A, Bm, Cm)
+        torch.testing.assert_close(y.float(), seq_y, rtol=tol, atol=tol)
+        torch.testing.assert_close(state, seq_s, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-2.7b"])
+def test_ssm_smoke_serve_on_the_card_matches_the_jax_reference(cuda, arch):
+    """The f32 SMOKE model on the card, SSD through the kernel (and zamba2's
+    attention through the flash kernel): prefill and decode from an f32
+    cache against the JAX-made reference at 2e-3 (bf16 products, see
+    tests/test_torch_ssm.py), greedy tokens exact."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ref = json.loads(SSM_SERVE_REF_PATHS[arch].read_text())
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32",
+                              attn_impl="pallas")
+    params = lm_params_from_jax(lm_weights(cfg, ref["seed"]), cfg)
+    toks = torch.tensor(ref["prompt"], dtype=torch.int32, device=cuda)
+    ssd.reset_launches()
+    got = make_prefill_step(cfg)(params, {"tokens": toks})
+    assert ssd.launches["ssd_scan"] == cfg.n_layers
+    want = torch.tensor(ref["prefill_last_logits"], device=cuda)
+    torch.testing.assert_close(got.ravel(), want, rtol=2e-3, atol=2e-3)
+    cache = lm.init_cache(cfg, ref["batch"], ref["steps"],
+                          dtype=torch.float32)
+    step = make_decode_step(cfg)
+    out = []
+    for t in range(ref["steps"]):
+        logits, cache = step(params, cache, toks[:, t:t + 1], t)
+        out.append(logits)
+    want = torch.tensor(ref["decode_logits_f32_cache"], device=cuda)
+    torch.testing.assert_close(torch.stack(out).ravel(), want, rtol=2e-3,
+                               atol=2e-3)
+    gen = greedy_generate(params, cfg, toks, ref["new"],
+                          ref["steps"] + ref["new"])
+    assert gen.tolist() == ref["greedy_tokens"]

@@ -400,16 +400,25 @@ def test_serve_entry_points_default_to_cuda_and_never_fall_back(monkeypatch):
 
 def test_unported_kinds_and_paths_raise_naming_their_roadmap_item():
     gen = torch.Generator().manual_seed(0)
-    for arch in ("mixtral-8x22b", "grok-1-314b", "mamba2-2.7b",
-                 "zamba2-2.7b", "whisper-small", "internvl2-26b"):
+    for arch in ("mixtral-8x22b", "grok-1-314b", "whisper-small",
+                 "internvl2-26b"):
         cfg = get_config(arch, smoke=True)
         for call in (lambda: TL.init_params(gen, cfg),
                      lambda: TS.make_prefill_step(cfg, device="cpu"),
                      lambda: TL.init_cache(cfg, 1, 8, device="cpu")):
             with pytest.raises(NotImplementedError, match="ROADMAP A13"):
                 call()
-    with pytest.raises(NotImplementedError, match="ROADMAP B6"):
-        tops.ssd_scan(None, None, None, None, None)
+    # mamba2 and zamba2 (ssm, hybrid) and the SSD scan (B6) are ported
+    # (tests/test_torch_ssm.py, tests/test_torch_ssd.py)
+    for arch in ("mamba2-2.7b", "zamba2-2.7b"):
+        cfg = get_config(arch, smoke=True)
+        TL.init_params(gen, cfg)
+        TS.make_prefill_step(cfg, device="cpu")
+        TL.init_cache(cfg, 1, 8, device="cpu")
+    x = torch.ones((1, 16, 2, 4))
+    y = tops.ssd_scan(x, torch.ones((1, 16, 2)), -torch.ones(2),
+                      torch.ones((1, 16, 3)), torch.ones((1, 16, 3)), 8)
+    assert y.shape == x.shape and bool(torch.isfinite(y).all())
     # the pallas kernel against a sliding-window ring cache
     tcfg = dataclasses.replace(get_config("llama3-8b", smoke=True),
                                dtype="float32", attn_impl="pallas", window=4)

@@ -6,10 +6,17 @@ machine has no JAX).
 (f32 masters, layers stacked on a leading axis) with the same
 distributions for the matrices; norm weights are drawn near 1 rather than
 set to 1, so that a norm applied to the wrong axis or not at all shows.
-The JAX side takes the tree as it is; the port takes it through
-``repro_torch.convert.lm_params_from_jax``.
+For the Mamba2 kinds (ssm, hybrid) the ``ssm`` leaves the reference
+initialises to constants are drawn too: conv biases, ``D``, ``dt_bias``
+and ``norm_w`` away from 0 / 1 / log(e - 1), ``A_log`` = log of U(1, 16)
+(the reference's range), and conv_B and conv_C independently (the
+reference draws both from one key), so that a skipped term or a swap of B
+and C shows.  The JAX side takes the tree as it is; the port takes it
+through ``repro_torch.convert.lm_params_from_jax``.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 
@@ -17,9 +24,16 @@ import numpy as np
 #: llama3_smoke_serve_ref.json): llama3-8b SMOKE in f32, weights from
 #: ``lm_weights(cfg, SERVE_REF["seed"])``, prompt from ``prompt(...)``.
 SERVE_REF = dict(arch="llama3-8b", seed=0, batch=2, steps=8)
+#: The committed Mamba2 serve references (src/repro_torch/testdata/
+#: {mamba2,zamba2}_smoke_serve_ref.json): the SMOKE configs in f32, a
+#: prompt of ``steps`` tokens (two chunks of 16), ``new`` greedy tokens.
+SSM_SERVE_REF = {arch: dict(arch=arch, seed=0, batch=2, steps=32, new=4)
+                 for arch in ("mamba2-2.7b", "zamba2-2.7b")}
 
 
 def lm_weights(cfg, seed: int) -> dict:
+    if cfg.kind in ("ssm", "hybrid"):
+        return _ssm_lm_weights(cfg, seed)
     rng = np.random.default_rng(seed)
     d, ff, V, L, hd = cfg.d_model, cfg.d_ff, cfg.vocab, cfg.n_layers, cfg.hd
     H, K = cfg.n_heads, cfg.n_kv_heads
@@ -45,6 +59,48 @@ def lm_weights(cfg, seed: int) -> dict:
                             "wd": normal((L, ff, d), ff ** -0.5)}}}
     if not cfg.tie_embeddings:
         p["lm_head"] = normal((d, V), d ** -0.5)
+    return p
+
+
+def _ssm_lm_weights(cfg, seed: int) -> dict:
+    rng = np.random.default_rng(seed)
+    d, V, L = cfg.d_model, cfg.vocab, cfg.n_layers
+    d_in = cfg.ssm_expand * d
+    H, N, K = cfg.ssm_heads, cfg.ssm_state, cfg.ssm_conv
+
+    def normal(shape, scale, loc=0.0):
+        return (np.float32(loc) + rng.standard_normal(shape, dtype=np.float32)
+                * np.float32(scale)).astype(np.float32)
+
+    def norm(shape):
+        return normal(shape, 0.1, 1.0)
+
+    ssm = {"w_z": normal((L, d, d_in), d ** -0.5),
+           "w_x": normal((L, d, d_in), d ** -0.5),
+           "w_B": normal((L, d, N), d ** -0.5),
+           "w_C": normal((L, d, N), d ** -0.5),
+           "w_dt": normal((L, d, H), d ** -0.5),
+           "w_out": normal((L, d_in, d), d_in ** -0.5),
+           "conv_x": normal((L, K, d_in), 0.2),
+           "conv_B": normal((L, K, N), 0.2),
+           "conv_C": normal((L, K, N), 0.2),
+           "conv_bx": normal((L, d_in), 0.1),
+           "conv_bB": normal((L, N), 0.1),
+           "conv_bC": normal((L, N), 0.1),
+           "A_log": np.log(rng.uniform(1.0, 16.0, (L, H))).astype(np.float32),
+           "D": normal((L, H), 0.5, 1.0),
+           "dt_bias": normal((L, H), 0.5, np.log(np.e - 1)),
+           "norm_w": norm((L, d_in))}
+    p = {"embed": normal((V, d), 0.02), "final_norm": norm((d,)),
+         "layers": {"ln1": norm((L, d)), "ssm": ssm}}
+    if not cfg.tie_embeddings:
+        p["lm_head"] = normal((d, V), d ** -0.5)
+    if cfg.kind == "hybrid":
+        one = dataclasses.replace(cfg, kind="dense", n_layers=1)
+        shared = lm_weights(one, seed + 1)["layers"]
+        p["shared_attn"] = {k: ({n: a[0] for n, a in v.items()}
+                                if isinstance(v, dict) else v[0])
+                            for k, v in shared.items()}
     return p
 
 

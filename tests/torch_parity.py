@@ -1,7 +1,8 @@
 """Shared helpers for the port's parity tests (JAX reference vs repro_torch).
 
 Run as a script to regenerate the committed reference files (perm1024,
-incast1024 and the llama3-8b SMOKE serve reference) from the JAX package:
+incast1024, and the llama3-8b, mamba2-2.7b and zamba2-2.7b SMOKE serve
+references) from the JAX package:
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/torch_parity.py
 """
@@ -24,6 +25,8 @@ REF_DIR = ROOT / "src" / "repro_torch" / "testdata"
 REF_PATH = REF_DIR / "perm1024_strack_ref.json"
 INCAST_REF_PATH = REF_DIR / "incast1024_strack_ref.json"
 SERVE_REF_PATH = REF_DIR / "llama3_smoke_serve_ref.json"
+SSM_SERVE_REF_PATHS = {"mamba2-2.7b": REF_DIR / "mamba2_smoke_serve_ref.json",
+                       "zamba2-2.7b": REF_DIR / "zamba2_smoke_serve_ref.json"}
 
 #: Summary keys the reference files pin (ints exact, floats to 1e-6).
 REF_SUMMARY_KEYS = ("max_fct", "avg_fct", "unfinished", "drops", "pauses",
@@ -160,11 +163,46 @@ def llama3_smoke_serve_reference() -> dict:
                     naive, params, tokens, jnp.float32)))
 
 
+def ssm_smoke_serve_reference(arch: str) -> dict:
+    """The JAX package serving the SMOKE config of ``arch`` (mamba2-2.7b
+    or zamba2-2.7b) in f32, weights and prompt from ``torch_lm_weights``
+    (numpy seed ``SSM_SERVE_REF[arch]``): the prefill's last-position
+    logits with ``attn_impl="pallas"`` (zamba2's shared attention through
+    the Pallas kernel in interpret mode; the SSD through the model's
+    ``ssd_chunked``), the teacher-forced decode logits at every prompt
+    step from an f32 cache, and ``new`` greedy tokens after the prompt,
+    both with ``attn_impl="chunked"`` (the reference's pallas decode is
+    ROADMAP C6; at one query chunked attention is the naive one)."""
+    import dataclasses
+    import jax
+    import jax.numpy as jnp
+    from repro.runtime.serve import greedy_generate, make_prefill_step
+    from torch_lm_weights import SSM_SERVE_REF, prompt
+    ref = SSM_SERVE_REF[arch]
+    seed, B, T = ref["seed"], ref["batch"], ref["steps"]
+    cfg, params = jax_lm(arch, "float32", seed, attn_impl="pallas")
+    tokens = prompt(cfg, seed, B, T)
+    pre = jax.jit(make_prefill_step(cfg))(params,
+                                          {"tokens": jnp.asarray(tokens)})
+    chunked = dataclasses.replace(cfg, attn_impl="chunked")
+    greedy = greedy_generate(params, chunked, jnp.asarray(tokens),
+                             ref["new"], T + ref["new"])
+    rnd = lambda a: [float(f"{x:.9g}") for x in np.asarray(a).ravel()]
+    return dict(ref, dtype="float32", prompt=tokens.tolist(),
+                prefill_last_logits=rnd(pre),
+                decode_logits_f32_cache=rnd(jax_teacher_forced(
+                    chunked, params, tokens, jnp.float32)),
+                greedy_tokens=np.asarray(greedy).tolist())
+
+
 def write_references() -> None:
     REF_DIR.mkdir(parents=True, exist_ok=True)
-    for path, make in ((REF_PATH, perm1024_reference),
-                       (INCAST_REF_PATH, incast1024_reference),
-                       (SERVE_REF_PATH, llama3_smoke_serve_reference)):
+    makers = [(REF_PATH, perm1024_reference),
+              (INCAST_REF_PATH, incast1024_reference),
+              (SERVE_REF_PATH, llama3_smoke_serve_reference)]
+    makers += [(path, lambda a=arch: ssm_smoke_serve_reference(a))
+               for arch, path in SSM_SERVE_REF_PATHS.items()]
+    for path, make in makers:
         path.write_text(json.dumps(make(), sort_keys=True) + "\n")
         print(f"wrote {path}")
 
