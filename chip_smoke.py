@@ -7,7 +7,7 @@ kernel (and zamba2's shared attention through the flash kernel).
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing is caught):
-  1. build the five CUDA kernels (nvcc, sm_90a) from src/repro_torch;
+  1. build the six CUDA kernel sources (nvcc, sm_90a) from src/repro_torch;
   2. hold each fabric kernel against its plain PyTorch version on the card
      (ints and bools exact, float32 bit for bit): at perm1024 and perm8k
      shapes captured a few ticks into the run; at incast1024 ticks where
@@ -26,6 +26,29 @@ Phases (any failure exits non-zero; nothing is caught):
      ECN marks, retransmits, SACK recoveries, every done tick;
   5. scale: perm8k (8192 hosts) must finish every flow;
   6. fabric kernel times and bounds at the perm1024 shapes;
+  6b. RoCEv2 (DCQCN + go-back-N) and PFC on the fabric:
+     (a) the RoCEv2 transition kernel, the PFC NIC gate of the STrack
+         transition, serve/enqueue's paused rows and the PFC stage
+         (pfc_account) against their plain versions on the card, exact:
+         at 19 ticks of incast1024 under RoCEv2 + PFC (switch ports pause,
+         rows are gated and ungated, CNPs cut rates; the transition again
+         on the same inputs with every other NIC paused, which must hold
+         back offers), at ticks of incast1024 under STrack + PFC, of 4x4
+         incasts with a 200 KB buffer (paused NICs hold back offers) and of
+         a 15-sender STrack incast on a 2 us network (probes of paused NICs
+         withheld), and on random RoCEv2 and STrack flow states at 1024
+         lanes with half the NICs paused (RTOs, DCQCN timers, byte-counter
+         stages, rewinding NACKs, blocked probes must all occur);
+     (b) goldens perm16_roce / incast8_roce;
+     (c) perm1024 and incast1024 under RoCEv2 + PFC, incast1024 under
+         lossy RoCEv2 and under STrack + PFC, each with the launch counts
+         reset before and read after (exactly its path's kernels launch),
+         held exactly against its JAX-made reference file in
+         src/repro_torch/testdata/;
+     (d) perm8k under RoCEv2 must finish every flow;
+     (e) a [fabric] line: STrack against RoCEv2, FCTs and wall times;
+     then the new kernels' device times (CUDA-graph replays), bounds and
+     plain versions' times at incast1024's shapes;
   7. serve: llama3-8b, bf16, attn_impl="pallas", random weights from a
      CUDA generator (seed 0; 16 GB):
      (a) the flash-attention kernel against its plain version on the card
@@ -74,7 +97,9 @@ Phases (any failure exits non-zero; nothing is caught):
      and read after: prefill tokens/s, decode ms per step, peak memory;
   9. a `kernels` JSON line (launches on the main paths; each kernel's
      device time per call from torch.profiler, and the wrapper's wall time
-     per call; the plain version's device and wall time; the bound; for
+     per call; the plain version's device and wall time; the bound;
+     flow_transition_roce and pfc_account from phase 6b, and the PFC-path
+     `pfc_*` fields of flow_transition and serve_enqueue; for
      flash attention SDPA's time as `library_ms`, at the prefill-1000 and
      decode-544 shapes and at zamba2's hd 80; for the SSD scan at mamba2's
      prefill 4 x 1024 and 1 x 4096 inputs), the card's name and power
@@ -252,6 +277,34 @@ def device_ms(fn, reps: int = 20) -> tuple:
     return wall_ms(fn, reps), None
 
 
+def graph_ms(fn, reps: int = 50) -> float:
+    """Device time of one ``fn()`` call without the host: ``fn`` captured
+    once in a CUDA graph (after a warm-up on the capture's side stream)
+    and replayed ``reps`` times between two CUDA events.  For wrappers whose
+    host work per call (argument checks, allocation, ctypes) exceeds their
+    device work, where back-to-back calls time the host."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
 def bound_ms(n_bytes: float, n_ops: float,
              ops_per_s: float = FP32_OPS_PER_S) -> tuple:
     tb = n_bytes / HBM_BYTES_PER_S * 1e3
@@ -271,6 +324,406 @@ def own_device_ms(name: str, fn, reps: int = 20) -> float:
                and not any(own in k for own in OWN_KERNELS[name])]
     assert not foreign, (name, foreign)
     return ms
+
+
+#: The kernels each fabric path launches (the path fails unless each one
+#: did): STrack and RoCEv2 over lossy queues, and either under PFC.
+STRACK_KERNELS = ("flow_transition", "serve_enqueue", "rank_in_queue")
+ROCE_KERNELS = ("flow_transition_roce", "serve_enqueue", "rank_in_queue")
+
+
+def fabric_program(sc, cfg, dev):
+    """A bound ``FabricProgram`` of scenario ``sc`` under ``cfg`` (a
+    ``RunConfig``) on ``dev``, for dense ticking by hand."""
+    from repro_torch.sim.fabric import (FabricProgram, _arrival_array,
+                                        _flow_arrays)
+    from repro_torch.sim.workloads import _fabric_cfg, _scenario_ticks
+    fcfg = _fabric_cfg(sc, cfg)
+    prog = FabricProgram(sc.topo, len(sc.messages), _scenario_ticks(sc, cfg),
+                         fcfg, dev)
+    src, dst, total, tails, ent0 = _flow_arrays(sc.flows, fcfg)
+    prog.bind(src, dst, total, tails, _arrival_array(sc.messages),
+              fcfg.lb_mode, ent0)
+    return prog
+
+
+def hold_against_reference(name, sc, cfg, kernels) -> tuple:
+    """Run ``sc`` under ``cfg`` through the port on the card, the launch
+    counts reset just before and read just after, and hold it exactly
+    against ``src/repro_torch/testdata/<name>_ref.json`` (made by the JAX
+    package): every summary key the file has (floats to 1e-6), warp trips,
+    end tick, every done tick.  Fails unless each kernel of ``kernels``
+    launched, and unless no other fabric kernel did.  Returns
+    ``(launches, summary, wall seconds)``."""
+    import torch
+    from repro_torch.kernels import fabric_kernels as fk
+    from repro_torch.sim.fabric import run_fabric_trace, summarize
+    from repro_torch.sim.workloads import _fabric_cfg, _scenario_ticks
+    ref = json.loads((TESTDATA / f"{name}_ref.json").read_text())
+    n_ticks = _scenario_ticks(sc, cfg)
+    assert n_ticks == ref["n_ticks"], (name, n_ticks, ref["n_ticks"])
+    torch.cuda.synchronize()
+    fk.reset_launches()
+    t0 = time.time()
+    _, m = run_fabric_trace(sc.topo, sc.messages, n_ticks,
+                            _fabric_cfg(sc, cfg), device="cuda")
+    wall = time.time() - t0
+    launches = dict(fk.launches)
+    s = summarize(m)
+    got = {k: list(s[k]) if isinstance(s[k], tuple) else s[k]
+           for k in ref if k in s}
+    got.update(warp_trips=m["warp_trips"], end_tick=m["end_tick"],
+               n_ticks=n_ticks, done_tick=[int(v) for v in m["done_tick"]])
+    for k, v in ref.items():
+        if isinstance(v, float):
+            assert math.isclose(got[k], v, rel_tol=1e-6), (name, k, got[k], v)
+        else:
+            assert got[k] == v, (name, k)
+    for k, c in launches.items():
+        assert (c > 0) == (k in kernels), \
+            f"{name}: the {k} kernel launched {c} times"
+    log(f"[{name}] matches the JAX reference (unfinished 0, drops "
+        f"{s['drops']}, pauses {s['pauses']}, ecn_marks {s['ecn_marks']}, "
+        f"retransmits {s['retransmits']}, rto_fires {s['rto_fires']}, "
+        f"sack_recoveries {s['sack_recoveries']}, gbn_rewinds "
+        f"{s['gbn_rewinds']}, warp_trips={m['warp_trips']}, end_tick "
+        f"{m['end_tick']}, all {len(got['done_tick'])} done ticks); wall "
+        f"{wall:.3f}s, {m['warp_trips'] / wall:.1f} trips/s; launches "
+        f"{launches}")
+    return launches, s, wall
+
+
+def roce_pfc(dev, strack: dict) -> tuple:
+    """Phase 6b: RoCEv2 (DCQCN + go-back-N) and PFC on the fabric.
+
+    ``strack`` holds phase 4's STrack summaries and wall times of perm1024
+    and incast1024, for the comparison line.  Returns the ``kernels``
+    entries of ``flow_transition_roce`` and ``pfc_account``, and the
+    PFC-path fields of the ``flow_transition`` and ``serve_enqueue``
+    entries (``pfc_*``)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.cc import CCState
+    from repro_torch.core.lb import SprayState
+    from repro_torch.core.params import NetworkSpec
+    from repro_torch.core.reliability import RelState, SackMsg
+    from repro_torch.core.transport import FlowState
+    from repro_torch.kernels import fabric_kernels as fk
+    from repro_torch.numerics import Now
+    from repro_torch.sim import dcqcn_fab as dq
+    from repro_torch.sim.topology import full_bisection
+    from repro_torch.sim.workloads import (RunConfig, incast_scenario,
+                                           permutation_scenario, run)
+    from torch_states import (random_cc, random_rel, random_roce_flow,
+                              random_roce_msg, random_sack, random_spray)
+
+    net400 = NetworkSpec(link_gbps=400.0)
+    t32, t44 = full_bisection(32, 32), full_bisection(4, 4)
+    perm1024 = permutation_scenario(t32, 64 * 2 ** 10, net=net400, seed=0)
+    incast1024 = incast_scenario(t32, 256, 16 * 2 ** 10, net=net400)
+    roce, roce_lossy = RunConfig(protocol="rocev2"), RunConfig(
+        protocol="rocev2", pfc=False)
+    strack_pfc = RunConfig(pfc=True)
+    max_err = dict.fromkeys(("flow_transition", "flow_transition_roce",
+                             "serve_enqueue", "rank_in_queue",
+                             "pfc_account"), 0.0)
+    captured = {}
+
+    def same(key, what, a, b):
+        max_err[key] = max(max_err[key], assert_same(what, a, b))
+
+    def transition(label, prog, targs, seen):
+        name = ("flow_transition_roce" if prog.proto.name == "rocev2"
+                else "flow_transition")
+        out_k = fk.flow_transition(*targs)
+        same(name, f"{label} {name} t={targs[4]}", out_k,
+             fk.flow_transition_plain(*targs))
+        eff_nic = targs[6]
+        _, tx, ptx, pv, sel, can = out_k
+        paused = (eff_nic[prog.src.long()] if eff_nic is not None
+                  else torch.zeros_like(sel))
+        seen["nic_paused"] += int(eff_nic.sum()) if eff_nic is not None \
+            else 0
+        seen["withheld"] += int((can & paused & ~sel).sum())
+        seen["blocked_probes"] += int((ptx.valid & paused).sum())
+        if prog.proto.name == "rocev2":
+            fl_in, due = targs[0], targs[1]
+            seen["cnp"] += int((due.valid & due.cnp).sum())
+            seen["rate_cut"] += int((out_k[0].rate < fl_in.rate).sum())
+        return out_k
+
+    def check_tick(label, prog, st, t, seen, forced_nic=None):
+        """Every fabric kernel against its plain version at tick ``t`` of
+        a dense run; with ``forced_nic``, the transition once more on the
+        same inputs with that NIC pause mask."""
+        eff_nic, prow = prog.eff_pause(st, t)
+        targs = prog.transport_args(st, t, prog.sendable_msg(st, t), eff_nic)
+        out_k = transition(label, prog, targs, seen)
+        if forced_nic is not None:
+            transition(label + " (NICs paused)", prog,
+                       targs[:6] + (forced_nic,), seen["forced"])
+        _, tx, ptx, pv, sel, _ = out_k
+        sargs, _, _ = prog.serve_args(st, t, tx, ptx, sel, pv, prow)
+        rings = [type(st.q)(*[f.clone() for f in st.q]) for _ in range(2)]
+        res_k = fk.serve_enqueue(rings[0], *sargs[1:])
+        same("serve_enqueue", f"{label} serve_enqueue t={t}", res_k,
+             fk.serve_enqueue_plain(rings[1], *sargs[1:]))
+        same("serve_enqueue", f"{label} ring t={t}",
+             [f[:prog.Q] for f in rings[0]], [f[:prog.Q] for f in rings[1]])
+        qid, accept = res_k[6], res_k[7]
+        same("rank_in_queue", f"{label} rank_in_queue t={t}",
+             fk.rank_in_queue(qid, accept, prog.Q),
+             fk.rank_in_queue_plain(qid, accept, prog.Q))
+        pargs = (prog.pfc_state(st), res_k[3], res_k[2], res_k[5], qid,
+                 res_k[9], accept, rings[0], res_k[0], st.qsize, res_k[1], t,
+                 prog.pfc_flows, prog.pfc_dims)
+        pfc_k = fk.pfc_account(*pargs)
+        same("pfc_account", f"{label} pfc_account t={t}", pfc_k,
+             fk.pfc_account_plain(*pargs))
+        seen["gated"] += int((prow & (st.qsize[:prog.Q] > 0)).sum())
+        seen["served"] += int(res_k[3].sum())
+        seen["new_pauses"] += int(pfc_k.pauses) - int(st.pauses)
+        return targs, sargs, rings[0], pargs
+
+    def walk(label, sc, cfg, ticks, capture_at=None, forced_nic=False):
+        prog = fabric_program(sc, cfg, dev)
+        st = prog.init_state()
+        seen = dict.fromkeys(("nic_paused", "withheld", "blocked_probes",
+                              "cnp", "rate_cut", "gated", "served",
+                              "new_pauses"), 0)
+        seen["forced"] = dict.fromkeys(("nic_paused", "withheld",
+                                        "blocked_probes", "cnp",
+                                        "rate_cut"), 0)
+        mask = None
+        if forced_nic:   # every other NIC paused
+            mask = torch.arange(prog.NH, device=dev) % 2 == 0
+        for t in range(max(ticks) + 1):
+            if t in ticks:
+                r = check_tick(label, prog, st, t, seen, mask)
+                if t == capture_at:
+                    captured[label] = (prog, r)
+            st, _, _ = prog.tick(st, t)
+        torch.cuda.synchronize()
+        log(f"[roce/pfc] {label}: transition, serve_enqueue, rank_in_queue "
+            f"and pfc_account match their plain versions at ticks "
+            f"{sorted(ticks)}; summed over those ticks {seen}")
+        return seen
+
+    # (a) kernels against their plain versions: incast1024 under RoCEv2 +
+    # PFC: the senders offer at 0-2, switch ports pause at 61-72 and gate
+    # their rows from 73, CNPs reach the senders at 65-70 and 98-126 (no
+    # NIC pauses in this cell, so the transition also runs on the same
+    # inputs with every other NIC paused); STrack + PFC on the same
+    # incast; incasts on the 4x4 fabric
+    # with a 200 KB buffer, where paused NICs hold back offers from tick
+    # 21; a 15-sender STrack incast on a 2 us network, where probes of
+    # paused NICs are withheld from tick 80
+    seen = walk("incast1024 rocev2", incast1024, roce,
+                {0, 1, 2, 61, 62, 64, 65, 66, 67, 72, 73, 98, 99, 100, 104,
+                 110, 126, 300, 640}, capture_at=100, forced_nic=True)
+    assert seen["cnp"] > 0 and seen["rate_cut"] > 0, seen
+    assert seen["gated"] > 0 and seen["served"] > 0, seen
+    assert seen["new_pauses"] > 0, seen
+    f = seen["forced"]
+    assert f["nic_paused"] > 0 and f["withheld"] > 0, seen
+    walk("incast1024 strack pfc", incast1024, strack_pfc, {40, 60, 64, 80},
+         capture_at=64)
+    small = dict(switch_buffer_bytes=2e5)
+    incast8 = incast_scenario(t44, 8, 512 * 2 ** 10, net=net400)
+    for proto in ("rocev2", "strack"):
+        seen = walk(f"incast8 {proto} pfc 200KB", incast8,
+                    RunConfig(protocol=proto, pfc=True, **small),
+                    {21, 25, 30, 40, 60, 100})
+        assert seen["nic_paused"] > 0 and seen["withheld"] > 0, seen
+        assert seen["gated"] > 0 and seen["new_pauses"] > 0, seen
+    net2 = NetworkSpec(link_gbps=400.0, base_rtt_us=2.0)
+    seen = walk("incast15 strack pfc 200KB rtt 2us",
+                incast_scenario(t44, 15, 512 * 2 ** 10, net=net2),
+                RunConfig(pfc=True, **small), {80, 88, 96, 144, 192})
+    assert seen["blocked_probes"] > 0 and seen["withheld"] > 0, seen
+
+    # random RoCEv2 and STrack flow states at 1024 lanes, half the NICs
+    # paused: RTOs, DCQCN timers, byte-counter stages, rewinding NACKs
+    rng = np.random.default_rng(0)
+    cuda = lambda d: {k: torch.from_numpy(np.array(v)).to(dev)
+                      for k, v in d.items()}
+    dims_r = fabric_program(perm1024, roce, dev).trans_dims
+    dims_s = fabric_program(perm1024, strack_pfc, dev).trans_dims
+    n = dims_r.n_real
+    seen = dict(rto=0, alpha_timer=0, rate_timer=0, byte_stage=0, rewind=0,
+                withheld=0)
+    seen_s = dict(blocked_probes=0, withheld=0, probes=0)
+    for t in (2400, 2401, 2403, 2408):   # timer ticks: t % 8 == 0
+        now = float(Now(t, dims_r.tick_us))
+        sendable = torch.from_numpy(rng.random(n) < 0.9).to(dev)
+        src = torch.from_numpy(rng.integers(0, n // 4, n).astype(np.int32)
+                               ).to(dev)
+        eff_nic = torch.from_numpy(rng.random(n) < 0.5).to(dev)
+        flow = random_roce_flow(rng, n, dims_r.p, now)
+        fl = dq.RoceFlow(**cuda(flow))
+        due = dq.RoceMsg(**cuda(random_roce_msg(rng, n, flow)))
+        targs = (fl, due, sendable, src, t, dims_r, eff_nic)
+        out = fk.flow_transition(*targs)
+        same("flow_transition_roce", f"random RoceFlow t={t}", out,
+             fk.flow_transition_plain(*targs))
+        o = out[0]
+        seen["rto"] += int((o.rto_fires > fl.rto_fires).sum())
+        seen["alpha_timer"] += int(((o.last_alpha_ts != fl.last_alpha_ts)
+                                    & ~(due.valid & due.cnp)).sum())
+        seen["rate_timer"] += int((o.t_stage > fl.t_stage).sum())
+        seen["byte_stage"] += int((out[4] & (o.b_stage > fl.b_stage)).sum())
+        seen["rewind"] += int((o.gbn_rewinds > fl.gbn_rewinds).sum())
+        seen["withheld"] += int((out[5] & ~out[4]
+                                 & eff_nic[src.long()]).sum())
+        rel_d = random_rel(rng, n, dims_s.p)
+        flows = FlowState(cc=CCState(**cuda(random_cc(rng, n, dims_s.p))),
+                          spray=SprayState(**cuda(random_spray(rng, n,
+                                                               dims_s.p))),
+                          rel=RelState(**cuda(rel_d)))
+        sdue = SackMsg(**cuda(random_sack(rng, n, dims_s.p, rel_d, now)))
+        targs = (flows, sdue, sendable, src, t, dims_s, eff_nic)
+        out = fk.flow_transition(*targs)
+        same("flow_transition", f"random FlowState under PFC t={t}", out,
+             fk.flow_transition_plain(*targs))
+        paused = eff_nic[src.long()]
+        seen_s["blocked_probes"] += int((out[2].valid & paused).sum())
+        seen_s["probes"] += int(out[3].sum())
+        seen_s["withheld"] += int((out[5] & ~out[4] & paused).sum())
+    torch.cuda.synchronize()
+    assert all(v > 0 for v in seen.values()), seen
+    assert all(v > 0 for v in seen_s.values()), seen_s
+    log(f"[roce/pfc] flow_transition_roce matches its plain version on "
+        f"random RoceFlow states at {n} lanes: {seen}; flow_transition's "
+        f"PFC gate on random STrack states: {seen_s}")
+
+    # (b) goldens
+    for name, sc in (("perm16_roce", permutation_scenario(
+            t44, 256 * 2 ** 10, net=net400, seed=0)),
+                     ("incast8_roce", incast8)):
+        want = json.loads((ROOT / "tests" / "golden" / f"{name}.json")
+                          .read_text())
+        t0 = time.time()
+        got = run(sc, roce, device="cuda")
+        for k, v in want.items():
+            if isinstance(v, float):
+                assert math.isclose(got[k], v, rel_tol=1e-6), (name, k,
+                                                               got[k], v)
+            else:
+                assert got[k] == v, (name, k, got[k], v)
+        log(f"[golden] {name}: {want} matched in {time.time() - t0:.2f}s "
+            f"({got['warp_trips']} warp trips)")
+
+    # (c) the full-width runs against their JAX-made reference files
+    pfc_kernels = ROCE_KERNELS + ("pfc_account",)
+    runs = {}
+    runs["perm1024"] = hold_against_reference(
+        "perm1024_rocev2", perm1024, roce, pfc_kernels)
+    runs["incast1024"] = hold_against_reference(
+        "incast1024_rocev2", incast1024, roce, pfc_kernels)
+    hold_against_reference("incast1024_rocev2_lossy", incast1024, roce_lossy,
+                           ROCE_KERNELS)
+    l_spfc = hold_against_reference(
+        "incast1024_strack_pfc", incast1024, strack_pfc,
+        STRACK_KERNELS + ("pfc_account",))[0]
+
+    # (d) scale: perm8k under RoCEv2
+    perm8k = permutation_scenario(full_bisection(128, 64), 64 * 2 ** 10,
+                                  net=net400, seed=0)
+    t0 = time.time()
+    r8k = run(perm8k, roce, device="cuda")
+    torch.cuda.synchronize()
+    wall8k = time.time() - t0
+    assert r8k["unfinished"] == 0, r8k["unfinished"]
+    log(f"[perm8k rocev2] 8192 flows, unfinished 0, max_fct "
+        f"{r8k['max_fct']:.4f} us, pauses {r8k['pauses']}; wall "
+        f"{wall8k:.3f}s, warp trips {r8k['warp_trips']}, "
+        f"{r8k['warp_trips'] / wall8k:.1f} trips/s")
+
+    # (e) STrack against RoCEv2 (printed, not gated)
+    for name in ("perm1024", "incast1024"):
+        (s_s, w_s), (_, s_r, w_r) = strack[name], runs[name]
+        log(f"[fabric] {name}: STrack avg/max FCT {s_s['avg_fct']:.4f} / "
+            f"{s_s['max_fct']:.4f} us, wall {w_s:.3f}s; RoCEv2+PFC "
+            f"{s_r['avg_fct']:.4f} / {s_r['max_fct']:.4f} us, wall "
+            f"{w_r:.3f}s")
+
+    # kernel times and bounds at incast1024's shapes (RoCEv2 + PFC at tick
+    # 100; STrack + PFC at tick 64 for flow_transition's PFC path).  Late
+    # in this process the profiler loses records (section 7 of PERF.md),
+    # so the kernels' device time comes from CUDA-graph replays
+    # (``graph_ms``); the plain versions' from ``device_ms``
+    l_roce = runs["incast1024"][0]
+    prog, (targs, sargs, ring, pargs) = captured["incast1024 rocev2"]
+    _, (targs_s, _, _, _) = captured["incast1024 strack pfc"]
+    out_r = fk.flow_transition(*targs)
+    out_s = fk.flow_transition(*targs_s)
+    res_k = fk.serve_enqueue(type(ring)(*[f.clone() for f in ring]),
+                             *sargs[1:])
+    pfc_k = fk.pfc_account(*pargs)
+    ring_k = type(ring)(*[f.clone() for f in ring])
+    ring_p = type(ring)(*[f.clone() for f in ring])
+    slot_bytes = sum(f.element_size() for f in ring)
+    Q, M = prog.Q, res_k[6].numel()
+    n_acc = int(res_k[7].sum())
+    s_bytes = (2 * 4 * (Q + 1) + Q * slot_bytes + nbytes(sargs[3:17])
+               + Q + nbytes(res_k) + n_acc * slot_bytes)
+    # the PFC stage reads has, the popped flow and spine lanes and bytes
+    # (Q rows), accept and the candidate bytes (M), qhead and both qsizes,
+    # the accepted ring slots' flow/psn/probe, the per-flow inputs and the
+    # state, and writes the state
+    p_bytes = (nbytes(pargs[0]) + Q * 13 + M * 5 + 3 * 4 * (Q + 1)
+               + n_acc * 9 + nbytes(pargs[12]) + nbytes(pfc_k))
+    calls = {
+        "flow_transition_roce": (lambda: fk.flow_transition(*targs),
+                                 lambda: fk.flow_transition_plain(*targs),
+                                 bound_ms(nbytes(targs[:4]) + nbytes(targs[6])
+                                          + nbytes(out_r),
+                                          targs[2].numel() * 40)),
+        "flow_transition": (lambda: fk.flow_transition(*targs_s),
+                            lambda: fk.flow_transition_plain(*targs_s),
+                            bound_ms(nbytes(targs_s[:4]) + nbytes(targs_s[6])
+                                     + nbytes(out_s),
+                                     targs_s[2].numel() * (2 * 512 + 64))),
+        "serve_enqueue": (lambda: fk.serve_enqueue(ring_k, *sargs[1:]),
+                          lambda: fk.serve_enqueue_plain(ring_p, *sargs[1:]),
+                          bound_ms(s_bytes, Q * 40 + M * 20)),
+        "pfc_account": (lambda: fk.pfc_account(*pargs),
+                        lambda: fk.pfc_account_plain(*pargs),
+                        bound_ms(p_bytes, Q * 8 + M * 4)),
+    }
+    csrc = "src/repro_torch/kernels/csrc"
+    entries, paths = [], {}
+    for name, (kern, plain, (bnd, by)) in calls.items():
+        ms = graph_ms(kern)
+        plain_ms, _ = device_ms(plain, reps=10)
+        row = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bnd,
+               "bound_by": by, "wall_ms": wall_ms(kern),
+               "plain_wall_ms": wall_ms(plain, reps=10)}
+        if name == "flow_transition_roce":
+            entries.append({
+                "name": name, "route": "cuda",
+                "source": f"{csrc}/transition_roce.cu",
+                "replaces": "src/repro/kernels/fabric_kernels.py:191",
+                "launches": l_roce[name], "max_abs_err": max_err[name],
+                "library_ms": None, **row})
+        elif name == "pfc_account":
+            entries.append({
+                "name": name, "route": "cuda",
+                "source": f"{csrc}/serve_enqueue.cu",
+                "replaces": "src/repro/sim/fabric.py:1741",
+                "launches": l_roce[name], "max_abs_err": max_err[name],
+                "library_ms": None, **row})
+        else:
+            launches = (l_spfc if name == "flow_transition" else l_roce)[name]
+            paths[name] = {f"pfc_{k}": v for k, v in row.items()}
+            paths[name].update(pfc_launches=launches,
+                               pfc_max_abs_err=max_err[name],
+                               pfc_shape=("incast1024 strack pfc t=64"
+                                          if name == "flow_transition" else
+                                          "incast1024 rocev2 t=100"))
+    paths.setdefault("rank_in_queue", {})["pfc_max_abs_err"] = \
+        max_err["rank_in_queue"]
+    return entries, paths
 
 
 def rel_l2(a, b) -> float:
@@ -889,12 +1342,8 @@ def main() -> int:
     from repro_torch.kernels import fabric_kernels as fk
     from repro_torch.kernels._build import build_all
     from repro_torch.numerics import Now
-    from repro_torch.sim.fabric import FabricProgram, run_fabric_trace, \
-        summarize, _flow_arrays, _arrival_array
     from repro_torch.sim.topology import full_bisection
-    from repro_torch.sim.workloads import (RunConfig, _fabric_cfg,
-                                           _scenario_ticks,
-                                           incast_scenario,
+    from repro_torch.sim.workloads import (RunConfig, incast_scenario,
                                            permutation_scenario, run)
     from torch_states import random_cc, random_rel, random_sack, \
         random_spray
@@ -913,13 +1362,7 @@ def main() -> int:
 
     # ---- 2. kernels vs plain versions on the card -------------------------
     def program(sc, cfg):
-        fcfg = _fabric_cfg(sc, cfg)
-        prog = FabricProgram(sc.topo, len(sc.messages),
-                             _scenario_ticks(sc, cfg), fcfg, dev)
-        src, dst, total, tails = _flow_arrays(sc.flows, fcfg)
-        prog.bind(src, dst, total, tails, _arrival_array(sc.messages),
-                  fcfg.lb_mode)
-        return prog
+        return fabric_program(sc, cfg, dev)
 
     timing = {}
     max_err = {"flow_transition": 0.0, "serve_enqueue": 0.0,
@@ -1081,41 +1524,10 @@ def main() -> int:
             f"({got['warp_trips']} warp trips)")
 
     # ---- 4. full width: perm1024 (the main path), then incast1024 ----------
-    def hold_against_reference(name, sc):
-        ref = json.loads((TESTDATA / f"{name}_strack_ref.json").read_text())
-        cfg = RunConfig()
-        n_ticks = _scenario_ticks(sc, cfg)
-        assert n_ticks == ref["n_ticks"], (name, n_ticks, ref["n_ticks"])
-        torch.cuda.synchronize()
-        fk.reset_launches()
-        t0 = time.time()
-        _, m = run_fabric_trace(sc.topo, sc.messages, n_ticks,
-                                _fabric_cfg(sc, cfg), device="cuda")
-        wall = time.time() - t0
-        launches = dict(fk.launches)
-        s = summarize(m)
-        got = {k: s[k] for k in ref if k in s}
-        got.update(warp_trips=m["warp_trips"], end_tick=m["end_tick"],
-                   n_ticks=n_ticks,
-                   done_tick=[int(v) for v in m["done_tick"]])
-        for k, v in ref.items():
-            if isinstance(v, float):
-                assert math.isclose(got[k], v, rel_tol=1e-6), (name, k,
-                                                               got[k], v)
-            else:
-                assert got[k] == v, (name, k)
-        for k, c in launches.items():
-            assert c > 0, f"{name} never launched the {k} kernel"
-        log(f"[{name}] matches the JAX reference (unfinished, drops "
-            f"{s['drops']}, ecn_marks {s['ecn_marks']}, retransmits "
-            f"{s['retransmits']}, sack_recoveries {s['sack_recoveries']}, "
-            f"warp_trips={m['warp_trips']}, end_tick, all "
-            f"{len(got['done_tick'])} done ticks); wall {wall:.3f}s, "
-            f"{m['warp_trips'] / wall:.1f} trips/s; launches {launches}")
-        return launches
-
-    launches = hold_against_reference("perm1024", perm1024)
-    hold_against_reference("incast1024", incast1024)
+    launches, s_perm, w_perm = hold_against_reference(
+        "perm1024_strack", perm1024, RunConfig(), STRACK_KERNELS)
+    _, s_inc, w_inc = hold_against_reference(
+        "incast1024_strack", incast1024, RunConfig(), STRACK_KERNELS)
 
     # ---- 5. scale: perm8k --------------------------------------------------
     t0 = time.time()
@@ -1172,7 +1584,19 @@ def main() -> int:
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd,
             "bound_by": by, "library_ms": None,
             "wall_ms": wall_ms(kern), "plain_wall_ms": wall_ms(plain,
-                                                               reps=10)})
+                                                               reps=10),
+            "graph_ms": graph_ms(kern)})
+
+    # ---- 6b. RoCEv2 (DCQCN + go-back-N) and PFC on the fabric ------------
+    pfc_entries, pfc_paths = roce_pfc(
+        dev, {"perm1024": (s_perm, w_perm), "incast1024": (s_inc, w_inc)})
+    for entry in kernels:
+        entry.update(pfc_paths.get(entry["name"], {}))
+        entry["max_abs_err"] = max(entry["max_abs_err"], entry.get(
+            "pfc_max_abs_err", 0.0))
+    kernels[1:1] = pfc_entries[:1]
+    kernels.extend(pfc_entries[1:])
+    torch.cuda.empty_cache()
 
     # ---- 7. serve: llama3-8b through the flash-attention kernel -----------
     kernels.append(serve(dev))

@@ -1,9 +1,10 @@
 """Carry state between the JAX reference and the port.
 
 The reference's state pytrees (``FlowState``, ``ReceiverState``,
-``SackMsg``, ``PktQ``, ``FabricState``), given with numpy (or any
-array-like) leaves, become the port's NamedTuples of tensors with the
-same field names and dtypes, and back: :func:`to_numpy` returns the
+``SackMsg``, ``PktQ``, ``FabricState``, and RoCEv2's ``RoceFlow``,
+``RoceRcv``, ``RoceMsg``), given with numpy (or any array-like) leaves,
+become the port's NamedTuples of tensors with the same field names and
+dtypes, and back: :func:`to_numpy` returns the
 port's classes with numpy leaves, so a test can diff the two packages
 leaf by leaf after feeding both the same state.  :func:`lm_params_from_jax`
 carries a language model's weights across.
@@ -22,6 +23,7 @@ from .models import layers as L
 from .models.config import ModelConfig
 from .models.lm import require_ported
 from .models.ssm import BF16, PROJECTIONS
+from .sim.dcqcn_fab import RoceFlow, RoceMsg, RoceRcv
 from .sim.fabric import FabricState, PktQ
 
 #: Sub-tree classes of the nested state tuples, by field name.
@@ -30,6 +32,10 @@ _NESTED = {
     FabricState: {"flows": FlowState, "rcv": ReceiverState, "q": PktQ,
                   "pipe": SackMsg},
 }
+#: The port's class of a sub-tree whose class the field does not fix (a
+#: fabric state's flows, receivers and pipe under RoCEv2), by class name.
+_BY_NAME = {c.__name__: c for c in (FlowState, ReceiverState, SackMsg,
+                                    RoceFlow, RoceRcv, RoceMsg)}
 
 
 def to_torch(tree, cls, device="cpu"):
@@ -40,7 +46,8 @@ def to_torch(tree, cls, device="cpu"):
     for name in cls._fields:
         v = getattr(tree, name)
         if name in kids:
-            vals.append(to_torch(v, kids[name], device))
+            kid = _BY_NAME.get(type(v).__name__, kids[name])
+            vals.append(to_torch(v, kid, device))
         else:
             vals.append(torch.from_numpy(np.array(v)).to(device))
     return cls(*vals)

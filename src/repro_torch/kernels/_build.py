@@ -19,8 +19,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("transition", "serve_enqueue", "rank", "flash_attention",
-           "ssd_scan")
+SOURCES = ("transition", "transition_roce", "serve_enqueue", "rank",
+           "flash_attention", "ssd_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-lineinfo")
 

@@ -1,7 +1,8 @@
 """ctypes bindings of the CUDA kernels' C entry points.
 
 The structs below mirror, field for field, the ones declared in
-``csrc/transition.cu`` and ``csrc/serve_enqueue.cu``; the kernels take
+``csrc/transition.cu``, ``csrc/transition_roce.cu`` and
+``csrc/serve_enqueue.cu``; the kernels take
 pointers from ``Tensor.data_ptr()`` and PyTorch's current stream.  Every
 output and scratch buffer is allocated here with ``torch.empty``, after
 the inputs' device, dtype, shape and contiguity are checked.
@@ -18,7 +19,9 @@ from ..core.lb import SprayState
 from ..core.reliability import REORDER_WINDOW, RelState, SackMsg
 from ..core.transport import FlowState, TxPacket
 from ..numerics import Now, f32, now_plus, recip32
-from .fabric_kernels import PktQ, _check, _launch, _stream, rank_in_queue
+from ..sim.dcqcn_fab import RoceFlow, RoceMsg
+from .fabric_kernels import (PfcState, PktQ, _check, _launch, _stream,
+                             rank_in_queue)
 
 
 def _ptrs(name, fields):
@@ -52,6 +55,22 @@ TransScratch = _ptrs("TransScratch", (
     "np_bitmap", "np_rr", "np_last_reset"))
 
 
+class RoceParams(Structure):
+    _fields_ = ([(n, c_int) for n in ("t", "timer_tick", "N", "NH", "NR",
+                                      "F")]
+                + [(n, c_float) for n in (
+                    "now", "pace_at", "rto_at", "rto_rearm", "window", "mtu",
+                    "byte_counter", "hai", "rai", "max_rate", "min_rate",
+                    "keep", "g", "alpha_timer", "rate_timer", "eps")])
+
+
+RoceFlowPtrs = _ptrs("RoceFlowPtrs", RoceFlow._fields)
+RoceMsgPtrs = _ptrs("RoceMsgPtrs", RoceMsg._fields)
+RoceScratch = _ptrs("RoceScratch", (
+    "best", "score", "np_rate", "np_target", "np_bytes_ctr",
+    "np_next_send_ts", "np_b_stage"))
+
+
 class ServeParams(Structure):
     _fields_ = ([(n, c_int) for n in ("t", "Q", "TS", "T", "S", "N", "M",
                                       "cap", "K", "data_drop", "hard")]
@@ -62,17 +81,31 @@ class ServeParams(Structure):
 _RING_FIELDS = ("flow", "psn", "ts", "probe", "ecn", "ent", "ready", "spine")
 Ring = _ptrs("Ring", _RING_FIELDS)
 Cands = _ptrs("Cands", ("qid", "valid", "flow", "psn", "ts", "probe", "ecn",
-                        "ent", "spine"))
+                        "ent", "spine", "bytes"))
 ServeIn = _ptrs("ServeIn", (
     "qhead", "qsize", "dst", "dst_tor", "total_pkts", "tail_b", "tx_psn",
     "probe_psn", "ent_d", "ent_p", "spine_d", "spine_p", "sel",
-    "probe_valid", "inj_q", "inj_qp"))
+    "probe_valid", "inj_q", "inj_qp", "paused_row"))
 
 
 class ServeOut(Structure):
     _fields_ = [("pop", Ring), ("has", c_void_p), ("ecn_out", c_void_p),
                 ("pop_bytes", c_void_p), ("qhead", c_void_p),
                 ("qsize", c_void_p), ("qsize1", c_void_p)]
+
+
+class PfcParams(Structure):
+    _fields_ = ([(n, c_int) for n in ("Q", "TS", "T", "S", "NH", "HPT", "N",
+                                      "cap", "PD", "line_row")]
+                + [(n, c_float) for n in ("buf", "alpha", "inv", "xon", "mtu",
+                                          "ack_bytes")])
+
+
+PfcIn = _ptrs("PfcIn", (
+    "has", "pop_flow", "pop_bytes", "pop_spine", "accept", "cand_bytes",
+    "ring_flow", "ring_psn", "ring_probe", "qhead", "qsize0", "qsize", "src",
+    "src_tor", "same_tor", "total_pkts", "tail_b", "by_src", "src_start"))
+PfcPtrs = _ptrs("PfcPtrs", PfcState._fields)
 
 
 def declare(name: str, lib: ctypes.CDLL) -> None:
@@ -85,8 +118,14 @@ def declare(name: str, lib: ctypes.CDLL) -> None:
     elif name == "transition":
         lib.strack_transition.argtypes = [
             P(TransParams), P(FlowPtrs), P(SackPtrs), c_void_p, c_void_p,
-            P(FlowPtrs), P(TransOut), P(TransScratch), c_void_p]
+            c_void_p, P(FlowPtrs), P(TransOut), P(TransScratch), c_void_p]
         lib.strack_transition.restype = c_int
+    elif name == "transition_roce":
+        lib.roce_transition.argtypes = [
+            P(RoceParams), P(RoceFlowPtrs), P(RoceMsgPtrs), c_void_p,
+            c_void_p, c_void_p, P(RoceFlowPtrs), P(TransOut),
+            P(RoceScratch), c_void_p]
+        lib.roce_transition.restype = c_int
     elif name == "serve_enqueue":
         lib.se_serve.argtypes = [P(ServeParams), P(Ring), P(ServeIn),
                                  P(ServeOut), P(Cands), c_void_p]
@@ -95,14 +134,17 @@ def declare(name: str, lib: ctypes.CDLL) -> None:
         lib.se_place.argtypes = [P(ServeParams), P(Cands), c_void_p,
                                  c_void_p, c_void_p, c_void_p, P(Ring),
                                  c_void_p, c_void_p]
-        for fn in (lib.se_serve, lib.se_accept, lib.se_place):
+        lib.se_pfc.argtypes = [P(PfcParams), P(PfcIn), P(PfcPtrs),
+                               P(PfcPtrs), c_void_p]
+        for fn in (lib.se_serve, lib.se_accept, lib.se_place, lib.se_pfc):
             fn.restype = c_int
     else:
         raise ValueError(name)
 
 
-def _p(t: torch.Tensor) -> int:
-    return t.data_ptr()
+def _p(t) -> int:
+    """A tensor's device pointer; ``None`` is the null pointer."""
+    return 0 if t is None else t.data_ptr()
 
 
 def _struct(cls, tensors):
@@ -114,7 +156,7 @@ def _flat(flows: FlowState):
 
 
 def transition(lib, flows: FlowState, due: SackMsg, sendable, src, t: int,
-               d):
+               d, eff_nic=None):
     """Launch ``strack_transition``; same contract as
     ``fabric_kernels.flow_transition_plain``."""
     p = d.p
@@ -172,14 +214,64 @@ def transition(lib, flows: FlowState, due: SackMsg, sendable, src, t: int,
     _launch(lib.strack_transition, ctypes.byref(prm),
           ctypes.byref(_struct(FlowPtrs, _flat(flows))),
           ctypes.byref(_struct(SackPtrs, due)), _p(sendable), _p(src),
-          ctypes.byref(_struct(FlowPtrs, out_leaves)), ctypes.byref(o),
-          ctypes.byref(_struct(TransScratch, scratch)), _stream(sendable))
+          _p(eff_nic), ctypes.byref(_struct(FlowPtrs, out_leaves)),
+          ctypes.byref(o), ctypes.byref(_struct(TransScratch, scratch)),
+          _stream(sendable))
+    return out, tx, ptx, probe_valid, sel, can_tx
+
+
+_ROCE_INT = ("snd_una", "psn_next", "total_pkts", "t_stage", "b_stage",
+             "entropy", "retransmits", "max_psn", "rto_fires", "gbn_rewinds")
+
+
+def transition_roce(lib, flows: RoceFlow, due: RoceMsg, sendable, src,
+                    t: int, d, eff_nic=None):
+    """Launch ``roce_transition``; same contract as
+    ``fabric_kernels.flow_transition_plain`` under the RoCEv2 record."""
+    p = d.p
+    dc = p.dcqcn
+    dev = sendable.device
+    n = sendable.shape[0]
+    f32t, i32, bt = torch.float32, torch.int32, torch.bool
+    for name, t_ in zip(RoceFlow._fields, flows):
+        _check(f"flows.{name}", t_, i32 if name in _ROCE_INT else f32t,
+               (n,), dev)
+    for name, t_, dt in zip(RoceMsg._fields, due,
+                            (bt, bt, bt, bt, i32, f32t)):
+        _check(f"due.{name}", t_, dt, (n,), dev)
+    out = RoceFlow(*[torch.empty_like(x) for x in flows])
+    e = lambda dt: torch.empty((n,), dtype=dt, device=dev)
+    tx = TxPacket(e(bt), e(i32), e(i32), e(bt), e(bt))
+    ptx = TxPacket(e(bt), e(i32), e(i32), e(bt), e(bt))
+    probe_valid, sel, can_tx = e(bt), e(bt), e(bt)
+    scratch = [torch.empty((d.n_hosts,), dtype=i32, device=dev), e(i32),
+               e(f32t), e(f32t), e(f32t), e(f32t), e(i32)]
+    now = Now(t, d.tick_us)
+    prm = RoceParams(
+        t=t, timer_tick=int(t % d.timer_every == 0), N=n, NH=d.n_hosts,
+        NR=d.n_real, F=dc.f_fast_recovery, now=float(now),
+        pace_at=now_plus(now, 0.5 * p.tick_us), rto_at=now_plus(now, p.rto_us),
+        rto_rearm=f32(float(now) + f32(p.rto_us)), window=f32(p.window_pkts), mtu=f32(p.mtu_bytes),
+        byte_counter=f32(dc.byte_counter), hai=f32(dc.hai_mbps),
+        rai=f32(dc.rai_mbps), max_rate=f32(p.line_rate_Bpus),
+        min_rate=f32(dc.min_rate_Bpus), keep=f32(1 - dc.g), g=f32(dc.g),
+        alpha_timer=f32(dc.alpha_timer_us), rate_timer=f32(dc.rate_timer_us),
+        eps=f32(1e-9))
+    o = TransOut(tx=_struct(TxPtrs, tx), probe=_struct(TxPtrs, ptx),
+                 probe_valid=_p(probe_valid), sel=_p(sel),
+                 can_tx=_p(can_tx))
+    _launch(lib.roce_transition, ctypes.byref(prm),
+            ctypes.byref(_struct(RoceFlowPtrs, flows)),
+            ctypes.byref(_struct(RoceMsgPtrs, due)), _p(sendable), _p(src),
+            _p(eff_nic), ctypes.byref(_struct(RoceFlowPtrs, out)),
+            ctypes.byref(o), ctypes.byref(_struct(RoceScratch, scratch)),
+            _stream(sendable))
     return out, tx, ptx, probe_valid, sel, can_tx
 
 
 def serve_enqueue(lib, q, qhead, qsize, dst, dst_tor, total_pkts, tail_b,
                   tx_psn, probe_psn, ent_d, ent_p, spine, spine_p, sel,
-                  probe_valid, inj_q, inj_qp, t: int, d):
+                  probe_valid, inj_q, inj_qp, t: int, d, paused_row=None):
     """Launch the serve/enqueue chain; same contract as
     ``fabric_kernels.serve_enqueue_plain`` (ring updated in place)."""
     T, S, NH, N, cap = d.n_tor, d.n_spine, d.n_hosts, d.n_flows, d.cap
@@ -202,6 +294,8 @@ def serve_enqueue(lib, q, qhead, qsize, dst, dst_tor, total_pkts, tail_b,
                          ("probe_valid", probe_valid, bt),
                          ("inj_q", inj_q, i32), ("inj_qp", inj_qp, i32)):
         _check(name, t_, dt, (N,), dev)
+    if paused_row is not None:
+        _check("paused_row", paused_row, bt, (Q,), dev)
 
     pop = PktQ(*[torch.empty((Q,), dtype=dt, device=dev) for dt in ring_dt])
     has = torch.empty((Q,), dtype=bt, device=dev)
@@ -209,9 +303,9 @@ def serve_enqueue(lib, q, qhead, qsize, dst, dst_tor, total_pkts, tail_b,
     pop_bytes = torch.empty((Q,), dtype=f32t, device=dev)
     qhead_o, qsize_o, qsize1 = [torch.empty((Q + 1,), dtype=i32, device=dev)
                                 for _ in range(3)]
-    cdt = (i32, bt, i32, i32, f32t, bt, bt, i32, i32)
+    cdt = (i32, bt, i32, i32, f32t, bt, bt, i32, i32, f32t)
     cands = [torch.empty((M,), dtype=dt, device=dev) for dt in cdt]
-    cand_qid, cand_valid = cands[0], cands[1]
+    cand_qid, cand_valid, cand_bytes = cands[0], cands[1], cands[-1]
     kmin, kmax = d.kmin_p, d.kmax_p
     prm = ServeParams(
         t=t, Q=Q, TS=TS, T=T, S=S, N=N, M=M, cap=cap, K=d.K,
@@ -227,7 +321,7 @@ def serve_enqueue(lib, q, qhead, qsize, dst, dst_tor, total_pkts, tail_b,
           ctypes.byref(_struct(ServeIn, (
               qhead, qsize, dst, dst_tor, total_pkts, tail_b, tx_psn,
               probe_psn, ent_d, ent_p, spine, spine_p, sel, probe_valid,
-              inj_q, inj_qp))),
+              inj_q, inj_qp, paused_row))),
           ctypes.byref(ServeOut(_struct(Ring, pop), _p(has), _p(ecn_out),
                                 _p(pop_bytes), _p(qhead_o), _p(qsize_o),
                                 _p(qsize1))),
@@ -243,4 +337,60 @@ def serve_enqueue(lib, q, qhead, qsize, dst, dst_tor, total_pkts, tail_b,
           _p(rank_a), _p(qhead_o), _p(qsize1), ctypes.byref(ring),
           _p(qsize_o), stream)
     return (qhead_o, qsize_o, pop, has, ecn_out, pop_bytes, cand_qid, accept,
-            drops)
+            drops, cand_bytes)
+
+
+def pfc_account(lib, st: PfcState, has, pop, pop_bytes, cand_qid,
+                cand_bytes, accept, q, qhead, qsize0, qsize, t: int, fl, d):
+    """Launch ``se_pfc``; same contract as
+    ``fabric_kernels.pfc_account_plain``."""
+    T, S, NH, HPT = d.n_tor, d.n_spine, d.n_hosts, d.hosts_per_tor
+    TS = T * S
+    Q = 2 * TS + NH
+    N = fl.src.shape[0]
+    M = cand_qid.shape[0]
+    cap = q.flow.shape[1]
+    dev = has.device
+    i32, f32t, bt = torch.int32, torch.float32, torch.bool
+    shapes = dict(qbytes=(f32t, (Q + 1,)), ing_host=(f32t, (NH,)),
+                  ing_sd=(f32t, (S, T)), ing_up=(f32t, (T, S)),
+                  paused_nic=(bt, (NH,)), paused_sd=(bt, (S, T)),
+                  paused_up=(bt, (T, S)),
+                  pfc_line=(bt, (max(d.PD, 1), NH + 2 * TS)),
+                  pauses=(i32, ()))
+    for name, t_ in zip(PfcState._fields, st):
+        _check(f"pfc.{name}", t_, *shapes[name], dev)
+    for name, t_, dt, shape in (
+            ("has", has, bt, (Q,)), ("pop.flow", pop.flow, i32, (Q,)),
+            ("pop_bytes", pop_bytes, f32t, (Q,)),
+            ("pop.spine", pop.spine, i32, (Q,)),
+            ("accept", accept, bt, (M,)), ("cand_bytes", cand_bytes, f32t,
+                                           (M,)),
+            ("q.flow", q.flow, i32, (Q + 1, cap)),
+            ("q.psn", q.psn, i32, (Q + 1, cap)),
+            ("q.probe", q.probe, bt, (Q + 1, cap)),
+            ("qhead", qhead, i32, (Q + 1,)), ("qsize0", qsize0, i32, (Q + 1,)),
+            ("qsize", qsize, i32, (Q + 1,)), ("src", fl.src, i32, (N,)),
+            ("src_tor", fl.src_tor, i32, (N,)),
+            ("same_tor", fl.same_tor, bt, (N,)),
+            ("total_pkts", fl.total_pkts, i32, (N,)),
+            ("tail_b", fl.tail_b, f32t, (N,)), ("by_src", fl.by_src, i32, (N,)),
+            ("src_start", fl.src_start, i32, (NH + 1,))):
+        _check(name, t_, dt, shape, dev)
+    if M != 2 * TS + 2 * N:
+        raise ValueError(f"cand_qid: expected {2 * TS + 2 * N} candidates, "
+                         f"got {M}")
+    out = PfcState(*[torch.empty_like(x) for x in st])
+    prm = PfcParams(Q=Q, TS=TS, T=T, S=S, NH=NH, HPT=HPT, N=N, cap=cap,
+                    PD=d.PD, line_row=t % d.PD if d.PD > 0 else 0,
+                    buf=f32(d.buffer_bytes), alpha=f32(d.alpha),
+                    inv=recip32(1 + d.alpha), xon=f32(d.xon_frac),
+                    mtu=f32(d.mtu_bytes), ack_bytes=f32(64))
+    pin = PfcIn(*[_p(x) for x in (
+        has, pop.flow, pop_bytes, pop.spine, accept, cand_bytes, q.flow,
+        q.psn, q.probe, qhead, qsize0, qsize, fl.src, fl.src_tor,
+        fl.same_tor, fl.total_pkts, fl.tail_b, fl.by_src, fl.src_start)])
+    _launch(lib.se_pfc, ctypes.byref(prm), ctypes.byref(pin),
+            ctypes.byref(_struct(PfcPtrs, st)),
+            ctypes.byref(_struct(PfcPtrs, out)), _stream(has))
+    return out

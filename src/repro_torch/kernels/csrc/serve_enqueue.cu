@@ -1,5 +1,5 @@
-// Ring service + two-pass enqueue of the fabric tick (lossy queues, no
-// faults).
+// Ring service + two-pass enqueue of the fabric tick (no faults), and the
+// tick's PFC stage.
 //
 // Replaces: repro/kernels/fabric_kernels.py serve_enqueue_kernel (:184)
 // -> fused_stage_kernel (Pallas, pallas_call at :176), running
@@ -18,6 +18,16 @@
 // ranker (rank.cu), with no host sync.  The reference counts all pairs
 // for M <= 256 candidates instead; both give the same rank wherever the
 // flag is set, and only flagged entries are read.
+//
+// Under PFC a paused row (paused_row, the effective pause mask; null on
+// lossy queues) pops nothing, and every candidate's wire bytes go out in
+// cand_bytes.  The PFC stage (se_pfc) is the reference tick's inline
+// stage 6b (repro/sim/fabric.py:1741-1841), which has no Pallas kernel:
+// one thread per ingress counter and per queue applies that counter's
+// dequeues and accepted enqueues in the reference's scatter order
+// (sequential float adds, never float atomics), then one thread per port
+// sums its switch's queue bytes into the dynamic threshold and steps the
+// pause gate.  Bound: bytes, O(ports x (S + HPT) + Q) reads a tick.
 #include "common.cuh"
 
 struct ServeParams {
@@ -47,6 +57,7 @@ struct Cands {  // [M] each (ready is t + 1 + K for all)
   bool* ecn;
   int* ent;
   int* spine;
+  float* bytes;  // wire bytes
 };
 
 struct ServeIn {
@@ -66,6 +77,7 @@ struct ServeIn {
   const bool* probe_valid;  // [N]
   const int* inj_q;       // [N]
   const int* inj_qp;      // [N]
+  const bool* paused_row;  // [Q], null on lossy queues
 };
 
 struct ServeOut {
@@ -105,7 +117,8 @@ __global__ void serve_kernel(ServeParams p, Ring ring, ServeIn in,
     bool probe = ring.probe[slot], ecn = ring.ecn[slot];
     int ent = ring.ent[slot], ready = ring.ready[slot];
     int spine = ring.spine[slot];
-    bool has = (qs > 0) && (ready <= p.t);
+    bool has = (qs > 0) && (ready <= p.t) &&
+               !(in.paused_row != nullptr && in.paused_row[i]);
     float residual = (float)(qs - 1 > 0 ? qs - 1 : 0);
     float frac = fminf(fmaxf((residual - p.kmin) * p.krecip, 0.0f), 1.0f);
     float arg = p.t_dither + (float)i * 78.233f;  // no contraction
@@ -122,7 +135,8 @@ __global__ void serve_kernel(ServeParams p, Ring ring, ServeIn in,
     out.pop.spine[i] = spine;
     out.has[i] = has;
     out.ecn_out[i] = ecn_o;
-    out.pop_bytes[i] = wire_bytes(flow, psn, probe, in, p);
+    float bytes = wire_bytes(flow, psn, probe, in, p);
+    out.pop_bytes[i] = bytes;
     out.qhead[i] = in.qhead[i] + (int)has;
     out.qsize[i] = qs - (int)has;
     out.qsize1[i] = qs - (int)has;
@@ -140,6 +154,7 @@ __global__ void serve_kernel(ServeParams p, Ring ring, ServeIn in,
       c.ecn[i] = ecn_o;
       c.ent[i] = ent;
       c.spine[i] = spine;
+      c.bytes[i] = bytes;
     }
   }
   if (i >= 2 * p.TS && i < p.M) {  // NIC injections: data lanes, then probes
@@ -155,6 +170,7 @@ __global__ void serve_kernel(ServeParams p, Ring ring, ServeIn in,
     c.ecn[i] = false;
     c.ent[i] = is_probe ? in.ent_p[l] : in.ent_d[l];
     c.spine[i] = is_probe ? in.spine_p[l] : in.spine_d[l];
+    c.bytes[i] = wire_bytes(l, c.psn[i], is_probe, in, p);
   }
 }
 
@@ -223,5 +239,201 @@ extern "C" int se_place(const ServeParams* p, const Cands* c,
                         const Ring* ring, int* qsize, cudaStream_t stream) {
   place_kernel<<<(p->M + 255) / 256, 256, 0, stream>>>(
       *p, *c, accept, rank_a, qhead1, qsize1, *ring, qsize);
+  return (int)cudaGetLastError();
+}
+
+// ---- the PFC stage --------------------------------------------------------
+
+struct PfcParams {
+  int Q, TS, T, S, NH, HPT, N, cap, PD, line_row;
+  float buf, alpha, inv, xon, mtu, ack_bytes;
+};
+
+struct PfcIn {
+  const bool* has;         // [Q]
+  const int* pop_flow;     // [Q]
+  const float* pop_bytes;  // [Q]
+  const int* pop_spine;    // [Q]
+  const bool* accept;      // [M]
+  const float* cand_bytes;  // [M]
+  const int* ring_flow;    // [Q+1, cap], after placement
+  const int* ring_psn;
+  const bool* ring_probe;
+  const int* qhead;        // [Q+1], after serve
+  const int* qsize0;       // [Q+1], before serve
+  const int* qsize;        // [Q+1], after placement
+  const int* src;          // [N]
+  const int* src_tor;      // [N]
+  const bool* same_tor;    // [N]
+  const int* total_pkts;   // [N]
+  const float* tail_b;     // [N]
+  const int* by_src;       // [N]: lanes sorted by src (stable)
+  const int* src_start;    // [NH + 1]
+};
+
+struct PfcState {
+  float* qbytes;     // [Q+1]
+  float* ing_host;   // [NH]
+  float* ing_sd;     // [S, T]
+  float* ing_up;     // [T, S]
+  bool* paused_nic;  // [NH]
+  bool* paused_sd;   // [S, T]
+  bool* paused_up;   // [T, S]
+  bool* pfc_line;    // [max(PD, 1), NH + 2 TS]
+  int* pauses;       // []
+};
+
+namespace {
+
+__device__ __forceinline__ int pop_lane(const PfcIn& in, const PfcParams& p,
+                                        int row) {
+  return clampi(in.pop_flow[row], 0, p.N - 1);
+}
+
+// Ingress counters and queue bytes, each summed in the reference's order:
+// dequeues (by row), then accepted advances, data and probe injections.
+__global__ void pfc_ingress_kernel(PfcParams p, PfcIn in, PfcState st,
+                                   PfcState out) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  int TS = p.TS, M0 = 2 * TS, ports = p.NH + 2 * TS;
+  if (i == 0) *out.pauses = *st.pauses;  // the gate launch adds the new
+  if (i < ports) {  // the delay line; the gate launch writes row line_row
+    int rows = p.PD > 0 ? p.PD : 1;
+    for (int r = 0; r < rows; ++r)
+      out.pfc_line[(size_t)r * ports + i] = st.pfc_line[(size_t)r * ports + i];
+  }
+  if (i < p.NH) {  // host h's NIC, at ToR(h)
+    int h = i, tor = h / p.HPT;
+    float v = st.ing_host[h];
+    for (int s = 0; s < p.S; ++s) {
+      int row = tor * p.S + s;
+      if (in.has[row] && in.src[pop_lane(in, p, row)] == h)
+        v = v + (-in.pop_bytes[row]);
+    }
+    for (int j = 0; j < p.HPT; ++j) {
+      int row = M0 + tor * p.HPT + j;
+      int f = pop_lane(in, p, row);
+      if (in.has[row] && in.same_tor[f] && in.src[f] == h)
+        v = v + (-in.pop_bytes[row]);
+    }
+    int k0 = in.src_start[h], k1 = in.src_start[h + 1];
+    for (int k = k0; k < k1; ++k) {
+      int c = M0 + in.by_src[k];
+      if (in.accept[c]) v = v + in.cand_bytes[c];
+    }
+    for (int k = k0; k < k1; ++k) {
+      int c = M0 + p.N + in.by_src[k];
+      if (in.accept[c]) v = v + in.cand_bytes[c];
+    }
+    out.ing_host[h] = v;
+    return;
+  }
+  i -= p.NH;
+  if (i < TS) {  // ToR t's uplink into spine s: ing_up[t, s]
+    int t = i / p.S, s = i % p.S;
+    float v = st.ing_up[i];
+    for (int t2 = 0; t2 < p.T; ++t2) {
+      int row = TS + s * p.T + t2;
+      if (in.has[row] && in.src_tor[pop_lane(in, p, row)] == t)
+        v = v + (-in.pop_bytes[row]);
+    }
+    if (in.accept[i]) v = v + in.cand_bytes[i];
+    out.ing_up[i] = v;
+    return;
+  }
+  i -= TS;
+  if (i < TS) {  // spine s's downlink into ToR t: ing_sd[s, t]
+    int s = i / p.T, t = i % p.T;
+    float v = st.ing_sd[i];
+    for (int j = 0; j < p.HPT; ++j) {
+      int row = M0 + t * p.HPT + j;
+      int f = pop_lane(in, p, row);
+      if (in.has[row] && !in.same_tor[f] && in.pop_spine[row] == s)
+        v = v + (-in.pop_bytes[row]);
+    }
+    if (in.accept[TS + i]) v = v + in.cand_bytes[TS + i];
+    out.ing_sd[i] = v;
+    return;
+  }
+  i -= TS;
+  if (i < p.Q) {  // queue row i: served bytes out, accepted bytes in
+    bool has = in.has[i];
+    float v = st.qbytes[i];
+    if (has) v = v + (-in.pop_bytes[i]);
+    int qs1 = in.qsize0[i] - (int)has;
+    int added = in.qsize[i] - qs1;
+    int base = in.qhead[i] + qs1;
+    float add = 0.0f;
+    for (int r = 0; r < added; ++r) {  // the accepted, in candidate order
+      size_t slot = (size_t)i * p.cap + floor_mod(base + r, p.cap);
+      int f = clampi(in.ring_flow[slot], 0, p.N - 1);
+      float w = in.ring_probe[slot] ? p.ack_bytes
+                : (in.ring_psn[slot] >= in.total_pkts[f] - 1 ? in.tail_b[f]
+                                                              : p.mtu);
+      add = add + w;
+    }
+    out.qbytes[i] = v + add;
+  } else if (i == p.Q) {
+    out.qbytes[p.Q] = 0.0f;
+  }
+}
+
+__device__ __forceinline__ float xoff_of(const PfcParams& p, float occ) {
+  return p.alpha * fmaxf(p.buf - occ, 0.0f) * p.inv;
+}
+
+__device__ __forceinline__ float tor_occ(const PfcParams& p, const float* qb,
+                                         int t) {
+  float a = 0.0f, b = 0.0f;
+  for (int s = 0; s < p.S; ++s) a = a + qb[t * p.S + s];
+  for (int j = 0; j < p.HPT; ++j) b = b + qb[2 * p.TS + t * p.HPT + j];
+  return a + b;
+}
+
+// One hysteresis step per port against its switch's dynamic threshold.
+__global__ void pfc_gate_kernel(PfcParams p, PfcState st, PfcState out) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  int TS = p.TS;
+  if (i >= p.NH + 2 * TS) return;
+  const float* qb = out.qbytes;
+  float ing, xoff;
+  bool old;
+  if (i < p.NH) {  // NIC h, paused by ToR(h)
+    ing = out.ing_host[i];
+    xoff = xoff_of(p, tor_occ(p, qb, i / p.HPT));
+    old = st.paused_nic[i];
+  } else if (i < p.NH + TS) {  // spine_down[s][t], paused by ToR t
+    int k = i - p.NH;
+    ing = out.ing_sd[k];
+    xoff = xoff_of(p, tor_occ(p, qb, k % p.T));
+    old = st.paused_sd[k];
+  } else {  // tor_up[t][s], paused by spine s
+    int k = i - p.NH - TS, s = k % p.S;
+    float occ = 0.0f;
+    for (int t = 0; t < p.T; ++t) occ = occ + qb[TS + s * p.T + t];
+    ing = out.ing_up[k];
+    xoff = xoff_of(p, occ);
+    old = st.paused_up[k];
+  }
+  bool pause = ing > xoff, resume = ing < p.xon * xoff;
+  bool now = pause || (old && !resume);
+  if (i < p.NH)
+    out.paused_nic[i] = now;
+  else if (i < p.NH + TS)
+    out.paused_sd[i - p.NH] = now;
+  else
+    out.paused_up[i - p.NH - TS] = now;
+  if (p.PD > 0) out.pfc_line[(size_t)p.line_row * (p.NH + 2 * TS) + i] = now;
+  if (now && !old) atomicAdd(out.pauses, 1);
+}
+
+}  // namespace
+
+extern "C" int se_pfc(const PfcParams* p, const PfcIn* in, const PfcState* st,
+                      const PfcState* out, cudaStream_t stream) {
+  int ports = p->NH + 2 * p->TS;
+  int n = ports + p->Q + 1;
+  pfc_ingress_kernel<<<(n + 255) / 256, 256, 0, stream>>>(*p, *in, *st, *out);
+  pfc_gate_kernel<<<(ports + 255) / 256, 256, 0, stream>>>(*p, *st, *out);
   return (int)cudaGetLastError();
 }

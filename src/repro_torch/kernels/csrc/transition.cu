@@ -1,7 +1,10 @@
 // STrack per-flow transitions of the fabric tick: apply the due SACK
 // (flow_on_sack), run the timer sweep on timer ticks (flow_on_timer plus
 // the probe gate), offer the next packet (flow_next_packet), and arbitrate
-// each NIC round-robin, committing only the winner's send.
+// each NIC round-robin, committing only the winner's send.  Under PFC
+// (eff_nic, the NICs' effective pause mask; null on lossy queues) a probe
+// of a paused NIC is withheld with its timer state, and a paused NIC's
+// winner commits nothing.
 //
 // Replaces: repro/kernels/fabric_kernels.py flow_transition_kernel (:191)
 // -> fused_stage_kernel (Pallas, pallas_call at :176), running
@@ -359,7 +362,8 @@ __device__ __forceinline__ int load_spray(Spray& s, const int8_t* row,
 
 __global__ void apply_kernel(TransParams p, FlowPtrs in, SackPtrs due,
                              const bool* __restrict__ sendable,
-                             const int* __restrict__ src, FlowPtrs out,
+                             const int* __restrict__ src,
+                             const bool* __restrict__ eff_nic, FlowPtrs out,
                              TransOut o, TransScratch sc) {
   int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   int lane = threadIdx.x & 31;
@@ -402,7 +406,7 @@ __global__ void apply_kernel(TransParams p, FlowPtrs in, SackPtrs due,
 
   // ---- 2. timer sweep on timer ticks (committed for released flows) ----
   bool send_ok = sendable[f];
-  bool pvalid = false;
+  bool pvalid = false, blocked = false;
   int p_entropy = 0, p_psn = 0;
   if (p.timer_tick) {
     Rel rt = r;
@@ -417,12 +421,14 @@ __global__ void apply_kernel(TransParams p, FlowPtrs in, SackPtrs due,
     p_entropy = choose_path(st, cc.cwnd, p);
     p_psn = rt.epsn;
     pvalid = probe && (r.sent > 0.0f);  // probes only once data was sent
-    if (send_ok) {
+    // a paused NIC delays the probe: its timer state is not committed
+    blocked = pvalid && eff_nic != nullptr && eff_nic[src[f]];
+    if (send_ok && !blocked) {
       r = rt;
       if (probe) sp = st;
     }
   }
-  bool probe_valid = pvalid && send_ok;
+  bool probe_valid = pvalid && send_ok && !blocked;
 
   // ---- 3. next-packet offer (rel_next_psn + choose_path) ----
   bool has_rtx = any_bits(r.claimed);
@@ -498,10 +504,13 @@ __global__ void apply_kernel(TransParams p, FlowPtrs in, SackPtrs due,
 }
 
 __global__ void commit_kernel(TransParams p, const int* __restrict__ src,
-                              FlowPtrs out, TransOut o, TransScratch sc) {
+                              const bool* __restrict__ eff_nic, FlowPtrs out,
+                              TransOut o, TransScratch sc) {
   int f = blockIdx.x * blockDim.x + threadIdx.x;
   if (f >= p.N) return;
-  bool sel = o.can_tx[f] && sc.score[f] == sc.best[src[f]];
+  int h = src[f];
+  bool sel = o.can_tx[f] && sc.score[f] == sc.best[h] &&
+             !(eff_nic != nullptr && eff_nic[h]);
   o.sel[f] = sel;
   if (!sel) return;
   out.psn_next[f] = sc.np_psn_next[f];
@@ -520,7 +529,8 @@ __global__ void commit_kernel(TransParams p, const int* __restrict__ src,
 
 extern "C" int strack_transition(const TransParams* p, const FlowPtrs* in,
                                  const SackPtrs* due, const bool* sendable,
-                                 const int* src, const FlowPtrs* out,
+                                 const int* src, const bool* eff_nic,
+                                 const FlowPtrs* out,
                                  const TransOut* o, const TransScratch* sc,
                                  cudaStream_t stream) {
   if (p->P > MAXP || p->B > 64) return (int)cudaErrorInvalidValue;
@@ -532,8 +542,8 @@ extern "C" int strack_transition(const TransParams* p, const FlowPtrs* in,
   const int warps_per_block = 8;
   int blocks = (p->N + warps_per_block - 1) / warps_per_block;
   apply_kernel<<<blocks, 32 * warps_per_block, 0, stream>>>(
-      *p, *in, *due, sendable, src, *out, *o, *sc);
-  commit_kernel<<<(p->N + 255) / 256, 256, 0, stream>>>(*p, src, *out, *o,
-                                                         *sc);
+      *p, *in, *due, sendable, src, eff_nic, *out, *o, *sc);
+  commit_kernel<<<(p->N + 255) / 256, 256, 0, stream>>>(*p, src, eff_nic,
+                                                         *out, *o, *sc);
   return (int)cudaGetLastError();
 }

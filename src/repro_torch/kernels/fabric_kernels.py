@@ -1,5 +1,5 @@
-"""The fabric hot path's three kernels: CUDA on the card, plain PyTorch on
-the CPU.
+"""The fabric hot path's kernels: CUDA on the card, plain PyTorch on the
+CPU.
 
 Each kernel of the reference (``repro/kernels/fabric_kernels.py``, all
 Pallas) has here a wrapper, a plain PyTorch version of the same function
@@ -9,12 +9,19 @@ and a hand-written CUDA kernel under ``csrc/``:
 wrapper                     reference kernel (Pallas)              CUDA source
 ==========================  =====================================  ==========================
 :func:`flow_transition`     ``flow_transition_kernel`` over        ``csrc/transition.cu``
-                            ``fabric.dense_trans_core``
+                            ``fabric.dense_trans_core`` (STrack)   (STrack),
+                            and over RoCEv2's DCQCN record         ``csrc/transition_roce.cu``
 :func:`serve_enqueue`       ``serve_enqueue_kernel`` over          ``csrc/serve_enqueue.cu``
                             ``fabric.serve_enqueue_core``
 :func:`rank_in_queue`       ``rank_in_queue_kernel`` /             ``csrc/rank.cu``
                             ``rank_in_queue_core``
+:func:`pfc_account`         none: the tick's inline PFC stage      ``csrc/serve_enqueue.cu``
+                            (``fabric.py`` stage 6b)
 ==========================  =====================================  ==========================
+
+Under PFC the transition takes the NICs' effective pause mask and serve
+the paused rows; :func:`pfc_account` then keeps the byte counters and the
+pause gates.
 
 Dispatch is by the device of the tensors: a wrapper runs the plain version
 for CPU tensors and launches its kernel for CUDA tensors, or raises; there
@@ -29,15 +36,15 @@ from typing import NamedTuple
 
 import torch
 
-from ..core.params import ACK_WIRE_BYTES, STrackParams
-from ..core.reliability import SackMsg
-from ..core.transport import FlowState, TxPacket, tree_where
+from ..core.params import ACK_WIRE_BYTES
+from ..core.transport import TxPacket, tree_where
 from ..numerics import Now, ecn_dither, f32, recip32
 from ._build import check as _check, launch as _launch, load, \
     ptr as _ptr, route as _route, stream as _stream
 
 #: Launches of each wrapper's kernel since the last :func:`reset_launches`.
-launches = {"flow_transition": 0, "serve_enqueue": 0, "rank_in_queue": 0}
+launches = {"flow_transition": 0, "flow_transition_roce": 0,
+            "serve_enqueue": 0, "rank_in_queue": 0, "pfc_account": 0}
 
 #: Block width of the chunked ranker.
 RANK_CHUNK = 256
@@ -63,12 +70,13 @@ class PktQ(NamedTuple):
 
 
 class TransDims(NamedTuple):
-    """Static inputs of the transition stage: the STrack parameters, and
-    the fabric's protocol record (``sim.fabric.Protocol``) whose batched
-    ``on_ack`` / ``on_timer`` (with the probe gate) / ``next_packet`` the
-    plain version runs."""
+    """Static inputs of the transition stage: the protocol's parameters
+    (``STrackParams`` or ``dcqcn_fab.RoceFabParams``), and the fabric's
+    protocol record (``sim.fabric.Protocol``) whose batched ``on_ack`` /
+    ``on_timer`` (with the probe gate) / ``next_packet`` the plain version
+    runs."""
 
-    p: STrackParams
+    p: object
     proto: object
     tick_us: float
     timer_every: int
@@ -77,7 +85,8 @@ class TransDims(NamedTuple):
 
 
 class ServeDims(NamedTuple):
-    """Static inputs of the serve/enqueue stage (lossy queues, no faults)."""
+    """Static inputs of the serve/enqueue stage (no faults); under PFC the
+    drop thresholds are the lossless ones."""
 
     n_tor: int
     n_spine: int
@@ -166,13 +175,15 @@ def _empty_tx(n: int, device) -> TxPacket:
                     is_probe=z(torch.bool))
 
 
-def flow_transition_plain(flows: FlowState, due: SackMsg,
-                          sendable: torch.Tensor, src: torch.Tensor, t: int,
-                          d: TransDims):
-    """``dense_trans_core`` for lossy queues: apply the due SACK, run the
-    timer sweep on timer ticks (a probe only once the flow has sent data),
-    offer the next packet, and arbitrate each NIC round-robin (the lowest
-    ``(lane - t) % NR`` of the flows that can send wins).
+def flow_transition_plain(flows, due, sendable: torch.Tensor,
+                          src: torch.Tensor, t: int, d: TransDims,
+                          eff_nic=None):
+    """``dense_trans_core``: apply the due message, run the timer sweep on
+    timer ticks (a probe only once the flow has sent data), offer the next
+    packet, and arbitrate each NIC round-robin (the lowest ``(lane - t) %
+    NR`` of the flows that can send wins).  Under PFC (``eff_nic``, the
+    NICs' effective pause mask) a probe of a paused NIC is withheld with
+    its timer state, and a paused NIC's winner commits nothing.
 
     Returns ``(flows, tx, probe_tx, probe_valid, sel, can_tx)``."""
     proto = d.proto
@@ -184,8 +195,11 @@ def flow_transition_plain(flows: FlowState, due: SackMsg,
         fl_t, probe_tx = proto.on_timer(fl, now)
     else:
         fl_t, probe_tx = fl, _empty_tx(n, dev)
-    probe_valid = probe_tx.valid & sendable
-    fl = tree_where(sendable, fl_t, fl)
+    paused = (torch.zeros_like(sendable) if eff_nic is None
+              else eff_nic[src.long()])
+    blocked = probe_tx.valid & paused
+    probe_valid = probe_tx.valid & sendable & (~blocked)
+    fl = tree_where(sendable & (~blocked), fl_t, fl)
     fl_sent, tx = proto.next_packet(fl, now)
     can_tx = tx.valid & sendable
     lanes = torch.arange(n, dtype=torch.int32, device=dev)
@@ -194,25 +208,35 @@ def flow_transition_plain(flows: FlowState, due: SackMsg,
     best = torch.full((d.n_hosts,), torch.iinfo(torch.int32).max,
                       dtype=torch.int32, device=dev)
     best = best.scatter_reduce(0, src.long(), score, "amin")
-    sel = can_tx & (score == best[src.long()])
+    sel = can_tx & (score == best[src.long()]) & (~paused)
     fl = tree_where(sel, fl_sent, fl)
     return fl, tx, probe_tx, probe_valid, sel, can_tx
 
 
-def flow_transition(flows: FlowState, due: SackMsg, sendable: torch.Tensor,
-                    src: torch.Tensor, t: int, d: TransDims):
-    """The transition stage: plain version on CPU tensors,
-    ``csrc/transition.cu`` on CUDA tensors (two launches: apply + arbitrate
-    then commit the NIC winners)."""
+def flow_transition(flows, due, sendable: torch.Tensor, src: torch.Tensor,
+                    t: int, d: TransDims, eff_nic=None):
+    """The transition stage: plain version on CPU tensors; on CUDA tensors
+    ``csrc/transition.cu`` (STrack) or ``csrc/transition_roce.cu``
+    (RoCEv2), two launches each: apply + arbitrate, then commit the NIC
+    winners.  ``eff_nic`` (bool[NH]) is the PFC gate, ``None`` on lossy
+    queues."""
     n = sendable.shape[0]
     _check("sendable", sendable, torch.bool, (n,))
     _check("src", src, torch.int32, (n,), sendable.device)
+    if eff_nic is not None:
+        _check("eff_nic", eff_nic, torch.bool, (d.n_hosts,), sendable.device)
     if _route(sendable) == "plain":
-        return flow_transition_plain(flows, due, sendable, src, t, d)
+        return flow_transition_plain(flows, due, sendable, src, t, d,
+                                     eff_nic)
     from . import _cuda_bind
-    out = _cuda_bind.transition(_lib("transition"), flows, due, sendable,
-                                src, t, d)
-    launches["flow_transition"] += 1
+    if d.proto.name == "rocev2":
+        out = _cuda_bind.transition_roce(_lib("transition_roce"), flows, due,
+                                         sendable, src, t, d, eff_nic)
+        launches["flow_transition_roce"] += 1
+    else:
+        out = _cuda_bind.transition(_lib("transition"), flows, due, sendable,
+                                    src, t, d, eff_nic)
+        launches["flow_transition"] += 1
     return out
 
 
@@ -232,16 +256,18 @@ def _wire(flow, psn, probe, total_pkts, tail_b, mtu):
 def serve_enqueue_plain(q: PktQ, qhead, qsize, dst, dst_tor, total_pkts,
                         tail_b, tx_psn, probe_psn, ent_d, ent_p, spine,
                         spine_p, sel, probe_valid, inj_q, inj_qp, t: int,
-                        d: ServeDims):
-    """``serve_enqueue_core`` for lossy queues without faults.
+                        d: ServeDims, paused_row=None):
+    """``serve_enqueue_core`` without faults.
 
-    Serve: each queue pops its head once the head's departure-time lane
-    says it has arrived, ECN-marking on the occupancy fraction against the
-    sin dither.  Enqueue: fabric advances plus NIC data and probe
-    injections rank among same-queue candidates, drop on occupancy, rank
-    again among the accepted and land in the ring rows.  The ring ``q`` is
-    updated IN PLACE; returns ``(qhead, qsize, pop, has, ecn_out,
-    pop_bytes, cand_qid, accept, drops_add)``."""
+    Serve: each queue that is not paused (``paused_row``, bool[Q], the
+    PFC gate; ``None`` on lossy queues) pops its head once the head's
+    departure-time lane says it has arrived, ECN-marking on the occupancy
+    fraction against the sin dither.  Enqueue: fabric advances plus NIC
+    data and probe injections rank among same-queue candidates, drop on
+    occupancy, rank again among the accepted and land in the ring rows.
+    The ring ``q`` is updated IN PLACE; returns ``(qhead, qsize, pop, has,
+    ecn_out, pop_bytes, cand_qid, accept, drops_add, cand_bytes)``, the
+    last the wire bytes of each candidate."""
     T, S, NH, N, cap = d.n_tor, d.n_spine, d.n_hosts, d.n_flows, d.cap
     TS = T * S
     Q = 2 * TS + NH
@@ -255,6 +281,8 @@ def serve_enqueue_plain(q: PktQ, qhead, qsize, dst, dst_tor, total_pkts,
     hidx = (qhead[:Q] % cap).long()
     pop = PktQ(*[f[qrows.long(), hidx] for f in q])
     has = (qs > 0) & (pop.ready <= t)
+    if paused_row is not None:
+        has = has & (~paused_row)
     residual = torch.clamp_min(qs - 1, 0).to(torch.float32)
     frac = torch.clamp((residual - f32(d.kmin_p))
                        * recip32(max(d.kmax_p - d.kmin_p, 1e-9)), 0.0, 1.0)
@@ -287,6 +315,10 @@ def serve_enqueue_plain(q: PktQ, qhead, qsize, dst, dst_tor, total_pkts,
         ent=torch.cat([pop.ent[:2 * TS], ent_d, ent_p]),
         ready=torch.full((M,), t + 1 + d.K, dtype=torch.int32, device=dev),
         spine=torch.cat([pop.spine[:2 * TS], spine, spine_p]))
+    cand_bytes = torch.cat([
+        pop_bytes[:2 * TS],
+        _wire(lanes, tx_psn, zb, total_pkts, tail_b, d.mtu_bytes),
+        _wire(lanes, probe_psn, ~zb, total_pkts, tail_b, d.mtu_bytes)])
 
     # The reference counts all pairs up to 256 candidates and runs the
     # ranker above; both give the same rank wherever the flag is set, and
@@ -309,25 +341,199 @@ def serve_enqueue_plain(q: PktQ, qhead, qsize, dst, dst_tor, total_pkts,
     qhead1[Q] = 0
     drops_add = dropped.sum(dtype=torch.int32)
     return (qhead1, qsize2, pop, has, ecn_out, pop_bytes, cand_qid, accept,
-            drops_add)
+            drops_add, cand_bytes)
 
 
 def serve_enqueue(q: PktQ, qhead, qsize, dst, dst_tor, total_pkts, tail_b,
                   tx_psn, probe_psn, ent_d, ent_p, spine, spine_p, sel,
-                  probe_valid, inj_q, inj_qp, t: int, d: ServeDims):
+                  probe_valid, inj_q, inj_qp, t: int, d: ServeDims,
+                  paused_row=None):
     """The serve/enqueue stage: plain version on CPU tensors,
     ``csrc/serve_enqueue.cu`` on CUDA tensors (serve + candidate build,
     rank, drop/accept, rank, ring placement; both rank passes are
-    :func:`rank_in_queue`).  The ring
-    ``q`` is updated in place either way."""
+    :func:`rank_in_queue`).  The ring ``q`` is updated in place either
+    way; ``paused_row`` is the PFC gate (``None`` on lossy queues)."""
     args = (q, qhead, qsize, dst, dst_tor, total_pkts, tail_b, tx_psn,
             probe_psn, ent_d, ent_p, spine, spine_p, sel, probe_valid,
-            inj_q, inj_qp, t, d)
+            inj_q, inj_qp, t, d, paused_row)
     if _route(qhead) == "plain":
         return serve_enqueue_plain(*args)
     from . import _cuda_bind
     out = _cuda_bind.serve_enqueue(_lib("serve_enqueue"), *args)
     launches["serve_enqueue"] += 1
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# The tick's PFC stage: ingress byte accounting and the pause gates
+# --------------------------------------------------------------------------- #
+
+class PfcDims(NamedTuple):
+    """Static inputs of the PFC stage."""
+
+    n_tor: int
+    n_spine: int
+    n_hosts: int
+    hosts_per_tor: int
+    PD: int                 # pause-frame delay, ticks (pfc_line depth)
+    buffer_bytes: float     # shared buffer per switch
+    alpha: float            # dynamic threshold a * free / (1 + a)
+    xon_frac: float         # resume below this fraction of xoff
+    mtu_bytes: int
+
+
+class PfcState(NamedTuple):
+    """The fabric state the PFC stage reads and writes."""
+
+    qbytes: torch.Tensor      # f32[Q+1]: wire bytes queued per row
+    ing_host: torch.Tensor    # f32[NH]: bytes at ToR(h) from host h's NIC
+    ing_sd: torch.Tensor      # f32[S, T]: bytes at ToR t from spine s
+    ing_up: torch.Tensor      # f32[T, S]: bytes at spine s from ToR t
+    paused_nic: torch.Tensor  # bool[NH]
+    paused_sd: torch.Tensor   # bool[S, T]
+    paused_up: torch.Tensor   # bool[T, S]
+    pfc_line: torch.Tensor    # bool[max(PD, 1), NH + 2 TS]
+    pauses: torch.Tensor      # i32
+
+
+class PfcFlows(NamedTuple):
+    """Per-run flow inputs of the PFC stage."""
+
+    src: torch.Tensor         # i32[N]
+    src_tor: torch.Tensor     # i32[N]
+    same_tor: torch.Tensor    # bool[N]
+    total_pkts: torch.Tensor  # i32[N]
+    tail_b: torch.Tensor      # f32[N]
+    by_src: torch.Tensor      # i32[N]: lanes sorted by src, stable
+    src_start: torch.Tensor   # i32[NH + 1]: offsets of each host in by_src
+
+
+def pfc_flows(src, src_tor, same_tor, total_pkts, tail_b, n_hosts: int
+              ) -> PfcFlows:
+    """:class:`PfcFlows` of one run (the per-host lane lists included)."""
+    by_src = torch.sort(src, stable=True).indices.to(torch.int32)
+    counts = torch.bincount(src.long(), minlength=n_hosts)
+    start = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
+    return PfcFlows(src, src_tor, same_tor, total_pkts, tail_b, by_src,
+                    start.to(torch.int32))
+
+
+def _scatter_add(vec: torch.Tensor, idx: torch.Tensor, val: torch.Tensor
+                 ) -> torch.Tensor:
+    """``vec.at[idx].add(val)`` with a trash slot at ``idx == len(vec)``,
+    summed in index order."""
+    out = torch.cat([vec, vec.new_zeros(1)])
+    out.index_add_(0, idx.long(), val)
+    return out[:vec.shape[0]]
+
+
+def pfc_gate(paused, ingress_bytes, xoff_bytes, xon_frac: float):
+    """One PFC hysteresis step, elementwise: pause above ``xoff``; once
+    paused, resume only below ``xon_frac * xoff``."""
+    pause = ingress_bytes > xoff_bytes
+    resume = ingress_bytes < f32(xon_frac) * xoff_bytes
+    return pause | (paused & (~resume))
+
+
+def pfc_account_plain(st: PfcState, has, pop: PktQ, pop_bytes, cand_qid,
+                      cand_bytes, accept, q: PktQ, qhead, qsize0, qsize,
+                      t: int, fl: PfcFlows, d: PfcDims) -> PfcState:
+    """Stage 6b of the reference's tick: dequeues leave the ingress
+    counter they entered by (the source NIC, the source ToR's uplink, or
+    the spine of the injection-time spine lane), accepted candidates enter
+    by their wire bytes; byte-accurate queue occupancy sets each switch's
+    dynamic threshold ``xoff = a * max(buffer - occ, 0) / (1 + a)``; the
+    gates chain on the switches' decision state, which the ``pfc_line``
+    ring delays by ``PD`` ticks.  ``q``, ``qhead``, ``qsize`` (the ring
+    after serve/enqueue) and ``qsize0`` (before) are read by the kernel
+    only, which takes the accepted candidates' bytes back from the ring
+    slots they were placed in (the same candidates in the same order)."""
+    T, S, NH, HPT = d.n_tor, d.n_spine, d.n_hosts, d.hosts_per_tor
+    TS = T * S
+    Q = 2 * TS + NH
+    N = fl.src.shape[0]
+    dev = has.device
+    fclip = pop.flow.clamp(0, N - 1).long()
+    f_up, f_sd, f_hd = fclip[:TS], fclip[TS:2 * TS], fclip[2 * TS:]
+    ing_host = _scatter_add(st.ing_host,
+                            torch.where(has[:TS], fl.src[f_up], NH),
+                            -pop_bytes[:TS])
+    sd_i = torch.arange(TS, dtype=torch.int32, device=dev)
+    up_flat = _scatter_add(
+        st.ing_up.reshape(-1),
+        torch.where(has[TS:2 * TS], fl.src_tor[f_sd] * S + sd_i // T, TS),
+        -pop_bytes[TS:2 * TS])
+    hd_same = fl.same_tor[f_hd]
+    served_hd = has[2 * TS:]
+    host_tor = torch.arange(NH, dtype=torch.int32, device=dev) // HPT
+    ing_host = _scatter_add(
+        ing_host, torch.where(served_hd & hd_same, fl.src[f_hd], NH),
+        -pop_bytes[2 * TS:])
+    sd_flat = _scatter_add(
+        st.ing_sd.reshape(-1),
+        torch.where(served_hd & (~hd_same), pop.spine[2 * TS:] * T + host_tor,
+                    TS),
+        -pop_bytes[2 * TS:])
+    up_flat = _scatter_add(up_flat, torch.where(accept[:TS], sd_i, TS),
+                           cand_bytes[:TS])
+    sd_flat = _scatter_add(sd_flat,
+                           torch.where(accept[TS:2 * TS], sd_i, TS),
+                           cand_bytes[TS:2 * TS])
+    ing_host = _scatter_add(
+        ing_host, torch.where(accept[2 * TS:2 * TS + N], fl.src, NH),
+        cand_bytes[2 * TS:2 * TS + N])
+    ing_host = _scatter_add(
+        ing_host, torch.where(accept[2 * TS + N:], fl.src, NH),
+        cand_bytes[2 * TS + N:])
+    ing_sd, ing_up = sd_flat.reshape(S, T), up_flat.reshape(T, S)
+
+    qbytes = st.qbytes.clone()
+    qbytes[:Q] += -torch.where(has, pop_bytes, 0.0)
+    add_b = torch.zeros((Q + 1,), dtype=torch.float32, device=dev)
+    add_b.index_add_(0, torch.where(accept, cand_qid, Q).long(),
+                     torch.where(accept, cand_bytes, 0.0))
+    qbytes = qbytes + add_b
+    qbytes[Q] = 0.0
+    qb = qbytes[:Q]
+    tor_occ = qb[:TS].reshape(T, S).sum(1) + qb[2 * TS:].reshape(T, HPT).sum(1)
+    spine_occ = qb[TS:2 * TS].reshape(S, T).sum(1)
+    a, inv = f32(d.alpha), recip32(1 + d.alpha)
+    buf = f32(d.buffer_bytes)
+    xoff_tor = a * torch.clamp_min(buf - tor_occ, 0.0) * inv
+    xoff_spine = a * torch.clamp_min(buf - spine_occ, 0.0) * inv
+    paused_nic = pfc_gate(st.paused_nic, ing_host, xoff_tor[host_tor.long()],
+                          d.xon_frac)
+    paused_sd = pfc_gate(st.paused_sd, ing_sd, xoff_tor[None, :], d.xon_frac)
+    paused_up = pfc_gate(st.paused_up, ing_up, xoff_spine[None, :],
+                         d.xon_frac)
+    pauses = st.pauses + (
+        (paused_nic & ~st.paused_nic).sum(dtype=torch.int32)
+        + (paused_sd & ~st.paused_sd).sum(dtype=torch.int32)
+        + (paused_up & ~st.paused_up).sum(dtype=torch.int32))
+    pfc_line = st.pfc_line
+    if d.PD > 0:
+        pfc_line = pfc_line.clone()
+        pfc_line[t % d.PD] = torch.cat([paused_nic, paused_sd.reshape(-1),
+                                        paused_up.reshape(-1)])
+    return PfcState(qbytes, ing_host, ing_sd, ing_up, paused_nic, paused_sd,
+                    paused_up, pfc_line, pauses)
+
+
+def pfc_account(st: PfcState, has, pop: PktQ, pop_bytes, cand_qid,
+                cand_bytes, accept, q: PktQ, qhead, qsize0, qsize, t: int,
+                fl: PfcFlows, d: PfcDims) -> PfcState:
+    """The PFC stage: plain version on CPU tensors; on CUDA tensors two
+    launches of ``csrc/serve_enqueue.cu`` (one thread per ingress counter
+    and per queue, each summing its updates in the reference's order; then
+    one thread per port for the gate).  Returns the new state; the input
+    state is left as it was."""
+    args = (st, has, pop, pop_bytes, cand_qid, cand_bytes, accept, q, qhead,
+            qsize0, qsize, t, fl, d)
+    if _route(has) == "plain":
+        return pfc_account_plain(*args)
+    from . import _cuda_bind
+    out = _cuda_bind.pfc_account(_lib("serve_enqueue"), *args)
+    launches["pfc_account"] += 1
     return out
 
 

@@ -1,6 +1,8 @@
 """Where a run's time goes on the GPU: a fabric scenario or a serve cell.
 
     PYTHONPATH=src python -m repro_torch.profile [--scenario perm1024]
+    PYTHONPATH=src python -m repro_torch.profile --scenario perm1024-rocev2 \
+        incast1024-rocev2
     PYTHONPATH=src python -m repro_torch.profile --scenario prefill-1000 \
         prefill-4096 decode-544
     PYTHONPATH=src python -m repro_torch.profile --scenario \
@@ -11,8 +13,11 @@ Runs each scenario on the card twice (the first run warms up: it builds
 the kernels and PyTorch's caches) and profiles the second with
 ``torch.profiler``: wall time, the device-busy share (summed kernel time
 over wall time), the hand-written kernels' device time, and device time by
-kernel for the 25 largest.  Fabric scenarios (perm1024, perm8k) run
-through ``run_fabric_trace``; serve cells run a model in bf16 with
+kernel for the 25 largest (with their launches).  Fabric scenarios run
+through ``run_fabric_trace`` and also report wall and device-busy time per
+warp trip: perm1024 and perm8k (STrack), perm1024-rocev2 and
+incast1024-rocev2 (RoCEv2 with PFC; incast1024 is 256 senders of 16 KiB
+to host 0 on the perm1024 fabric); serve cells run a model in bf16 with
 ``attn_impl="pallas"`` and random weights from seed 0 (one model on the
 card at a time): llama3-8b ``prefill-1000`` (4 x 1000 tokens),
 ``prefill-4096`` (1 x 4096) and ``decode-544`` (8 decode steps of 4
@@ -35,9 +40,13 @@ from .core.params import NetworkSpec
 from .sim.fabric import run_fabric_trace
 from .sim.topology import full_bisection
 from .sim.workloads import (RunConfig, _fabric_cfg, _scenario_ticks,
-                            permutation_scenario)
+                            incast_scenario, permutation_scenario)
 
-FABRIC = {"perm1024": (32, 32), "perm8k": (128, 64)}
+#: fabric scenario -> (traffic, fat-tree shape, RunConfig fields).
+FABRIC = {"perm1024": ("perm", (32, 32), {}),
+          "perm8k": ("perm", (128, 64), {}),
+          "perm1024-rocev2": ("perm", (32, 32), {"protocol": "rocev2"}),
+          "incast1024-rocev2": ("incast", (32, 32), {"protocol": "rocev2"})}
 #: serve cell -> (model, requests, tokens).
 SERVE = {"prefill-1000": ("llama3-8b", 4, 1000),
          "prefill-4096": ("llama3-8b", 1, 4096),
@@ -50,13 +59,20 @@ SERVE = {"prefill-1000": ("llama3-8b", 4, 1000),
 #: CUDA kernel names of the hand-written kernels (csrc/*.cu).
 OWN_KERNELS = ("apply_kernel", "commit_kernel", "serve_kernel",
                "accept_kernel", "place_kernel", "count_kernel",
-               "scan_kernel", "resolve_kernel", "fa_kernel", "ssd_kernel")
+               "scan_kernel", "resolve_kernel", "pfc_ingress_kernel",
+               "pfc_gate_kernel", "fa_kernel", "ssd_kernel")
 
 
 def _fabric_run(name: str):
-    sc = permutation_scenario(full_bisection(*FABRIC[name]), 64 * 2 ** 10,
-                              net=NetworkSpec(link_gbps=400.0), seed=0)
-    cfg = RunConfig()
+    traffic, shape, kw = FABRIC[name]
+    net = NetworkSpec(link_gbps=400.0)
+    if traffic == "perm":
+        sc = permutation_scenario(full_bisection(*shape), 64 * 2 ** 10,
+                                  net=net, seed=0)
+    else:
+        sc = incast_scenario(full_bisection(*shape), 256, 16 * 2 ** 10,
+                             net=net)
+    cfg = RunConfig(**kw)
     fcfg, n_ticks = _fabric_cfg(sc, cfg), _scenario_ticks(sc, cfg)
 
     def once():
@@ -110,7 +126,7 @@ def profile(name: str, once) -> dict:
     rows.sort(key=lambda r: -r[1])
     busy_us = sum(r[1] for r in rows)
     own = [r for r in rows if any(k in r[0] for k in OWN_KERNELS)]
-    return {
+    out = {
         "scenario": name, "device": torch.cuda.get_device_name(0),
         "wall_s": wall, **info,
         "device_busy_s": busy_us / 1e6,
@@ -120,6 +136,12 @@ def profile(name: str, once) -> dict:
         "kernels": [{"name": k[:90], "device_ms": us / 1e3, "calls": c}
                     for k, us, c in rows[:25]],
     }
+    if "warp_trips" in info:
+        trips = info["warp_trips"]
+        out.update(wall_ms_per_trip=wall * 1e3 / trips,
+                   device_busy_ms_per_trip=busy_us / 1e3 / trips,
+                   device_launches_per_trip=out["device_launches"] / trips)
+    return out
 
 
 def main() -> None:

@@ -1,18 +1,25 @@
-"""The multi-queue fat-tree fabric on PyTorch: the port's main path.
+"""The multi-queue fat-tree fabric on PyTorch.
 
-The port of ``repro.sim.fabric`` for STrack over lossy queues (the
-reference's default): a 2-tier Clos fabric (host NICs -> per-ToR uplink
-queues -> per-spine downlink queues -> per-host downlink queues) held as
-fixed-shape ring-buffer tensors, ticked in the reference's stage order:
+The port of ``repro.sim.fabric`` for both of the paper's transports,
+STrack (window CC, adaptive spray, SACK) and RoCEv2 (DCQCN, go-back-N, one
+path per flow: ``dcqcn_fab``), over lossy queues or lossless PFC queues: a
+2-tier Clos fabric (host NICs -> per-ToR uplink queues -> per-spine
+downlink queues -> per-host downlink queues) held as fixed-shape
+ring-buffer tensors, ticked in the reference's stage order:
 
-  0. dependency gate (deps-free traces: every message is sendable),
-  1. transport lanes — due SACKs, timer sweep, next packet, NIC
-     round-robin (``kernels.flow_transition``),
-  2. spray/ECMP injection targets,
-  3. ring service + two-pass enqueue (``kernels.serve_enqueue``, ranking
-     through ``kernels.rank_in_queue`` past 256 candidates),
-  4. deliveries -> receivers -> the per-flow SACK return pipe,
-  5. completion and observability counters.
+  0. dependency gate (deps-free traces: every message is sendable);
+     0b. under PFC, the effective pause masks, ``PD`` ticks old,
+  1. transport lanes — due ACKs, timer sweep, next packet, NIC
+     round-robin, the PFC NIC gate (``kernels.flow_transition``),
+  2. spray/ECMP injection targets (RoCEv2: the flow's pinned entropy),
+  3. ring service of unpaused rows + two-pass enqueue
+     (``kernels.serve_enqueue``, ranking through ``kernels.rank_in_queue``
+     past 256 candidates),
+  4. deliveries -> receivers -> the per-flow return pipe,
+  5. under PFC (the reference's stage 6b), ingress byte accounting, the
+     pause/resume gates and the pause-frame delay line
+     (``kernels.pfc_account``),
+  6. completion and observability counters.
 
 Time model: 1 tick = 1 MTU serialization time; every hop adds one tick of
 serialization plus ``K`` ticks of propagation (the departure-time lane
@@ -20,15 +27,15 @@ serialization plus ``K`` ticks of propagation (the departure-time lane
 path's latency.  The event-horizon loop (``FabricConfig.time_warp``)
 skips ticks that are provably idle and is bit-identical to dense ticking.
 
-Everything the reference supports beyond this slice — RoCEv2, PFC,
-faults, the active set, sharding, sub-flow striping, dependency edges and
-the per-tick trace — raises ``NotImplementedError`` naming its ROADMAP
-item.
+Everything the reference supports beyond this — faults, the active set,
+sharding, sub-flow striping, dependency edges and the per-tick trace —
+raises ``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+import random
 from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -37,15 +44,19 @@ import torch
 from .. import resolve_device
 from ..core import reliability as rel
 from ..core import transport as tp
-from ..core.params import NetworkSpec, STrackParams, make_strack_params
+from ..core.params import (NetworkSpec, RoCEParams, STrackParams,
+                           make_roce_params, make_strack_params)
 from ..core.reliability import SackMsg
-from ..kernels.fabric_kernels import (PktQ, ServeDims, TransDims,
-                                      flow_transition, serve_enqueue)
-from ..numerics import f32, recip32
+from ..kernels.fabric_kernels import (PfcDims, PfcState, PktQ, ServeDims,
+                                      TransDims, flow_transition,
+                                      pfc_account, pfc_flows, serve_enqueue)
+from ..numerics import Now, f32, recip32
+from . import dcqcn_fab as dq
 from .topology import FatTree
 
 LB_MODES = ("adaptive", "oblivious", "fixed")
 ACK_PATHS = ("perhop", "folded")
+PROTOCOLS = ("strack", "rocev2")
 
 
 def ecmp_mix(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor
@@ -114,10 +125,10 @@ class Protocol(NamedTuple):
     the final statistics."""
 
     name: str
-    uses_spray: bool
-    init: Callable           # (total_pkts[N], tail_bytes[N]) -> (flows, rcv)
-    empty_msgs: Callable     # (h, n, device) -> SackMsg with dims (h, n)
-    on_data: Callable        # (rcv, psn, size, ecn, ent, ts, probe) -> ...
+    uses_spray: bool         # lb_mode applies; else the flow's own entropy
+    init: Callable           # (total_pkts, tail_bytes, entropy0) -> (f, r)
+    empty_msgs: Callable     # (h, n, device) -> message tuple, dims (h, n)
+    on_data: Callable        # (rcv, psn, size, ecn, ent, ts, probe, now)
     on_ack: Callable         # (flows, msg, now) -> flows
     on_timer: Callable       # (flows, now) -> (flows, TxPacket), probe-gated
     next_packet: Callable    # (flows, now) -> (flows, TxPacket)
@@ -142,7 +153,8 @@ def _empty_sack_pipe(p: STrackParams, h: int, n: int, device) -> SackMsg:
 def make_strack_protocol(p: STrackParams) -> Protocol:
     """STrack: window CC (Algo 3/4) + spray (Algo 2) + SACK reliability."""
 
-    def init(total_pkts, tail_bytes):
+    def init(total_pkts, tail_bytes, entropy0):
+        del entropy0  # spray picks paths; no per-flow pinned entropy
         return (tp.init_flow(p, total_pkts, tail_bytes),
                 rel.init_receiver(total_pkts))
 
@@ -164,7 +176,7 @@ def make_strack_protocol(p: STrackParams) -> Protocol:
     return Protocol(
         name="strack", uses_spray=True, init=init,
         empty_msgs=lambda h, n, dev: _empty_sack_pipe(p, h, n, dev),
-        on_data=lambda r, psn, size, ecn, ent, ts, probe:
+        on_data=lambda r, psn, size, ecn, ent, ts, probe, now:
             rel.receiver_on_data(r, p, psn, size, ecn, ent, ts, probe),
         on_ack=lambda f, m, now: tp.flow_on_sack(f, p, m, now),
         on_timer=on_timer,
@@ -177,6 +189,48 @@ def make_strack_protocol(p: STrackParams) -> Protocol:
             "rto_fires": f.rel.rto_fires,
             "sack_recoveries": f.rel.recoveries,
             "gbn_rewinds": torch.zeros_like(f.rel.rto_fires)})
+
+
+def make_rocev2_protocol(p: dq.RoceFabParams) -> Protocol:
+    """RoCEv2: DCQCN rate CC + go-back-N, one fixed path per flow."""
+
+    def init(total_pkts, tail_bytes, entropy0):
+        return (dq.init_roce_flow(p, total_pkts, entropy0, tail_bytes),
+                dq.init_roce_rcv(total_pkts))
+
+    def next_packet(f, now):
+        f2, (valid, psn, entropy, is_rtx) = dq.roce_next_packet(f, p, now)
+        return f2, tp.TxPacket(valid=valid, psn=psn, entropy=entropy,
+                               is_rtx=is_rtx,
+                               is_probe=torch.zeros_like(valid))
+
+    def on_timer(f, now):
+        f2, probe = dq.roce_on_timer(f, p, now)
+        return f2, tp.TxPacket(valid=probe, psn=torch.zeros_like(f.psn_next),
+                               entropy=f.entropy,
+                               is_rtx=torch.zeros_like(probe),
+                               is_probe=probe)
+
+    # window-equivalent in packets: instantaneous rate x base-ish RTT
+    rtt_us = p.window_pkts * p.mtu_bytes / p.line_rate_Bpus
+
+    return Protocol(
+        name="rocev2", uses_spray=False, init=init,
+        empty_msgs=dq.empty_roce_msgs,
+        on_data=lambda r, psn, size, ecn, ent, ts, probe, now:
+            dq.roce_on_data(r, p, psn, size, ecn, now),
+        on_ack=lambda f, m, now: tp.tree_where(
+            m.valid, dq.roce_on_ack(f, p, m, now), f),
+        on_timer=on_timer,
+        next_packet=next_packet,
+        done=dq.roce_done,
+        cong_pkts=lambda f: f.rate * f32(rtt_us) * recip32(p.mtu_bytes),
+        next_event=lambda f: dq.roce_next_event(f, p),
+        stat_retx=lambda f: f.retransmits,
+        stat_recovery=lambda f: {
+            "rto_fires": f.rto_fires,
+            "sack_recoveries": torch.zeros_like(f.rto_fires),
+            "gbn_rewinds": f.gbn_rewinds})
 
 
 # --------------------------------------------------------------------------- #
@@ -221,26 +275,26 @@ def _trivial_dep(n: int, device="cpu") -> DepSpec:
 
 
 class FabricState(NamedTuple):
-    flows: tp.FlowState      # [N]
-    rcv: rel.ReceiverState   # [N]
+    flows: tuple             # [N]: tp.FlowState or dcqcn_fab.RoceFlow
+    rcv: tuple               # [N]: rel.ReceiverState or dcqcn_fab.RoceRcv
     q: PktQ                  # [Q+1, cap]
     qhead: torch.Tensor      # i32[Q+1]
     qsize: torch.Tensor      # i32[Q+1]
-    pipe: SackMsg            # [H, N]: per-flow SACK return pipe
+    pipe: tuple              # [H, N]: per-flow return pipe (SackMsg/RoceMsg)
     obl_rr: torch.Tensor     # i32[N]: oblivious-spray round robin
     drops: torch.Tensor      # i32
     delivered: torch.Tensor  # f32[N]
     done_tick: torch.Tensor  # i32[N], -1 until message completion
     # --- PFC (all-zero and untouched on lossy queues) ---
-    qbytes: torch.Tensor
-    ing_host: torch.Tensor
-    ing_sd: torch.Tensor
-    ing_up: torch.Tensor
-    paused_nic: torch.Tensor
-    paused_sd: torch.Tensor
-    paused_up: torch.Tensor
-    pfc_line: torch.Tensor
-    pauses: torch.Tensor
+    qbytes: torch.Tensor     # f32[Q+1]: per-queue wire-byte occupancy
+    ing_host: torch.Tensor   # f32[NH]: bytes at ToR(h) from host h's NIC
+    ing_sd: torch.Tensor     # f32[S, T]: bytes at ToR t from spine s
+    ing_up: torch.Tensor     # f32[T, S]: bytes at spine s from ToR t
+    paused_nic: torch.Tensor  # bool[NH]
+    paused_sd: torch.Tensor  # bool[S, T]: spine_down[s][t] paused by ToR t
+    paused_up: torch.Tensor  # bool[T, S]: tor_up[t][s] paused by spine s
+    pfc_line: torch.Tensor   # bool[max(PD,1), NH+2*TS]: pause-frame delay
+    pauses: torch.Tensor     # i32: cumulative pause (xoff) events
     # --- dependency scheduling (trivial without deps) ---
     pending: torch.Tensor
     msg_done: torch.Tensor
@@ -260,7 +314,7 @@ class FabricState(NamedTuple):
 
 @dataclasses.dataclass(frozen=True)
 class FabricConfig:
-    """The reference's ``FabricConfig`` with the fields this slice honours;
+    """The reference's ``FabricConfig`` with the fields the port honours;
     the others keep their defaults and raise when set."""
 
     net: NetworkSpec = dataclasses.field(default_factory=NetworkSpec)
@@ -274,6 +328,15 @@ class FabricConfig:
     hop_prop_us: Optional[float] = None
     pfc_delay_ticks: Optional[int] = None
     subflows: int = 1
+    # Shared-buffer bytes per switch for PFC accounting (the reference's
+    # fabric default, sized so lossless backpressure is exercised).
+    switch_buffer_bytes: float = 4e6
+    pfc_alpha: float = 1.0           # dynamic threshold: a * free / (1 + a)
+    pfc_xon_frac: float = 0.5        # resume below this fraction of xoff
+    roce: Optional[RoCEParams] = None  # rocev2 constant overrides
+    # Per-flow QP entropy from ``random.Random(seed)`` in flow order; None
+    # hashes (src, dst, flow index).
+    roce_entropy_seed: Optional[int] = None
     time_warp: bool = False
     trace_every: int = 1
     active_cap: Optional[int] = None
@@ -290,9 +353,10 @@ def check_slice(cfg: FabricConfig) -> None:
     """Raise ``NotImplementedError`` for what the port does not run yet,
     naming the ROADMAP item that brings it."""
     trace_every = 0 if cfg.time_warp else cfg.trace_every
+    if cfg.protocol not in PROTOCOLS:
+        raise ValueError(f"unknown protocol {cfg.protocol!r}; "
+                         f"expected one of {PROTOCOLS}")
     todo = [
-        (cfg.protocol != "strack", f"protocol={cfg.protocol!r}", "A7"),
-        (cfg.pfc_enabled, "pfc=True", "A7"),
         (cfg.faults is not None, "faults", "A9"),
         (bool(cfg.active_cap), "active_cap", "A8"),
         (int(cfg.shard) > 1, "shard > 1", "A11"),
@@ -347,12 +411,18 @@ def _hop_delays(cfg: FabricConfig) -> dict:
 
 
 def _make_protocol(cfg: FabricConfig):
-    """cfg -> (Protocol, STrackParams, kmin/kmax in packets)."""
+    """cfg -> (Protocol, its parameters, ECN kmin/kmax in packets, target
+    queueing delay in us)."""
     net = cfg.net
-    p = make_strack_params(net, max_paths=cfg.max_paths)
-    kmin_p = net.ecn_kmin_bytes / net.mtu_bytes
-    kmax_p = net.ecn_kmax_bytes / net.mtu_bytes
-    return make_strack_protocol(p), p, kmin_p, kmax_p
+    if cfg.protocol == "strack":
+        p = make_strack_params(net, max_paths=cfg.max_paths)
+        return (make_strack_protocol(p), p, net.ecn_kmin_bytes / net.mtu_bytes,
+                net.ecn_kmax_bytes / net.mtu_bytes, p.target_qdelay_us)
+    rp = cfg.roce or make_roce_params(net)
+    p = dq.make_roce_fab_params(net, rp)
+    # "ECN threshold to one BDP for DCQCN" (paper Section 4.1)
+    return (make_rocev2_protocol(p), p, rp.ecn_kmin_bdp * net.bdp_pkts,
+            rp.ecn_kmax_bdp * net.bdp_pkts, net.base_rtt_us)
 
 
 def _scatter_rows(tree_all, tree_rows, idx: torch.Tensor, n: int):
@@ -367,9 +437,10 @@ def _scatter_rows(tree_all, tree_rows, idx: torch.Tensor, n: int):
     return type(tree_all)(*[one(a, b) for a, b in zip(tree_all, tree_rows)])
 
 
-def _scatter_pipe(pipe: SackMsg, rows: SackMsg, slot, fidx, valid, h, n):
-    """Write per-delivery SACK rows into the [H, N] return pipe at per-flow
-    slots; invalid entries hit a trash slot past the flattened pipe."""
+def _scatter_pipe(pipe, rows, slot, fidx, valid, h, n):
+    """Write per-delivery message rows into the [H, N] return pipe at
+    per-flow slots; invalid entries hit a trash slot past the flattened
+    pipe.  Generic over the message tuple (``SackMsg``, ``RoceMsg``)."""
     flat_idx = torch.where(valid, slot * n + fidx, h * n).long()
 
     def one(a, b):
@@ -380,7 +451,7 @@ def _scatter_pipe(pipe: SackMsg, rows: SackMsg, slot, fidx, valid, h, n):
         out[flat_idx] = b
         return out[:h * n].reshape(a.shape)
 
-    return SackMsg(*[one(a, b) for a, b in zip(pipe, rows)])
+    return type(pipe)(*[one(a, b) for a, b in zip(pipe, rows)])
 
 
 class FabricProgram:
@@ -394,7 +465,8 @@ class FabricProgram:
             raise ValueError("fabric program needs at least one flow")
         self.cfg, self.n_ticks, self.device = cfg, int(n_ticks), device
         net = cfg.net
-        self.proto, self.p, kmin_p, kmax_p = _make_protocol(cfg)
+        self.proto, self.p, kmin_p, kmax_p, _ = _make_protocol(cfg)
+        self.pfc = cfg.pfc_enabled
         self.at = ArrayTopo.from_fat_tree(topo, device)
         T, S, NH = topo.n_tor, topo.n_spine, topo.n_hosts
         HPT = topo.hosts_per_tor
@@ -407,8 +479,16 @@ class FabricProgram:
                 "repro_torch does not port dependency edges yet (ROADMAP A6)")
         tick_us = net.mtu_serialize_us
         drop_pkts = int(net.drop_bytes // net.mtu_bytes)
+        buffer_pkts = int(cfg.switch_buffer_bytes // net.mtu_bytes)
+        # worst-case same-tick arrivals at one queue
         max_extra = max(T, S + 2 * HPT)
-        hard_pkts = drop_pkts + max_extra   # probes squeeze past data drop
+        if self.pfc:
+            # lossless: PFC backpressure bounds the queues; data is shed
+            # only at the (never-expected) ring hard cap
+            drop_pkts = buffer_pkts + max_extra
+            hard_pkts = drop_pkts
+        else:
+            hard_pkts = drop_pkts + max_extra  # probes squeeze past drop
         cap = hard_pkts + max_extra + 2
         hd = _hop_delays(cfg)
         self.K, self.H, self.PD = hd["K"], hd["H"], hd["PD"]
@@ -424,19 +504,26 @@ class FabricProgram:
             n_tor=T, n_spine=S, n_hosts=NH, n_flows=N, cap=cap, K=self.K,
             data_drop_pkts=drop_pkts, hard_pkts=hard_pkts, kmin_p=kmin_p,
             kmax_p=kmax_p, mtu_bytes=net.mtu_bytes, tick_us=tick_us)
+        self.pfc_dims = PfcDims(
+            n_tor=T, n_spine=S, n_hosts=NH, hosts_per_tor=HPT, PD=self.PD,
+            buffer_bytes=cfg.switch_buffer_bytes, alpha=cfg.pfc_alpha,
+            xon_frac=cfg.pfc_xon_frac, mtu_bytes=net.mtu_bytes)
         self.dims = dict(T=T, S=S, NH=NH, TS=TS, Q=Q, cap=cap, H=self.H,
                          K=self.K, D_same=self.D_same, D_cross=self.D_cross,
                          PD=self.PD, shard=1, active_cap=0)
 
     # ---- set-up ---------------------------------------------------------
-    def bind(self, src, dst, total_pkts, tail_b, arrival, lb_mode: str):
-        """Per-run inputs (tensors on the program's device)."""
+    def bind(self, src, dst, total_pkts, tail_b, arrival, lb_mode: str,
+             ent0):
+        """Per-run inputs (tensors on the program's device); ``ent0`` is
+        each flow's pinned entropy (read by RoCEv2 only)."""
         dev, N, HPT = self.device, self.N, self.HPT
         self.src = src.to(dev, torch.int32)
         self.dst = dst.to(dev, torch.int32)
         self.total_pkts = total_pkts.to(dev, torch.int32)
         self.tail_b = tail_b.to(dev, torch.float32)
         self.arrival = arrival.to(dev, torch.int32)
+        self.ent0 = ent0.to(dev, torch.int32)
         self.lb_code = LB_MODES.index(lb_mode)
         self.src_tor = torch.div(self.src, HPT, rounding_mode="floor")
         self.dst_tor = torch.div(self.dst, HPT, rounding_mode="floor")
@@ -446,11 +533,14 @@ class FabricProgram:
             % self.cfg.max_paths
         self.dflow = torch.where(self.same_tor, self.D_same, self.D_cross
                                  ).to(torch.int32)
+        self.pfc_flows = (pfc_flows(self.src, self.src_tor, self.same_tor,
+                                    self.total_pkts, self.tail_b, self.NH)
+                          if self.pfc else None)
 
     def init_state(self) -> FabricState:
         dev, N, Q, cap, H = self.device, self.N, self.Q, self.cap, self.H
         T, S, NH = self.T, self.S, self.NH
-        fl0, rcv0 = self.proto.init(self.total_pkts, self.tail_b)
+        fl0, rcv0 = self.proto.init(self.total_pkts, self.tail_b, self.ent0)
         zi = lambda *s: torch.zeros(s, dtype=torch.int32, device=dev)
         zf = lambda *s: torch.zeros(s, dtype=torch.float32, device=dev)
         zb = lambda *s: torch.zeros(s, dtype=torch.bool, device=dev)
@@ -486,21 +576,41 @@ class FabricProgram:
         the transition, the warp loop's idle test and ``warp_target``."""
         return (st.pending <= 0) & (self.arrival <= t)
 
+    def eff_pause(self, st: FabricState, t: int):
+        """Stage 0b under PFC: the effective pause masks, the switches'
+        decisions of ``PD`` ticks ago (pause frames travel one hop
+        upstream) -> ``(eff_nic bool[NH], paused_row bool[Q])``; ``(None,
+        None)`` on lossy queues."""
+        if not self.pfc:
+            return None, None
+        NH, TS = self.NH, self.TS
+        if self.PD > 0:
+            eff = st.pfc_line[t % self.PD]
+            eff_nic, eff_sd, eff_up = eff[:NH], eff[NH:NH + TS], eff[NH + TS:]
+        else:
+            eff_nic = st.paused_nic
+            eff_sd, eff_up = st.paused_sd.reshape(-1), st.paused_up.reshape(-1)
+        paused_row = torch.cat([eff_up, eff_sd,
+                                torch.zeros_like(eff_nic)])
+        return eff_nic, paused_row
+
     def transport_args(self, st: FabricState, t: int,
-                       sendable_msg: torch.Tensor) -> tuple:
+                       sendable_msg: torch.Tensor, eff_nic=None) -> tuple:
         """Arguments of the transition stage at tick ``t`` (stage 1)."""
-        due = SackMsg(*[a[t % self.H] for a in st.pipe])
+        due = type(st.pipe)(*[a[t % self.H] for a in st.pipe])
         return (st.flows, due, sendable_msg[self.dep.msg_of_flow.long()],
-                self.src, t, self.trans_dims)
+                self.src, t, self.trans_dims, eff_nic)
 
     def serve_args(self, st: FabricState, t: int, tx, probe_tx, sel,
-                   probe_valid) -> tuple:
+                   probe_valid, paused_row=None) -> tuple:
         """Stage 2 (spray/ECMP injection targets) and the arguments of the
         serve/enqueue stage at tick ``t``; also returns the new oblivious
         round-robin pointers and the data injection rows."""
         TS, S = self.TS, self.S
         obl_rr = st.obl_rr
-        if self.lb_code == 1:       # oblivious spray
+        if not self.proto.uses_spray:  # the flow's pinned entropy
+            ent, ent_probe = tx.entropy, probe_tx.entropy
+        elif self.lb_code == 1:       # oblivious spray
             ent_obl = (st.obl_rr + 1) % self.cfg.max_paths
             ent, ent_probe = ent_obl, ent_obl
             obl_rr = torch.where(sel, ent_obl, st.obl_rr)
@@ -517,8 +627,12 @@ class FabricProgram:
         args = (st.q, st.qhead, st.qsize, self.dst, self.dst_tor,
                 self.total_pkts, self.tail_b, tx.psn, probe_tx.psn,
                 ent.to(torch.int32), ent_probe.to(torch.int32), spine,
-                spine_p, sel, probe_valid, inj_q, inj_qp, t, self.serve_dims)
+                spine_p, sel, probe_valid, inj_q, inj_qp, t, self.serve_dims,
+                paused_row)
         return args, obl_rr, inj_q
+
+    def pfc_state(self, st: FabricState) -> PfcState:
+        return PfcState(*[getattr(st, k) for k in PfcState._fields])
 
     def tick(self, st: FabricState, t: int):
         """One dense tick at tick index ``t`` -> (new_state, can_any,
@@ -534,9 +648,12 @@ class FabricProgram:
             sendable_msg & (st.msg_release_tick < 0), t,
             st.msg_release_tick).to(torch.int32)
 
-        # 1. transport lanes: due SACKs, timers, sends, NIC arbitration
+        # 0b. PFC effective-pause masks
+        eff_nic, paused_row = self.eff_pause(st, t)
+
+        # 1. transport lanes: due ACKs, timers, sends, NIC arbitration
         flows, tx, probe_tx, probe_valid, sel, can_tx = flow_transition(
-            *self.transport_args(st, t, sendable_msg))
+            *self.transport_args(st, t, sendable_msg, eff_nic))
         pipe_valid = st.pipe.valid.clone()
         pipe_valid[t % H] = False
         pipe = st.pipe._replace(valid=pipe_valid)
@@ -544,9 +661,9 @@ class FabricProgram:
         # 2. spray / ECMP injection targets; 3. ring service + two-pass
         # enqueue (the ring is updated in place)
         args, obl_rr, inj_q = self.serve_args(st, t, tx, probe_tx, sel,
-                                              probe_valid)
-        (qhead, qsize, pop, has, ecn_out, pop_bytes, _cand_qid, accept,
-         drops_add) = serve_enqueue(*args)
+                                              probe_valid, paused_row)
+        (qhead, qsize, pop, has, ecn_out, pop_bytes, cand_qid, accept,
+         drops_add, cand_bytes) = serve_enqueue(*args)
         fclip = pop.flow.clamp(0, N - 1)
         drops = st.drops + drops_add
 
@@ -558,7 +675,8 @@ class FabricProgram:
         d_probe = pop.probe[2 * TS:]
         rnew, sack = self.proto.on_data(
             rrows, pop.psn[2 * TS:], pop_bytes[2 * TS:], ecn_out[2 * TS:],
-            pop.ent[2 * TS:], pop.ts[2 * TS:], d_probe)
+            pop.ent[2 * TS:], pop.ts[2 * TS:], d_probe,
+            Now(t, self.tick_us))
         rnew = tp.tree_where(del_has, rnew, rrows)
         rcv = _scatter_rows(st.rcv, rnew,
                             torch.where(del_has, del_flow, N), N)
@@ -573,7 +691,15 @@ class FabricProgram:
         pipe = _scatter_pipe(pipe, sack._replace(valid=sack_valid), slot_del,
                              del_flow, sack_valid, H, N)
 
-        # 5. completion + metrics
+        # 5. PFC (the reference's stage 6b): ingress accounting, the
+        # pause/resume gates, the pause-frame delay line
+        pfc = self.pfc_state(st)
+        if self.pfc:
+            pfc = pfc_account(pfc, has, pop, pop_bytes, cand_qid, cand_bytes,
+                              accept, st.q, qhead, st.qsize, qsize, t,
+                              self.pfc_flows, self.pfc_dims)
+
+        # 6. completion + metrics
         done = self.proto.done(flows)
         done_tick = torch.where(done & (st.done_tick < 0), t,
                                 st.done_tick).to(torch.int32)
@@ -597,6 +723,7 @@ class FabricProgram:
                            torch.ones_like(inj_q))
 
         new_st = st._replace(
+            **pfc._asdict(),
             flows=flows, rcv=rcv, qhead=qhead, qsize=qsize, pipe=pipe,
             obl_rr=obl_rr, drops=drops, delivered=delivered,
             done_tick=done_tick, msg_done=msg_done,
@@ -642,8 +769,15 @@ class FabricProgram:
         t_pipe = torch.where(st.pipe.valid.any(1), due, n_ticks).min()
         qrows = torch.arange(Q, device=dev)
         rdy = st.q.ready[qrows, (st.qhead[:Q] % cap).long()]
+        pending_q = st.qsize[:Q] > 0
+        if self.pfc:
+            # a paused row cannot change state while the fabric is idle
+            dec_row = torch.cat([st.paused_up.reshape(-1),
+                                 st.paused_sd.reshape(-1),
+                                 torch.zeros_like(st.paused_nic)])
+            pending_q = pending_q & (~dec_row)
         t_queue = torch.clamp_min(
-            torch.where(st.qsize[:Q] > 0, rdy, n_ticks).min(), t + 1)
+            torch.where(pending_q, rdy, n_ticks).min(), t + 1)
         t_arr = torch.clamp_min(torch.where(
             (st.pending <= 0) & (st.msg_release_tick < 0), self.arrival,
             n_ticks).min(), t + 1)
@@ -665,6 +799,11 @@ class FabricProgram:
             st, can_any, sendable_msg = self.tick(st, t)
             idle = (~can_any) & ~(sendable_msg
                                   & (st.msg_release_tick < 0)).any()
+            if self.pfc and self.PD > 0:
+                # no pause frame in flight on the delay line
+                dec = torch.cat([st.paused_nic, st.paused_sd.reshape(-1),
+                                 st.paused_up.reshape(-1)])
+                idle = idle & (st.pfc_line == dec[None, :]).all()
             t_next = torch.where(idle, self.warp_target(st, t, sendable_msg),
                                  t + 1)
             trips += 1
@@ -685,8 +824,10 @@ def _check_flows(flows, n_hosts: int) -> None:
 
 def _flow_arrays(flows, cfg: FabricConfig):
     """Host-side inputs for one flow list: ``(src, dst, total_pkts,
-    tail_bytes)``; ``tail_bytes`` is the wire size of each flow's final
-    PSN.  (The reference's ``ent0`` feeds only RoCEv2 pinned entropy.)"""
+    tail_bytes, ent0)``; ``tail_bytes`` is the wire size of each flow's
+    final PSN, ``ent0`` each flow's pinned entropy (RoCEv2's one QP):
+    ``random.Random(cfg.roce_entropy_seed)`` draws in flow order, else a
+    hash of (src, dst, flow index)."""
     mtu = cfg.net.mtu_bytes
     src = torch.tensor([f[0] for f in flows], dtype=torch.int32)
     dst = torch.tensor([f[1] for f in flows], dtype=torch.int32)
@@ -695,7 +836,14 @@ def _flow_arrays(flows, cfg: FabricConfig):
     tail_bytes = torch.tensor(
         [max(1.0, float(f[2]) - (n - 1) * mtu)
          for f, n in zip(flows, npkts)], dtype=torch.float32)
-    return src, dst, total_pkts, tail_bytes
+    if cfg.roce_entropy_seed is not None:
+        rng = random.Random(cfg.roce_entropy_seed)
+        ent0 = torch.tensor([rng.randrange(1 << 16) for _ in flows],
+                            dtype=torch.int32)
+    else:
+        iota = torch.arange(len(flows), dtype=torch.int32)
+        ent0 = ecmp_mix(src, dst, iota + 40503) % (1 << 16)
+    return src, dst, total_pkts, tail_bytes, ent0
 
 
 def _arrival_array(messages) -> torch.Tensor:
@@ -716,10 +864,10 @@ def _finish_metrics(metrics: dict, fin: dict, cfg: FabricConfig,
     as numpy).  ``fct_us`` is message-level: release to completion."""
     T, S, TS = dims["T"], dims["S"], dims["TS"]
     tick_us = cfg.net.mtu_serialize_us
-    p = make_strack_params(cfg.net, max_paths=cfg.max_paths)
+    target_qdelay_us = _make_protocol(cfg)[4]
     metrics["tick_us"] = tick_us
     metrics["trace_every"] = 0
-    metrics["target_qdelay_pkts"] = p.target_qdelay_us / tick_us
+    metrics["target_qdelay_pkts"] = target_qdelay_us / tick_us
     dt = np.asarray(fin["done_tick"])
     metrics["done_tick"] = dt
     metrics["subflow_fct_us"] = _us_or_none(dt + 1, dt >= 0, tick_us)
@@ -785,10 +933,10 @@ def run_fabric_trace(topo: FatTree, messages, n_ticks: int,
                                    for m in messages], dtype=torch.int32,
                                   device=dev),
         msg_ids=tuple(m.mid for m in messages), group_ids=group_ids)
-    src, dst, total_pkts, tails = _flow_arrays(flows, cfg)
+    src, dst, total_pkts, tails, ent0 = _flow_arrays(flows, cfg)
     prog = FabricProgram(topo, n, n_ticks, cfg, dev, dep)
     prog.bind(src, dst, total_pkts, tails, _arrival_array(messages),
-              cfg.lb_mode)
+              cfg.lb_mode, ent0)
     final, metrics = prog.run()
     fin = {k: getattr(final, k).cpu().numpy() for k in _FINAL_KEYS}
     fin["retx"] = prog.proto.stat_retx(final.flows).cpu().numpy()

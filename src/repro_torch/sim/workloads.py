@@ -134,17 +134,19 @@ def incast_scenario(topo: FatTree, fan_in: int, msg_bytes: float,
 
 @dataclass(frozen=True)
 class RunConfig:
-    """How a scenario runs: the reference's fields that this slice
-    honours.  Unported settings raise ``NotImplementedError`` naming their
-    ROADMAP item when the run starts."""
+    """How a scenario runs: the reference's fields that the port honours.
+    Unported settings raise ``NotImplementedError`` naming their ROADMAP
+    item when the run starts."""
 
     backend: str = "fabric"
-    protocol: str = "strack"
+    protocol: str = "strack"         # strack | rocev2
     lb_mode: str = "adaptive"
-    pfc: Optional[bool] = None
+    pfc: Optional[bool] = None       # None -> lossless iff rocev2
     max_paths: int = 64
     subflows: int = 1
     n_ticks: Optional[int] = None
+    switch_buffer_bytes: Optional[float] = None  # None -> fabric default
+    roce_entropy_seed: Optional[int] = None      # QP entropy draws
     ack_path: str = "perhop"
     hop_prop_us: Optional[float] = None
     time_warp: bool = True
@@ -166,17 +168,22 @@ def _fabric_cfg(sc: Scenario, cfg: RunConfig) -> FabricConfig:
             f"(the event oracle, ROADMAP A10)")
     faults = cfg.faults if cfg.faults is not None else sc.faults
     time_warp = cfg.time_warp and not cfg.trace_every
-    return FabricConfig(
+    kw = dict(
         net=sc.net, max_paths=cfg.max_paths, lb_mode=cfg.lb_mode,
         protocol=cfg.protocol, pfc=cfg.pfc, subflows=cfg.subflows,
-        ack_path=cfg.ack_path, hop_prop_us=cfg.hop_prop_us,
-        time_warp=time_warp, trace_every=cfg.trace_every,
-        active_cap=cfg.active_cap, shard=cfg.shard, faults=faults)
+        roce_entropy_seed=cfg.roce_entropy_seed, ack_path=cfg.ack_path,
+        hop_prop_us=cfg.hop_prop_us, time_warp=time_warp,
+        trace_every=cfg.trace_every, active_cap=cfg.active_cap,
+        shard=cfg.shard, faults=faults)
+    if cfg.switch_buffer_bytes is not None:
+        kw["switch_buffer_bytes"] = cfg.switch_buffer_bytes
+    return FabricConfig(**kw)
 
 
 def run(sc: Scenario, cfg: RunConfig = RunConfig(), device="cuda") -> dict:
     """Run one scenario under one config on ``device``; the reference's
-    summary dict (plus ``warp_trips`` / ``end_tick`` under time warp)."""
+    summary dict (``pauses``, ``gbn_rewinds`` and ``rto_fires`` among its
+    counters; plus ``warp_trips`` / ``end_tick`` under time warp)."""
     fcfg = _fabric_cfg(sc, cfg)
     _, metrics = run_fabric_trace(sc.topo, sc.messages,
                                   _scenario_ticks(sc, cfg), fcfg,

@@ -3,8 +3,8 @@
 Skips without a CUDA device (and imports no JAX, so it also runs on the
 card's machine): ``PYTHONPATH=src python -m pytest -m cuda
 tests/test_torch_cuda.py``.  ``chip_smoke.py`` runs the same checks at the
-full perm1024 / perm8k shapes and at llama3-8b's, mamba2-2.7b's and
-zamba2-2.7b's.
+full perm1024 / incast1024 / perm8k shapes (STrack, RoCEv2, PFC) and at
+llama3-8b's, mamba2-2.7b's and zamba2-2.7b's.
 """
 import dataclasses
 import json
@@ -26,10 +26,12 @@ from repro_torch.runtime.serve import (greedy_generate, make_decode_step,
 from repro_torch.models import lm
 from repro_torch.sim import fabric as TF
 from repro_torch.sim.topology import full_bisection
-from repro_torch.sim.workloads import permutation_scenario
+from repro_torch.sim.workloads import incast_scenario, permutation_scenario
 
 from torch_lm_weights import lm_weights
 from torch_parity import SERVE_REF_PATH, SSM_SERVE_REF_PATHS
+from torch_states import (random_cc, random_rel, random_roce_flow,
+                          random_roce_msg, random_sack, random_spray)
 
 pytestmark = [pytest.mark.torch, pytest.mark.cuda]
 
@@ -59,12 +61,149 @@ def test_fabric_on_the_card_equals_the_cpu(cuda):
     fk.reset_launches()
     _, m_gpu = TF.run_fabric_trace(sc.topo, sc.messages, 2000, cfg,
                                    device=cuda)
-    assert all(n > 0 for n in fk.launches.values()), fk.launches
+    strack = ("flow_transition", "serve_enqueue", "rank_in_queue")
+    assert all((n > 0) == (k in strack) for k, n in fk.launches.items()), \
+        fk.launches
     _, m_cpu = TF.run_fabric_trace(sc.topo, sc.messages, 2000, cfg,
                                    device="cpu")
     np.testing.assert_array_equal(m_gpu["done_tick"], m_cpu["done_tick"])
     assert m_gpu["warp_trips"] == m_cpu["warp_trips"]
     assert m_gpu["ecn_marks"] == m_cpu["ecn_marks"]
+
+
+def _same(a, b):
+    """Two output trees equal, float32 bit for bit."""
+    if isinstance(a, tuple):
+        assert len(a) == len(b)
+        for x, y in zip(a, b):
+            _same(x, y)
+    elif isinstance(a, torch.Tensor):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b)
+    else:
+        assert a == b
+
+
+def _cuda_tree(cls, d, dev):
+    return cls(**{k: torch.from_numpy(np.array(v)).to(dev)
+                  for k, v in d.items()})
+
+
+@pytest.mark.parametrize("t", [2400, 2401, 2403])
+@pytest.mark.parametrize("paused", [False, True])
+def test_roce_transition_kernel_matches_plain(cuda, t, paused):
+    """``csrc/transition_roce.cu`` against the plain RoCEv2 transition on
+    random flow states at 1024 lanes (RTOs, DCQCN timers, byte-counter
+    stages, rewinding NACKs), with and without paused NICs."""
+    from repro_torch.sim import dcqcn_fab as dq
+    from repro_torch.numerics import Now
+    sc = permutation_scenario(full_bisection(32, 32), 64 * 2 ** 10,
+                              net=NetworkSpec(link_gbps=400.0), seed=0)
+    cfg = TF.FabricConfig(net=sc.net, protocol="rocev2", trace_every=0)
+    d = TF.FabricProgram(sc.topo, 1024, 10, cfg, cuda).trans_dims
+    rng = np.random.default_rng(t)
+    n = 1024
+    flow = random_roce_flow(rng, n, d.p, float(Now(t, d.tick_us)))
+    fl = _cuda_tree(dq.RoceFlow, flow, cuda)
+    due = _cuda_tree(dq.RoceMsg, random_roce_msg(rng, n, flow), cuda)
+    sendable = torch.from_numpy(rng.random(n) < 0.9).to(cuda)
+    src = torch.from_numpy(rng.integers(0, 256, n).astype(np.int32)).to(cuda)
+    eff_nic = (torch.from_numpy(rng.random(n) < 0.5).to(cuda) if paused
+               else None)
+    args = (fl, due, sendable, src, t, d, eff_nic)
+    fk.reset_launches()
+    got = fk.flow_transition(*args)
+    assert fk.launches["flow_transition_roce"] == 1
+    _same(got, fk.flow_transition_plain(*args))
+    if t == 2400:
+        assert (got[0].rto_fires > fl.rto_fires).any()
+
+
+def test_strack_transition_pfc_gate_matches_plain(cuda):
+    """``csrc/transition.cu``'s PFC gate: random STrack states with half the
+    NICs paused (probes withheld, winners held back)."""
+    from repro_torch.core.cc import CCState
+    from repro_torch.core.lb import SprayState
+    from repro_torch.core.reliability import RelState, SackMsg
+    from repro_torch.core.transport import FlowState
+    from repro_torch.numerics import Now
+    sc = permutation_scenario(full_bisection(32, 32), 64 * 2 ** 10,
+                              net=NetworkSpec(link_gbps=400.0), seed=0)
+    cfg = TF.FabricConfig(net=sc.net, pfc=True, trace_every=0)
+    d = TF.FabricProgram(sc.topo, 1024, 10, cfg, cuda).trans_dims
+    rng = np.random.default_rng(5)
+    n, t = 1024, 2400
+    rel_d = random_rel(rng, n, d.p)
+    flows = FlowState(cc=_cuda_tree(CCState, random_cc(rng, n, d.p), cuda),
+                      spray=_cuda_tree(SprayState, random_spray(rng, n, d.p),
+                                       cuda),
+                      rel=_cuda_tree(RelState, rel_d, cuda))
+    due = _cuda_tree(SackMsg, random_sack(rng, n, d.p, rel_d,
+                                          float(Now(t, d.tick_us))), cuda)
+    sendable = torch.from_numpy(rng.random(n) < 0.9).to(cuda)
+    src = torch.from_numpy(rng.integers(0, 256, n).astype(np.int32)).to(cuda)
+    eff_nic = torch.from_numpy(rng.random(n) < 0.5).to(cuda)
+    args = (flows, due, sendable, src, t, d, eff_nic)
+    got = fk.flow_transition(*args)
+    _same(got, fk.flow_transition_plain(*args))
+    assert (got[2].valid & eff_nic[src.long()]).any()
+
+
+@pytest.mark.parametrize("protocol", ["rocev2", "strack"])
+def test_serve_and_pfc_account_kernels_match_plain_under_pfc(cuda, protocol):
+    """The serve/enqueue chain with its paused rows, and the PFC stage, on
+    dense ticks of the 4x4 incast with a 200 KB buffer (paused NICs and
+    rows from tick 21)."""
+    sc = incast_scenario(full_bisection(4, 4), 8, 512 * 2 ** 10,
+                         net=NetworkSpec(link_gbps=400.0))
+    cfg = TF.FabricConfig(net=sc.net, protocol=protocol, pfc=True,
+                          trace_every=0, switch_buffer_bytes=2e5)
+    prog = TF.FabricProgram(sc.topo, len(sc.messages), 200, cfg, cuda)
+    src, dst, total, tails, ent0 = TF._flow_arrays(sc.flows, cfg)
+    prog.bind(src, dst, total, tails, TF._arrival_array(sc.messages),
+              cfg.lb_mode, ent0)
+    st = prog.init_state()
+    gated = 0
+    for t in range(120):
+        eff_nic, prow = prog.eff_pause(st, t)
+        targs = prog.transport_args(st, t, prog.sendable_msg(st, t), eff_nic)
+        out = fk.flow_transition(*targs)
+        _same(out, fk.flow_transition_plain(*targs))
+        _, tx, ptx, pv, sel, _ = out
+        sargs, _, _ = prog.serve_args(st, t, tx, ptx, sel, pv, prow)
+        rings = [type(st.q)(*[f.clone() for f in st.q]) for _ in range(2)]
+        res = fk.serve_enqueue(rings[0], *sargs[1:])
+        _same(res, fk.serve_enqueue_plain(rings[1], *sargs[1:]))
+        _same(tuple(f[:prog.Q] for f in rings[0]),
+              tuple(f[:prog.Q] for f in rings[1]))
+        pargs = (prog.pfc_state(st), res[3], res[2], res[5], res[6], res[9],
+                 res[7], rings[0], res[0], st.qsize, res[1], t,
+                 prog.pfc_flows, prog.pfc_dims)
+        _same(fk.pfc_account(*pargs), fk.pfc_account_plain(*pargs))
+        gated += int((prow & (st.qsize[:prog.Q] > 0)).sum())
+        st, _, _ = prog.tick(st, t)
+    assert gated > 0 and int(st.pauses) > 0
+
+
+def test_rocev2_pfc_fabric_on_the_card_equals_the_cpu(cuda):
+    sc = incast_scenario(full_bisection(4, 4), 8, 512 * 2 ** 10,
+                         net=NetworkSpec(link_gbps=400.0))
+    cfg = TF.FabricConfig(net=sc.net, protocol="rocev2", time_warp=True,
+                          trace_every=0, switch_buffer_bytes=2e5)
+    fk.reset_launches()
+    fin_g, m_gpu = TF.run_fabric_trace(sc.topo, sc.messages, 3000, cfg,
+                                       device=cuda)
+    assert fk.launches["flow_transition_roce"] > 0
+    assert fk.launches["pfc_account"] > 0
+    fin_c, m_cpu = TF.run_fabric_trace(sc.topo, sc.messages, 3000, cfg,
+                                       device="cpu")
+    np.testing.assert_array_equal(m_gpu["done_tick"], m_cpu["done_tick"])
+    for k in ("warp_trips", "pauses", "drops", "ecn_marks", "gbn_rewinds",
+              "rto_fires"):
+        assert m_gpu[k] == m_cpu[k], k
+    _same(tuple(x.cpu() for x in fin_g.flows), fin_c.flows)
 
 
 @pytest.mark.parametrize("B,H,K,Tq,Tk,hd,causal,window,q_offset", [

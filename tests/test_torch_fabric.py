@@ -104,8 +104,8 @@ def test_port_matches_perm1024_reference_on_cpu():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(protocol="rocev2"), "A7"),
-    (dict(pfc=True), "A7"),
+    (dict(protocol="rocev2", active_cap=8), "A8"),
+    (dict(pfc=True, faults=object()), "A9"),
     (dict(active_cap=8), "A8"),
     (dict(shard=2), "A11"),
     (dict(subflows=4), "A6"),

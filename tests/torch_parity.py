@@ -1,8 +1,10 @@
 """Shared helpers for the port's parity tests (JAX reference vs repro_torch).
 
-Run as a script to regenerate the committed reference files (perm1024,
-incast1024, and the llama3-8b, mamba2-2.7b and zamba2-2.7b SMOKE serve
-references) from the JAX package:
+Run as a script to regenerate the committed reference files (perm1024 and
+incast1024 under STrack; perm1024 and incast1024 under RoCEv2 with PFC,
+incast1024 under lossy RoCEv2 and under STrack with PFC; the llama3-8b,
+mamba2-2.7b and zamba2-2.7b SMOKE serve references) from the JAX
+package:
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/torch_parity.py
 """
@@ -32,6 +34,22 @@ SSM_SERVE_REF_PATHS = {"mamba2-2.7b": REF_DIR / "mamba2_smoke_serve_ref.json",
 REF_SUMMARY_KEYS = ("max_fct", "avg_fct", "unfinished", "drops", "pauses",
                     "ecn_marks", "retransmits", "rto_fires",
                     "sack_recoveries", "qdepth_max_pkts")
+#: The RoCEv2/PFC reference files pin every summary key but the per-tenant
+#: table (one tenant: the FCTs above).
+PFC_SUMMARY_KEYS = REF_SUMMARY_KEYS + (
+    "gbn_rewinds", "qdepth_p99_pkts", "blackholed_pkts", "corrupt_drops",
+    "tx_rows_pkts")
+#: The full-width RoCEv2/PFC runs: file stem -> (scenario, RunConfig
+#: fields).  PFC is on by default under RoCEv2.
+PFC_REFS = {
+    "perm1024_rocev2": ("perm1024", dict(protocol="rocev2")),
+    "incast1024_rocev2": ("incast1024", dict(protocol="rocev2")),
+    "incast1024_rocev2_lossy": ("incast1024",
+                                dict(protocol="rocev2", pfc=False)),
+    "incast1024_strack_pfc": ("incast1024", dict(protocol="strack",
+                                                 pfc=True)),
+}
+PFC_REF_PATHS = {name: REF_DIR / f"{name}_ref.json" for name in PFC_REFS}
 
 
 def _bits(a: np.ndarray) -> np.ndarray:
@@ -61,42 +79,53 @@ def diff_leaves(ref_tree, port_tree, ring_rows=None) -> list:
     return bad
 
 
-def perm1024_reference() -> dict:
-    """The JAX package's perm1024 run (benchmarks/perf.py canonical
-    scenario: full_bisection(32, 32), 64 KiB, 400 Gbps, seed 0) under the
-    default RunConfig: summary keys, warp trips, end tick, done ticks."""
+def _jax_scenario(name: str):
+    """The JAX package's full-width scenarios: ``perm1024``
+    (benchmarks/perf.py canonical scenario: full_bisection(32, 32), 64 KiB,
+    400 Gbps, seed 0) and ``incast1024`` (256 hosts of that fabric send
+    16 KiB each to host 0)."""
     from repro.core.params import NetworkSpec
     from repro.sim.topology import full_bisection
-    from repro.sim.workloads import permutation_scenario
-    return _reference(permutation_scenario(
-        full_bisection(32, 32), 64 * 2 ** 10,
-        net=NetworkSpec(link_gbps=400.0), seed=0))
+    from repro.sim.workloads import incast_scenario, permutation_scenario
+    net = NetworkSpec(link_gbps=400.0)
+    if name == "perm1024":
+        return permutation_scenario(full_bisection(32, 32), 64 * 2 ** 10,
+                                    net=net, seed=0)
+    return incast_scenario(full_bisection(32, 32), 256, 16 * 2 ** 10, net=net)
+
+
+def perm1024_reference() -> dict:
+    """The JAX package's perm1024 run under the default RunConfig: summary
+    keys, warp trips, end tick, done ticks."""
+    return _reference(_jax_scenario("perm1024"))
 
 
 def incast1024_reference() -> dict:
-    """The JAX package's incast1024 run: 256 hosts of the perm1024 fabric
-    send 16 KiB each to host 0 (400 Gbps, seed 0).  Its standing queue
-    drops at the data threshold, marks ECN on the dither and sends the
-    senders into SACK recovery, which the permutation never does."""
-    from repro.core.params import NetworkSpec
-    from repro.sim.topology import full_bisection
-    from repro.sim.workloads import incast_scenario
-    return _reference(incast_scenario(
-        full_bisection(32, 32), 256, 16 * 2 ** 10,
-        net=NetworkSpec(link_gbps=400.0)))
+    """The JAX package's incast1024 run under the default RunConfig.  Its
+    standing queue drops at the data threshold, marks ECN on the dither
+    and sends the senders into SACK recovery, which the permutation never
+    does."""
+    return _reference(_jax_scenario("incast1024"))
 
 
-def _reference(sc) -> dict:
-    """One scenario through the JAX package under the default RunConfig:
+def pfc_reference(name: str) -> dict:
+    """The JAX package's run of one ``PFC_REFS`` entry: every summary key
+    of ``PFC_SUMMARY_KEYS``, warp trips, end tick, done ticks."""
+    scenario, kw = PFC_REFS[name]
+    return _reference(_jax_scenario(scenario), kw, PFC_SUMMARY_KEYS)
+
+
+def _reference(sc, kw=None, keys=REF_SUMMARY_KEYS) -> dict:
+    """One scenario through the JAX package under ``RunConfig(**kw)``:
     summary keys, warp trips, end tick, done ticks."""
     from repro.sim.fabric import run_fabric_trace, summarize
     from repro.sim.workloads import RunConfig, _fabric_cfg, _scenario_ticks
-    cfg = RunConfig()
+    cfg = RunConfig(**(kw or {}))
     n_ticks = _scenario_ticks(sc, cfg)
     _, m = run_fabric_trace(sc.topo, sc.messages, n_ticks,
                             _fabric_cfg(sc, cfg))
     s = summarize(m)
-    out = {k: s[k] for k in REF_SUMMARY_KEYS}
+    out = {k: list(s[k]) if isinstance(s[k], tuple) else s[k] for k in keys}
     out.update(n_ticks=int(n_ticks), warp_trips=int(m["warp_trips"]),
                end_tick=int(m["end_tick"]),
                done_tick=[int(v) for v in np.asarray(m["done_tick"])])
@@ -202,6 +231,8 @@ def write_references() -> None:
               (SERVE_REF_PATH, llama3_smoke_serve_reference)]
     makers += [(path, lambda a=arch: ssm_smoke_serve_reference(a))
                for arch, path in SSM_SERVE_REF_PATHS.items()]
+    makers += [(path, lambda n=name: pfc_reference(n))
+               for name, path in PFC_REF_PATHS.items()]
     for path, make in makers:
         path.write_text(json.dumps(make(), sort_keys=True) + "\n")
         print(f"wrote {path}")

@@ -4,7 +4,9 @@ The port's parity tests feed them to the JAX reference and the port alike;
 ``chip_smoke.py`` feeds them to the transition kernel and its plain version
 on the card.  The draws cover the rare branches a fabric run seldom takes:
 expired RTO and probe deadlines, flows in recovery, claimed ledger bits,
-stale and future SACKs.  Only numpy is imported here.
+stale and future SACKs; for RoCEv2, timer and pacing comparisons on and
+next to their thresholds, byte counters a packet short of a stage, CNPs
+and rewinding NACKs.  Only numpy is imported here.
 """
 from __future__ import annotations
 
@@ -104,3 +106,94 @@ def random_receiver(rng, n) -> dict:
         lpsn=np.where(rng.random(n) < 0.5, -1,
                       epsn + rng.integers(0, 500, n)).astype(np.int32),
         total_pkts=(epsn + rng.integers(0, 700, n)).astype(np.int32))
+
+
+def _near(rng, n, centre, spread):
+    """float32 values at ``centre`` and up to two ulps either side (the
+    ties of a ``>=`` comparison), mixed with values up to ``spread``
+    away."""
+    c = np.float32(centre)
+    steps = rng.integers(-2, 3, n)
+    tie = np.full(n, c, dtype=np.float32)
+    for k in (1, 2):
+        up, dn = steps >= k, steps <= -k
+        tie[up] = np.nextafter(tie[up], np.float32(np.inf))
+        tie[dn] = np.nextafter(tie[dn], np.float32(-np.inf))
+    free = (c + rng.uniform(-spread, spread, n)).astype(np.float32)
+    return np.where(rng.random(n) < 0.5, tie, free).astype(np.float32)
+
+
+def random_roce_flow(rng, n, p, now: float) -> dict:
+    """RoCEv2 sender states (``dcqcn_fab.RoceFlow``) around time ``now``:
+    RTO deadlines, alpha/rate timer stamps and pacing gates on and next to
+    their thresholds, byte counters one packet short of a stage, stage
+    counts on both sides of fast recovery, closed and open windows, done
+    flows."""
+    dc = p.dcqcn
+    snd = rng.integers(0, 200, n).astype(np.int32)
+    total = np.where(rng.random(n) < 0.15, snd - rng.integers(0, 2, n),
+                     snd + rng.integers(1, 300, n)).astype(np.int32)
+    psn_next = (snd + rng.integers(0, int(p.window_pkts) + 8, n)
+                ).astype(np.int32)
+    line = np.float32(p.line_rate_Bpus)
+    rate = np.where(rng.random(n) < 0.3, line,
+                    rng.uniform(dc.min_rate_Bpus, line, n)).astype(np.float32)
+    mtu = p.mtu_bytes
+    bytes_ctr = np.where(
+        rng.random(n) < 0.5,
+        dc.byte_counter - mtu * rng.integers(0, 3, n),
+        rng.integers(0, int(dc.byte_counter // mtu), n) * mtu
+    ).astype(np.float32)
+    return dict(
+        snd_una=snd, psn_next=psn_next, total_pkts=total, rate=rate,
+        target=np.where(rng.random(n) < 0.3, line,
+                        rng.uniform(dc.min_rate_Bpus, line, n)
+                        ).astype(np.float32),
+        alpha=np.where(rng.random(n) < 0.2, 1.0,
+                       rng.uniform(0, 1, n)).astype(np.float32),
+        t_stage=rng.integers(0, 9, n).astype(np.int32),
+        b_stage=rng.integers(0, 9, n).astype(np.int32),
+        bytes_ctr=bytes_ctr,
+        last_rate_ts=_near(rng, n, np.float32(now) - np.float32(
+            dc.rate_timer_us), 60.0),
+        last_alpha_ts=_near(rng, n, np.float32(now) - np.float32(
+            dc.alpha_timer_us), 60.0),
+        next_send_ts=_near(rng, n, np.float32(now) + np.float32(
+            0.5 * p.tick_us), 2.0),
+        rto_deadline=_near(rng, n, now, 100.0),
+        entropy=rng.integers(0, 1 << 16, n).astype(np.int32),
+        retransmits=rng.integers(0, 6, n).astype(np.int32),
+        tail_bytes=np.where(rng.random(n) < 0.5, float(mtu),
+                            rng.integers(1, mtu + 1, n)).astype(np.float32),
+        max_psn=(psn_next + np.where(rng.random(n) < 0.5, 0,
+                                     rng.integers(0, 60, n))).astype(np.int32),
+        rto_fires=rng.integers(0, 3, n).astype(np.int32),
+        gbn_rewinds=rng.integers(0, 3, n).astype(np.int32))
+
+
+def random_roce_msg(rng, n, flow: dict) -> dict:
+    """Return-pipe messages (``dcqcn_fab.RoceMsg``) for ``flow``: CNPs,
+    ACKs below, at and past ``snd_una``, NACKs that rewind and that do
+    not."""
+    return dict(
+        valid=rng.random(n) < 0.8,
+        ack=rng.random(n) < 0.5,
+        nack=rng.random(n) < 0.3,
+        cnp=rng.random(n) < 0.4,
+        epsn=(flow["snd_una"] + rng.integers(-3, 120, n)).astype(np.int32),
+        bytes_recvd=(rng.integers(0, 400, n) * 4096).astype(np.float32))
+
+
+def random_roce_rcv(rng, n, now: float) -> dict:
+    """RoCEv2 receivers (``dcqcn_fab.RoceRcv``): coalescing counters on
+    both sides of the ACK threshold, last CNP times around the CNP
+    interval before ``now`` (and never)."""
+    epsn = rng.integers(0, 100, n).astype(np.int32)
+    return dict(
+        epsn=epsn,
+        total_pkts=(epsn + rng.integers(0, 4, n)).astype(np.int32),
+        since_ack=rng.integers(0, 3, n).astype(np.int32),
+        last_cnp_ts=np.where(rng.random(n) < 0.2, np.float32(-1e18),
+                             _near(rng, n, np.float32(now) - np.float32(50.0),
+                                   60.0)).astype(np.float32),
+        bytes_recvd=(rng.integers(0, 400, n) * 4096).astype(np.float32))
