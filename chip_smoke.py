@@ -49,6 +49,24 @@ Phases (any failure exits non-zero; nothing is caught):
      (e) a [fabric] line: STrack against RoCEv2, FCTs and wall times;
      then the new kernels' device times (CUDA-graph replays), bounds and
      plain versions' times at incast1024's shapes;
+  6c. chaos on the fabric, perm1024 under CHAOS1024 (repro_torch.profile:
+     a link flap, a permanent uplink flap, a host flap, a link at a
+     quarter rate, a corrupting link and a corrupting host link):
+     (a) serve_enqueue's fault branches against its plain version on the
+         card, exact, at ticks of both the STrack and the RoCEv2 + PFC run
+         that must show a down row popping into the blackhole, a
+         duty-closed row with a ready head, a corrupted survivor and a
+         spared survivor on a corrupting row; on random fault rows at the
+         captured ring (each input alone too); the kernel's splitmix64
+         draw against fault_u01 on a grid of keys (negative psns, ticks
+         near 2^30);
+     (b) goldens perm16_flap_strack / perm16_flap_roce;
+     (c) perm1024 under CHAOS1024 with STrack and with RoCEv2 + PFC, and
+         linkdown1024 (128 dead uplinks) as t=0 uplink flaps, each held
+         exactly against its JAX-made reference file (blackholed and
+         corrupted packets, the flap windows' retransmits among the keys),
+         each launching exactly its path's kernels;
+     (d) serve_enqueue's fault path timed (`fault_*` fields);
   7. serve: llama3-8b, bf16, attn_impl="pallas", random weights from a
      CUDA generator (seed 0; 16 GB):
      (a) the flash-attention kernel against its plain version on the card
@@ -99,7 +117,8 @@ Phases (any failure exits non-zero; nothing is caught):
      device time per call from torch.profiler, and the wrapper's wall time
      per call; the plain version's device and wall time; the bound;
      flow_transition_roce and pfc_account from phase 6b, and the PFC-path
-     `pfc_*` fields of flow_transition and serve_enqueue; for
+     `pfc_*` fields of flow_transition and serve_enqueue; the fault-path
+     `fault_*` fields of serve_enqueue from phase 6c; for
      flash attention SDPA's time as `library_ms`, at the prefill-1000 and
      decode-544 shapes and at zamba2's hd 80; for the SSD scan at mamba2's
      prefill 4 x 1024 and 1 x 4096 inputs), the card's name and power
@@ -217,9 +236,13 @@ def assert_same(what: str, a, b) -> float:
 
 
 def nbytes(tree) -> int:
+    """Bytes of the distinct tensors of ``tree`` (a tensor that appears
+    twice, as serve_enqueue's ``surv`` is its ``has`` without faults,
+    counts once)."""
     import torch
-    return sum(t.numel() * t.element_size() for _, t in leaves(tree)
-               if isinstance(t, torch.Tensor))
+    distinct = {id(t): t for _, t in leaves(tree)
+                if isinstance(t, torch.Tensor)}
+    return sum(t.numel() * t.element_size() for t in distinct.values())
 
 
 def wall_ms(fn, reps: int = 30) -> float:
@@ -351,8 +374,9 @@ def hold_against_reference(name, sc, cfg, kernels) -> tuple:
     """Run ``sc`` under ``cfg`` through the port on the card, the launch
     counts reset just before and read just after, and hold it exactly
     against ``src/repro_torch/testdata/<name>_ref.json`` (made by the JAX
-    package): every summary key the file has (floats to 1e-6), warp trips,
-    end tick, every done tick.  Fails unless each kernel of ``kernels``
+    package): every summary key the file has (floats to 1e-6; the chaos
+    files' ``blackholed_pkts``, ``corrupt_drops`` and ``win_retx`` among
+    them), warp trips, end tick, every done tick.  Fails unless each kernel of ``kernels``
     launched, and unless no other fabric kernel did.  Returns
     ``(launches, summary, wall seconds)``."""
     import torch
@@ -374,6 +398,8 @@ def hold_against_reference(name, sc, cfg, kernels) -> tuple:
            for k in ref if k in s}
     got.update(warp_trips=m["warp_trips"], end_tick=m["end_tick"],
                n_ticks=n_ticks, done_tick=[int(v) for v in m["done_tick"]])
+    for k in ("blackholed_pkts", "corrupt_drops", "win_retx"):
+        assert k not in ref or k in got, (name, k)
     for k, v in ref.items():
         if isinstance(v, float):
             assert math.isclose(got[k], v, rel_tol=1e-6), (name, k, got[k], v)
@@ -386,7 +412,10 @@ def hold_against_reference(name, sc, cfg, kernels) -> tuple:
         f"{s['drops']}, pauses {s['pauses']}, ecn_marks {s['ecn_marks']}, "
         f"retransmits {s['retransmits']}, rto_fires {s['rto_fires']}, "
         f"sack_recoveries {s['sack_recoveries']}, gbn_rewinds "
-        f"{s['gbn_rewinds']}, warp_trips={m['warp_trips']}, end_tick "
+        f"{s['gbn_rewinds']}, blackholed_pkts {s['blackholed_pkts']}, "
+        f"corrupt_drops {s['corrupt_drops']}, win_retx "
+        f"{list(s.get('win_retx', ()))[:4]}, warp_trips={m['warp_trips']}, "
+        f"end_tick "
         f"{m['end_tick']}, all {len(got['done_tick'])} done ticks); wall "
         f"{wall:.3f}s, {m['warp_trips'] / wall:.1f} trips/s; launches "
         f"{launches}")
@@ -724,6 +753,194 @@ def roce_pfc(dev, strack: dict) -> tuple:
     paths.setdefault("rank_in_queue", {})["pfc_max_abs_err"] = \
         max_err["rank_in_queue"]
     return entries, paths
+
+
+def chaos(dev, perm_wall: float) -> dict:
+    """Phase 6c: chaos on the fabric (link, uplink and host flaps, a
+    degraded link, seeded corruption), with serve_enqueue's fault
+    branches in CUDA.  ``perm_wall`` is phase 4's wall time of the
+    fault-free perm1024.  Returns the ``fault_*`` fields of the
+    ``serve_enqueue`` entry of the ``kernels`` line."""
+    import dataclasses as dc
+    import torch
+    from repro_torch.core.params import NetworkSpec
+    from repro_torch.kernels import _cuda_bind
+    from repro_torch.kernels import fabric_kernels as fk
+    from repro_torch.profile import CHAOS1024
+    from repro_torch.sim.faults import (NEVER, fault_u01,
+                                        faults_from_dead_links, link_flap)
+    from repro_torch.sim.topology import full_bisection
+    from repro_torch.sim.workloads import (RunConfig, linkdown_scenario,
+                                           permutation_scenario, run)
+
+    net400 = NetworkSpec(link_gbps=400.0)
+    t32 = full_bisection(32, 32)
+    perm1024 = permutation_scenario(t32, 64 * 2 ** 10, net=net400, seed=0)
+    cfgs = {"strack": RunConfig(faults=CHAOS1024),
+            "rocev2": RunConfig(protocol="rocev2", faults=CHAOS1024)}
+    max_err = [0.0]
+    captured = {}
+
+    def same(what, a, b):
+        max_err[0] = max(max_err[0], assert_same(what, a, b))
+
+    def check_serve(label, sargs, ring):
+        """serve_enqueue against its plain version on clones of ``ring``;
+        returns the kernel's result."""
+        rings = [type(ring)(*[f.clone() for f in ring]) for _ in range(2)]
+        res_k = fk.serve_enqueue(rings[0], *sargs[1:])
+        same(f"{label} serve_enqueue", res_k,
+             fk.serve_enqueue_plain(rings[1], *sargs[1:]))
+        same(f"{label} ring", [f[:-1] for f in rings[0]],
+             [f[:-1] for f in rings[1]])
+        return res_k
+
+    def walk(proto, ticks, capture_at):
+        """Kernel against plain at ``ticks`` of a dense perm1024 run under
+        CHAOS1024; fails unless those ticks show every fault branch."""
+        prog = fabric_program(perm1024, cfgs[proto], dev)
+        st = prog.init_state()
+        seen = dict.fromkeys(("down_pops", "duty_closed_ready",
+                              "corrupted", "spared"), 0)
+        for t in range(max(ticks) + 1):
+            if t in ticks:
+                fm = prog.fault_masks(t)
+                eff_nic, prow = prog.eff_pause(st, t)
+                targs = prog.transport_args(st, t, prog.sendable_msg(st, t),
+                                            eff_nic)
+                _, tx, ptx, pv, sel, _ = fk.flow_transition(*targs)
+                sargs, _, _ = prog.serve_args(st, t, tx, ptx, sel, pv, prow,
+                                              fm)
+                res = check_serve(f"chaos {proto} t={t}", sargs, st.q)
+                pop, has, surv = res[2], res[3], res[10]
+                ready = (st.qsize[:prog.Q] > 0) & (pop.ready <= t)
+                seen["down_pops"] += int((has & fm.row_down).sum())
+                seen["duty_closed_ready"] += int((ready & ~fm.row_duty).sum())
+                seen["corrupted"] += int(res[12])
+                seen["spared"] += int((surv & ~pop.probe
+                                       & (fm.row_cor_p > 0)).sum())
+                if t == capture_at:
+                    captured[proto] = (prog, sargs, type(st.q)(
+                        *[f.clone() for f in st.q]))
+            st, _, _ = prog.tick(st, t)
+        torch.cuda.synchronize()
+        assert all(v > 0 for v in seen.values()), (proto, seen)
+        log(f"[chaos] perm1024 {proto}: serve_enqueue's fault branches match "
+            f"the plain version at ticks {sorted(ticks)}; summed over those "
+            f"ticks {seen}")
+
+    # (a) the fault branches against the plain version at ticks of both
+    # CHAOS1024 runs where each fires: the link flap's rows pop into the
+    # blackhole at 13-61, the degraded link's duty cycle closes on ready
+    # heads from 18, the corrupting links drop and spare data at 18-61 and
+    # 140-141 (found by stepping the plain version on the CPU)
+    walk("strack", {18, 19, 20, 21, 22, 26, 28, 41, 54, 60, 100},
+         capture_at=28)
+    walk("rocev2", {13, 26, 38, 40, 46, 50, 54, 61, 73, 140, 141},
+         capture_at=40)
+    # random row masks and probabilities on the captured STrack ring, and
+    # each fault input alone
+    prog, sargs, ring = captured["strack"]
+    Q = prog.Q
+    gen = torch.Generator(device="cpu").manual_seed(16)
+    rnd = lambda: torch.rand((Q,), generator=gen).to(dev)
+    seen = dict(bh=0, cor=0)
+    for trial in range(4):
+        down, duty = rnd() < 0.1, rnd() < 0.7
+        prob = torch.where(rnd() < 0.5, rnd(), 0.0).to(torch.float32)
+        seed = int(torch.randint(0, 2 ** 31, (1,), generator=gen))
+        faults = [(down, duty, prob, seed), (down, None, None, None),
+                  (None, duty, None, None), (None, None, prob, seed)][trial]
+        res = check_serve(f"random fault rows {trial}",
+                          sargs[:20] + faults, ring)
+        seen["bh"] += int(res[11])
+        seen["cor"] += int(res[12])
+    assert seen["bh"] > 0 and seen["cor"] > 0, seen
+    # the device draw against the plain draw on a grid of keys: every row
+    # of perm1024, ticks from 0 and near 2^30, psns across int32
+    rows = torch.arange(Q, dtype=torch.int32)
+    ticks = torch.tensor([0, 1, 7, 24383, NEVER - 1, NEVER, NEVER + 1],
+                         dtype=torch.int32)
+    psns = torch.tensor([-2 ** 31, -1, 0, 1, 15, 4095, 2 ** 31 - 1],
+                        dtype=torch.int32)
+    grid = [g.reshape(-1).contiguous()
+            for g in torch.meshgrid(rows, ticks, psns, indexing="ij")]
+    lib = fk._lib("serve_enqueue")
+    for seed in (0, 3, 2 ** 31 - 1):
+        same(f"fault draw seed={seed}",
+             _cuda_bind.fault_draw(lib, seed, *[g.to(dev) for g in grid]
+                                   ).cpu(),
+             fault_u01(seed, *grid))
+    log(f"[chaos] serve_enqueue matches its plain version on random fault "
+        f"rows (and each alone) at the captured perm1024 ring: {seen}; the "
+        f"device draw equals fault_u01 at {grid[0].numel()} keys x 3 seeds")
+
+    # (b) goldens: one ToR-0 uplink flaps in [50, 400) mid-permutation
+    t44 = full_bisection(4, 4)
+    perm16 = permutation_scenario(t44, 256 * 2 ** 10, net=net400, seed=0)
+    for name, proto in (("perm16_flap_strack", "strack"),
+                        ("perm16_flap_roce", "rocev2")):
+        want = json.loads((ROOT / "tests" / "golden" / f"{name}.json")
+                          .read_text())
+        t0 = time.time()
+        got = run(perm16, RunConfig(protocol=proto,
+                                    faults=link_flap(0, 0, 50, 400)),
+                  device="cuda")
+        for k, v in want.items():
+            if isinstance(v, float):
+                assert math.isclose(got[k], v, rel_tol=1e-6), (name, k,
+                                                               got[k], v)
+            else:
+                assert got[k] == v, (name, k, got[k], v)
+        log(f"[golden] {name}: {want} matched in {time.time() - t0:.2f}s "
+            f"({got['warp_trips']} warp trips, blackholed "
+            f"{got['blackholed_pkts']})")
+
+    # (c) the full-width runs against their JAX-made reference files
+    l_s, s_s, w_s = hold_against_reference(
+        "perm1024_chaos_strack", perm1024, cfgs["strack"], STRACK_KERNELS)
+    l_r, s_r, w_r = hold_against_reference(
+        "perm1024_chaos_rocev2", perm1024, cfgs["rocev2"],
+        ROCE_KERNELS + ("pfc_account",))
+    dead = linkdown_scenario({"n_tor": 32, "hosts_per_tor": 32}, 0.125,
+                             64 * 2 ** 10, net=net400)
+    assert len(dead.topo.dead_links) == 128
+    l_d, s_d, w_d = hold_against_reference(
+        "linkdown1024_strack", dc.replace(dead, topo=t32),
+        RunConfig(faults=faults_from_dead_links(dead.topo)), STRACK_KERNELS)
+    assert (s_s["blackholed_pkts"], s_s["corrupt_drops"]) == (31, 9)
+    assert (s_r["blackholed_pkts"], s_r["corrupt_drops"]) == (36, 30)
+    log(f"[chaos] wall: perm1024 STrack {perm_wall:.3f}s fault-free, "
+        f"{w_s:.3f}s under CHAOS1024; RoCEv2 + PFC {w_r:.3f}s; linkdown1024 "
+        f"as t=0 flaps {w_d:.3f}s")
+
+    # (d) serve_enqueue's fault path: times and bound at the STrack run's
+    # tick 28 (down, duty-closed, corrupted and spared rows all present)
+    prog, sargs, ring = captured["strack"]
+    res_k = fk.serve_enqueue(type(ring)(*[f.clone() for f in ring]),
+                             *sargs[1:])
+    ring_k = type(ring)(*[f.clone() for f in ring])
+    ring_p = type(ring)(*[f.clone() for f in ring])
+    slot_bytes = sum(f.element_size() for f in ring)
+    n_acc = int(res_k[7].sum())
+    # the head slot of each row, qhead/qsize in and out, the per-flow lane
+    # inputs, the three fault rows, the outputs (surv and the two counts
+    # among them) and the accepted candidates' ring slots
+    f_bytes = (2 * 4 * (Q + 1) + Q * slot_bytes + nbytes(sargs[3:17])
+               + nbytes(sargs[20:23]) + nbytes(res_k) + n_acc * slot_bytes)
+    bnd, by = bound_ms(f_bytes, Q * 80 + res_k[6].numel() * 20)
+    kern = lambda: fk.serve_enqueue(ring_k, *sargs[1:])
+    plain = lambda: fk.serve_enqueue_plain(ring_p, *sargs[1:])
+    plain_ms, _ = device_ms(plain, reps=10)
+    return {"fault_ms": graph_ms(kern), "fault_wall_ms": wall_ms(kern),
+            "fault_plain_ms": plain_ms,
+            "fault_plain_wall_ms": wall_ms(plain, reps=10),
+            "fault_bound_ms": bnd, "fault_bound_by": by,
+            "fault_launches": l_s["serve_enqueue"],
+            "fault_launches_rocev2": l_r["serve_enqueue"],
+            "fault_launches_linkdown": l_d["serve_enqueue"],
+            "fault_max_abs_err": max_err[0],
+            "fault_shape": "perm1024 CHAOS1024 strack t=28"}
 
 
 def rel_l2(a, b) -> float:
@@ -1596,6 +1813,15 @@ def main() -> int:
             "pfc_max_abs_err", 0.0))
     kernels[1:1] = pfc_entries[:1]
     kernels.extend(pfc_entries[1:])
+    torch.cuda.empty_cache()
+
+    # ---- 6c. chaos: flaps, degrades and corruption on the fabric ----------
+    fault = chaos(dev, w_perm)
+    for entry in kernels:
+        if entry["name"] == "serve_enqueue":
+            entry.update(fault)
+            entry["max_abs_err"] = max(entry["max_abs_err"],
+                                       fault["fault_max_abs_err"])
     torch.cuda.empty_cache()
 
     # ---- 7. serve: llama3-8b through the flash-attention kernel -----------

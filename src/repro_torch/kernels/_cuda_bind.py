@@ -73,7 +73,8 @@ RoceScratch = _ptrs("RoceScratch", (
 
 class ServeParams(Structure):
     _fields_ = ([(n, c_int) for n in ("t", "Q", "TS", "T", "S", "N", "M",
-                                      "cap", "K", "data_drop", "hard")]
+                                      "cap", "K", "data_drop", "hard",
+                                      "fseed")]
                 + [(n, c_float) for n in ("now", "kmin", "krecip",
                                           "t_dither", "mtu", "ack_bytes")])
 
@@ -85,13 +86,15 @@ Cands = _ptrs("Cands", ("qid", "valid", "flow", "psn", "ts", "probe", "ecn",
 ServeIn = _ptrs("ServeIn", (
     "qhead", "qsize", "dst", "dst_tor", "total_pkts", "tail_b", "tx_psn",
     "probe_psn", "ent_d", "ent_p", "spine_d", "spine_p", "sel",
-    "probe_valid", "inj_q", "inj_qp", "paused_row"))
+    "probe_valid", "inj_q", "inj_qp", "paused_row", "row_down", "row_duty",
+    "row_cor_p"))
 
 
 class ServeOut(Structure):
     _fields_ = [("pop", Ring), ("has", c_void_p), ("ecn_out", c_void_p),
                 ("pop_bytes", c_void_p), ("qhead", c_void_p),
-                ("qsize", c_void_p), ("qsize1", c_void_p)]
+                ("qsize", c_void_p), ("qsize1", c_void_p), ("surv", c_void_p),
+                ("fault_counts", c_void_p)]
 
 
 class PfcParams(Structure):
@@ -136,7 +139,10 @@ def declare(name: str, lib: ctypes.CDLL) -> None:
                                  c_void_p, c_void_p]
         lib.se_pfc.argtypes = [P(PfcParams), P(PfcIn), P(PfcPtrs),
                                P(PfcPtrs), c_void_p]
-        for fn in (lib.se_serve, lib.se_accept, lib.se_place, lib.se_pfc):
+        lib.se_draw.argtypes = [c_int, c_void_p, c_void_p, c_void_p,
+                                c_void_p, c_int, c_void_p]
+        for fn in (lib.se_serve, lib.se_accept, lib.se_place, lib.se_pfc,
+                   lib.se_draw):
             fn.restype = c_int
     else:
         raise ValueError(name)
@@ -271,7 +277,8 @@ def transition_roce(lib, flows: RoceFlow, due: RoceMsg, sendable, src,
 
 def serve_enqueue(lib, q, qhead, qsize, dst, dst_tor, total_pkts, tail_b,
                   tx_psn, probe_psn, ent_d, ent_p, spine, spine_p, sel,
-                  probe_valid, inj_q, inj_qp, t: int, d, paused_row=None):
+                  probe_valid, inj_q, inj_qp, t: int, d, paused_row=None,
+                  row_down=None, row_duty=None, row_cor_p=None, fseed=None):
     """Launch the serve/enqueue chain; same contract as
     ``fabric_kernels.serve_enqueue_plain`` (ring updated in place)."""
     T, S, NH, N, cap = d.n_tor, d.n_spine, d.n_hosts, d.n_flows, d.cap
@@ -294,8 +301,17 @@ def serve_enqueue(lib, q, qhead, qsize, dst, dst_tor, total_pkts, tail_b,
                          ("probe_valid", probe_valid, bt),
                          ("inj_q", inj_q, i32), ("inj_qp", inj_qp, i32)):
         _check(name, t_, dt, (N,), dev)
-    if paused_row is not None:
-        _check("paused_row", paused_row, bt, (Q,), dev)
+    for name, t_, dt in (("paused_row", paused_row, bt),
+                         ("row_down", row_down, bt),
+                         ("row_duty", row_duty, bt),
+                         ("row_cor_p", row_cor_p, f32t)):
+        if t_ is not None:
+            _check(name, t_, dt, (Q,), dev)
+    if row_cor_p is not None and not (
+            isinstance(fseed, int) and 0 <= fseed < 2 ** 31):
+        raise ValueError(f"fseed: expected the draw's 31-bit seed with "
+                         f"row_cor_p, got {fseed!r}")
+    faulted = any(x is not None for x in (row_down, row_duty, row_cor_p))
 
     pop = PktQ(*[torch.empty((Q,), dtype=dt, device=dev) for dt in ring_dt])
     has = torch.empty((Q,), dtype=bt, device=dev)
@@ -303,6 +319,8 @@ def serve_enqueue(lib, q, qhead, qsize, dst, dst_tor, total_pkts, tail_b,
     pop_bytes = torch.empty((Q,), dtype=f32t, device=dev)
     qhead_o, qsize_o, qsize1 = [torch.empty((Q + 1,), dtype=i32, device=dev)
                                 for _ in range(3)]
+    surv = torch.empty((Q,), dtype=bt, device=dev) if faulted else has
+    counts = torch.empty((2,), dtype=i32, device=dev) if faulted else None
     cdt = (i32, bt, i32, i32, f32t, bt, bt, i32, i32, f32t)
     cands = [torch.empty((M,), dtype=dt, device=dev) for dt in cdt]
     cand_qid, cand_valid, cand_bytes = cands[0], cands[1], cands[-1]
@@ -310,6 +328,7 @@ def serve_enqueue(lib, q, qhead, qsize, dst, dst_tor, total_pkts, tail_b,
     prm = ServeParams(
         t=t, Q=Q, TS=TS, T=T, S=S, N=N, M=M, cap=cap, K=d.K,
         data_drop=d.data_drop_pkts, hard=d.hard_pkts,
+        fseed=fseed if row_cor_p is not None else 0,
         now=float(Now(t, d.tick_us)), kmin=f32(kmin),
         krecip=recip32(max(kmax - kmin, 1e-9)),
         t_dither=f32(f32(t) * f32(12.9898)), mtu=f32(d.mtu_bytes),
@@ -321,10 +340,11 @@ def serve_enqueue(lib, q, qhead, qsize, dst, dst_tor, total_pkts, tail_b,
           ctypes.byref(_struct(ServeIn, (
               qhead, qsize, dst, dst_tor, total_pkts, tail_b, tx_psn,
               probe_psn, ent_d, ent_p, spine, spine_p, sel, probe_valid,
-              inj_q, inj_qp, paused_row))),
+              inj_q, inj_qp, paused_row, row_down, row_duty, row_cor_p))),
           ctypes.byref(ServeOut(_struct(Ring, pop), _p(has), _p(ecn_out),
                                 _p(pop_bytes), _p(qhead_o), _p(qsize_o),
-                                _p(qsize1))),
+                                _p(qsize1), _p(surv if faulted else None),
+                                _p(counts))),
           ctypes.byref(c), stream)
 
     rank_v = rank_in_queue(cand_qid, cand_valid, Q)
@@ -336,8 +356,24 @@ def serve_enqueue(lib, q, qhead, qsize, dst, dst_tor, total_pkts, tail_b,
     _launch(lib.se_place, ctypes.byref(prm), ctypes.byref(c), _p(accept),
           _p(rank_a), _p(qhead_o), _p(qsize1), ctypes.byref(ring),
           _p(qsize_o), stream)
+    bh_add, cor_add = (counts[0], counts[1]) if faulted else (None, None)
     return (qhead_o, qsize_o, pop, has, ecn_out, pop_bytes, cand_qid, accept,
-            drops, cand_bytes)
+            drops, cand_bytes, surv, bh_add, cor_add)
+
+
+def fault_draw(lib, seed: int, row, t, psn):
+    """The serve kernel's corruption draw (``fault_u01`` of
+    ``csrc/serve_enqueue.cu``) at each key ``(seed, row[i], t[i],
+    psn[i])``: one launch of a kernel that evaluates only the draw, for
+    holding it against ``sim.faults.fault_u01``."""
+    n = row.shape[0]
+    dev = row.device
+    for name, t_ in (("row", row), ("t", t), ("psn", psn)):
+        _check(name, t_, torch.int32, (n,), dev)
+    out = torch.empty((n,), dtype=torch.float32, device=dev)
+    _launch(lib.se_draw, int(seed), _p(row), _p(t), _p(psn), _p(out), n,
+            _stream(row))
+    return out
 
 
 def pfc_account(lib, st: PfcState, has, pop, pop_bytes, cand_qid,

@@ -1,5 +1,5 @@
-// Ring service + two-pass enqueue of the fabric tick (no faults), and the
-// tick's PFC stage.
+// Ring service + two-pass enqueue of the fabric tick, with its fault
+// branches, and the tick's PFC stage.
 //
 // Replaces: repro/kernels/fabric_kernels.py serve_enqueue_kernel (:184)
 // -> fused_stage_kernel (Pallas, pallas_call at :176), running
@@ -21,7 +21,19 @@
 //
 // Under PFC a paused row (paused_row, the effective pause mask; null on
 // lossy queues) pops nothing, and every candidate's wire bytes go out in
-// cand_bytes.  The PFC stage (se_pfc) is the reference tick's inline
+// cand_bytes.
+//
+// Under a fault schedule (repro/sim/fabric.py:1204-1236; each input null
+// without one) a degraded row whose duty cycle is closed this tick
+// (row_duty) pops nothing; a down row (row_down) pops but blackholes what
+// it pops; a popped data packet that survives is corrupted, and dropped,
+// when the counter-keyed draw fault_u01(seed, row, t, psn) falls below
+// the row's probability (row_cor_p).  The draw is splitmix64 on 64-bit
+// integers, the same stream the reference computes on two 32-bit limbs
+// (repro/sim/faults.py:385-451).  Only the survivors become fabric
+// advances (surv); the two counts are integer atomics, exact in any
+// order.  Still one thread per row: the draw is ~40 integer operations,
+// evaluated only for a surviving data packet on a corrupting row.  The PFC stage (se_pfc) is the reference tick's inline
 // stage 6b (repro/sim/fabric.py:1741-1841), which has no Pallas kernel:
 // one thread per ingress counter and per queue applies that counter's
 // dequeues and accepted enqueues in the reference's scatter order
@@ -33,6 +45,7 @@
 struct ServeParams {
   int t, Q, TS, T, S, N, M, cap, K;
   int data_drop, hard;
+  int fseed;  // the corruption draw's seed (31 bits)
   float now, kmin, krecip, t_dither, mtu, ack_bytes;
 };
 
@@ -78,6 +91,9 @@ struct ServeIn {
   const int* inj_q;       // [N]
   const int* inj_qp;      // [N]
   const bool* paused_row;  // [Q], null on lossy queues
+  const bool* row_down;    // [Q], null without link/host flaps
+  const bool* row_duty;    // [Q], null without degraded links
+  const float* row_cor_p;  // [Q], null without corrupting links
 };
 
 struct ServeOut {
@@ -88,6 +104,8 @@ struct ServeOut {
   int* qhead;        // [Q+1]
   int* qsize;        // [Q+1] (qsize after serve; placement adds to it)
   int* qsize1;       // [Q+1] scratch: qsize after serve
+  bool* surv;        // [Q] the popped packets that go on; null w/o faults
+  int* fault_counts;  // [2] blackholed, corrupted; null without faults
 };
 
 namespace {
@@ -98,6 +116,31 @@ __device__ __forceinline__ float wire_bytes(int flow, int psn, bool probe,
   int f = clampi(flow, 0, p.N - 1);
   bool tail = psn >= in.total_pkts[f] - 1;
   return probe ? p.ack_bytes : (tail ? in.tail_b[f] : p.mtu);
+}
+
+__device__ __forceinline__ unsigned long long splitmix64(
+    unsigned long long x) {
+  x += 0x9E3779B97F4A7C15ull;
+  unsigned long long z = x;
+  z = (z ^ (z >> 30)) * 0xBF58476D1CE4E5B9ull;
+  z = (z ^ (z >> 27)) * 0x94D049BB133111EBull;
+  return z ^ (z >> 31);
+}
+
+__device__ __forceinline__ unsigned long long key_of(int c) {
+  // a counter cast to uint32, then zero-extended (the reference's
+  // astype(uint32): a negative int wraps to 2^32 + c)
+  return (unsigned long long)(unsigned int)c * 0x9E3779B97F4A7C15ull;
+}
+
+// f32 in [0, 1) from the top 24 bits of the keyed splitmix64 stream.
+__device__ __forceinline__ float fault_u01(int seed, int row, int t,
+                                          int psn) {
+  unsigned long long s = splitmix64((unsigned long long)(unsigned int)seed);
+  s = splitmix64(s ^ key_of(row));
+  s = splitmix64(s ^ key_of(t));
+  s = splitmix64(s ^ key_of(psn));
+  return (float)(unsigned int)(s >> 40) * 0x1p-24f;
 }
 
 __global__ void serve_kernel(ServeParams p, Ring ring, ServeIn in,
@@ -118,7 +161,8 @@ __global__ void serve_kernel(ServeParams p, Ring ring, ServeIn in,
     int ent = ring.ent[slot], ready = ring.ready[slot];
     int spine = ring.spine[slot];
     bool has = (qs > 0) && (ready <= p.t) &&
-               !(in.paused_row != nullptr && in.paused_row[i]);
+               !(in.paused_row != nullptr && in.paused_row[i]) &&
+               (in.row_duty == nullptr || in.row_duty[i]);
     float residual = (float)(qs - 1 > 0 ? qs - 1 : 0);
     float frac = fminf(fmaxf((residual - p.kmin) * p.krecip, 0.0f), 1.0f);
     float arg = p.t_dither + (float)i * 78.233f;  // no contraction
@@ -140,13 +184,24 @@ __global__ void serve_kernel(ServeParams p, Ring ring, ServeIn in,
     out.qhead[i] = in.qhead[i] + (int)has;
     out.qsize[i] = qs - (int)has;
     out.qsize1[i] = qs - (int)has;
+    bool surv = has;
+    if (in.row_down != nullptr && has && in.row_down[i]) {
+      surv = false;
+      atomicAdd(&out.fault_counts[0], 1);
+    }
+    if (in.row_cor_p != nullptr && surv && !probe &&
+        fault_u01(p.fseed, i, p.t, psn) < in.row_cor_p[i]) {
+      surv = false;
+      atomicAdd(&out.fault_counts[1], 1);
+    }
+    if (out.surv != nullptr) out.surv[i] = surv;
     if (i < 2 * p.TS) {  // fabric advance: tor_up -> spine_down -> host_down
       int f = clampi(flow, 0, p.N - 1);
       bool up = i < p.TS;
       int spine_row = up ? i % p.S : (i - p.TS) / p.T;
       c.qid[i] = up ? p.TS + spine_row * p.T + in.dst_tor[f]
                     : 2 * p.TS + in.dst[f];
-      c.valid[i] = has;
+      c.valid[i] = surv;
       c.flow[i] = flow;
       c.psn[i] = psn;
       c.ts[i] = ts;
@@ -211,14 +266,36 @@ __global__ void place_kernel(ServeParams p, Cands c,
   atomicAdd(&qsize[q], 1);
 }
 
+__global__ void draw_kernel(int seed, const int* __restrict__ row,
+                            const int* __restrict__ t,
+                            const int* __restrict__ psn,
+                            float* __restrict__ out, int n) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) out[i] = fault_u01(seed, row[i], t[i], psn[i]);
+}
+
 }  // namespace
 
 extern "C" int se_serve(const ServeParams* p, const Ring* ring,
                         const ServeIn* in, const ServeOut* out,
                         const Cands* c, cudaStream_t stream) {
+  if (out->fault_counts != nullptr) {
+    cudaError_t err =
+        cudaMemsetAsync(out->fault_counts, 0, 2 * sizeof(int), stream);
+    if (err != cudaSuccess) return (int)err;
+  }
   int n = (p->Q + 1 > p->M ? p->Q + 1 : p->M);
   serve_kernel<<<(n + 255) / 256, 256, 0, stream>>>(*p, *ring, *in, *out,
                                                      *c);
+  return (int)cudaGetLastError();
+}
+
+// The draw alone, at n keys (for holding it against its plain version).
+extern "C" int se_draw(int seed, const int* row, const int* t, const int* psn,
+                       float* out, int n, cudaStream_t stream) {
+  if (n == 0) return 0;
+  draw_kernel<<<(n + 255) / 256, 256, 0, stream>>>(seed, row, t, psn, out,
+                                                   n);
   return (int)cudaGetLastError();
 }
 

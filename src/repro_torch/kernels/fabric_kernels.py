@@ -21,7 +21,8 @@ wrapper                     reference kernel (Pallas)              CUDA source
 
 Under PFC the transition takes the NICs' effective pause mask and serve
 the paused rows; :func:`pfc_account` then keeps the byte counters and the
-pause gates.
+pause gates.  Under a fault schedule serve takes the tick's down,
+duty-cycle and corruption rows and the corruption draw's seed.
 
 Dispatch is by the device of the tensors: a wrapper runs the plain version
 for CPU tensors and launches its kernel for CUDA tensors, or raises; there
@@ -39,6 +40,7 @@ import torch
 from ..core.params import ACK_WIRE_BYTES
 from ..core.transport import TxPacket, tree_where
 from ..numerics import Now, ecn_dither, f32, recip32
+from ..sim.faults import fault_u01
 from ._build import check as _check, launch as _launch, load, \
     ptr as _ptr, route as _route, stream as _stream
 
@@ -85,8 +87,8 @@ class TransDims(NamedTuple):
 
 
 class ServeDims(NamedTuple):
-    """Static inputs of the serve/enqueue stage (no faults); under PFC the
-    drop thresholds are the lossless ones."""
+    """Static inputs of the serve/enqueue stage; under PFC the drop
+    thresholds are the lossless ones."""
 
     n_tor: int
     n_spine: int
@@ -256,18 +258,28 @@ def _wire(flow, psn, probe, total_pkts, tail_b, mtu):
 def serve_enqueue_plain(q: PktQ, qhead, qsize, dst, dst_tor, total_pkts,
                         tail_b, tx_psn, probe_psn, ent_d, ent_p, spine,
                         spine_p, sel, probe_valid, inj_q, inj_qp, t: int,
-                        d: ServeDims, paused_row=None):
-    """``serve_enqueue_core`` without faults.
+                        d: ServeDims, paused_row=None, row_down=None,
+                        row_duty=None, row_cor_p=None, fseed=None):
+    """``serve_enqueue_core``.
 
     Serve: each queue that is not paused (``paused_row``, bool[Q], the
-    PFC gate; ``None`` on lossy queues) pops its head once the head's
+    PFC gate; ``None`` on lossy queues) and whose duty cycle is open
+    (``row_duty``, bool[Q], degraded links) pops its head once the head's
     departure-time lane says it has arrived, ECN-marking on the occupancy
-    fraction against the sin dither.  Enqueue: fabric advances plus NIC
-    data and probe injections rank among same-queue candidates, drop on
-    occupancy, rank again among the accepted and land in the ring rows.
+    fraction against the sin dither.  A down row (``row_down``, bool[Q])
+    blackholes what it pops; a data packet that survives is dropped when
+    ``fault_u01(fseed, row, t, psn) < row_cor_p[row]`` (f32[Q], corrupting
+    links).  Enqueue: the surviving fabric advances plus NIC data and
+    probe injections rank among same-queue candidates, drop on occupancy,
+    rank again among the accepted and land in the ring rows.  The four
+    fault inputs are ``None`` without a fault schedule.
+
     The ring ``q`` is updated IN PLACE; returns ``(qhead, qsize, pop, has,
-    ecn_out, pop_bytes, cand_qid, accept, drops_add, cand_bytes)``, the
-    last the wire bytes of each candidate."""
+    ecn_out, pop_bytes, cand_qid, accept, drops_add, cand_bytes, surv,
+    bh_add, cor_add)``: ``cand_bytes`` the wire bytes of each candidate,
+    ``surv`` the popped packets that go on (``has`` itself without
+    faults), ``bh_add`` and ``cor_add`` the blackholed and corrupted
+    counts (i32 scalars; ``None`` without faults)."""
     T, S, NH, N, cap = d.n_tor, d.n_spine, d.n_hosts, d.n_flows, d.cap
     TS = T * S
     Q = 2 * TS + NH
@@ -283,6 +295,8 @@ def serve_enqueue_plain(q: PktQ, qhead, qsize, dst, dst_tor, total_pkts,
     has = (qs > 0) & (pop.ready <= t)
     if paused_row is not None:
         has = has & (~paused_row)
+    if row_duty is not None:
+        has = has & row_duty
     residual = torch.clamp_min(qs - 1, 0).to(torch.float32)
     frac = torch.clamp((residual - f32(d.kmin_p))
                        * recip32(max(d.kmax_p - d.kmin_p, 1e-9)), 0.0, 1.0)
@@ -295,6 +309,18 @@ def serve_enqueue_plain(q: PktQ, qhead, qsize, dst, dst_tor, total_pkts,
     qhead1[:Q] += served
     qsize1[:Q] -= served
 
+    surv, bh_add, cor_add = has, None, None
+    if any(x is not None for x in (row_down, row_duty, row_cor_p)):
+        bh_add = cor_add = torch.zeros((), dtype=torch.int32, device=dev)
+    if row_down is not None:
+        bh_add = (has & row_down).sum(dtype=torch.int32)
+        surv = surv & (~row_down)
+    if row_cor_p is not None:
+        u = fault_u01(fseed, qrows, t, pop.psn)
+        corrupt = surv & (~pop.probe) & (u < row_cor_p)
+        cor_add = corrupt.sum(dtype=torch.int32)
+        surv = surv & (~corrupt)
+
     fclip = pop.flow.clamp(0, N - 1).long()
     pop_bytes = _wire(pop.flow, pop.psn, pop.probe, total_pkts, tail_b,
                       d.mtu_bytes)
@@ -302,7 +328,7 @@ def serve_enqueue_plain(q: PktQ, qhead, qsize, dst, dst_tor, total_pkts,
                           2 * TS + dst[fclip])[:2 * TS]
     lanes = torch.arange(N, dtype=torch.int32, device=dev)
     cand_qid = torch.cat([adv_tgt, inj_q, inj_qp]).to(torch.int32)
-    cand_valid = torch.cat([has[:2 * TS], sel, probe_valid])
+    cand_valid = torch.cat([surv[:2 * TS], sel, probe_valid])
     zb = torch.zeros((N,), dtype=torch.bool, device=dev)
     now_l = torch.full((N,), now, dtype=torch.float32, device=dev)
     M = 2 * TS + 2 * N
@@ -341,21 +367,25 @@ def serve_enqueue_plain(q: PktQ, qhead, qsize, dst, dst_tor, total_pkts,
     qhead1[Q] = 0
     drops_add = dropped.sum(dtype=torch.int32)
     return (qhead1, qsize2, pop, has, ecn_out, pop_bytes, cand_qid, accept,
-            drops_add, cand_bytes)
+            drops_add, cand_bytes, surv, bh_add, cor_add)
 
 
 def serve_enqueue(q: PktQ, qhead, qsize, dst, dst_tor, total_pkts, tail_b,
                   tx_psn, probe_psn, ent_d, ent_p, spine, spine_p, sel,
                   probe_valid, inj_q, inj_qp, t: int, d: ServeDims,
-                  paused_row=None):
+                  paused_row=None, row_down=None, row_duty=None,
+                  row_cor_p=None, fseed=None):
     """The serve/enqueue stage: plain version on CPU tensors,
-    ``csrc/serve_enqueue.cu`` on CUDA tensors (serve + candidate build,
-    rank, drop/accept, rank, ring placement; both rank passes are
-    :func:`rank_in_queue`).  The ring ``q`` is updated in place either
-    way; ``paused_row`` is the PFC gate (``None`` on lossy queues)."""
+    ``csrc/serve_enqueue.cu`` on CUDA tensors (serve + candidate build
+    with the fault rows and the corruption draw, rank, drop/accept, rank,
+    ring placement; both rank passes are :func:`rank_in_queue`).  The ring
+    ``q`` is updated in place either way; ``paused_row`` is the PFC gate
+    (``None`` on lossy queues), ``row_down``, ``row_duty``, ``row_cor_p``
+    and ``fseed`` the tick's faults (``None`` without a schedule)."""
     args = (q, qhead, qsize, dst, dst_tor, total_pkts, tail_b, tx_psn,
             probe_psn, ent_d, ent_p, spine, spine_p, sel, probe_valid,
-            inj_q, inj_qp, t, d, paused_row)
+            inj_q, inj_qp, t, d, paused_row, row_down, row_duty, row_cor_p,
+            fseed)
     if _route(qhead) == "plain":
         return serve_enqueue_plain(*args)
     from . import _cuda_bind

@@ -3,6 +3,8 @@
     PYTHONPATH=src python -m repro_torch.profile [--scenario perm1024]
     PYTHONPATH=src python -m repro_torch.profile --scenario perm1024-rocev2 \
         incast1024-rocev2
+    PYTHONPATH=src python -m repro_torch.profile --scenario \
+        perm1024-chaos-strack perm1024-chaos-rocev2
     PYTHONPATH=src python -m repro_torch.profile --scenario prefill-1000 \
         prefill-4096 decode-544
     PYTHONPATH=src python -m repro_torch.profile --scenario \
@@ -17,7 +19,9 @@ kernel for the 25 largest (with their launches).  Fabric scenarios run
 through ``run_fabric_trace`` and also report wall and device-busy time per
 warp trip: perm1024 and perm8k (STrack), perm1024-rocev2 and
 incast1024-rocev2 (RoCEv2 with PFC; incast1024 is 256 senders of 16 KiB
-to host 0 on the perm1024 fabric); serve cells run a model in bf16 with
+to host 0 on the perm1024 fabric), perm1024-chaos-strack and
+perm1024-chaos-rocev2 (perm1024 under the ``CHAOS1024`` fault schedule,
+STrack over lossy queues and RoCEv2 over PFC); serve cells run a model in bf16 with
 ``attn_impl="pallas"`` and random weights from seed 0 (one model on the
 card at a time): llama3-8b ``prefill-1000`` (4 x 1000 tokens),
 ``prefill-4096`` (1 x 4096) and ``decode-544`` (8 decode steps of 4
@@ -38,15 +42,31 @@ import torch
 
 from .core.params import NetworkSpec
 from .sim.fabric import run_fabric_trace
+from .sim.faults import NEVER, FaultSpec
 from .sim.topology import full_bisection
 from .sim.workloads import (RunConfig, _fabric_cfg, _scenario_ticks,
                             incast_scenario, permutation_scenario)
 
+#: The chaos cells' fault schedule on ``full_bisection(32, 32)``: one entry
+#: of each of the six classes (a mid-run link flap, a permanent uplink
+#: flap, a host flap, a link at a quarter of its rate, a link and a host
+#: link corrupting 20% of their data).  The JAX-made chaos reference
+#: files (``testdata/perm1024_chaos_*_ref.json``) use it too.
+CHAOS1024 = FaultSpec(link_flaps=((0, 0, 10, 60),),
+                      uplink_flaps=((3, 3, 0, NEVER),),
+                      host_flaps=((5, 30, 80),),
+                      link_degrade=((1, 1, 0, 400, 0.25),),
+                      link_corrupt=((2, 2, 0, 300, 0.2),),
+                      host_corrupt=((7, 0, 300, 0.2),), seed=3)
 #: fabric scenario -> (traffic, fat-tree shape, RunConfig fields).
 FABRIC = {"perm1024": ("perm", (32, 32), {}),
           "perm8k": ("perm", (128, 64), {}),
           "perm1024-rocev2": ("perm", (32, 32), {"protocol": "rocev2"}),
-          "incast1024-rocev2": ("incast", (32, 32), {"protocol": "rocev2"})}
+          "incast1024-rocev2": ("incast", (32, 32), {"protocol": "rocev2"}),
+          "perm1024-chaos-strack": ("perm", (32, 32), {"faults": CHAOS1024}),
+          "perm1024-chaos-rocev2": ("perm", (32, 32),
+                                    {"protocol": "rocev2",
+                                     "faults": CHAOS1024})}
 #: serve cell -> (model, requests, tokens).
 SERVE = {"prefill-1000": ("llama3-8b", 4, 1000),
          "prefill-4096": ("llama3-8b", 1, 4096),

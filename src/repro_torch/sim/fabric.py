@@ -9,13 +9,18 @@ ring-buffer tensors, ticked in the reference's stage order:
 
   0. dependency gate (deps-free traces: every message is sendable);
      0b. under PFC, the effective pause masks, ``PD`` ticks old,
+     0c. under a fault schedule (``sim.faults``), the tick's down, duty
+     and corruption rows, down NICs and live uplinks,
   1. transport lanes — due ACKs, timer sweep, next packet, NIC
      round-robin, the PFC NIC gate (``kernels.flow_transition``),
-  2. spray/ECMP injection targets (RoCEv2: the flow's pinned entropy),
-  3. ring service of unpaused rows + two-pass enqueue
+  2. spray/ECMP injection targets over the live uplinks (RoCEv2: the
+     flow's pinned entropy); a down NIC blackholes what it sends,
+  3. ring service of unpaused, duty-open rows + two-pass enqueue
      (``kernels.serve_enqueue``, ranking through ``kernels.rank_in_queue``
-     past 256 candidates),
-  4. deliveries -> receivers -> the per-flow return pipe,
+     past 256 candidates); down rows blackhole what they pop, corrupting
+     rows drop data on a counter-keyed draw,
+  4. deliveries of the surviving packets -> receivers -> the per-flow
+     return pipe,
   5. under PFC (the reference's stage 6b), ingress byte accounting, the
      pause/resume gates and the pause-frame delay line
      (``kernels.pfc_account``),
@@ -27,7 +32,7 @@ serialization plus ``K`` ticks of propagation (the departure-time lane
 path's latency.  The event-horizon loop (``FabricConfig.time_warp``)
 skips ticks that are provably idle and is bit-identical to dense ticking.
 
-Everything the reference supports beyond this — faults, the active set,
+Everything the reference supports beyond this — the active set,
 sharding, sub-flow striping, dependency edges and the per-tick trace —
 raises ``NotImplementedError`` naming its ROADMAP item.
 """
@@ -52,6 +57,8 @@ from ..kernels.fabric_kernels import (PfcDims, PfcState, PktQ, ServeDims,
                                       pfc_account, pfc_flows, serve_enqueue)
 from ..numerics import Now, f32, recip32
 from . import dcqcn_fab as dq
+from .faults import FaultData, FaultSpec, build_fault_data, duty_open, \
+    validate_faults
 from .topology import FatTree
 
 LB_MODES = ("adaptive", "oblivious", "fixed")
@@ -107,11 +114,15 @@ class ArrayTopo(NamedTuple):
         return torch.div(host, self.hosts_per_tor, rounding_mode="floor")
 
     def ecmp_spine(self, src: torch.Tensor, dst: torch.Tensor,
-                   entropy: torch.Tensor) -> torch.Tensor:
-        """ECMP onto a live uplink (bit-exact vs FatTree.ecmp_spine)."""
+                   entropy: torch.Tensor, live=None) -> torch.Tensor:
+        """ECMP onto a live uplink (bit-exact vs FatTree.ecmp_spine);
+        ``live`` is ``(live_list, n_live)`` of a tick with flapped
+        uplinks, the static lists by default."""
+        live_list, n_live = live if live is not None else (self.live_list,
+                                                            self.n_live)
         tor = self.tor_of(src).long()
-        k = ecmp_mix(src, dst, entropy) % self.n_live[tor]
-        return self.live_list[tor, k.long()]
+        k = ecmp_mix(src, dst, entropy) % n_live[tor]
+        return live_list[tor, k.long()]
 
 
 # --------------------------------------------------------------------------- #
@@ -341,7 +352,7 @@ class FabricConfig:
     trace_every: int = 1
     active_cap: Optional[int] = None
     shard: int = 0
-    faults: Optional[object] = None
+    faults: Optional[FaultSpec] = None  # chaos schedule (sim.faults)
 
     @property
     def pfc_enabled(self) -> bool:
@@ -356,8 +367,10 @@ def check_slice(cfg: FabricConfig) -> None:
     if cfg.protocol not in PROTOCOLS:
         raise ValueError(f"unknown protocol {cfg.protocol!r}; "
                          f"expected one of {PROTOCOLS}")
+    if cfg.faults is not None and not isinstance(cfg.faults, FaultSpec):
+        raise TypeError(f"faults must be a FaultSpec, got "
+                        f"{type(cfg.faults).__name__}")
     todo = [
-        (cfg.faults is not None, "faults", "A9"),
         (bool(cfg.active_cap), "active_cap", "A8"),
         (int(cfg.shard) > 1, "shard > 1", "A11"),
         (int(cfg.subflows) > 1, "subflows > 1", "A6"),
@@ -423,6 +436,27 @@ def _make_protocol(cfg: FabricConfig):
     # "ECN threshold to one BDP for DCQCN" (paper Section 4.1)
     return (make_rocev2_protocol(p), p, rp.ecn_kmin_bdp * net.bdp_pkts,
             rp.ecn_kmax_bdp * net.bdp_pkts, net.base_rtt_us)
+
+
+def _rto_us(cfg: FabricConfig) -> float:
+    """The resolved protocol's retransmission timeout (us): the unit of
+    the flap windows' retransmit attribution and of the fault horizon."""
+    if cfg.protocol == "strack":
+        return make_strack_params(cfg.net, max_paths=cfg.max_paths).rto_us
+    rp = cfg.roce or make_roce_params(cfg.net)
+    return dq.make_roce_fab_params(cfg.net, rp).rto_us
+
+
+class FaultMasks(NamedTuple):
+    """The fault schedule at one tick (stage 0c); each field is ``None``
+    when the schedule has no entry of its class."""
+
+    row_down: Optional[torch.Tensor]   # bool[Q]: rows blackholing
+    lane_down: Optional[torch.Tensor]  # bool[N]: flows of a down NIC
+    row_duty: Optional[torch.Tensor]   # bool[Q]: False on a closed duty tick
+    row_cor_p: Optional[torch.Tensor]  # f32[Q]: corruption probability
+    fseed: Optional[int]               # the draw's seed (with row_cor_p)
+    live: Optional[tuple]              # (live_list i32[T,S], n_live i32[T])
 
 
 def _scatter_rows(tree_all, tree_rows, idx: torch.Tensor, n: int):
@@ -511,6 +545,22 @@ class FabricProgram:
         self.dims = dict(T=T, S=S, NH=NH, TS=TS, Q=Q, cap=cap, H=self.H,
                          K=self.K, D_same=self.D_same, D_cross=self.D_cross,
                          PD=self.PD, shard=1, active_cap=0)
+        # The fault schedule's entry counts decide which chaos stages
+        # exist; a fault-free program runs none of them.
+        faults = cfg.faults if cfg.faults is not None else FaultSpec()
+        self.F_ROW = (2 * len(faults.link_flaps) + len(faults.uplink_flaps)
+                      + len(faults.host_flaps))
+        self.F_NIC = len(faults.host_flaps)
+        self.F_UP = len(faults.link_flaps) + len(faults.uplink_flaps)
+        self.F_DEG = 2 * len(faults.link_degrade)
+        self.F_COR = 2 * len(faults.link_corrupt) + len(faults.host_corrupt)
+        self.FW = faults.n_flap_windows
+        self.has_faults = faults.total_entries > 0
+        # retransmits are attributed to a flap window and two RTOs after
+        self.rto_ticks = int(math.ceil(_rto_us(cfg) / tick_us))
+        self.fd: Optional[FaultData] = (
+            build_fault_data(faults, T, S, HPT, device) if self.has_faults
+            else None)
 
     # ---- set-up ---------------------------------------------------------
     def bind(self, src, dst, total_pkts, tail_b, arrival, lb_mode: str,
@@ -566,7 +616,7 @@ class FabricProgram:
             msg_done_tick=neg(dep.n_msgs),
             group_done_tick=neg(dep.n_groups), act_overflow=zi(),
             ecn_marks=zi(), qdepth_hi=zi(Q + 1), blackholed=zi(),
-            corrupt_drops=zi(), tx_rows=zi(Q + 1), win_retx=zi(0))
+            corrupt_drops=zi(), tx_rows=zi(Q + 1), win_retx=zi(self.FW))
 
     # ---- one tick -------------------------------------------------------
     def sendable_msg(self, st: FabricState, t: int) -> torch.Tensor:
@@ -594,6 +644,52 @@ class FabricProgram:
                                 torch.zeros_like(eff_nic)])
         return eff_nic, paused_row
 
+    def fault_masks(self, t: int) -> Optional[FaultMasks]:
+        """Stage 0c: the schedule's state at tick ``t``, ``None`` without
+        faults.  Inactive windows scatter into a trash row, so inert
+        entries change nothing; overlapping corruption entries take the
+        larger probability.  Flapped uplinks leave the live set, which
+        lists each ToR's live spines in ascending order (a stable argsort
+        of the down mask, as the static list is built)."""
+        if not self.has_faults:
+            return None
+        fd, Q, dev = self.fd, self.Q, self.device
+        active = lambda t0, t1: (t0 <= t) & (t < t1)
+        trash = lambda act, idx, n: torch.where(act, idx, n).long()
+        row_down = lane_down = row_duty = row_cor_p = fseed = live = None
+        if self.F_ROW:
+            down = torch.zeros((Q + 1,), dtype=torch.bool, device=dev)
+            down[trash(active(fd.flap_row_t0, fd.flap_row_t1), fd.flap_row,
+                       Q)] = True
+            row_down = down[:Q]
+        if self.F_NIC:
+            nic = torch.zeros((self.NH + 1,), dtype=torch.bool, device=dev)
+            nic[trash(active(fd.flap_nic_t0, fd.flap_nic_t1), fd.flap_nic,
+                      self.NH)] = True
+            lane_down = nic[:self.NH][self.src.long()]
+        if self.F_DEG:
+            closed = active(fd.deg_t0, fd.deg_t1) & ~duty_open(t, fd.deg_num)
+            duty = torch.ones((Q + 1,), dtype=torch.bool, device=dev)
+            duty[trash(closed, fd.deg_row, Q)] = False
+            row_duty = duty[:Q]
+        if self.F_COR:
+            prob = torch.zeros((Q + 1,), dtype=torch.float32, device=dev)
+            prob = prob.scatter_reduce(
+                0, trash(active(fd.cor_t0, fd.cor_t1), fd.cor_row, Q),
+                fd.cor_p, "amax")
+            row_cor_p, fseed = prob[:Q], fd.seed
+        if self.F_UP:
+            up = torch.zeros((self.TS + 1,), dtype=torch.bool, device=dev)
+            up[trash(active(fd.flap_up_t0, fd.flap_up_t1), fd.flap_up,
+                     self.TS)] = True
+            live_now = self.at.live_mask & ~up[:self.TS].view(self.T, self.S)
+            n_live = torch.clamp_min(live_now.sum(1, dtype=torch.int32), 1)
+            order = torch.argsort((~live_now).to(torch.int8), dim=1,
+                                  stable=True).to(torch.int32)
+            live = (order, n_live)
+        return FaultMasks(row_down, lane_down, row_duty, row_cor_p, fseed,
+                          live)
+
     def transport_args(self, st: FabricState, t: int,
                        sendable_msg: torch.Tensor, eff_nic=None) -> tuple:
         """Arguments of the transition stage at tick ``t`` (stage 1)."""
@@ -602,10 +698,13 @@ class FabricProgram:
                 self.src, t, self.trans_dims, eff_nic)
 
     def serve_args(self, st: FabricState, t: int, tx, probe_tx, sel,
-                   probe_valid, paused_row=None) -> tuple:
-        """Stage 2 (spray/ECMP injection targets) and the arguments of the
-        serve/enqueue stage at tick ``t``; also returns the new oblivious
-        round-robin pointers and the data injection rows."""
+                   probe_valid, paused_row=None,
+                   fm: Optional[FaultMasks] = None) -> tuple:
+        """Stage 2 (spray/ECMP injection targets over the tick's live
+        uplinks; a down NIC's data and probes withheld from the enqueue)
+        and the arguments of the serve/enqueue stage at tick ``t``; also
+        returns the new oblivious round-robin pointers and the data
+        injection rows."""
         TS, S = self.TS, self.S
         obl_rr = st.obl_rr
         if not self.proto.uses_spray:  # the flow's pinned entropy
@@ -618,17 +717,24 @@ class FabricProgram:
             ent, ent_probe = self.fixed_ent, self.fixed_ent
         else:                       # adaptive spray (the transport's pick)
             ent, ent_probe = tx.entropy, probe_tx.entropy
-        spine = self.at.ecmp_spine(self.src, self.dst, ent)
+        live = fm.live if fm is not None else None
+        spine = self.at.ecmp_spine(self.src, self.dst, ent, live)
         inj_q = torch.where(self.same_tor, 2 * TS + self.dst,
                             self.src_tor * S + spine).to(torch.int32)
-        spine_p = self.at.ecmp_spine(self.src, self.dst, ent_probe)
+        spine_p = self.at.ecmp_spine(self.src, self.dst, ent_probe, live)
         inj_qp = torch.where(self.same_tor, 2 * TS + self.dst,
                              self.src_tor * S + spine_p).to(torch.int32)
+        faults = (None,) * 4
+        if fm is not None:
+            if fm.lane_down is not None:
+                sel = sel & ~fm.lane_down
+                probe_valid = probe_valid & ~fm.lane_down
+            faults = (fm.row_down, fm.row_duty, fm.row_cor_p, fm.fseed)
         args = (st.q, st.qhead, st.qsize, self.dst, self.dst_tor,
                 self.total_pkts, self.tail_b, tx.psn, probe_tx.psn,
                 ent.to(torch.int32), ent_probe.to(torch.int32), spine,
                 spine_p, sel, probe_valid, inj_q, inj_qp, t, self.serve_dims,
-                paused_row)
+                paused_row, *faults)
         return args, obl_rr, inj_q
 
     def pfc_state(self, st: FabricState) -> PfcState:
@@ -648,8 +754,9 @@ class FabricProgram:
             sendable_msg & (st.msg_release_tick < 0), t,
             st.msg_release_tick).to(torch.int32)
 
-        # 0b. PFC effective-pause masks
+        # 0b. PFC effective-pause masks; 0c. the fault schedule's masks
         eff_nic, paused_row = self.eff_pause(st, t)
+        fm = self.fault_masks(t)
 
         # 1. transport lanes: due ACKs, timers, sends, NIC arbitration
         flows, tx, probe_tx, probe_valid, sel, can_tx = flow_transition(
@@ -658,17 +765,32 @@ class FabricProgram:
         pipe_valid[t % H] = False
         pipe = st.pipe._replace(valid=pipe_valid)
 
+        # chaos counters of the transport stage: the retransmits committed
+        # (before a down NIC blackholes them) and the NIC blackhole
+        blackholed, corrupt_drops = st.blackholed, st.corrupt_drops
+        if self.FW:
+            rtx_n = (sel & tx.is_rtx).sum(dtype=torch.int32)
+        if fm is not None and fm.lane_down is not None:
+            blackholed = blackholed + (
+                (sel & fm.lane_down).sum(dtype=torch.int32)
+                + (probe_valid & fm.lane_down).sum(dtype=torch.int32))
+
         # 2. spray / ECMP injection targets; 3. ring service + two-pass
         # enqueue (the ring is updated in place)
         args, obl_rr, inj_q = self.serve_args(st, t, tx, probe_tx, sel,
-                                              probe_valid, paused_row)
+                                              probe_valid, paused_row, fm)
         (qhead, qsize, pop, has, ecn_out, pop_bytes, cand_qid, accept,
-         drops_add, cand_bytes) = serve_enqueue(*args)
+         drops_add, cand_bytes, surv, bh_add, cor_add) = serve_enqueue(*args)
         fclip = pop.flow.clamp(0, N - 1)
         drops = st.drops + drops_add
+        if bh_add is not None:
+            blackholed = blackholed + bh_add
+            corrupt_drops = corrupt_drops + cor_add
 
-        # 4. deliveries -> receivers -> SACK return pipe
-        del_has = has[2 * TS:]
+        # 4. deliveries -> receivers -> SACK return pipe (the survivors:
+        # blackholed and corrupted packets left their buffer but never
+        # arrive)
+        del_has = surv[2 * TS:]
         del_flow = fclip[2 * TS:]
         slot_del = (t + self.dflow[del_flow.long()]) % H
         rrows = type(st.rcv)(*[a[del_flow.long()] for a in st.rcv])
@@ -721,6 +843,11 @@ class FabricProgram:
         tx_rows = st.tx_rows.clone()
         tx_rows.index_add_(0, torch.where(acc_data, inj_q, Q).long(),
                            torch.ones_like(inj_q))
+        win_retx = st.win_retx
+        if self.FW:
+            fd = self.fd
+            in_win = (fd.win_t0 <= t) & (t < fd.win_t1 + 2 * self.rto_ticks)
+            win_retx = win_retx + torch.where(in_win, rtx_n, 0)
 
         new_st = st._replace(
             **pfc._asdict(),
@@ -730,7 +857,9 @@ class FabricProgram:
             msg_release_tick=msg_release_tick, msg_done_tick=msg_done_tick,
             group_done_tick=group_done_tick,
             ecn_marks=st.ecn_marks + ecn_add,
-            qdepth_hi=torch.maximum(st.qdepth_hi, qsize), tx_rows=tx_rows)
+            qdepth_hi=torch.maximum(st.qdepth_hi, qsize), tx_rows=tx_rows,
+            blackholed=blackholed, corrupt_drops=corrupt_drops,
+            win_retx=win_retx)
         return new_st, can_tx.any(), sendable_msg
 
     # ---- event horizon ----------------------------------------------------
@@ -738,8 +867,9 @@ class FabricProgram:
                     sendable_msg: torch.Tensor) -> torch.Tensor:
         """Earliest tick > t that could change state given an idle fabric:
         the first timer sweep with an expired deadline, a return-pipe slot
-        holding a SACK, the earliest head-of-queue arrival, or a pending
-        open-loop arrival (an int32 scalar tensor).  ``sendable_msg`` is
+        holding a SACK, the earliest head-of-queue arrival, a pending
+        open-loop arrival, or the next edge of the fault schedule (an int32
+        scalar tensor).  ``sendable_msg`` is
         the release mask at ``t`` (:meth:`sendable_msg`)."""
         n_ticks, H, Q, cap = self.n_ticks, self.H, self.Q, self.cap
         dev = self.device
@@ -784,6 +914,11 @@ class FabricProgram:
         tgt = torch.minimum(torch.minimum(t_timer, t_send),
                             torch.minimum(t_pipe, t_queue))
         tgt = torch.minimum(tgt, t_arr)
+        if self.has_faults:
+            # a trip never jumps over a flap / degrade / corruption edge
+            edges = self.fd.edges
+            tgt = torch.minimum(tgt, torch.clamp_min(
+                torch.where(edges > t, edges, n_ticks).min(), t + 1))
         return torch.clamp_max(tgt, n_ticks).to(torch.int32)
 
     def run(self):
@@ -924,6 +1059,8 @@ def run_fabric_trace(topo: FatTree, messages, n_ticks: int,
         raise ValueError("duplicate message ids in trace")
     flows = [(m.src, m.dst, m.size) for m in messages]
     _check_flows(flows, topo.n_hosts)
+    if cfg.faults is not None:
+        validate_faults(cfg.faults, topo)
     group_ids = tuple(sorted({getattr(m, "group", 0) for m in messages}))
     gix = {g: i for i, g in enumerate(group_ids)}
     n = len(messages)
@@ -976,6 +1113,9 @@ def summarize(metrics: dict) -> dict:
     if txr is not None:
         out["tx_rows_pkts"] = tuple(int(v)
                                     for v in np.asarray(txr).reshape(-1))
+    wr = metrics.get("win_retx")
+    if wr is not None and np.asarray(wr).size:
+        out["win_retx"] = tuple(int(v) for v in np.asarray(wr).reshape(-1))
     qhi = metrics.get("qdepth_hi_pkts")
     if qhi is not None:
         qhi = np.asarray(qhi)

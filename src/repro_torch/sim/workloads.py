@@ -16,8 +16,12 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 
 from ..core.params import NetworkSpec
-from .fabric import FabricConfig, run_fabric_trace, summarize
-from .topology import FatTree
+from .fabric import (ACK_PATHS, LB_MODES, PROTOCOLS, FabricConfig, _rto_us,
+                     run_fabric_trace, summarize)
+from .faults import FaultSpec
+from .topology import FatTree, full_bisection, with_link_failures
+
+BACKENDS = ("fabric", "events")
 
 
 def permutation_pairs(n_hosts: int, seed: int = 0) -> list[tuple[int, int]]:
@@ -56,7 +60,7 @@ class Scenario:
     topo: FatTree
     net: NetworkSpec
     messages: Tuple[Message, ...]
-    faults: Optional[object] = None
+    faults: Optional[FaultSpec] = None
 
     @classmethod
     def from_flows(cls, name: str, topo: FatTree, net: NetworkSpec,
@@ -119,6 +123,23 @@ def permutation_scenario(topo: FatTree, msg_bytes: float,
         [(s, d, float(msg_bytes)) for s, d in pairs])
 
 
+def linkdown_scenario(topo_kw: dict, frac_links_down: float,
+                      msg_bytes: float, net: Optional[NetworkSpec] = None,
+                      seed: int = 0) -> Scenario:
+    """Permutation over an asymmetric (dead-link) full-bisection fabric:
+    ``frac_links_down`` of the ToR-spine links dead, spread over half the
+    ToRs."""
+    base = full_bisection(**topo_kw)
+    n_links = base.n_tor * base.n_spine
+    n_down = max(1, int(frac_links_down * n_links))
+    topo = with_link_failures(base, n_down,
+                              n_tors_affected=max(1, base.n_tor // 2),
+                              seed=seed)
+    sc = permutation_scenario(topo, msg_bytes, net, seed)
+    return Scenario(name=f"linkdown_{n_down}", topo=topo, net=sc.net,
+                    messages=sc.messages)
+
+
 def incast_scenario(topo: FatTree, fan_in: int, msg_bytes: float,
                     dst: int = 0, net: Optional[NetworkSpec] = None,
                     seed: int = 0) -> Scenario:
@@ -134,9 +155,12 @@ def incast_scenario(topo: FatTree, fan_in: int, msg_bytes: float,
 
 @dataclass(frozen=True)
 class RunConfig:
-    """How a scenario runs: the reference's fields that the port honours.
+    """How a scenario runs: the reference's fields that the port honours,
+    checked as the reference checks them when the config is made.
     Unported settings raise ``NotImplementedError`` naming their ROADMAP
-    item when the run starts."""
+    item when the run starts.  ``faults`` (a ``FaultSpec``) overrides the
+    scenario's; without ``n_ticks`` the horizon then reaches past the
+    schedule's last edge."""
 
     backend: str = "fabric"
     protocol: str = "strack"         # strack | rocev2
@@ -149,16 +173,63 @@ class RunConfig:
     roce_entropy_seed: Optional[int] = None      # QP entropy draws
     ack_path: str = "perhop"
     hop_prop_us: Optional[float] = None
+    # ticks a PFC pause/resume frame takes to reach the upstream queue
+    # (None -> one hop of propagation)
+    pfc_delay_ticks: Optional[int] = None
     time_warp: bool = True
     trace_every: int = 0
     active_cap: Optional[int] = None
     shard: int = 0
-    faults: Optional[object] = None
+    faults: Optional[FaultSpec] = None
+
+    def __post_init__(self):
+        if self.backend not in BACKENDS:
+            raise ValueError(f"unknown backend {self.backend!r}; "
+                             f"expected one of {BACKENDS}")
+        if self.protocol not in PROTOCOLS:
+            raise ValueError(f"unknown protocol {self.protocol!r}; "
+                             f"expected one of {PROTOCOLS}")
+        if self.lb_mode not in LB_MODES:
+            raise ValueError(f"unknown lb_mode {self.lb_mode!r}; "
+                             f"expected one of {LB_MODES}")
+        if self.ack_path not in ACK_PATHS:
+            raise ValueError(f"unknown ack_path {self.ack_path!r}; "
+                             f"expected one of {ACK_PATHS}")
+        if self.trace_every < 0:
+            raise ValueError(
+                f"trace_every must be >= 0, got {self.trace_every}")
+        if self.active_cap is not None and self.active_cap <= 0:
+            raise ValueError(
+                f"active_cap must be positive, got {self.active_cap}")
+        if self.shard < 0:
+            raise ValueError(f"shard must be >= 0, got {self.shard}")
+        if (self.active_cap or self.shard > 1) and self.trace_every:
+            raise ValueError("active_cap/shard need the no-trace path "
+                             "(trace_every=0)")
+        if self.faults is not None and not isinstance(self.faults,
+                                                      FaultSpec):
+            raise TypeError(f"faults must be a FaultSpec, got "
+                            f"{type(self.faults).__name__}")
+
+
+def _effective_faults(sc: Scenario, cfg: RunConfig) -> Optional[FaultSpec]:
+    """RunConfig.faults wins over Scenario.faults."""
+    return cfg.faults if cfg.faults is not None else sc.faults
 
 
 def _scenario_ticks(sc: Scenario, cfg: RunConfig) -> int:
-    """Fabric horizon: explicit n_ticks, else ``default_ticks()``."""
-    return cfg.n_ticks if cfg.n_ticks is not None else sc.default_ticks()
+    """Fabric horizon: explicit n_ticks, else ``default_ticks()`` extended
+    by the fault schedule: past its last edge by four RTOs of loss
+    recovery plus the clean drain budget."""
+    if cfg.n_ticks is not None:
+        return cfg.n_ticks
+    ticks = sc.default_ticks()
+    fs = _effective_faults(sc, cfg)
+    if fs is not None and fs.last_edge > 0:
+        rto_ticks = math.ceil(_rto_us(_fabric_cfg(sc, cfg))
+                              / sc.net.mtu_serialize_us)
+        ticks = max(ticks, fs.last_edge + 4 * rto_ticks + ticks)
+    return ticks
 
 
 def _fabric_cfg(sc: Scenario, cfg: RunConfig) -> FabricConfig:
@@ -166,15 +237,15 @@ def _fabric_cfg(sc: Scenario, cfg: RunConfig) -> FabricConfig:
         raise NotImplementedError(
             f"repro_torch does not port backend={cfg.backend!r} "
             f"(the event oracle, ROADMAP A10)")
-    faults = cfg.faults if cfg.faults is not None else sc.faults
     time_warp = cfg.time_warp and not cfg.trace_every
     kw = dict(
         net=sc.net, max_paths=cfg.max_paths, lb_mode=cfg.lb_mode,
         protocol=cfg.protocol, pfc=cfg.pfc, subflows=cfg.subflows,
         roce_entropy_seed=cfg.roce_entropy_seed, ack_path=cfg.ack_path,
-        hop_prop_us=cfg.hop_prop_us, time_warp=time_warp,
-        trace_every=cfg.trace_every, active_cap=cfg.active_cap,
-        shard=cfg.shard, faults=faults)
+        hop_prop_us=cfg.hop_prop_us, pfc_delay_ticks=cfg.pfc_delay_ticks,
+        time_warp=time_warp, trace_every=cfg.trace_every,
+        active_cap=cfg.active_cap, shard=cfg.shard,
+        faults=_effective_faults(sc, cfg))
     if cfg.switch_buffer_bytes is not None:
         kw["switch_buffer_bytes"] = cfg.switch_buffer_bytes
     return FabricConfig(**kw)

@@ -3,8 +3,8 @@
 Skips without a CUDA device (and imports no JAX, so it also runs on the
 card's machine): ``PYTHONPATH=src python -m pytest -m cuda
 tests/test_torch_cuda.py``.  ``chip_smoke.py`` runs the same checks at the
-full perm1024 / incast1024 / perm8k shapes (STrack, RoCEv2, PFC) and at
-llama3-8b's, mamba2-2.7b's and zamba2-2.7b's.
+full perm1024 / incast1024 / perm8k shapes (STrack, RoCEv2, PFC, faults)
+and at llama3-8b's, mamba2-2.7b's and zamba2-2.7b's.
 """
 import dataclasses
 import json
@@ -25,6 +25,7 @@ from repro_torch.runtime.serve import (greedy_generate, make_decode_step,
                                        make_prefill_step)
 from repro_torch.models import lm
 from repro_torch.sim import fabric as TF
+from repro_torch.sim import faults as TFa
 from repro_torch.sim.topology import full_bisection
 from repro_torch.sim.workloads import incast_scenario, permutation_scenario
 
@@ -204,6 +205,95 @@ def test_rocev2_pfc_fabric_on_the_card_equals_the_cpu(cuda):
               "rto_fires"):
         assert m_gpu[k] == m_cpu[k], k
     _same(tuple(x.cpu() for x in fin_g.flows), fin_c.flows)
+
+
+#: Every fault class at once on a 4x4 fabric (tests/test_torch_faults_state.py).
+FAULTS44 = dict(link_flaps=((0, 0, 10, 60),), uplink_flaps=((1, 2, 5, 120),),
+                host_flaps=((5, 30, 80),),
+                link_degrade=((1, 1, 0, 200, 0.5),),
+                link_corrupt=((2, 2, 0, 300, 0.05),),
+                host_corrupt=((7, 0, 300, 0.2),), seed=3)
+
+
+@pytest.mark.parametrize("protocol", ["strack", "rocev2"])
+def test_serve_kernel_fault_branches_match_plain(cuda, protocol):
+    """The serve/enqueue chain with its fault rows (down, duty, corruption
+    draw) against its plain version on dense ticks of a 4x4 permutation
+    under every fault class; the ticks must show a down row that pops, a
+    duty-closed row with a ready head, a corrupted survivor and a
+    survivor on a corrupting row that the draw spares."""
+    sc = permutation_scenario(full_bisection(4, 4), 128 * 2 ** 10,
+                              net=NetworkSpec(link_gbps=400.0), seed=0)
+    cfg = TF.FabricConfig(net=sc.net, protocol=protocol, trace_every=0,
+                          faults=TFa.FaultSpec(**FAULTS44))
+    prog = TF.FabricProgram(sc.topo, len(sc.messages), 300, cfg, cuda)
+    src, dst, total, tails, ent0 = TF._flow_arrays(sc.flows, cfg)
+    prog.bind(src, dst, total, tails, TF._arrival_array(sc.messages),
+              cfg.lb_mode, ent0)
+    st = prog.init_state()
+    seen = dict(down_pops=0, duty_closed=0, corrupted=0, spared=0)
+    for t in range(300):
+        eff_nic, prow = prog.eff_pause(st, t)
+        fm = prog.fault_masks(t)
+        targs = prog.transport_args(st, t, prog.sendable_msg(st, t), eff_nic)
+        _, tx, ptx, pv, sel, _ = fk.flow_transition(*targs)
+        sargs, _, _ = prog.serve_args(st, t, tx, ptx, sel, pv, prow, fm)
+        rings = [type(st.q)(*[f.clone() for f in st.q]) for _ in range(2)]
+        res = fk.serve_enqueue(rings[0], *sargs[1:])
+        _same(res, fk.serve_enqueue_plain(rings[1], *sargs[1:]))
+        _same(tuple(f[:prog.Q] for f in rings[0]),
+              tuple(f[:prog.Q] for f in rings[1]))
+        pop, has, surv = res[2], res[3], res[10]
+        ready = (st.qsize[:prog.Q] > 0) & (pop.ready <= t)
+        seen["down_pops"] += int((has & fm.row_down).sum())
+        seen["duty_closed"] += int((ready & ~fm.row_duty).sum())
+        seen["corrupted"] += int(res[12])
+        seen["spared"] += int((surv & ~pop.probe
+                               & (fm.row_cor_p > 0)).sum())
+        st, _, _ = prog.tick(st, t)
+    assert all(v > 0 for v in seen.values()), seen
+
+
+def test_fault_draw_kernel_matches_plain(cuda):
+    """The serve kernel's splitmix64 draw against ``fault_u01`` on a grid
+    of keys: rows of a 1024-host fabric, ticks from 0 to near 2^30 and
+    psns over the int32 range, negative ones included."""
+    from repro_torch.kernels import _cuda_bind
+    rng = np.random.default_rng(0)
+    n = 1 << 16
+    row = rng.integers(0, 3072, n).astype(np.int32)
+    t = np.concatenate([rng.integers(0, 30000, n // 2),
+                        rng.integers(2 ** 30 - 4096, 2 ** 30 + 4096,
+                                     n // 2)]).astype(np.int32)
+    psn = rng.integers(-2 ** 31, 2 ** 31, n).astype(np.int32)
+    for seed in (0, 3, 2 ** 31 - 1):
+        got = _cuda_bind.fault_draw(fk._lib("serve_enqueue"), seed,
+                                    *[torch.from_numpy(a).to(cuda)
+                                      for a in (row, t, psn)])
+        want = TFa.fault_u01(seed, torch.from_numpy(row),
+                             torch.from_numpy(t), torch.from_numpy(psn))
+        _same(got.cpu(), want)
+
+
+def test_faulted_fabric_on_the_card_equals_the_cpu(cuda):
+    sc = permutation_scenario(full_bisection(4, 4), 128 * 2 ** 10,
+                              net=NetworkSpec(link_gbps=400.0), seed=0)
+    for protocol in ("strack", "rocev2"):
+        cfg = TF.FabricConfig(net=sc.net, protocol=protocol, time_warp=True,
+                              trace_every=0,
+                              faults=TFa.FaultSpec(**FAULTS44))
+        fk.reset_launches()
+        fin_g, m_gpu = TF.run_fabric_trace(sc.topo, sc.messages, 6000, cfg,
+                                           device=cuda)
+        assert fk.launches["serve_enqueue"] > 0
+        fin_c, m_cpu = TF.run_fabric_trace(sc.topo, sc.messages, 6000, cfg,
+                                           device="cpu")
+        np.testing.assert_array_equal(m_gpu["done_tick"], m_cpu["done_tick"])
+        for k in ("warp_trips", "drops", "ecn_marks", "blackholed_pkts",
+                  "corrupt_drops", "retransmits"):
+            assert m_gpu[k] == m_cpu[k], (protocol, k)
+        np.testing.assert_array_equal(m_gpu["win_retx"], m_cpu["win_retx"])
+        assert m_cpu["blackholed_pkts"] > 0 and m_cpu["corrupt_drops"] > 0
 
 
 @pytest.mark.parametrize("B,H,K,Tq,Tk,hd,causal,window,q_offset", [

@@ -19,6 +19,7 @@ import torch
 
 from repro_torch.core.params import NetworkSpec
 from repro_torch.sim import fabric as TF
+from repro_torch.sim.faults import link_flap
 from repro_torch.sim.topology import full_bisection
 from repro_torch.sim.workloads import (Message, RunConfig, Scenario,
                                        _fabric_cfg, _scenario_ticks,
@@ -105,11 +106,11 @@ def test_port_matches_perm1024_reference_on_cpu():
 
 @pytest.mark.parametrize("kw,item", [
     (dict(protocol="rocev2", active_cap=8), "A8"),
-    (dict(pfc=True, faults=object()), "A9"),
+    (dict(pfc=True, subflows=4), "A6"),
     (dict(active_cap=8), "A8"),
     (dict(shard=2), "A11"),
     (dict(subflows=4), "A6"),
-    (dict(faults=object()), "A9"),
+    (dict(faults=link_flap(0, 0, 10, 60), trace_every=1), "A5"),
     (dict(trace_every=1), "A5"),
     (dict(backend="events"), "A10"),
 ])

@@ -2,14 +2,16 @@
 
 Run as a script to regenerate the committed reference files (perm1024 and
 incast1024 under STrack; perm1024 and incast1024 under RoCEv2 with PFC,
-incast1024 under lossy RoCEv2 and under STrack with PFC; the llama3-8b,
-mamba2-2.7b and zamba2-2.7b SMOKE serve references) from the JAX
-package:
+incast1024 under lossy RoCEv2 and under STrack with PFC; perm1024 under
+the CHAOS1024 fault schedule with STrack and with RoCEv2, and linkdown1024
+as t=0 uplink flaps; the llama3-8b, mamba2-2.7b and zamba2-2.7b SMOKE
+serve references) from the JAX package:
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/torch_parity.py
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 from pathlib import Path
 
@@ -17,6 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch.convert import leaves
+from repro_torch.profile import CHAOS1024 as _CHAOS1024
 
 # The port's CPU tests run many tiny tensor ops; intra-op threads only
 # contend with the other test workers for the cores.
@@ -50,6 +53,25 @@ PFC_REFS = {
                                                  pfc=True)),
 }
 PFC_REF_PATHS = {name: REF_DIR / f"{name}_ref.json" for name in PFC_REFS}
+
+#: The full-width chaos runs' fault schedule (``repro_torch.profile``'s
+#: ``CHAOS1024``), as ``FaultSpec`` fields of either package: one entry of
+#: each of the six classes, among them a permanent uplink flap.  The
+#: corruption probability 0.2 makes the RoCEv2 run corrupt packets (at
+#: 0.05 it corrupts none).
+CHAOS1024 = dataclasses.asdict(_CHAOS1024)
+#: The chaos reference files pin the PFC files' keys and the flap windows'
+#: retransmit attribution.
+CHAOS_SUMMARY_KEYS = PFC_SUMMARY_KEYS + ("win_retx",)
+#: file stem -> (scenario, RunConfig fields but the faults, fault source):
+#: ``CHAOS1024``, or ``"dead_links"``, the t=0 uplink-flap schedule of
+#: linkdown1024's dead links run on the fabric with every link alive.
+CHAOS_REFS = {
+    "perm1024_chaos_strack": ("perm1024", {}, "chaos"),
+    "perm1024_chaos_rocev2": ("perm1024", dict(protocol="rocev2"), "chaos"),
+    "linkdown1024_strack": ("linkdown1024", {}, "dead_links"),
+}
+CHAOS_REF_PATHS = {name: REF_DIR / f"{name}_ref.json" for name in CHAOS_REFS}
 
 
 def _bits(a: np.ndarray) -> np.ndarray:
@@ -94,6 +116,16 @@ def _jax_scenario(name: str):
     return incast_scenario(full_bisection(32, 32), 256, 16 * 2 ** 10, net=net)
 
 
+def jax_linkdown1024():
+    """The JAX package's linkdown1024: ``linkdown_scenario`` on
+    ``full_bisection(32, 32)`` with 1/8 of the links dead (128 uplinks of
+    16 ToRs), 64 KiB, 400 Gbps, seed 0."""
+    from repro.core.params import NetworkSpec
+    from repro.sim.workloads import linkdown_scenario
+    return linkdown_scenario({"n_tor": 32, "hosts_per_tor": 32}, 0.125,
+                             64 * 2 ** 10, net=NetworkSpec(link_gbps=400.0))
+
+
 def perm1024_reference() -> dict:
     """The JAX package's perm1024 run under the default RunConfig: summary
     keys, warp trips, end tick, done ticks."""
@@ -113,6 +145,22 @@ def pfc_reference(name: str) -> dict:
     of ``PFC_SUMMARY_KEYS``, warp trips, end tick, done ticks."""
     scenario, kw = PFC_REFS[name]
     return _reference(_jax_scenario(scenario), kw, PFC_SUMMARY_KEYS)
+
+
+def chaos_reference(name: str) -> dict:
+    """The JAX package's run of one ``CHAOS_REFS`` entry: every key of
+    ``CHAOS_SUMMARY_KEYS``, warp trips, end tick, done ticks."""
+    from repro.sim.faults import FaultSpec, faults_from_dead_links
+    from repro.sim.topology import full_bisection
+    scenario, kw, source = CHAOS_REFS[name]
+    if source == "chaos":
+        return _reference(_jax_scenario(scenario),
+                          dict(kw, faults=FaultSpec(**CHAOS1024)),
+                          CHAOS_SUMMARY_KEYS)
+    dead = jax_linkdown1024()
+    sc = dataclasses.replace(dead, topo=full_bisection(32, 32))
+    return _reference(sc, dict(kw, faults=faults_from_dead_links(dead.topo)),
+                      CHAOS_SUMMARY_KEYS)
 
 
 def _reference(sc, kw=None, keys=REF_SUMMARY_KEYS) -> dict:
@@ -233,6 +281,8 @@ def write_references() -> None:
                for arch, path in SSM_SERVE_REF_PATHS.items()]
     makers += [(path, lambda n=name: pfc_reference(n))
                for name, path in PFC_REF_PATHS.items()]
+    makers += [(path, lambda n=name: chaos_reference(n))
+               for name, path in CHAOS_REF_PATHS.items()]
     for path, make in makers:
         path.write_text(json.dumps(make(), sort_keys=True) + "\n")
         print(f"wrote {path}")
