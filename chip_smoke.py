@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Run the PyTorch/CUDA port on one NVIDIA GPU: the STrack fabric, then
-LM serving: llama3-8b at full width through the flash-attention kernel,
+"""Run the PyTorch/CUDA port on one NVIDIA GPU: the STrack fabric (with
+RoCEv2, PFC, chaos and the active set), then LM serving: llama3-8b at
+full width through the flash-attention kernel,
 mamba2-2.7b and zamba2-2.7b at full width and depth through the SSD scan
 kernel (and zamba2's shared attention through the flash kernel).
 
@@ -67,6 +68,29 @@ Phases (any failure exits non-zero; nothing is caught):
          corrupted packets, the flap windows' retransmits among the keys),
          each launching exactly its path's kernels;
      (d) serve_enqueue's fault path timed (`fault_*` fields);
+  6d. the active set (active_cap) on open-loop inference traffic:
+     infer1024 (repro_torch.profile.infer1024_scenario: four inference
+     tenants of traffic.mixed_scenario, 4096 flows on the perm1024 fabric,
+     at most 328 live at once) at active_cap=512:
+     (a) the active transitions (STrack, RoCEv2), the lane-mapped
+         serve/enqueue, the ranker and the PFC stage with the lanes'
+         sources against their plain versions on the card, exact, on the
+         slates of dense ticks of the capped runs (padded lanes; at tick
+         1400 the slate holds flow N-1 beside padding), once more with
+         every other NIC paused (and, under PFC, every third switch row
+         and the state's NIC bits), at tick 400 of the run capped at 320
+         (the slate full to its last lane), on the slate [0, N/2, N-1,
+         padding], and on the capped staggered 15-sender STrack + PFC
+         incast of tests/test_torch_active_pfc.py (probes of paused NICs
+         withheld);
+     (b) infer1024 at the cap under STrack and RoCEv2 + PFC, and uncapped
+         under STrack, each launching exactly its path's kernels (the
+         active transition, never the dense one, under the cap), held
+         exactly against src/repro_torch/testdata/infer1024_*_ref.json;
+     (c) the run capped at 320 raises RuntimeError with JAX's overflow
+         tick count (95), the one error caught;
+     (d) wall time a trip capped and uncapped, device launches a tick,
+         the new kernels' times and bounds at A = 512;
   7. serve: llama3-8b, bf16, attn_impl="pallas", random weights from a
      CUDA generator (seed 0; 16 GB):
      (a) the flash-attention kernel against its plain version on the card
@@ -118,7 +142,10 @@ Phases (any failure exits non-zero; nothing is caught):
      per call; the plain version's device and wall time; the bound;
      flow_transition_roce and pfc_account from phase 6b, and the PFC-path
      `pfc_*` fields of flow_transition and serve_enqueue; the fault-path
-     `fault_*` fields of serve_enqueue from phase 6c; for
+     `fault_*` fields of serve_enqueue from phase 6c; the active set's
+     flow_transition_active and flow_transition_roce_active, and the
+     `active_*` fields of serve_enqueue, rank_in_queue and pfc_account,
+     from phase 6d; for
      flash attention SDPA's time as `library_ms`, at the prefill-1000 and
      decode-544 shapes and at zamba2's hd 80; for the SSD scan at mamba2's
      prefill 4 x 1024 and 1 x 4096 inputs), the card's name and power
@@ -370,20 +397,28 @@ def fabric_program(sc, cfg, dev):
     return prog
 
 
-def hold_against_reference(name, sc, cfg, kernels) -> tuple:
+#: Entries of the infer1024 reference file that are not the capped run's
+#: keys: the uncapped run, and the overflow count of the run at a small cap.
+INFER_EXTRA_KEYS = ("uncapped", "small_cap", "small_cap_overflow_ticks")
+
+
+def hold_against_reference(name, sc, cfg, kernels, ref=None) -> tuple:
     """Run ``sc`` under ``cfg`` through the port on the card, the launch
     counts reset just before and read just after, and hold it exactly
     against ``src/repro_torch/testdata/<name>_ref.json`` (made by the JAX
-    package): every summary key the file has (floats to 1e-6; the chaos
-    files' ``blackholed_pkts``, ``corrupt_drops`` and ``win_retx`` among
-    them), warp trips, end tick, every done tick.  Fails unless each kernel of ``kernels``
-    launched, and unless no other fabric kernel did.  Returns
-    ``(launches, summary, wall seconds)``."""
+    package), or against ``ref`` where given: every summary key the file
+    has (floats to 1e-6; the chaos files' ``blackholed_pkts``,
+    ``corrupt_drops`` and ``win_retx`` among them, the infer1024 files'
+    tenant and group tables), warp trips, end tick, every done tick.  Fails
+    unless each kernel of ``kernels`` launched, and unless no other fabric
+    kernel did.  Returns ``(launches, summary, wall seconds)``."""
     import torch
     from repro_torch.kernels import fabric_kernels as fk
     from repro_torch.sim.fabric import run_fabric_trace, summarize
     from repro_torch.sim.workloads import _fabric_cfg, _scenario_ticks
-    ref = json.loads((TESTDATA / f"{name}_ref.json").read_text())
+    if ref is None:
+        ref = json.loads((TESTDATA / f"{name}_ref.json").read_text())
+    ref = {k: v for k, v in ref.items() if k not in INFER_EXTRA_KEYS}
     n_ticks = _scenario_ticks(sc, cfg)
     assert n_ticks == ref["n_ticks"], (name, n_ticks, ref["n_ticks"])
     torch.cuda.synchronize()
@@ -394,8 +429,8 @@ def hold_against_reference(name, sc, cfg, kernels) -> tuple:
     wall = time.time() - t0
     launches = dict(fk.launches)
     s = summarize(m)
-    got = {k: list(s[k]) if isinstance(s[k], tuple) else s[k]
-           for k in ref if k in s}
+    # JSON's form, as the file has it (tuples as lists, string keys)
+    got = json.loads(json.dumps({k: s[k] for k in ref if k in s}))
     got.update(warp_trips=m["warp_trips"], end_tick=m["end_tick"],
                n_ticks=n_ticks, done_tick=[int(v) for v in m["done_tick"]])
     for k in ("blackholed_pkts", "corrupt_drops", "win_retx"):
@@ -1543,6 +1578,359 @@ def serve_ssm(dev) -> tuple:
                    "zamba2_prefill_1024_hd80": fa_t}
 
 
+def active_lanes(prog, st, t):
+    """The active set's lanes at tick ``t`` of ``st``, as the tick builds
+    them: the released flows not yet done."""
+    mask = (prog.sendable_msg(st, t)[prog.dep.msg_of_flow.long()]
+            & ~prog.proto.done(st.flows))
+    return prog.lane_slate(mask)[0]
+
+
+def check_active_tick(label, prog, st, t, lanes, same, seen, eff_nic=None,
+                      paused_row=None, paused_nic=None):
+    """Every kernel of a capped tick against its plain version on the card
+    at tick ``t`` of ``st``, on the slate of ``lanes``: the active
+    transition (on two clones of the flow record, which it updates in
+    place), the lane-mapped serve/enqueue (on two clones of the ring), the
+    ranker on its candidates and, under PFC, the PFC stage with the lanes'
+    sources (``paused_nic`` replaces the state's NIC pause bits).  Returns
+    ``(transition args, serve args, ring, PFC args)`` for timing."""
+    from repro_torch.kernels import fabric_kernels as fk
+    from repro_torch.sim.fabric import _clone_tree
+    name = ("flow_transition_roce_active" if prog.proto.name == "rocev2"
+            else "flow_transition_active")
+    targs = prog.transport_args(st, t, prog.sendable_msg(st, t), eff_nic,
+                                lanes)
+    out_k = fk.flow_transition_active(_clone_tree(targs[0]), *targs[1:])
+    same(name, f"{label} {name} t={t}", out_k,
+         fk.flow_transition_active_plain(_clone_tree(targs[0]), *targs[1:]))
+    _, tx, ptx, pv, sel, can, done = out_k
+    ok = lanes.idx < prog.N
+    seen["lanes"] += int(ok.sum())
+    seen["padded"] += int((~ok).sum())
+    seen["last_flow"] += int((lanes.idx == prog.N - 1).any())
+    seen["sel"] += int(sel.sum())
+    seen["done"] += int(done.sum())
+    if eff_nic is not None:
+        paused = eff_nic[lanes.src.long()] & ok
+        seen["withheld"] += int((can & paused & ~sel).sum())
+        seen["blocked_probes"] += int((ptx.valid & paused).sum())
+    sargs, _, _ = prog.serve_args(st, t, tx, ptx, sel, pv, paused_row, None,
+                                  lanes)
+    rings = [_clone_tree(st.q) for _ in range(2)]
+    res_k = fk.serve_enqueue(rings[0], *sargs[1:])
+    same("serve_enqueue", f"{label} serve_enqueue t={t}", res_k,
+         fk.serve_enqueue_plain(rings[1], *sargs[1:]))
+    same("serve_enqueue", f"{label} ring t={t}",
+         [f[:prog.Q] for f in rings[0]], [f[:prog.Q] for f in rings[1]])
+    qid, accept = res_k[6], res_k[7]
+    same("rank_in_queue", f"{label} rank_in_queue t={t}",
+         fk.rank_in_queue(qid, accept, prog.Q),
+         fk.rank_in_queue_plain(qid, accept, prog.Q))
+    seen["injected"] += int(accept[2 * prog.TS:].sum())
+    pargs = None
+    if prog.pfc:
+        pst = prog.pfc_state(st)
+        if paused_nic is not None:
+            pst = pst._replace(paused_nic=paused_nic)
+        pargs = (pst, res_k[3], res_k[2], res_k[5], qid, res_k[9], accept,
+                 rings[0], res_k[0], st.qsize, res_k[1], t, prog.pfc_flows,
+                 prog.pfc_dims, lanes.idx)
+        pfc_k = fk.pfc_account(*pargs)
+        same("pfc_account", f"{label} pfc_account t={t}", pfc_k,
+             fk.pfc_account_plain(*pargs))
+        seen["nic_ingress"] += int((pfc_k.ing_host != 0).sum())
+    return targs, sargs, _clone_tree(st.q), pargs
+
+
+def active_walk(label, prog, ticks, same, capture_at=None, forced=False):
+    """Dense ticks of the capped ``prog`` up to ``max(ticks)``, each kernel
+    against its plain version at ``ticks`` (with ``forced``, once more with
+    every other NIC paused, and every third switch row and the PFC state's
+    NIC bits forced likewise).  Returns ``(seen, seen_forced, captured)``:
+    the counts summed over those ticks, and at ``capture_at`` the state
+    (cloned), its lanes and the kernels' arguments."""
+    import torch
+    from repro_torch.sim.fabric import _clone_tree
+    keys = ("lanes", "padded", "last_flow", "sel", "done", "withheld",
+            "blocked_probes", "injected", "nic_ingress")
+    seen, seen_f = dict.fromkeys(keys, 0), dict.fromkeys(keys, 0)
+    dev = prog.device
+    nic_mask = torch.arange(prog.NH, device=dev) % 2 == 0
+    row_mask = torch.arange(prog.Q, device=dev) % 3 == 0
+    row_mask[2 * prog.TS:] = False
+    st, captured = prog.init_state(), None
+    for t in range(max(ticks) + 1):
+        if t in ticks:
+            eff_nic, prow = prog.eff_pause(st, t)
+            lanes = active_lanes(prog, st, t)
+            r = check_active_tick(label, prog, st, t, lanes, same, seen,
+                                  eff_nic, prow)
+            if forced:
+                check_active_tick(f"{label} (NICs paused)", prog, st, t,
+                                  lanes, same, seen_f, nic_mask,
+                                  row_mask if prog.pfc else None,
+                                  nic_mask if prog.pfc else None)
+            if t == capture_at:
+                # the transition's record is the live state's: time on a
+                # clone
+                stc = _clone_tree(st)
+                captured = (stc, t, lanes, (prog.transport_args(
+                    stc, t, prog.sendable_msg(stc, t), eff_nic, lanes),)
+                    + r[1:])
+        st, _, _ = prog.tick(st, t)
+    torch.cuda.synchronize()
+    return seen, seen_f, captured
+
+
+def tick_launches(prog, st, t0: int, n: int) -> float:
+    """Device launches (kernels and memsets, from ``torch.profiler``) per
+    tick of ``n`` dense ticks of ``prog`` from a clone of ``st`` at tick
+    ``t0``."""
+    import torch
+    from repro_torch.sim.fabric import _clone_tree
+    from torch.profiler import ProfilerActivity, profile
+    st = _clone_tree(st)
+    st, _, _ = prog.tick(st, t0)   # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for t in range(t0 + 1, t0 + 1 + n):
+            st, _, _ = prog.tick(st, t)
+        torch.cuda.synchronize()
+    count = sum(ev.count for ev in prof.key_averages()
+                if ev.device_type == torch.autograd.DeviceType.CUDA)
+    return count / n
+
+
+def incast15_staggered():
+    """The capped incast of tests/test_torch_active_pfc.py on the port: 15
+    senders of 512 KiB into host 0 of ``full_bisection(4, 4)`` on a 2 us
+    network, sender i arriving at tick 3 i, and a 4 KiB message 1 -> 2
+    arriving at tick 1000 (N = 16).  Returns ``(scenario, cap)``: at most
+    15 flows are live before tick 1000."""
+    from repro_torch.core.params import NetworkSpec
+    from repro_torch.sim.topology import full_bisection
+    from repro_torch.sim.workloads import Message, Scenario, incast_scenario
+    net2 = NetworkSpec(link_gbps=400.0, base_rtt_us=2.0)
+    inc = incast_scenario(full_bisection(4, 4), 15, 512 * 2 ** 10, net=net2)
+    msgs = tuple(dataclasses.replace(m, arrival=3 * i)
+                 for i, m in enumerate(inc.messages))
+    msgs += (Message(mid=15, src=1, dst=2, size=4096.0, arrival=1000),)
+    return Scenario(name="incast15_staggered", topo=inc.topo, net=net2,
+                    messages=msgs), 15
+
+
+def active_set(dev) -> tuple:
+    """Phase 6d: the active set (``active_cap``) on open-loop inference
+    traffic: infer1024 (``repro_torch.profile.infer1024_scenario``: four
+    open-loop inference tenants, 4096 flows on the perm1024 fabric) at
+    ``active_cap=512``, with the active transitions and the lane-mapped
+    serve/enqueue and PFC stage in CUDA.  Returns the ``kernels`` entries
+    of ``flow_transition_active`` and ``flow_transition_roce_active``, and
+    the ``active_*`` fields of the ``serve_enqueue``, ``rank_in_queue`` and
+    ``pfc_account`` entries."""
+    import torch
+    from repro_torch.kernels import fabric_kernels as fk
+    from repro_torch.profile import INFER1024_CAP, infer1024_scenario
+    from repro_torch.sim.fabric import _clone_tree
+    from repro_torch.sim.workloads import RunConfig, run
+
+    infer = infer1024_scenario()
+    ref = json.loads((TESTDATA / "infer1024_strack_cap512_ref.json")
+                     .read_text())
+    cap = INFER1024_CAP
+    max_err = dict.fromkeys(("flow_transition_active",
+                             "flow_transition_roce_active", "serve_enqueue",
+                             "rank_in_queue", "pfc_account"), 0.0)
+
+    def same(key, what, a, b):
+        max_err[key] = max(max_err[key], assert_same(what, a, b))
+
+    # (a) the kernels against their plain versions.  infer1024 under
+    # STrack at the cap: lanes at ticks across the run (live flows 280-328
+    # of 512 lanes, then padding), at tick 1400 the slate holds flow N-1
+    # (live over ticks 1364-1464) and padding; once more with every other
+    # NIC paused (offers withheld)
+    strack = fabric_program(infer, RunConfig(active_cap=cap), dev)
+    n = strack.N
+    seen, seen_f, cap_s = active_walk(
+        "infer1024 strack", strack, {8, 64, 400, 1000, 1400}, same,
+        capture_at=400, forced=True)
+    assert seen["padded"] > 0 and seen["sel"] > 0 and seen["done"] > 0, seen
+    assert seen["last_flow"] > 0 and seen_f["withheld"] > 0, (seen, seen_f)
+    log(f"[active] infer1024 strack cap {cap}: the active transition, "
+        f"serve_enqueue and rank_in_queue match their plain versions at "
+        f"ticks 8, 64, 400, 1000, 1400: {seen}; NICs paused: {seen_f}")
+    # the cap below the peak: at tick 400 (328 live flows) every one of
+    # 320 lanes holds a flow, to the last
+    small = fabric_program(infer, RunConfig(active_cap=ref["small_cap"]),
+                           dev)
+    seen, _, cap_f = active_walk("infer1024 strack cap 320", small, {400},
+                                 same, capture_at=400)
+    assert bool((cap_f[2].idx < n).all()), "the slate is not full"
+    log(f"[active] the slate full to its last lane (cap "
+        f"{ref['small_cap']}, tick 400): {seen}")
+    # RoCEv2 + PFC at the cap, once more with NICs, rows and the PFC
+    # state's NIC bits forced
+    roce = fabric_program(infer, RunConfig(protocol="rocev2",
+                                           active_cap=cap), dev)
+    seen, seen_f, cap_r = active_walk(
+        "infer1024 rocev2", roce, {8, 400, 1400}, same, capture_at=400,
+        forced=True)
+    assert seen_f["withheld"] > 0 and seen["nic_ingress"] > 0, (seen, seen_f)
+    log(f"[active] infer1024 rocev2 cap {cap}: the active RoCEv2 "
+        f"transition, serve_enqueue, rank_in_queue and pfc_account match "
+        f"their plain versions: {seen}; NICs, rows and NIC bits forced: "
+        f"{seen_f}")
+    # the slate that holds flow N-1 with padding, at tick 1400 of both
+    idx = cap_s[2].idx
+    for prog, label in ((strack, "strack"), (roce, "rocev2")):
+        st = _clone_tree(cap_s[0]) if prog is strack else _clone_tree(cap_r[0])
+        slate = torch.full((cap,), n, dtype=torch.int32, device=dev)
+        slate[:3] = torch.tensor([0, n // 2, n - 1], dtype=torch.int32)
+        s_seen = dict.fromkeys(seen, 0)
+        check_active_tick(f"infer1024 {label} slate [0, N/2, N-1, pad]",
+                          prog, st, 400, prog.lanes(slate), same, s_seen,
+                          *prog.eff_pause(st, 400))
+        assert s_seen["lanes"] == 3 and s_seen["padded"] == cap - 3
+    # the 15-sender STrack + PFC incast (200 KB buffer, 2 us network) of
+    # tests/test_torch_active_state.py, senders staggered by arrival, at
+    # the cap: probes of paused NICs are withheld with their timer state
+    inc, inc_cap = incast15_staggered()
+    seen, _, _ = active_walk(
+        "incast15 strack pfc capped", fabric_program(
+            inc, RunConfig(pfc=True, switch_buffer_bytes=2e5,
+                           active_cap=inc_cap), dev),
+        {80, 88, 96, 144, 192}, same)
+    assert seen["blocked_probes"] > 0 and seen["withheld"] > 0, seen
+    log(f"[active] incast15 strack pfc cap {inc_cap}: probes of paused "
+        f"NICs withheld, every kernel matches its plain version: {seen}")
+
+    # (b) the full-width runs against the JAX-made references
+    l_s, s_s, w_s = hold_against_reference(
+        "infer1024_strack_cap512", infer, RunConfig(active_cap=cap),
+        ("flow_transition_active", "serve_enqueue", "rank_in_queue"))
+    l_u, s_u, w_u = hold_against_reference(
+        "infer1024_strack_uncapped", infer, RunConfig(), STRACK_KERNELS,
+        ref=ref["uncapped"])
+    l_r, s_r, w_r = hold_against_reference(
+        "infer1024_rocev2_cap512", infer,
+        RunConfig(protocol="rocev2", active_cap=cap),
+        ("flow_transition_roce_active", "serve_enqueue", "rank_in_queue",
+         "pfc_account"))
+    ref_r = json.loads((TESTDATA / "infer1024_rocev2_cap512_ref.json")
+                       .read_text())
+
+    # (c) the overflow: the run at the small cap raises with JAX's count
+    try:
+        run(infer, RunConfig(active_cap=ref["small_cap"]), device="cuda")
+    except RuntimeError as e:
+        if "exceeded on" not in str(e):
+            raise
+        ticks = int(str(e).split("exceeded on ")[1].split()[0])
+        assert f"active_cap={ref['small_cap']}" in str(e), str(e)
+        assert ticks == ref["small_cap_overflow_ticks"], (ticks, ref)
+        log(f"[active] cap {ref['small_cap']} raises as JAX does: {e}")
+    else:
+        raise AssertionError("infer1024 at the small cap did not raise")
+
+    # (d) wall time and launches per trip, capped and uncapped
+    st400 = cap_s[0]
+    dense = fabric_program(infer, RunConfig(), dev)
+    lpt_cap = tick_launches(strack, st400, 400, 16)
+    lpt_dense = tick_launches(dense, st400, 400, 16)
+    trips_s, trips_r = ref["warp_trips"], ref_r["warp_trips"]
+    log(f"[active] infer1024 wall: STrack cap {cap} {w_s:.3f}s "
+        f"({trips_s} trips, {w_s * 1e3 / trips_s:.3f} ms a trip), "
+        f"uncapped {w_u:.3f}s ({w_u * 1e3 / trips_s:.3f} ms a trip); "
+        f"RoCEv2 + PFC cap {cap} {w_r:.3f}s ({trips_r} trips, "
+        f"{w_r * 1e3 / trips_r:.3f} ms a trip); device launches a tick at "
+        f"ticks 401-416: {lpt_cap:.1f} capped, {lpt_dense:.1f} uncapped")
+
+    # kernel times and bounds at A = 512, tick 400 of each capped run
+    # (the transition updates its flow record in place: the timed calls
+    # step a clone of it again and again, the same work each time)
+    entries, paths = [], {}
+    csrc = "src/repro_torch/kernels/csrc"
+    for name, src, (prog, (st, t, lanes, (targs, sargs, ring, pargs))) in (
+            ("flow_transition_active", "transition.cu", (strack, cap_s)),
+            ("flow_transition_roce_active", "transition_roce.cu",
+             (roce, cap_r))):
+        fl_k, fl_p = _clone_tree(targs[0]), _clone_tree(targs[0])
+        kern = lambda: fk.flow_transition_active(fl_k, *targs[1:])
+        plain = lambda: fk.flow_transition_active_plain(fl_p, *targs[1:])
+        out = kern()
+        ok = int((lanes.idx < prog.N).sum())
+        row_b = nbytes(targs[0]) / prog.N
+        due_b = nbytes(targs[1]) / prog.N
+        # the live lanes' flow rows read and written, their due rows and
+        # sources, the slate, the per-lane outputs
+        t_bytes = (ok * (2 * row_b + due_b + 4) + 4 * cap
+                   + nbytes(out[1:]))
+        per_lane = 2 * 512 + 64 if name == "flow_transition_active" else 40
+        bnd, by = bound_ms(t_bytes, ok * per_lane)
+        plain_ms, _ = device_ms(plain, reps=10)
+        runs = l_s if name == "flow_transition_active" else l_r
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": f"{csrc}/{src}",
+            "replaces": "src/repro/kernels/fabric_kernels.py:191",
+            "launches": runs[name], "max_abs_err": max_err[name],
+            "ms": graph_ms(kern), "plain_ms": plain_ms, "bound_ms": bnd,
+            "bound_by": by, "library_ms": None, "wall_ms": wall_ms(kern),
+            "plain_wall_ms": wall_ms(plain, reps=10),
+            "shape": f"infer1024 {prog.proto.name} A={cap} t={t} "
+                     f"({ok} live lanes)"})
+    # serve/enqueue (STrack) and the PFC stage (RoCEv2) on the lanes
+    _, t, lanes, (targs, sargs, ring, _) = cap_s
+    ring_k, ring_p = _clone_tree(ring), _clone_tree(ring)
+    res_k = fk.serve_enqueue(_clone_tree(ring), *sargs[1:])
+    Q, M = strack.Q, res_k[6].numel()
+    slot_bytes = sum(f.element_size() for f in ring)
+    n_acc = int(res_k[7].sum())
+    s_bytes = (2 * 4 * (Q + 1) + Q * slot_bytes + nbytes(sargs[3:17])
+               + nbytes(sargs[24]) + nbytes(res_k) + n_acc * slot_bytes)
+    kern = lambda: fk.serve_enqueue(ring_k, *sargs[1:])
+    plain = lambda: fk.serve_enqueue_plain(ring_p, *sargs[1:])
+    bnd, by = bound_ms(s_bytes, Q * 40 + M * 20)
+    plain_ms, _ = device_ms(plain, reps=10)
+    paths["serve_enqueue"] = {
+        "active_ms": graph_ms(kern), "active_wall_ms": wall_ms(kern),
+        "active_plain_ms": plain_ms,
+        "active_plain_wall_ms": wall_ms(plain, reps=10),
+        "active_bound_ms": bnd, "active_bound_by": by,
+        "active_launches": l_s["serve_enqueue"],
+        "active_launches_rocev2": l_r["serve_enqueue"],
+        "active_max_abs_err": max_err["serve_enqueue"],
+        "active_shape": f"infer1024 strack A={cap} t={t} (M={M})"}
+    pargs = cap_r[3][3]
+    pfc_k = fk.pfc_account(*pargs)
+    p_bytes = (nbytes(pargs[0]) + Q * 13 + pargs[4].numel() * 5
+               + 3 * 4 * (Q + 1) + int(pargs[6].sum()) * 9
+               + nbytes(pargs[12]) + 4 * cap + nbytes(pfc_k))
+    kern = lambda: fk.pfc_account(*pargs)
+    plain = lambda: fk.pfc_account_plain(*pargs)
+    bnd, by = bound_ms(p_bytes, Q * 8 + pargs[4].numel() * 4)
+    plain_ms, _ = device_ms(plain, reps=10)
+    paths["pfc_account"] = {
+        "active_ms": graph_ms(kern), "active_wall_ms": wall_ms(kern),
+        "active_plain_ms": plain_ms,
+        "active_plain_wall_ms": wall_ms(plain, reps=10),
+        "active_bound_ms": bnd, "active_bound_by": by,
+        "active_launches": l_r["pfc_account"],
+        "active_max_abs_err": max_err["pfc_account"],
+        "active_shape": f"infer1024 rocev2 A={cap} t={cap_r[1]}"}
+    paths["rank_in_queue"] = {
+        "active_launches": l_s["rank_in_queue"],
+        "active_max_abs_err": max_err["rank_in_queue"]}
+    entries[0].update(infer_wall_s_capped=w_s, infer_wall_s_uncapped=w_u,
+                      infer_wall_s_rocev2=w_r,
+                      launches_per_tick_capped=lpt_cap,
+                      launches_per_tick_uncapped=lpt_dense)
+    return entries, paths
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1822,6 +2210,15 @@ def main() -> int:
             entry.update(fault)
             entry["max_abs_err"] = max(entry["max_abs_err"],
                                        fault["fault_max_abs_err"])
+    torch.cuda.empty_cache()
+
+    # ---- 6d. the active set on open-loop inference traffic ---------------
+    act_entries, act_paths = active_set(dev)
+    for entry in kernels:
+        entry.update(act_paths.get(entry["name"], {}))
+        entry["max_abs_err"] = max(entry["max_abs_err"], entry.get(
+            "active_max_abs_err", 0.0))
+    kernels.extend(act_entries)
     torch.cuda.empty_cache()
 
     # ---- 7. serve: llama3-8b through the flash-attention kernel -----------

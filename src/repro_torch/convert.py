@@ -5,7 +5,8 @@ The reference's state pytrees (``FlowState``, ``ReceiverState``,
 ``RoceRcv``, ``RoceMsg``), given with numpy (or any array-like) leaves,
 become the port's NamedTuples of tensors with the same field names and
 dtypes (a faulted ``FabricState`` too: its chaos counters, and
-``win_retx`` with one entry per flap window), and back: :func:`to_numpy` returns the
+``win_retx`` with one entry per flap window; a capped one with its
+``act_overflow`` count), and back: :func:`to_numpy` returns the
 port's classes with numpy leaves, so a test can diff the two packages
 leaf by leaf after feeding both the same state.  :func:`lm_params_from_jax`
 carries a language model's weights across.

@@ -30,8 +30,8 @@ def _ptrs(name, fields):
 
 
 class TransParams(Structure):
-    _fields_ = ([(n, c_int) for n in ("t", "timer_tick", "N", "NH", "NR",
-                                      "P", "B")]
+    _fields_ = ([(n, c_int) for n in ("t", "timer_tick", "N", "L", "NH",
+                                      "NR", "P", "B")]
                 + [(n, c_float) for n in (
                     "now", "probe_at", "rto_at", "mtu", "tq", "th",
                     "ewma_keep", "ewma", "beta", "alpha", "gamma", "eta",
@@ -47,7 +47,8 @@ TxPtrs = _ptrs("TxPtrs", TxPacket._fields)
 
 class TransOut(Structure):
     _fields_ = [("tx", TxPtrs), ("probe", TxPtrs), ("probe_valid", c_void_p),
-                ("sel", c_void_p), ("can_tx", c_void_p)]
+                ("sel", c_void_p), ("can_tx", c_void_p),
+                ("done_lane", c_void_p)]
 
 
 TransScratch = _ptrs("TransScratch", (
@@ -56,8 +57,8 @@ TransScratch = _ptrs("TransScratch", (
 
 
 class RoceParams(Structure):
-    _fields_ = ([(n, c_int) for n in ("t", "timer_tick", "N", "NH", "NR",
-                                      "F")]
+    _fields_ = ([(n, c_int) for n in ("t", "timer_tick", "N", "L", "NH",
+                                      "NR", "F")]
                 + [(n, c_float) for n in (
                     "now", "pace_at", "rto_at", "rto_rearm", "window", "mtu",
                     "byte_counter", "hai", "rai", "max_rate", "min_rate",
@@ -72,8 +73,8 @@ RoceScratch = _ptrs("RoceScratch", (
 
 
 class ServeParams(Structure):
-    _fields_ = ([(n, c_int) for n in ("t", "Q", "TS", "T", "S", "N", "M",
-                                      "cap", "K", "data_drop", "hard",
+    _fields_ = ([(n, c_int) for n in ("t", "Q", "TS", "T", "S", "N", "L",
+                                      "M", "cap", "K", "data_drop", "hard",
                                       "fseed")]
                 + [(n, c_float) for n in ("now", "kmin", "krecip",
                                           "t_dither", "mtu", "ack_bytes")])
@@ -87,7 +88,7 @@ ServeIn = _ptrs("ServeIn", (
     "qhead", "qsize", "dst", "dst_tor", "total_pkts", "tail_b", "tx_psn",
     "probe_psn", "ent_d", "ent_p", "spine_d", "spine_p", "sel",
     "probe_valid", "inj_q", "inj_qp", "paused_row", "row_down", "row_duty",
-    "row_cor_p"))
+    "row_cor_p", "lane_flow"))
 
 
 class ServeOut(Structure):
@@ -99,7 +100,7 @@ class ServeOut(Structure):
 
 class PfcParams(Structure):
     _fields_ = ([(n, c_int) for n in ("Q", "TS", "T", "S", "NH", "HPT", "N",
-                                      "cap", "PD", "line_row")]
+                                      "L", "cap", "PD", "line_row")]
                 + [(n, c_float) for n in ("buf", "alpha", "inv", "xon", "mtu",
                                           "ack_bytes")])
 
@@ -107,7 +108,8 @@ class PfcParams(Structure):
 PfcIn = _ptrs("PfcIn", (
     "has", "pop_flow", "pop_bytes", "pop_spine", "accept", "cand_bytes",
     "ring_flow", "ring_psn", "ring_probe", "qhead", "qsize0", "qsize", "src",
-    "src_tor", "same_tor", "total_pkts", "tail_b", "by_src", "src_start"))
+    "src_tor", "same_tor", "total_pkts", "tail_b", "by_src", "src_start",
+    "lanes"))
 PfcPtrs = _ptrs("PfcPtrs", PfcState._fields)
 
 
@@ -121,12 +123,13 @@ def declare(name: str, lib: ctypes.CDLL) -> None:
     elif name == "transition":
         lib.strack_transition.argtypes = [
             P(TransParams), P(FlowPtrs), P(SackPtrs), c_void_p, c_void_p,
-            c_void_p, P(FlowPtrs), P(TransOut), P(TransScratch), c_void_p]
+            c_void_p, c_void_p, P(FlowPtrs), P(TransOut), P(TransScratch),
+            c_void_p]
         lib.strack_transition.restype = c_int
     elif name == "transition_roce":
         lib.roce_transition.argtypes = [
             P(RoceParams), P(RoceFlowPtrs), P(RoceMsgPtrs), c_void_p,
-            c_void_p, c_void_p, P(RoceFlowPtrs), P(TransOut),
+            c_void_p, c_void_p, c_void_p, P(RoceFlowPtrs), P(TransOut),
             P(RoceScratch), c_void_p]
         lib.roce_transition.restype = c_int
     elif name == "serve_enqueue":
@@ -161,14 +164,45 @@ def _flat(flows: FlowState):
     return list(flows.cc) + list(flows.spray) + list(flows.rel)
 
 
+def _lane_outputs(n: int, dev, act_idx):
+    """The per-lane outputs of a transition launch: ``(lanes, tx,
+    probe_tx, probe_valid, sel, can_tx, done_lane)`` (``done_lane`` None on
+    the dense program), and an ``e(dtype, *trailing)`` allocator of per-lane
+    scratch."""
+    lanes = n if act_idx is None else act_idx.shape[0]
+    e = lambda dt, *tail: torch.empty((lanes,) + tail, dtype=dt, device=dev)
+    bt, i32 = torch.bool, torch.int32
+    tx = TxPacket(e(bt), e(i32), e(i32), e(bt), e(bt))
+    ptx = TxPacket(e(bt), e(i32), e(i32), e(bt), e(bt))
+    done = None if act_idx is None else e(bt)
+    return (lanes, tx, ptx, e(bt), e(bt), e(bt), done), e
+
+
+def _lane_args(sendable, src, act_idx):
+    """Check the lane inputs of a transition launch: ``sendable`` (bool[N])
+    on the dense program, ``act_idx`` (i32[A]) under the active set."""
+    n, dev = src.shape[0], src.device
+    if (act_idx is None) == (sendable is None):
+        raise ValueError("transition: pass sendable (dense) or act_idx "
+                         "(active set), not both")
+    if act_idx is None:
+        _check("sendable", sendable, torch.bool, (n,), dev)
+    else:
+        _check("act_idx", act_idx, torch.int32, (act_idx.shape[0],), dev)
+    _check("src", src, torch.int32, (n,), dev)
+    return n, dev
+
+
 def transition(lib, flows: FlowState, due: SackMsg, sendable, src, t: int,
-               d, eff_nic=None):
+               d, eff_nic=None, act_idx=None):
     """Launch ``strack_transition``; same contract as
-    ``fabric_kernels.flow_transition_plain``."""
+    ``fabric_kernels.flow_transition_plain``, or under the active set
+    (``act_idx``, ``sendable`` None) as
+    ``fabric_kernels.flow_transition_active_plain``: the flow record is
+    then updated in place and ``done_lane`` returned last."""
     p = d.p
-    dev = sendable.device
-    n, P, B, W = sendable.shape[0], p.max_paths, p.sack_bitmap_bits, \
-        REORDER_WINDOW
+    n, dev = _lane_args(sendable, src, act_idx)
+    P, B, W = p.max_paths, p.sack_bitmap_bits, REORDER_WINDOW
     f32t, i32, bt, i8 = torch.float32, torch.int32, torch.bool, torch.int8
     want = dict(bitmap=(i8, (n, P)), rr=(i32, (n,)),
                 next_path_id=(i32, (n,)), sacked=(bt, (n, W)),
@@ -186,22 +220,23 @@ def transition(lib, flows: FlowState, due: SackMsg, sendable, src, t: int,
         shape = (n, B) if name == "sack_bits" else (n,)
         _check(f"due.{name}", t_, due_want[name], shape, dev)
 
-    out_leaves = [torch.empty_like(x) for x in _flat(flows)]
-    nc, ns = len(CCState._fields), len(SprayState._fields)
-    out = FlowState(cc=CCState(*out_leaves[:nc]),
-                    spray=SprayState(*out_leaves[nc:nc + ns]),
-                    rel=RelState(*out_leaves[nc + ns:]))
-    e = lambda dt: torch.empty((n,), dtype=dt, device=dev)
-    tx = TxPacket(e(bt), e(i32), e(i32), e(bt), e(bt))
-    ptx = TxPacket(e(bt), e(i32), e(i32), e(bt), e(bt))
-    probe_valid, sel, can_tx = e(bt), e(bt), e(bt)
+    if act_idx is None:
+        out_leaves = [torch.empty_like(x) for x in _flat(flows)]
+        nc, ns = len(CCState._fields), len(SprayState._fields)
+        out = FlowState(cc=CCState(*out_leaves[:nc]),
+                        spray=SprayState(*out_leaves[nc:nc + ns]),
+                        rel=RelState(*out_leaves[nc + ns:]))
+    else:
+        out_leaves, out = _flat(flows), flows   # in place
+    (lanes, tx, ptx, probe_valid, sel, can_tx, done), e = _lane_outputs(
+        n, dev, act_idx)
     scratch = [torch.empty((d.n_hosts,), dtype=i32, device=dev), e(i32),
-               e(i32), e(f32t), e(i32),
-               torch.empty((n, 8), dtype=i32, device=dev), e(i32), e(f32t)]
+               e(i32), e(f32t), e(i32), e(i32, 8), e(i32), e(f32t)]
 
     now = Now(t, d.tick_us)
     prm = TransParams(
-        t=t, timer_tick=int(t % d.timer_every == 0), N=n, NH=d.n_hosts,
+        t=t, timer_tick=int(t % d.timer_every == 0), N=n, L=lanes,
+        NH=d.n_hosts,
         NR=d.n_real, P=P, B=B, now=float(now),
         probe_at=now_plus(now, p.probe_rtts * p.base_rtt_us),
         rto_at=now_plus(now, p.rto_us), mtu=f32(p.mtu_bytes),
@@ -216,14 +251,16 @@ def transition(lib, flows: FlowState, due: SackMsg, sendable, src, t: int,
         min_ooo=float(p.min_ooo_threshold), eps=f32(1e-9))
     o = TransOut(tx=_struct(TxPtrs, tx), probe=_struct(TxPtrs, ptx),
                  probe_valid=_p(probe_valid), sel=_p(sel),
-                 can_tx=_p(can_tx))
+                 can_tx=_p(can_tx), done_lane=_p(done))
     _launch(lib.strack_transition, ctypes.byref(prm),
-          ctypes.byref(_struct(FlowPtrs, _flat(flows))),
-          ctypes.byref(_struct(SackPtrs, due)), _p(sendable), _p(src),
-          _p(eff_nic), ctypes.byref(_struct(FlowPtrs, out_leaves)),
-          ctypes.byref(o), ctypes.byref(_struct(TransScratch, scratch)),
-          _stream(sendable))
-    return out, tx, ptx, probe_valid, sel, can_tx
+            ctypes.byref(_struct(FlowPtrs, _flat(flows))),
+            ctypes.byref(_struct(SackPtrs, due)), _p(sendable), _p(src),
+            _p(eff_nic), _p(act_idx),
+            ctypes.byref(_struct(FlowPtrs, out_leaves)),
+            ctypes.byref(o), ctypes.byref(_struct(TransScratch, scratch)),
+            _stream(src))
+    res = (out, tx, ptx, probe_valid, sel, can_tx)
+    return res if act_idx is None else res + (done,)
 
 
 _ROCE_INT = ("snd_una", "psn_next", "total_pkts", "t_stage", "b_stage",
@@ -231,13 +268,13 @@ _ROCE_INT = ("snd_una", "psn_next", "total_pkts", "t_stage", "b_stage",
 
 
 def transition_roce(lib, flows: RoceFlow, due: RoceMsg, sendable, src,
-                    t: int, d, eff_nic=None):
+                    t: int, d, eff_nic=None, act_idx=None):
     """Launch ``roce_transition``; same contract as
-    ``fabric_kernels.flow_transition_plain`` under the RoCEv2 record."""
+    ``fabric_kernels.flow_transition_plain`` under the RoCEv2 record, or,
+    with ``act_idx``, as ``flow_transition_active_plain`` (in place)."""
     p = d.p
     dc = p.dcqcn
-    dev = sendable.device
-    n = sendable.shape[0]
+    n, dev = _lane_args(sendable, src, act_idx)
     f32t, i32, bt = torch.float32, torch.int32, torch.bool
     for name, t_ in zip(RoceFlow._fields, flows):
         _check(f"flows.{name}", t_, i32 if name in _ROCE_INT else f32t,
@@ -245,16 +282,16 @@ def transition_roce(lib, flows: RoceFlow, due: RoceMsg, sendable, src,
     for name, t_, dt in zip(RoceMsg._fields, due,
                             (bt, bt, bt, bt, i32, f32t)):
         _check(f"due.{name}", t_, dt, (n,), dev)
-    out = RoceFlow(*[torch.empty_like(x) for x in flows])
-    e = lambda dt: torch.empty((n,), dtype=dt, device=dev)
-    tx = TxPacket(e(bt), e(i32), e(i32), e(bt), e(bt))
-    ptx = TxPacket(e(bt), e(i32), e(i32), e(bt), e(bt))
-    probe_valid, sel, can_tx = e(bt), e(bt), e(bt)
+    out = (RoceFlow(*[torch.empty_like(x) for x in flows])
+           if act_idx is None else flows)   # in place under the active set
+    (lanes, tx, ptx, probe_valid, sel, can_tx, done), e = _lane_outputs(
+        n, dev, act_idx)
     scratch = [torch.empty((d.n_hosts,), dtype=i32, device=dev), e(i32),
                e(f32t), e(f32t), e(f32t), e(f32t), e(i32)]
     now = Now(t, d.tick_us)
     prm = RoceParams(
-        t=t, timer_tick=int(t % d.timer_every == 0), N=n, NH=d.n_hosts,
+        t=t, timer_tick=int(t % d.timer_every == 0), N=n, L=lanes,
+        NH=d.n_hosts,
         NR=d.n_real, F=dc.f_fast_recovery, now=float(now),
         pace_at=now_plus(now, 0.5 * p.tick_us), rto_at=now_plus(now, p.rto_us),
         rto_rearm=f32(float(now) + f32(p.rto_us)), window=f32(p.window_pkts), mtu=f32(p.mtu_bytes),
@@ -265,26 +302,30 @@ def transition_roce(lib, flows: RoceFlow, due: RoceMsg, sendable, src,
         eps=f32(1e-9))
     o = TransOut(tx=_struct(TxPtrs, tx), probe=_struct(TxPtrs, ptx),
                  probe_valid=_p(probe_valid), sel=_p(sel),
-                 can_tx=_p(can_tx))
+                 can_tx=_p(can_tx), done_lane=_p(done))
     _launch(lib.roce_transition, ctypes.byref(prm),
             ctypes.byref(_struct(RoceFlowPtrs, flows)),
             ctypes.byref(_struct(RoceMsgPtrs, due)), _p(sendable), _p(src),
-            _p(eff_nic), ctypes.byref(_struct(RoceFlowPtrs, out)),
+            _p(eff_nic), _p(act_idx),
+            ctypes.byref(_struct(RoceFlowPtrs, out)),
             ctypes.byref(o), ctypes.byref(_struct(RoceScratch, scratch)),
-            _stream(sendable))
-    return out, tx, ptx, probe_valid, sel, can_tx
+            _stream(src))
+    res = (out, tx, ptx, probe_valid, sel, can_tx)
+    return res if act_idx is None else res + (done,)
 
 
 def serve_enqueue(lib, q, qhead, qsize, dst, dst_tor, total_pkts, tail_b,
                   tx_psn, probe_psn, ent_d, ent_p, spine, spine_p, sel,
                   probe_valid, inj_q, inj_qp, t: int, d, paused_row=None,
-                  row_down=None, row_duty=None, row_cor_p=None, fseed=None):
+                  row_down=None, row_duty=None, row_cor_p=None, fseed=None,
+                  lane_flow=None):
     """Launch the serve/enqueue chain; same contract as
     ``fabric_kernels.serve_enqueue_plain`` (ring updated in place)."""
     T, S, NH, N, cap = d.n_tor, d.n_spine, d.n_hosts, d.n_flows, d.cap
     TS = T * S
     Q = 2 * TS + NH
-    M = 2 * TS + 2 * N
+    L = N if lane_flow is None else lane_flow.shape[0]
+    M = 2 * TS + 2 * L
     dev = qhead.device
     i32, f32t, bt = torch.int32, torch.float32, torch.bool
     ring_dt = (i32, i32, f32t, bt, bt, i32, i32, i32)
@@ -294,13 +335,17 @@ def serve_enqueue(lib, q, qhead, qsize, dst, dst_tor, total_pkts, tail_b,
     _check("qsize", qsize, i32, (Q + 1,), dev)
     for name, t_, dt in (("dst", dst, i32), ("dst_tor", dst_tor, i32),
                          ("total_pkts", total_pkts, i32),
-                         ("tail_b", tail_b, f32t), ("tx_psn", tx_psn, i32),
+                         ("tail_b", tail_b, f32t)):
+        _check(name, t_, dt, (N,), dev)
+    for name, t_, dt in (("tx_psn", tx_psn, i32),
                          ("probe_psn", probe_psn, i32), ("ent_d", ent_d, i32),
                          ("ent_p", ent_p, i32), ("spine", spine, i32),
                          ("spine_p", spine_p, i32), ("sel", sel, bt),
                          ("probe_valid", probe_valid, bt),
                          ("inj_q", inj_q, i32), ("inj_qp", inj_qp, i32)):
-        _check(name, t_, dt, (N,), dev)
+        _check(name, t_, dt, (L,), dev)
+    if lane_flow is not None:
+        _check("lane_flow", lane_flow, i32, (L,), dev)
     for name, t_, dt in (("paused_row", paused_row, bt),
                          ("row_down", row_down, bt),
                          ("row_duty", row_duty, bt),
@@ -326,7 +371,7 @@ def serve_enqueue(lib, q, qhead, qsize, dst, dst_tor, total_pkts, tail_b,
     cand_qid, cand_valid, cand_bytes = cands[0], cands[1], cands[-1]
     kmin, kmax = d.kmin_p, d.kmax_p
     prm = ServeParams(
-        t=t, Q=Q, TS=TS, T=T, S=S, N=N, M=M, cap=cap, K=d.K,
+        t=t, Q=Q, TS=TS, T=T, S=S, N=N, L=L, M=M, cap=cap, K=d.K,
         data_drop=d.data_drop_pkts, hard=d.hard_pkts,
         fseed=fseed if row_cor_p is not None else 0,
         now=float(Now(t, d.tick_us)), kmin=f32(kmin),
@@ -340,7 +385,8 @@ def serve_enqueue(lib, q, qhead, qsize, dst, dst_tor, total_pkts, tail_b,
           ctypes.byref(_struct(ServeIn, (
               qhead, qsize, dst, dst_tor, total_pkts, tail_b, tx_psn,
               probe_psn, ent_d, ent_p, spine, spine_p, sel, probe_valid,
-              inj_q, inj_qp, paused_row, row_down, row_duty, row_cor_p))),
+              inj_q, inj_qp, paused_row, row_down, row_duty, row_cor_p,
+              lane_flow))),
           ctypes.byref(ServeOut(_struct(Ring, pop), _p(has), _p(ecn_out),
                                 _p(pop_bytes), _p(qhead_o), _p(qsize_o),
                                 _p(qsize1), _p(surv if faulted else None),
@@ -377,13 +423,15 @@ def fault_draw(lib, seed: int, row, t, psn):
 
 
 def pfc_account(lib, st: PfcState, has, pop, pop_bytes, cand_qid,
-                cand_bytes, accept, q, qhead, qsize0, qsize, t: int, fl, d):
+                cand_bytes, accept, q, qhead, qsize0, qsize, t: int, fl, d,
+                lanes=None):
     """Launch ``se_pfc``; same contract as
     ``fabric_kernels.pfc_account_plain``."""
     T, S, NH, HPT = d.n_tor, d.n_spine, d.n_hosts, d.hosts_per_tor
     TS = T * S
     Q = 2 * TS + NH
     N = fl.src.shape[0]
+    L = N if lanes is None else lanes.shape[0]
     M = cand_qid.shape[0]
     cap = q.flow.shape[1]
     dev = has.device
@@ -413,11 +461,13 @@ def pfc_account(lib, st: PfcState, has, pop, pop_bytes, cand_qid,
             ("tail_b", fl.tail_b, f32t, (N,)), ("by_src", fl.by_src, i32, (N,)),
             ("src_start", fl.src_start, i32, (NH + 1,))):
         _check(name, t_, dt, shape, dev)
-    if M != 2 * TS + 2 * N:
-        raise ValueError(f"cand_qid: expected {2 * TS + 2 * N} candidates, "
+    if lanes is not None:
+        _check("lanes", lanes, i32, (L,), dev)
+    if M != 2 * TS + 2 * L:
+        raise ValueError(f"cand_qid: expected {2 * TS + 2 * L} candidates, "
                          f"got {M}")
     out = PfcState(*[torch.empty_like(x) for x in st])
-    prm = PfcParams(Q=Q, TS=TS, T=T, S=S, NH=NH, HPT=HPT, N=N, cap=cap,
+    prm = PfcParams(Q=Q, TS=TS, T=T, S=S, NH=NH, HPT=HPT, N=N, L=L, cap=cap,
                     PD=d.PD, line_row=t % d.PD if d.PD > 0 else 0,
                     buf=f32(d.buffer_bytes), alpha=f32(d.alpha),
                     inv=recip32(1 + d.alpha), xon=f32(d.xon_frac),
@@ -425,7 +475,8 @@ def pfc_account(lib, st: PfcState, has, pop, pop_bytes, cand_qid,
     pin = PfcIn(*[_p(x) for x in (
         has, pop.flow, pop_bytes, pop.spine, accept, cand_bytes, q.flow,
         q.psn, q.probe, qhead, qsize0, qsize, fl.src, fl.src_tor,
-        fl.same_tor, fl.total_pkts, fl.tail_b, fl.by_src, fl.src_start)])
+        fl.same_tor, fl.total_pkts, fl.tail_b, fl.by_src, fl.src_start,
+        lanes)])
     _launch(lib.se_pfc, ctypes.byref(prm), ctypes.byref(pin),
             ctypes.byref(_struct(PfcPtrs, st)),
             ctypes.byref(_struct(PfcPtrs, out)), _stream(has))

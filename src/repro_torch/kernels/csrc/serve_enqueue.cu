@@ -23,6 +23,12 @@
 // lossy queues) pops nothing, and every candidate's wire bytes go out in
 // cand_bytes.
 //
+// Under the active set (repro/sim/fabric.py:1247-1272, fed at :1499) the
+// NIC injections come from L transport lanes, not N flows: lane l sends
+// for flow lane_flow[l] (the clipped slate), which the candidate carries
+// and whose size and tail PSN set its wire bytes; M = 2 TS + 2 L.  A null
+// lane_flow is the dense program (lane l is flow l, L = N).
+//
 // Under a fault schedule (repro/sim/fabric.py:1204-1236; each input null
 // without one) a degraded row whose duty cycle is closed this tick
 // (row_duty) pops nothing; a down row (row_down) pops but blackholes what
@@ -40,10 +46,14 @@
 // (sequential float adds, never float atomics), then one thread per port
 // sums its switch's queue bytes into the dynamic threshold and steps the
 // pause gate.  Bound: bytes, O(ports x (S + HPT) + Q) reads a tick.
+// Under the active set a host's injections are its flows' lanes: the
+// host's thread walks its flows (by_src, ascending) and finds each one's
+// lane by binary search in the ascending slate, so it still adds them in
+// lane order, as the reference's scatter does.
 #include "common.cuh"
 
 struct ServeParams {
-  int t, Q, TS, T, S, N, M, cap, K;
+  int t, Q, TS, T, S, N, L, M, cap, K;
   int data_drop, hard;
   int fseed;  // the corruption draw's seed (31 bits)
   float now, kmin, krecip, t_dither, mtu, ack_bytes;
@@ -80,20 +90,21 @@ struct ServeIn {
   const int* dst_tor;     // [N]
   const int* total_pkts;  // [N]
   const float* tail_b;    // [N]
-  const int* tx_psn;      // [N]
-  const int* probe_psn;   // [N]
-  const int* ent_d;       // [N]
-  const int* ent_p;       // [N]
-  const int* spine_d;     // [N]
-  const int* spine_p;     // [N]
-  const bool* sel;        // [N]
-  const bool* probe_valid;  // [N]
-  const int* inj_q;       // [N]
-  const int* inj_qp;      // [N]
+  const int* tx_psn;      // [L]: per transport lane from here on
+  const int* probe_psn;   // [L]
+  const int* ent_d;       // [L]
+  const int* ent_p;       // [L]
+  const int* spine_d;     // [L]
+  const int* spine_p;     // [L]
+  const bool* sel;        // [L]
+  const bool* probe_valid;  // [L]
+  const int* inj_q;       // [L]
+  const int* inj_qp;      // [L]
   const bool* paused_row;  // [Q], null on lossy queues
   const bool* row_down;    // [Q], null without link/host flaps
   const bool* row_duty;    // [Q], null without degraded links
   const float* row_cor_p;  // [Q], null without corrupting links
+  const int* lane_flow;   // [L], null when lane l is flow l (L = N)
 };
 
 struct ServeOut {
@@ -214,18 +225,20 @@ __global__ void serve_kernel(ServeParams p, Ring ring, ServeIn in,
   }
   if (i >= 2 * p.TS && i < p.M) {  // NIC injections: data lanes, then probes
     int l = i - 2 * p.TS;
-    bool is_probe = l >= p.N;
-    if (is_probe) l -= p.N;
+    bool is_probe = l >= p.L;
+    if (is_probe) l -= p.L;
+    int flow = in.lane_flow != nullptr ? in.lane_flow[l] : l;
+    int psn = is_probe ? in.probe_psn[l] : in.tx_psn[l];
     c.qid[i] = is_probe ? in.inj_qp[l] : in.inj_q[l];
     c.valid[i] = is_probe ? in.probe_valid[l] : in.sel[l];
-    c.flow[i] = l;
-    c.psn[i] = is_probe ? in.probe_psn[l] : in.tx_psn[l];
+    c.flow[i] = flow;
+    c.psn[i] = psn;
     c.ts[i] = p.now;
     c.probe[i] = is_probe;
     c.ecn[i] = false;
     c.ent[i] = is_probe ? in.ent_p[l] : in.ent_d[l];
     c.spine[i] = is_probe ? in.spine_p[l] : in.spine_d[l];
-    c.bytes[i] = wire_bytes(l, c.psn[i], is_probe, in, p);
+    c.bytes[i] = wire_bytes(flow, psn, is_probe, in, p);
   }
 }
 
@@ -322,7 +335,7 @@ extern "C" int se_place(const ServeParams* p, const Cands* c,
 // ---- the PFC stage --------------------------------------------------------
 
 struct PfcParams {
-  int Q, TS, T, S, NH, HPT, N, cap, PD, line_row;
+  int Q, TS, T, S, NH, HPT, N, L, cap, PD, line_row;
   float buf, alpha, inv, xon, mtu, ack_bytes;
 };
 
@@ -344,8 +357,10 @@ struct PfcIn {
   const bool* same_tor;    // [N]
   const int* total_pkts;   // [N]
   const float* tail_b;     // [N]
-  const int* by_src;       // [N]: lanes sorted by src (stable)
+  const int* by_src;       // [N]: flows sorted by src (stable)
   const int* src_start;    // [NH + 1]
+  const int* lanes;        // [L]: the active set's slate, ascending, padded
+                           // with N; null when lane l is flow l (L = N)
 };
 
 struct PfcState {
@@ -365,6 +380,22 @@ namespace {
 __device__ __forceinline__ int pop_lane(const PfcIn& in, const PfcParams& p,
                                         int row) {
   return clampi(in.pop_flow[row], 0, p.N - 1);
+}
+
+// The transport lane of flow f: f itself on the dense program, else its
+// position in the ascending slate, -1 when it holds no lane this tick.
+__device__ __forceinline__ int lane_of(const PfcIn& in, const PfcParams& p,
+                                       int f) {
+  if (in.lanes == nullptr) return f;
+  int lo = 0, hi = p.L;  // first lane with lanes[lane] >= f
+  while (lo < hi) {
+    int mid = (lo + hi) >> 1;
+    if (in.lanes[mid] < f)
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  return lo < p.L && in.lanes[lo] == f ? lo : -1;
 }
 
 // Ingress counters and queue bytes, each summed in the reference's order:
@@ -395,12 +426,13 @@ __global__ void pfc_ingress_kernel(PfcParams p, PfcIn in, PfcState st,
     }
     int k0 = in.src_start[h], k1 = in.src_start[h + 1];
     for (int k = k0; k < k1; ++k) {
-      int c = M0 + in.by_src[k];
-      if (in.accept[c]) v = v + in.cand_bytes[c];
+      int l = lane_of(in, p, in.by_src[k]);
+      if (l >= 0 && in.accept[M0 + l]) v = v + in.cand_bytes[M0 + l];
     }
     for (int k = k0; k < k1; ++k) {
-      int c = M0 + p.N + in.by_src[k];
-      if (in.accept[c]) v = v + in.cand_bytes[c];
+      int l = lane_of(in, p, in.by_src[k]);
+      int c = M0 + p.L + l;
+      if (l >= 0 && in.accept[c]) v = v + in.cand_bytes[c];
     }
     out.ing_host[h] = v;
     return;
@@ -440,16 +472,18 @@ __global__ void pfc_ingress_kernel(PfcParams p, PfcIn in, PfcState st,
     int qs1 = in.qsize0[i] - (int)has;
     int added = in.qsize[i] - qs1;
     int base = in.qhead[i] + qs1;
-    float add = 0.0f;
-    for (int r = 0; r < added; ++r) {  // the accepted, in candidate order
+    // the accepted, in candidate order, each added onto the occupancy (the
+    // reference's qbytes + segment_sum, which XLA folds into one
+    // scatter-add onto qbytes: with fractional tails the order shows)
+    for (int r = 0; r < added; ++r) {
       size_t slot = (size_t)i * p.cap + floor_mod(base + r, p.cap);
       int f = clampi(in.ring_flow[slot], 0, p.N - 1);
       float w = in.ring_probe[slot] ? p.ack_bytes
                 : (in.ring_psn[slot] >= in.total_pkts[f] - 1 ? in.tail_b[f]
                                                               : p.mtu);
-      add = add + w;
+      v = v + w;
     }
-    out.qbytes[i] = v + add;
+    out.qbytes[i] = v;
   } else if (i == p.Q) {
     out.qbytes[p.Q] = 0.0f;
   }

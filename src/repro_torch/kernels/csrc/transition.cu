@@ -8,8 +8,20 @@
 //
 // Replaces: repro/kernels/fabric_kernels.py flow_transition_kernel (:191)
 // -> fused_stage_kernel (Pallas, pallas_call at :176), running
-// repro/sim/fabric.py dense_trans_core (:1079) over the STrack protocol
+// repro/sim/fabric.py dense_trans_core (:1079), and active_trans_core
+// (:1120) under the active set, over the STrack protocol
 // (repro/core/{cc,lb,reliability,transport}.py).
+//
+// Lanes: the dense program's lane l is flow l (act null, L = N).  Under
+// the active set lane l steps flow act[l] of the slate (ascending flow
+// ids, padded with N): it reads and writes that row of the [N] flow record
+// IN PLACE (in and out are the same record) and that row of the due SACK
+// slot, and its round-robin score is (act[l] - t) % NR, segment-minimised
+// over its flow's source; a padded lane (act[l] == N) is inert: it writes
+// zero offers, no row, and is never selected.  The per-lane outputs and
+// the scratch are indexed by lane; done_lane[l] is the lane's flow done
+// after the step.  A row is read and written by its own warp only, so the
+// in-place update needs no ordering between warps.
 //
 // Bound on the H100: bytes.  At perm1024 (N = 1024 flows) each flow's
 // state is read and written once: two 512-entry bool ledgers (1 KB), a
@@ -32,7 +44,7 @@ constexpr int MAXP = 256;    // largest max_paths supported
 constexpr int PW = MAXP / 32;
 
 struct TransParams {
-  int t, timer_tick, N, NH, NR, P, B;
+  int t, timer_tick, N, L, NH, NR, P, B;
   float now, probe_at, rto_at;
   float mtu, tq, th, ewma_keep, ewma, beta, alpha, gamma, eta;
   float max_cwnd, min_cwnd, max_cwnd_div8, mtu_recip, two_base_rtt;
@@ -76,18 +88,19 @@ struct TxPtrs {
   bool *is_rtx, *is_probe;
 };
 
-struct TransOut {
+struct TransOut {  // [L] each
   TxPtrs tx, probe;
   bool *probe_valid, *sel, *can_tx;
+  bool* done_lane;  // null on the dense program
 };
 
-struct TransScratch {
+struct TransScratch {  // per lane but best
   int* best;       // [NH]
-  int* score;      // [N]
+  int* score;      // [L]
   int* np_psn_next;
   float* np_bytes_sent;
   int* np_clear;   // claimed bit the send clears, -1 for none
-  uint32_t* np_bitmap;  // [N, PW]
+  uint32_t* np_bitmap;  // [L, PW]
   int* np_rr;
   float* np_last_reset;
 };
@@ -360,15 +373,36 @@ __device__ __forceinline__ int load_spray(Spray& s, const int8_t* row,
   return 0;
 }
 
+__device__ __forceinline__ void write_offer(TxPtrs tx, int l, bool valid,
+                                            int psn, int entropy,
+                                            bool is_rtx, bool is_probe) {
+  tx.valid[l] = valid;
+  tx.psn[l] = psn;
+  tx.entropy[l] = entropy;
+  tx.is_rtx[l] = is_rtx;
+  tx.is_probe[l] = is_probe;
+}
+
 __global__ void apply_kernel(TransParams p, FlowPtrs in, SackPtrs due,
                              const bool* __restrict__ sendable,
                              const int* __restrict__ src,
-                             const bool* __restrict__ eff_nic, FlowPtrs out,
+                             const bool* __restrict__ eff_nic,
+                             const int* __restrict__ act, FlowPtrs out,
                              TransOut o, TransScratch sc) {
-  int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  int l = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;  // one warp a lane
   int lane = threadIdx.x & 31;
-  if (warp >= p.N) return;  // whole warps exit together
-  int f = warp;
+  if (l >= p.L) return;  // whole warps exit together
+  int f = act != nullptr ? act[l] : l;
+  if (f >= p.N) {  // a padded lane of the slate: inert
+    if (lane == 0) {
+      write_offer(o.tx, l, false, 0, 0, false, false);
+      write_offer(o.probe, l, false, 0, 0, false, false);
+      o.probe_valid[l] = false;
+      o.can_tx[l] = false;
+      o.done_lane[l] = false;
+    }
+    return;
+  }
 
   CC cc{in.cwnd[f], in.base_rtt[f], in.avg_delay[f], in.last_decrease_ts[f],
         in.last_selfai_ts[f], in.achieved_bdp_pkts[f], in.rx_count_bytes[f],
@@ -405,7 +439,7 @@ __global__ void apply_kernel(TransParams p, FlowPtrs in, SackPtrs due,
   }
 
   // ---- 2. timer sweep on timer ticks (committed for released flows) ----
-  bool send_ok = sendable[f];
+  bool send_ok = sendable == nullptr || sendable[f];  // lanes: released
   bool pvalid = false, blocked = false;
   int p_entropy = 0, p_psn = 0;
   if (p.timer_tick) {
@@ -477,73 +511,78 @@ __global__ void apply_kernel(TransParams p, FlowPtrs in, SackPtrs due,
     out.rto_fires[f] = r.rto_fires;
     out.recoveries[f] = r.recoveries;
 
-    o.tx.valid[f] = valid;
-    o.tx.psn[f] = psn;
-    o.tx.entropy[f] = entropy;
-    o.tx.is_rtx[f] = use_rtx;
-    o.tx.is_probe[f] = false;
-    o.probe.valid[f] = pvalid;
-    o.probe.psn[f] = p_psn;
-    o.probe.entropy[f] = p_entropy;
-    o.probe.is_rtx[f] = false;
-    o.probe.is_probe[f] = pvalid;
-    o.probe_valid[f] = probe_valid;
-    o.can_tx[f] = can_tx;
+    write_offer(o.tx, l, valid, psn, entropy, use_rtx, false);
+    write_offer(o.probe, l, pvalid, p_psn, p_entropy, false, pvalid);
+    o.probe_valid[l] = probe_valid;
+    o.can_tx[l] = can_tx;
+    if (o.done_lane != nullptr) o.done_lane[l] = r.epsn >= r.total;
 
-    sc.score[f] = score;
-    sc.np_psn_next[f] = (valid && !has_rtx) ? r.psn_next + 1 : r.psn_next;
+    sc.score[l] = score;
+    sc.np_psn_next[l] = (valid && !has_rtx) ? r.psn_next + 1 : r.psn_next;
     float wire = (psn >= r.total - 1) ? r.tail : p.mtu;
-    sc.np_bytes_sent[f] = r.sent + (valid ? wire : 0.0f);
-    sc.np_clear[f] = use_rtx ? rtx_rel : -1;
+    sc.np_bytes_sent[l] = r.sent + (valid ? wire : 0.0f);
+    sc.np_clear[l] = use_rtx ? rtx_rel : -1;
 #pragma unroll
-    for (int k = 0; k < PW; ++k) sc.np_bitmap[(size_t)f * PW + k] = sn.bm[k];
-    sc.np_rr[f] = sn.rr;
-    sc.np_last_reset[f] = sn.last_reset;
+    for (int k = 0; k < PW; ++k) sc.np_bitmap[(size_t)l * PW + k] = sn.bm[k];
+    sc.np_rr[l] = sn.rr;
+    sc.np_last_reset[l] = sn.last_reset;
     atomicMin(&sc.best[src[f]], score);
   }
 }
 
 __global__ void commit_kernel(TransParams p, const int* __restrict__ src,
-                              const bool* __restrict__ eff_nic, FlowPtrs out,
+                              const bool* __restrict__ eff_nic,
+                              const int* __restrict__ act, FlowPtrs out,
                               TransOut o, TransScratch sc) {
-  int f = blockIdx.x * blockDim.x + threadIdx.x;
-  if (f >= p.N) return;
+  int l = blockIdx.x * blockDim.x + threadIdx.x;
+  if (l >= p.L) return;
+  int f = act != nullptr ? act[l] : l;
+  if (f >= p.N) {  // a padded lane
+    o.sel[l] = false;
+    return;
+  }
   int h = src[f];
-  bool sel = o.can_tx[f] && sc.score[f] == sc.best[h] &&
+  bool sel = o.can_tx[l] && sc.score[l] == sc.best[h] &&
              !(eff_nic != nullptr && eff_nic[h]);
-  o.sel[f] = sel;
+  o.sel[l] = sel;
   if (!sel) return;
-  out.psn_next[f] = sc.np_psn_next[f];
-  out.bytes_sent[f] = sc.np_bytes_sent[f];
-  int clr = sc.np_clear[f];
+  out.psn_next[f] = sc.np_psn_next[l];
+  out.bytes_sent[f] = sc.np_bytes_sent[l];
+  int clr = sc.np_clear[l];
   if (clr >= 0) out.claimed[(size_t)f * W + clr] = false;
   for (int j = 0; j < p.P; ++j)
     out.bitmap[(size_t)f * p.P + j] =
-        (int8_t)((sc.np_bitmap[(size_t)f * PW + (j >> 5)] >> (j & 31)) & 1u);
-  out.rr[f] = sc.np_rr[f];
+        (int8_t)((sc.np_bitmap[(size_t)l * PW + (j >> 5)] >> (j & 31)) & 1u);
+  out.rr[f] = sc.np_rr[l];
   out.next_path_id[f] = -1;
-  out.last_reset_ts[f] = sc.np_last_reset[f];
+  out.last_reset_ts[f] = sc.np_last_reset[l];
 }
 
 }  // namespace
 
+// sendable: [N] on the dense program (act null, L = N); null under the
+// active set, whose lanes are released by construction (act: [L]).
 extern "C" int strack_transition(const TransParams* p, const FlowPtrs* in,
                                  const SackPtrs* due, const bool* sendable,
                                  const int* src, const bool* eff_nic,
-                                 const FlowPtrs* out,
+                                 const int* act, const FlowPtrs* out,
                                  const TransOut* o, const TransScratch* sc,
                                  cudaStream_t stream) {
   if (p->P > MAXP || p->B > 64) return (int)cudaErrorInvalidValue;
-  if (p->N <= 0) return 0;
+  if ((act == nullptr) != (sendable != nullptr) ||
+      (act == nullptr && p->L != p->N) ||
+      (act != nullptr && o->done_lane == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (p->L <= 0) return 0;
   // best[] starts at INT_MAX-ish (0x7f7f7f7f), above every score (<= NR)
   cudaError_t err = cudaMemsetAsync(sc->best, 0x7f, sizeof(int) * p->NH,
                                     stream);
   if (err != cudaSuccess) return (int)err;
   const int warps_per_block = 8;
-  int blocks = (p->N + warps_per_block - 1) / warps_per_block;
+  int blocks = (p->L + warps_per_block - 1) / warps_per_block;
   apply_kernel<<<blocks, 32 * warps_per_block, 0, stream>>>(
-      *p, *in, *due, sendable, src, eff_nic, *out, *o, *sc);
-  commit_kernel<<<(p->N + 255) / 256, 256, 0, stream>>>(*p, src, eff_nic,
-                                                         *out, *o, *sc);
+      *p, *in, *due, sendable, src, eff_nic, act, *out, *o, *sc);
+  commit_kernel<<<(p->L + 255) / 256, 256, 0, stream>>>(
+      *p, src, eff_nic, act, *out, *o, *sc);
   return (int)cudaGetLastError();
 }

@@ -8,8 +8,14 @@
 //
 // Replaces: repro/kernels/fabric_kernels.py flow_transition_kernel (:191)
 // -> fused_stage_kernel (Pallas, pallas_call at :176), running
-// repro/sim/fabric.py dense_trans_core (:1079) over the RoCEv2 protocol
-// record (fabric.py:290-334, repro/sim/dcqcn_fab.py).
+// repro/sim/fabric.py dense_trans_core (:1079), and active_trans_core
+// (:1120) under the active set, over the RoCEv2 protocol record
+// (fabric.py:290-334, repro/sim/dcqcn_fab.py).
+//
+// Lanes, as in transition.cu: lane l steps flow act[l] of the slate (or
+// flow l on the dense program, act null), in place in the [N] record, with
+// the score (act[l] - t) % NR minimised over the flow's source NIC and the
+// PFC gate read at that NIC; a padded lane (act[l] == N) is inert.
 //
 // Bound on the H100: bytes.  A flow's state is 19 scalars (76 B) and its
 // due message 6 (14 B); the launch reads them, sendable and src, and writes
@@ -28,7 +34,7 @@
 #include "common.cuh"
 
 struct RoceParams {
-  int t, timer_tick, N, NH, NR, F;
+  int t, timer_tick, N, L, NH, NR, F;
   float now, pace_at, rto_at, rto_rearm, window, mtu, byte_counter, hai, rai,
       max_rate, min_rate, keep, g, alpha_timer, rate_timer, eps;
 };
@@ -56,14 +62,15 @@ struct TxPtrs {
   bool *is_rtx, *is_probe;
 };
 
-struct RoceOut {
+struct RoceOut {  // [L] each
   TxPtrs tx, probe;
   bool *probe_valid, *sel, *can_tx;
+  bool* done_lane;  // null on the dense program
 };
 
-struct RoceScratch {
+struct RoceScratch {  // per lane but best
   int* best;   // [NH]
-  int* score;  // [N]
+  int* score;  // [L]
   float *np_rate, *np_target, *np_bytes_ctr, *np_next_send_ts;
   int* np_b_stage;
 };
@@ -91,14 +98,34 @@ __device__ __forceinline__ void increase(const RoceParams& p, float rate,
   rate_o = fminf((rate + target) * 0.5f, p.max_rate);
 }
 
+__device__ __forceinline__ void write_offer(TxPtrs tx, int l, bool valid,
+                                            int psn, int entropy,
+                                            bool is_rtx) {
+  tx.valid[l] = valid;
+  tx.psn[l] = psn;
+  tx.entropy[l] = entropy;
+  tx.is_rtx[l] = is_rtx;
+  tx.is_probe[l] = false;
+}
+
 __global__ void roce_apply_kernel(RoceParams p, RoceFlowPtrs in,
                                   RoceMsgPtrs due,
                                   const bool* __restrict__ sendable,
                                   const int* __restrict__ src,
+                                  const int* __restrict__ act,
                                   RoceFlowPtrs out, RoceOut o,
                                   RoceScratch sc) {
-  int f = blockIdx.x * blockDim.x + threadIdx.x;
-  if (f >= p.N) return;
+  int l = blockIdx.x * blockDim.x + threadIdx.x;
+  if (l >= p.L) return;
+  int f = act != nullptr ? act[l] : l;
+  if (f >= p.N) {  // a padded lane of the slate: inert
+    write_offer(o.tx, l, false, 0, 0, false);
+    write_offer(o.probe, l, false, 0, 0, false);
+    o.probe_valid[l] = false;
+    o.can_tx[l] = false;
+    o.done_lane[l] = false;
+    return;
+  }
   Flow s{in.snd_una[f],      in.psn_next[f],     in.total_pkts[f],
          in.t_stage[f],      in.b_stage[f],      in.entropy[f],
          in.retransmits[f],  in.max_psn[f],      in.rto_fires[f],
@@ -135,7 +162,7 @@ __global__ void roce_apply_kernel(RoceParams p, RoceFlowPtrs in,
   }
 
   // ---- 2. DCQCN timers and the RTO on timer ticks (released flows) ----
-  bool send_ok = sendable[f];
+  bool send_ok = sendable == nullptr || sendable[f];  // lanes: released
   if (p.timer_tick && send_ok) {
     bool active = s.snd_una < s.total;
     if (active && p.now - s.last_alpha >= p.alpha_timer) {
@@ -191,66 +218,72 @@ __global__ void roce_apply_kernel(RoceParams p, RoceFlowPtrs in,
   out.rto_fires[f] = s.rto_fires;
   out.gbn_rewinds[f] = s.gbn;
 
-  o.tx.valid[f] = can;
-  o.tx.psn[f] = psn;
-  o.tx.entropy[f] = s.entropy;
-  o.tx.is_rtx[f] = can && psn < s.max_psn;
-  o.tx.is_probe[f] = false;
+  write_offer(o.tx, l, can, psn, s.entropy, can && psn < s.max_psn);
   // RoCEv2 sends no probes; the timer's empty slot carries the entropy
-  o.probe.valid[f] = false;
-  o.probe.psn[f] = 0;
-  o.probe.entropy[f] = p.timer_tick ? s.entropy : 0;
-  o.probe.is_rtx[f] = false;
-  o.probe.is_probe[f] = false;
-  o.probe_valid[f] = false;
-  o.can_tx[f] = can_tx;
+  write_offer(o.probe, l, false, 0, p.timer_tick ? s.entropy : 0, false);
+  o.probe_valid[l] = false;
+  o.can_tx[l] = can_tx;
+  if (o.done_lane != nullptr) o.done_lane[l] = s.snd_una >= s.total;
 
-  sc.score[f] = score;
-  sc.np_rate[f] = n_rate;
-  sc.np_target[f] = n_target;
-  sc.np_b_stage[f] = bs;
-  sc.np_bytes_ctr[f] = b_hit ? 0.0f : bctr;
-  sc.np_next_send_ts[f] = p.now + size / fmaxf(n_rate, p.eps);
+  sc.score[l] = score;
+  sc.np_rate[l] = n_rate;
+  sc.np_target[l] = n_target;
+  sc.np_b_stage[l] = bs;
+  sc.np_bytes_ctr[l] = b_hit ? 0.0f : bctr;
+  sc.np_next_send_ts[l] = p.now + size / fmaxf(n_rate, p.eps);
   atomicMin(&sc.best[src[f]], score);
 }
 
 __global__ void roce_commit_kernel(RoceParams p, const int* __restrict__ src,
                                    const bool* __restrict__ eff_nic,
+                                   const int* __restrict__ act,
                                    RoceFlowPtrs out, RoceOut o,
                                    RoceScratch sc) {
-  int f = blockIdx.x * blockDim.x + threadIdx.x;
-  if (f >= p.N) return;
+  int l = blockIdx.x * blockDim.x + threadIdx.x;
+  if (l >= p.L) return;
+  int f = act != nullptr ? act[l] : l;
+  if (f >= p.N) {  // a padded lane
+    o.sel[l] = false;
+    return;
+  }
   int h = src[f];
-  bool sel = o.can_tx[f] && sc.score[f] == sc.best[h] &&
+  bool sel = o.can_tx[l] && sc.score[l] == sc.best[h] &&
              !(eff_nic != nullptr && eff_nic[h]);
-  o.sel[f] = sel;
+  o.sel[l] = sel;
   if (!sel) return;
   int psn = out.psn_next[f];
   out.psn_next[f] = psn + 1;
   if (psn + 1 > out.max_psn[f]) out.max_psn[f] = psn + 1;
-  out.rate[f] = sc.np_rate[f];
-  out.target[f] = sc.np_target[f];
-  out.b_stage[f] = sc.np_b_stage[f];
-  out.bytes_ctr[f] = sc.np_bytes_ctr[f];
-  out.next_send_ts[f] = sc.np_next_send_ts[f];
+  out.rate[f] = sc.np_rate[l];
+  out.target[f] = sc.np_target[l];
+  out.b_stage[f] = sc.np_b_stage[l];
+  out.bytes_ctr[f] = sc.np_bytes_ctr[l];
+  out.next_send_ts[f] = sc.np_next_send_ts[l];
 }
 
 }  // namespace
 
+// sendable: [N] on the dense program (act null, L = N); null under the
+// active set, whose lanes are released by construction (act: [L]).
 extern "C" int roce_transition(const RoceParams* p, const RoceFlowPtrs* in,
                                const RoceMsgPtrs* due, const bool* sendable,
                                const int* src, const bool* eff_nic,
-                               const RoceFlowPtrs* out, const RoceOut* o,
-                               const RoceScratch* sc, cudaStream_t stream) {
-  if (p->N <= 0) return 0;
+                               const int* act, const RoceFlowPtrs* out,
+                               const RoceOut* o, const RoceScratch* sc,
+                               cudaStream_t stream) {
+  if ((act == nullptr) != (sendable != nullptr) ||
+      (act == nullptr && p->L != p->N) ||
+      (act != nullptr && o->done_lane == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (p->L <= 0) return 0;
   // best[] starts at 0x7f7f7f7f, above every score (<= NR)
   cudaError_t err = cudaMemsetAsync(sc->best, 0x7f, sizeof(int) * p->NH,
                                     stream);
   if (err != cudaSuccess) return (int)err;
-  int blocks = (p->N + 255) / 256;
+  int blocks = (p->L + 255) / 256;
   roce_apply_kernel<<<blocks, 256, 0, stream>>>(*p, *in, *due, sendable, src,
-                                                *out, *o, *sc);
-  roce_commit_kernel<<<blocks, 256, 0, stream>>>(*p, src, eff_nic, *out, *o,
-                                                 *sc);
+                                                act, *out, *o, *sc);
+  roce_commit_kernel<<<blocks, 256, 0, stream>>>(*p, src, eff_nic, act, *out,
+                                                 *o, *sc);
   return (int)cudaGetLastError();
 }

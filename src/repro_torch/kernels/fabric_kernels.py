@@ -5,24 +5,33 @@ Each kernel of the reference (``repro/kernels/fabric_kernels.py``, all
 Pallas) has here a wrapper, a plain PyTorch version of the same function
 and a hand-written CUDA kernel under ``csrc/``:
 
-==========================  =====================================  ==========================
-wrapper                     reference kernel (Pallas)              CUDA source
-==========================  =====================================  ==========================
-:func:`flow_transition`     ``flow_transition_kernel`` over        ``csrc/transition.cu``
-                            ``fabric.dense_trans_core`` (STrack)   (STrack),
-                            and over RoCEv2's DCQCN record         ``csrc/transition_roce.cu``
-:func:`serve_enqueue`       ``serve_enqueue_kernel`` over          ``csrc/serve_enqueue.cu``
-                            ``fabric.serve_enqueue_core``
-:func:`rank_in_queue`       ``rank_in_queue_kernel`` /             ``csrc/rank.cu``
-                            ``rank_in_queue_core``
-:func:`pfc_account`         none: the tick's inline PFC stage      ``csrc/serve_enqueue.cu``
-                            (``fabric.py`` stage 6b)
-==========================  =====================================  ==========================
+===============================  =====================================  ==========================
+wrapper                          reference kernel (Pallas)              CUDA source
+===============================  =====================================  ==========================
+:func:`flow_transition`          ``flow_transition_kernel`` over        ``csrc/transition.cu``
+                                 ``fabric.dense_trans_core`` (STrack)   (STrack),
+                                 and over RoCEv2's DCQCN record         ``csrc/transition_roce.cu``
+:func:`flow_transition_active`   the same over                          the same two sources, with
+                                 ``fabric.active_trans_core``           the slate ``act_idx``
+:func:`serve_enqueue`            ``serve_enqueue_kernel`` over          ``csrc/serve_enqueue.cu``
+                                 ``fabric.serve_enqueue_core``
+:func:`rank_in_queue`            ``rank_in_queue_kernel`` /             ``csrc/rank.cu``
+                                 ``rank_in_queue_core``
+:func:`pfc_account`              none: the tick's inline PFC stage      ``csrc/serve_enqueue.cu``
+                                 (``fabric.py`` stage 6b)
+===============================  =====================================  ==========================
 
 Under PFC the transition takes the NICs' effective pause mask and serve
 the paused rows; :func:`pfc_account` then keeps the byte counters and the
 pause gates.  Under a fault schedule serve takes the tick's down,
 duty-cycle and corruption rows and the corruption draw's seed.
+
+Under the active set (``FabricConfig.active_cap = A``) the transport
+lanes are the slate ``act_idx`` (i32[A]: the released, unfinished flows in
+ascending order, padded with N): :func:`flow_transition_active` steps
+those rows of the [N] flow record in place, serve reads each injection
+lane's flow through ``lane_flow``, and :func:`pfc_account` sums each
+host's injections over the lanes of ``lanes``.  A padded lane is inert.
 
 Dispatch is by the device of the tensors: a wrapper runs the plain version
 for CPU tensors and launches its kernel for CUDA tensors, or raises; there
@@ -46,6 +55,7 @@ from ._build import check as _check, launch as _launch, load, \
 
 #: Launches of each wrapper's kernel since the last :func:`reset_launches`.
 launches = {"flow_transition": 0, "flow_transition_roce": 0,
+            "flow_transition_active": 0, "flow_transition_roce_active": 0,
             "serve_enqueue": 0, "rank_in_queue": 0, "pfc_account": 0}
 
 #: Block width of the chunked ranker.
@@ -179,13 +189,15 @@ def _empty_tx(n: int, device) -> TxPacket:
 
 def flow_transition_plain(flows, due, sendable: torch.Tensor,
                           src: torch.Tensor, t: int, d: TransDims,
-                          eff_nic=None):
+                          eff_nic=None, lane_id=None):
     """``dense_trans_core``: apply the due message, run the timer sweep on
     timer ticks (a probe only once the flow has sent data), offer the next
     packet, and arbitrate each NIC round-robin (the lowest ``(lane - t) %
     NR`` of the flows that can send wins).  Under PFC (``eff_nic``, the
     NICs' effective pause mask) a probe of a paused NIC is withheld with
     its timer state, and a paused NIC's winner commits nothing.
+    ``lane_id`` (i32[n]) is each lane's flow index for the round robin,
+    the lane itself by default.
 
     Returns ``(flows, tx, probe_tx, probe_valid, sel, can_tx)``."""
     proto = d.proto
@@ -204,8 +216,9 @@ def flow_transition_plain(flows, due, sendable: torch.Tensor,
     fl = tree_where(sendable & (~blocked), fl_t, fl)
     fl_sent, tx = proto.next_packet(fl, now)
     can_tx = tx.valid & sendable
-    lanes = torch.arange(n, dtype=torch.int32, device=dev)
-    score = torch.where(can_tx, (lanes - t) % d.n_real, d.n_real
+    if lane_id is None:
+        lane_id = torch.arange(n, dtype=torch.int32, device=dev)
+    score = torch.where(can_tx, (lane_id - t) % d.n_real, d.n_real
                         ).to(torch.int32)
     best = torch.full((d.n_hosts,), torch.iinfo(torch.int32).max,
                       dtype=torch.int32, device=dev)
@@ -242,6 +255,89 @@ def flow_transition(flows, due, sendable: torch.Tensor, src: torch.Tensor,
     return out
 
 
+def _tree_leaves(tree) -> list:
+    if isinstance(tree, tuple):
+        return [x for v in tree for x in _tree_leaves(v)]
+    return [tree]
+
+
+def _gather_rows(tree, idx: torch.Tensor, n: int):
+    """Rows ``idx`` of a per-flow state tuple; ``idx == n`` reads a zero
+    trash row."""
+    if isinstance(tree, tuple):
+        return type(tree)(*[_gather_rows(v, idx, n) for v in tree])
+    pad = tree.new_zeros((1,) + tuple(tree.shape[1:]))
+    return torch.cat([tree, pad])[idx]
+
+
+def _scatter_rows_(tree, rows, idx: torch.Tensor, n: int) -> None:
+    """Write ``rows`` back into rows ``idx`` of a per-flow state tuple, IN
+    PLACE; ``idx == n`` hits a trash row that is dropped."""
+    for a, b in zip(_tree_leaves(tree), _tree_leaves(rows)):
+        buf = torch.cat([a, a.new_zeros((1,) + tuple(a.shape[1:]))])
+        buf[idx] = b
+        a.copy_(buf[:n])
+
+
+def flow_transition_active_plain(flows, due, act_idx: torch.Tensor,
+                                 src: torch.Tensor, t: int, d: TransDims,
+                                 eff_nic=None):
+    """``active_trans_core``: the transition on the lanes of the slate
+    ``act_idx`` (i32[A], released unfinished flows in ascending order,
+    padded with N).  Gathers the lanes' flow rows and due rows (``due`` is
+    the [N] return-pipe slot of this tick), runs :func:`flow_transition_plain`
+    on them with the flows' own indices as round-robin ids and the lanes'
+    sources as NIC segments, and scatters the rows back into the [N] flow
+    record IN PLACE; flows outside the slate keep their rows.  A padded
+    lane is inert: it writes no row, offers nothing and its ``tx`` and
+    ``probe_tx`` rows are zeros.
+
+    Returns ``(flows, tx, probe_tx, probe_valid, sel, can_tx, done_lane)``
+    with per-lane outputs of length A; ``done_lane`` is each lane's flow
+    done after the step (False on a padded lane)."""
+    n = src.shape[0]
+    ok = act_idx < n
+    idx = act_idx.long()
+    rows = _gather_rows(flows, idx, n)
+    due_l = _gather_rows(due, idx, n)
+    lane_src = src[idx.clamp(max=n - 1)]
+    fl, tx, ptx, pv, sel, can = flow_transition_plain(
+        rows, due_l, ok, lane_src, t, d, eff_nic, lane_id=act_idx)
+    _scatter_rows_(flows, fl, idx, n)
+    zero = _empty_tx(act_idx.shape[0], act_idx.device)
+    return (flows, tree_where(ok, tx, zero), tree_where(ok, ptx, zero), pv,
+            sel, can, d.proto.done(fl) & ok)
+
+
+def flow_transition_active(flows, due, act_idx: torch.Tensor,
+                           src: torch.Tensor, t: int, d: TransDims,
+                           eff_nic=None):
+    """The transition stage on the active set: plain version on CPU
+    tensors; on CUDA tensors ``csrc/transition.cu`` (STrack) or
+    ``csrc/transition_roce.cu`` (RoCEv2) with the slate, two launches
+    each: apply + arbitrate over the lanes, then commit the NIC winners.
+    The flow record is updated in place either way."""
+    n = src.shape[0]
+    a = act_idx.shape[0]
+    _check("act_idx", act_idx, torch.int32, (a,))
+    _check("src", src, torch.int32, (n,), act_idx.device)
+    if eff_nic is not None:
+        _check("eff_nic", eff_nic, torch.bool, (d.n_hosts,), act_idx.device)
+    if _route(act_idx) == "plain":
+        return flow_transition_active_plain(flows, due, act_idx, src, t, d,
+                                            eff_nic)
+    from . import _cuda_bind
+    if d.proto.name == "rocev2":
+        out = _cuda_bind.transition_roce(_lib("transition_roce"), flows, due,
+                                         None, src, t, d, eff_nic, act_idx)
+        launches["flow_transition_roce_active"] += 1
+    else:
+        out = _cuda_bind.transition(_lib("transition"), flows, due, None,
+                                    src, t, d, eff_nic, act_idx)
+        launches["flow_transition_active"] += 1
+    return out
+
+
 # --------------------------------------------------------------------------- #
 # Kernel 2 of the reference: ring service + two-pass enqueue
 # --------------------------------------------------------------------------- #
@@ -259,7 +355,8 @@ def serve_enqueue_plain(q: PktQ, qhead, qsize, dst, dst_tor, total_pkts,
                         tail_b, tx_psn, probe_psn, ent_d, ent_p, spine,
                         spine_p, sel, probe_valid, inj_q, inj_qp, t: int,
                         d: ServeDims, paused_row=None, row_down=None,
-                        row_duty=None, row_cor_p=None, fseed=None):
+                        row_duty=None, row_cor_p=None, fseed=None,
+                        lane_flow=None):
     """``serve_enqueue_core``.
 
     Serve: each queue that is not paused (``paused_row``, bool[Q], the
@@ -272,7 +369,11 @@ def serve_enqueue_plain(q: PktQ, qhead, qsize, dst, dst_tor, total_pkts,
     links).  Enqueue: the surviving fabric advances plus NIC data and
     probe injections rank among same-queue candidates, drop on occupancy,
     rank again among the accepted and land in the ring rows.  The four
-    fault inputs are ``None`` without a fault schedule.
+    fault inputs are ``None`` without a fault schedule.  The injection
+    inputs (``tx_psn`` ... ``inj_qp``) are per transport lane; lane ``l``
+    sends for flow ``lane_flow[l]`` (i32[L]: the active set's clipped
+    slate), which sets the candidate's flow and wire bytes; ``None`` means
+    lane = flow (L = N).
 
     The ring ``q`` is updated IN PLACE; returns ``(qhead, qsize, pop, has,
     ecn_out, pop_bytes, cand_qid, accept, drops_add, cand_bytes, surv,
@@ -326,12 +427,14 @@ def serve_enqueue_plain(q: PktQ, qhead, qsize, dst, dst_tor, total_pkts,
                       d.mtu_bytes)
     adv_tgt = torch.where(is_up, TS + spine_row * T + dst_tor[fclip],
                           2 * TS + dst[fclip])[:2 * TS]
-    lanes = torch.arange(N, dtype=torch.int32, device=dev)
+    L = sel.shape[0]
+    lanes = (torch.arange(N, dtype=torch.int32, device=dev)
+             if lane_flow is None else lane_flow)
     cand_qid = torch.cat([adv_tgt, inj_q, inj_qp]).to(torch.int32)
     cand_valid = torch.cat([surv[:2 * TS], sel, probe_valid])
-    zb = torch.zeros((N,), dtype=torch.bool, device=dev)
-    now_l = torch.full((N,), now, dtype=torch.float32, device=dev)
-    M = 2 * TS + 2 * N
+    zb = torch.zeros((L,), dtype=torch.bool, device=dev)
+    now_l = torch.full((L,), now, dtype=torch.float32, device=dev)
+    M = 2 * TS + 2 * L
     cand = PktQ(
         flow=torch.cat([pop.flow[:2 * TS], lanes, lanes]),
         psn=torch.cat([pop.psn[:2 * TS], tx_psn, probe_psn]),
@@ -374,18 +477,20 @@ def serve_enqueue(q: PktQ, qhead, qsize, dst, dst_tor, total_pkts, tail_b,
                   tx_psn, probe_psn, ent_d, ent_p, spine, spine_p, sel,
                   probe_valid, inj_q, inj_qp, t: int, d: ServeDims,
                   paused_row=None, row_down=None, row_duty=None,
-                  row_cor_p=None, fseed=None):
+                  row_cor_p=None, fseed=None, lane_flow=None):
     """The serve/enqueue stage: plain version on CPU tensors,
     ``csrc/serve_enqueue.cu`` on CUDA tensors (serve + candidate build
     with the fault rows and the corruption draw, rank, drop/accept, rank,
     ring placement; both rank passes are :func:`rank_in_queue`).  The ring
     ``q`` is updated in place either way; ``paused_row`` is the PFC gate
     (``None`` on lossy queues), ``row_down``, ``row_duty``, ``row_cor_p``
-    and ``fseed`` the tick's faults (``None`` without a schedule)."""
+    and ``fseed`` the tick's faults (``None`` without a schedule),
+    ``lane_flow`` the lanes' flows under the active set (``None``: lane =
+    flow)."""
     args = (q, qhead, qsize, dst, dst_tor, total_pkts, tail_b, tx_psn,
             probe_psn, ent_d, ent_p, spine, spine_p, sel, probe_valid,
             inj_q, inj_qp, t, d, paused_row, row_down, row_duty, row_cor_p,
-            fseed)
+            fseed, lane_flow)
     if _route(qhead) == "plain":
         return serve_enqueue_plain(*args)
     from . import _cuda_bind
@@ -434,7 +539,7 @@ class PfcFlows(NamedTuple):
     same_tor: torch.Tensor    # bool[N]
     total_pkts: torch.Tensor  # i32[N]
     tail_b: torch.Tensor      # f32[N]
-    by_src: torch.Tensor      # i32[N]: lanes sorted by src, stable
+    by_src: torch.Tensor      # i32[N]: flows sorted by src, stable
     src_start: torch.Tensor   # i32[NH + 1]: offsets of each host in by_src
 
 
@@ -467,7 +572,8 @@ def pfc_gate(paused, ingress_bytes, xoff_bytes, xon_frac: float):
 
 def pfc_account_plain(st: PfcState, has, pop: PktQ, pop_bytes, cand_qid,
                       cand_bytes, accept, q: PktQ, qhead, qsize0, qsize,
-                      t: int, fl: PfcFlows, d: PfcDims) -> PfcState:
+                      t: int, fl: PfcFlows, d: PfcDims,
+                      lanes=None) -> PfcState:
     """Stage 6b of the reference's tick: dequeues leave the ingress
     counter they entered by (the source NIC, the source ToR's uplink, or
     the spine of the injection-time spine lane), accepted candidates enter
@@ -477,7 +583,9 @@ def pfc_account_plain(st: PfcState, has, pop: PktQ, pop_bytes, cand_qid,
     ring delays by ``PD`` ticks.  ``q``, ``qhead``, ``qsize`` (the ring
     after serve/enqueue) and ``qsize0`` (before) are read by the kernel
     only, which takes the accepted candidates' bytes back from the ring
-    slots they were placed in (the same candidates in the same order)."""
+    slots they were placed in (the same candidates in the same order).
+    The NIC injections enter by their lanes' sources: ``lanes`` is the
+    active set's slate (i32[L], padded with N), ``None`` for lane = flow."""
     T, S, NH, HPT = d.n_tor, d.n_spine, d.n_hosts, d.hosts_per_tor
     TS = T * S
     Q = 2 * TS + NH
@@ -509,20 +617,25 @@ def pfc_account_plain(st: PfcState, has, pop: PktQ, pop_bytes, cand_qid,
     sd_flat = _scatter_add(sd_flat,
                            torch.where(accept[TS:2 * TS], sd_i, TS),
                            cand_bytes[TS:2 * TS])
+    lane_src = (fl.src if lanes is None
+                else fl.src[lanes.long().clamp(max=N - 1)])
+    L = lane_src.shape[0]
     ing_host = _scatter_add(
-        ing_host, torch.where(accept[2 * TS:2 * TS + N], fl.src, NH),
-        cand_bytes[2 * TS:2 * TS + N])
+        ing_host, torch.where(accept[2 * TS:2 * TS + L], lane_src, NH),
+        cand_bytes[2 * TS:2 * TS + L])
     ing_host = _scatter_add(
-        ing_host, torch.where(accept[2 * TS + N:], fl.src, NH),
-        cand_bytes[2 * TS + N:])
+        ing_host, torch.where(accept[2 * TS + L:], lane_src, NH),
+        cand_bytes[2 * TS + L:])
     ing_sd, ing_up = sd_flat.reshape(S, T), up_flat.reshape(T, S)
 
+    # the accepted bytes add into the occupancy one candidate at a time,
+    # in candidate order: XLA folds the reference's ``qbytes +
+    # segment_sum(...)`` into one scatter-add onto qbytes, and with a
+    # fractional tail the order of the float adds shows (ROADMAP C14)
     qbytes = st.qbytes.clone()
     qbytes[:Q] += -torch.where(has, pop_bytes, 0.0)
-    add_b = torch.zeros((Q + 1,), dtype=torch.float32, device=dev)
-    add_b.index_add_(0, torch.where(accept, cand_qid, Q).long(),
-                     torch.where(accept, cand_bytes, 0.0))
-    qbytes = qbytes + add_b
+    qbytes.index_add_(0, torch.where(accept, cand_qid, Q).long(),
+                      torch.where(accept, cand_bytes, 0.0))
     qbytes[Q] = 0.0
     qb = qbytes[:Q]
     tor_occ = qb[:TS].reshape(T, S).sum(1) + qb[2 * TS:].reshape(T, HPT).sum(1)
@@ -551,14 +664,16 @@ def pfc_account_plain(st: PfcState, has, pop: PktQ, pop_bytes, cand_qid,
 
 def pfc_account(st: PfcState, has, pop: PktQ, pop_bytes, cand_qid,
                 cand_bytes, accept, q: PktQ, qhead, qsize0, qsize, t: int,
-                fl: PfcFlows, d: PfcDims) -> PfcState:
+                fl: PfcFlows, d: PfcDims, lanes=None) -> PfcState:
     """The PFC stage: plain version on CPU tensors; on CUDA tensors two
     launches of ``csrc/serve_enqueue.cu`` (one thread per ingress counter
     and per queue, each summing its updates in the reference's order; then
     one thread per port for the gate).  Returns the new state; the input
-    state is left as it was."""
+    state is left as it was.  Under the active set (``lanes``, the slate)
+    each host's thread finds its flows' lanes by binary search in the
+    ascending slate, so it still sums its injections in lane order."""
     args = (st, has, pop, pop_bytes, cand_qid, cand_bytes, accept, q, qhead,
-            qsize0, qsize, t, fl, d)
+            qsize0, qsize, t, fl, d, lanes)
     if _route(has) == "plain":
         return pfc_account_plain(*args)
     from . import _cuda_bind

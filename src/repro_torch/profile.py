@@ -5,6 +5,8 @@
         incast1024-rocev2
     PYTHONPATH=src python -m repro_torch.profile --scenario \
         perm1024-chaos-strack perm1024-chaos-rocev2
+    PYTHONPATH=src python -m repro_torch.profile --scenario \
+        infer1024-strack infer1024-strack-dense infer1024-rocev2
     PYTHONPATH=src python -m repro_torch.profile --scenario prefill-1000 \
         prefill-4096 decode-544
     PYTHONPATH=src python -m repro_torch.profile --scenario \
@@ -21,7 +23,10 @@ warp trip: perm1024 and perm8k (STrack), perm1024-rocev2 and
 incast1024-rocev2 (RoCEv2 with PFC; incast1024 is 256 senders of 16 KiB
 to host 0 on the perm1024 fabric), perm1024-chaos-strack and
 perm1024-chaos-rocev2 (perm1024 under the ``CHAOS1024`` fault schedule,
-STrack over lossy queues and RoCEv2 over PFC); serve cells run a model in bf16 with
+STrack over lossy queues and RoCEv2 over PFC), infer1024-strack and
+infer1024-rocev2 (four open-loop inference tenants, 4096 flows, under the
+active set at ``active_cap=512``) and infer1024-strack-dense (the same
+uncapped); serve cells run a model in bf16 with
 ``attn_impl="pallas"`` and random weights from seed 0 (one model on the
 card at a time): llama3-8b ``prefill-1000`` (4 x 1000 tokens),
 ``prefill-4096`` (1 x 4096) and ``decode-544`` (8 decode steps of 4
@@ -58,6 +63,30 @@ CHAOS1024 = FaultSpec(link_flaps=((0, 0, 10, 60),),
                       link_degrade=((1, 1, 0, 400, 0.25),),
                       link_corrupt=((2, 2, 0, 300, 0.2),),
                       host_corrupt=((7, 0, 300, 0.2),), seed=3)
+#: The infer1024 cell's tenants: four open-loop inference tenants of 1024
+#: messages each (16 KiB +- 50%, one arrival a tick on average, 16
+#: frontend targets each), ``traffic.mixed_scenario`` with seed 0 on the
+#: perm1024 fabric: 4096 flows whose last arrives at tick 1462, at most
+#: 321-384 of them live at once, so ``active_cap=512`` runs 512 lanes
+#: where the dense program runs 4096.
+INFER1024_TENANTS = dict(n_flows=1024, mean_interarrival_ticks=1.0,
+                         size_bytes=16 * 2 ** 10, size_jitter=0.5,
+                         n_targets=16)
+#: The active set's lane count at infer1024.
+INFER1024_CAP = 512
+
+
+def infer1024_scenario(shape=(32, 32)):
+    """infer1024's trace (``traffic.mixed_scenario`` of four
+    ``INFER1024_TENANTS`` tenants, seed 0, 400 Gbps) on
+    ``full_bisection(*shape)``."""
+    from .sim.traffic import InferenceTenant, mixed_scenario
+    tenants = [InferenceTenant(f"inf{i}", **INFER1024_TENANTS)
+               for i in range(4)]
+    return mixed_scenario(full_bisection(*shape), (), tenants,
+                          net=NetworkSpec(link_gbps=400.0), seed=0)[0]
+
+
 #: fabric scenario -> (traffic, fat-tree shape, RunConfig fields).
 FABRIC = {"perm1024": ("perm", (32, 32), {}),
           "perm8k": ("perm", (128, 64), {}),
@@ -66,7 +95,13 @@ FABRIC = {"perm1024": ("perm", (32, 32), {}),
           "perm1024-chaos-strack": ("perm", (32, 32), {"faults": CHAOS1024}),
           "perm1024-chaos-rocev2": ("perm", (32, 32),
                                     {"protocol": "rocev2",
-                                     "faults": CHAOS1024})}
+                                     "faults": CHAOS1024}),
+          "infer1024-strack": ("infer", (32, 32),
+                               {"active_cap": INFER1024_CAP}),
+          "infer1024-rocev2": ("infer", (32, 32),
+                               {"protocol": "rocev2",
+                                "active_cap": INFER1024_CAP}),
+          "infer1024-strack-dense": ("infer", (32, 32), {})}
 #: serve cell -> (model, requests, tokens).
 SERVE = {"prefill-1000": ("llama3-8b", 4, 1000),
          "prefill-4096": ("llama3-8b", 1, 4096),
@@ -89,6 +124,8 @@ def _fabric_run(name: str):
     if traffic == "perm":
         sc = permutation_scenario(full_bisection(*shape), 64 * 2 ** 10,
                                   net=net, seed=0)
+    elif traffic == "infer":
+        sc = infer1024_scenario(shape)
     else:
         sc = incast_scenario(full_bisection(*shape), 256, 16 * 2 ** 10,
                              net=net)

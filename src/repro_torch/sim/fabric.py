@@ -7,12 +7,17 @@ path per flow: ``dcqcn_fab``), over lossy queues or lossless PFC queues: a
 downlink queues -> per-host downlink queues) held as fixed-shape
 ring-buffer tensors, ticked in the reference's stage order:
 
-  0. dependency gate (deps-free traces: every message is sendable);
+  0. dependency gate (deps-free traces: a message is sendable from its
+     open-loop arrival tick on),
+     0a. under the active set (``active_cap = A``), the lane slate: the
+     released, unfinished flows in ascending order, padded with N to A
+     lanes (``FabricProgram.lane_slate``),
      0b. under PFC, the effective pause masks, ``PD`` ticks old,
      0c. under a fault schedule (``sim.faults``), the tick's down, duty
      and corruption rows, down NICs and live uplinks,
   1. transport lanes — due ACKs, timer sweep, next packet, NIC
-     round-robin, the PFC NIC gate (``kernels.flow_transition``),
+     round-robin, the PFC NIC gate (``kernels.flow_transition``, or
+     ``kernels.flow_transition_active`` on the slate's A lanes),
   2. spray/ECMP injection targets over the live uplinks (RoCEv2: the
      flow's pinned entropy); a down NIC blackholes what it sends,
   3. ring service of unpaused, duty-open rows + two-pass enqueue
@@ -32,9 +37,15 @@ serialization plus ``K`` ticks of propagation (the departure-time lane
 path's latency.  The event-horizon loop (``FabricConfig.time_warp``)
 skips ticks that are provably idle and is bit-identical to dense ticking.
 
-Everything the reference supports beyond this — the active set,
-sharding, sub-flow striping, dependency edges and the per-tick trace —
-raises ``NotImplementedError`` naming its ROADMAP item.
+Under the active set every per-flow stage of the tick runs on the A lanes
+instead of the N flows, as the reference's active branch does; the
+state stays [N], and a run in which more than A flows were live on some
+tick raises ``RuntimeError`` when it ends.  A cap at or above N runs the
+dense program.
+
+Everything the reference supports beyond this — sharding, sub-flow
+striping, dependency edges and the per-tick trace — raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -54,7 +65,8 @@ from ..core.params import (NetworkSpec, RoCEParams, STrackParams,
 from ..core.reliability import SackMsg
 from ..kernels.fabric_kernels import (PfcDims, PfcState, PktQ, ServeDims,
                                       TransDims, flow_transition,
-                                      pfc_account, pfc_flows, serve_enqueue)
+                                      flow_transition_active, pfc_account,
+                                      pfc_flows, serve_enqueue)
 from ..numerics import Now, f32, recip32
 from . import dcqcn_fab as dq
 from .faults import FaultData, FaultSpec, build_fault_data, duty_open, \
@@ -364,6 +376,15 @@ def check_slice(cfg: FabricConfig) -> None:
     """Raise ``NotImplementedError`` for what the port does not run yet,
     naming the ROADMAP item that brings it."""
     trace_every = 0 if cfg.time_warp else cfg.trace_every
+    A = int(cfg.active_cap) if cfg.active_cap else 0
+    if A < 0:
+        raise ValueError(f"active_cap must be positive, got {A}")
+    if A and trace_every:
+        raise ValueError(
+            "active_cap requires trace_every=0 (or time_warp): the dense "
+            "trace samples all-flow means the active set skips")
+    if A and int(cfg.shard) > 1:
+        raise ValueError("active_cap and shard are mutually exclusive")
     if cfg.protocol not in PROTOCOLS:
         raise ValueError(f"unknown protocol {cfg.protocol!r}; "
                          f"expected one of {PROTOCOLS}")
@@ -371,7 +392,6 @@ def check_slice(cfg: FabricConfig) -> None:
         raise TypeError(f"faults must be a FaultSpec, got "
                         f"{type(cfg.faults).__name__}")
     todo = [
-        (bool(cfg.active_cap), "active_cap", "A8"),
         (int(cfg.shard) > 1, "shard > 1", "A11"),
         (int(cfg.subflows) > 1, "subflows > 1", "A6"),
         (trace_every > 0, "trace_every > 0 (per-tick trace)", "A5"),
@@ -452,11 +472,38 @@ class FaultMasks(NamedTuple):
     when the schedule has no entry of its class."""
 
     row_down: Optional[torch.Tensor]   # bool[Q]: rows blackholing
-    lane_down: Optional[torch.Tensor]  # bool[N]: flows of a down NIC
+    nic_down: Optional[torch.Tensor]   # bool[NH]: NICs whose link is down
     row_duty: Optional[torch.Tensor]   # bool[Q]: False on a closed duty tick
     row_cor_p: Optional[torch.Tensor]  # f32[Q]: corruption probability
     fseed: Optional[int]               # the draw's seed (with row_cor_p)
     live: Optional[tuple]              # (live_list i32[T,S], n_live i32[T])
+
+
+class Lanes(NamedTuple):
+    """The active set's transport lanes at one tick (stage 0a)."""
+
+    idx: torch.Tensor        # i32[A]: the slate, ascending, padded with N
+    flow: torch.Tensor       # i32[A]: min(idx, N - 1), the lane's flow row
+    src: torch.Tensor        # i32[A]: the lane's flow's source host
+    dst: torch.Tensor        # i32[A]
+    src_tor: torch.Tensor    # i32[A]
+    fixed_ent: torch.Tensor  # i32[A]: the fixed-path entropy
+    same_tor: torch.Tensor   # bool[A]
+
+
+def _set_rows(vec: torch.Tensor, idx: torch.Tensor, val: torch.Tensor,
+              n: int) -> torch.Tensor:
+    """``vec`` with rows ``idx`` set to ``val``; ``idx == n`` hits a trash
+    row that is dropped."""
+    out = torch.cat([vec, vec.new_zeros((1,) + tuple(vec.shape[1:]))])
+    out[idx.long()] = val
+    return out[:n]
+
+
+def _clone_tree(tree):
+    if isinstance(tree, tuple):
+        return type(tree)(*[_clone_tree(v) for v in tree])
+    return tree.clone()
 
 
 def _scatter_rows(tree_all, tree_rows, idx: torch.Tensor, n: int):
@@ -542,9 +589,13 @@ class FabricProgram:
             n_tor=T, n_spine=S, n_hosts=NH, hosts_per_tor=HPT, PD=self.PD,
             buffer_bytes=cfg.switch_buffer_bytes, alpha=cfg.pfc_alpha,
             xon_frac=cfg.pfc_xon_frac, mtu_bytes=net.mtu_bytes)
+        # the active set's lane count; a cap at or above N is the dense
+        # program (the reference's A = 0)
+        A = int(cfg.active_cap) if cfg.active_cap else 0
+        self.A = A if A < N else 0
         self.dims = dict(T=T, S=S, NH=NH, TS=TS, Q=Q, cap=cap, H=self.H,
                          K=self.K, D_same=self.D_same, D_cross=self.D_cross,
-                         PD=self.PD, shard=1, active_cap=0)
+                         PD=self.PD, shard=1, active_cap=self.A)
         # The fault schedule's entry counts decide which chaos stages
         # exist; a fault-free program runs none of them.
         faults = cfg.faults if cfg.faults is not None else FaultSpec()
@@ -583,6 +634,11 @@ class FabricProgram:
             % self.cfg.max_paths
         self.dflow = torch.where(self.same_tor, self.D_same, self.D_cross
                                  ).to(torch.int32)
+        self.iota = iota
+        # the per-flow columns a lane reads, gathered once a tick
+        self.flow_cols = torch.stack([self.src, self.dst, self.src_tor,
+                                      self.fixed_ent,
+                                      self.same_tor.to(torch.int32)], 1)
         self.pfc_flows = (pfc_flows(self.src, self.src_tor, self.same_tor,
                                     self.total_pkts, self.tail_b, self.NH)
                           if self.pfc else None)
@@ -591,6 +647,10 @@ class FabricProgram:
         dev, N, Q, cap, H = self.device, self.N, self.Q, self.cap, self.H
         T, S, NH = self.T, self.S, self.NH
         fl0, rcv0 = self.proto.init(self.total_pkts, self.tail_b, self.ent0)
+        if self.A:
+            # the active transition updates the flow record in place: it
+            # must not share storage with the run's inputs
+            fl0 = _clone_tree(fl0)
         zi = lambda *s: torch.zeros(s, dtype=torch.int32, device=dev)
         zf = lambda *s: torch.zeros(s, dtype=torch.float32, device=dev)
         zb = lambda *s: torch.zeros(s, dtype=torch.bool, device=dev)
@@ -626,6 +686,33 @@ class FabricProgram:
         the transition, the warp loop's idle test and ``warp_target``."""
         return (st.pending <= 0) & (self.arrival <= t)
 
+    def lane_slate(self, act_mask: torch.Tensor):
+        """Stage 0a: the active set's lanes for ``act_mask`` (bool[N], the
+        released flows not yet done) -> ``(Lanes, overflow)``.  The slate
+        holds the indices of the first A set flows in ascending order,
+        padded with N (``nonzero(size=A, fill_value=N)``), built at a fixed
+        size on the device: each set flow's exclusive prefix count is its
+        lane, and flows past the A-th land in a trash slot.  ``overflow``
+        (an i32 scalar tensor) is 1 when more than A flows are live."""
+        N, A = self.N, self.A
+        m = act_mask.to(torch.int32)
+        pos = torch.cumsum(m, 0, dtype=torch.int32) - m
+        slot = torch.where(act_mask & (pos < A), pos, A).long()
+        slate = torch.full((A + 1,), N, dtype=torch.int32,
+                           device=self.device)
+        slate.scatter_(0, slot, self.iota)
+        return (self.lanes(slate[:A]),
+                (m.sum(dtype=torch.int32) > A).to(torch.int32))
+
+    def lanes(self, idx: torch.Tensor) -> Lanes:
+        """The :class:`Lanes` of a slate ``idx`` (i32[A], ascending flow
+        ids padded with N)."""
+        flow = idx.clamp(max=self.N - 1)
+        cols = self.flow_cols[flow.long()]
+        return Lanes(idx=idx, flow=flow, src=cols[:, 0], dst=cols[:, 1],
+                     src_tor=cols[:, 2], fixed_ent=cols[:, 3],
+                     same_tor=cols[:, 4] != 0)
+
     def eff_pause(self, st: FabricState, t: int):
         """Stage 0b under PFC: the effective pause masks, the switches'
         decisions of ``PD`` ticks ago (pause frames travel one hop
@@ -656,7 +743,7 @@ class FabricProgram:
         fd, Q, dev = self.fd, self.Q, self.device
         active = lambda t0, t1: (t0 <= t) & (t < t1)
         trash = lambda act, idx, n: torch.where(act, idx, n).long()
-        row_down = lane_down = row_duty = row_cor_p = fseed = live = None
+        row_down = nic_down = row_duty = row_cor_p = fseed = live = None
         if self.F_ROW:
             down = torch.zeros((Q + 1,), dtype=torch.bool, device=dev)
             down[trash(active(fd.flap_row_t0, fd.flap_row_t1), fd.flap_row,
@@ -666,7 +753,7 @@ class FabricProgram:
             nic = torch.zeros((self.NH + 1,), dtype=torch.bool, device=dev)
             nic[trash(active(fd.flap_nic_t0, fd.flap_nic_t1), fd.flap_nic,
                       self.NH)] = True
-            lane_down = nic[:self.NH][self.src.long()]
+            nic_down = nic[:self.NH]
         if self.F_DEG:
             closed = active(fd.deg_t0, fd.deg_t1) & ~duty_open(t, fd.deg_num)
             duty = torch.ones((Q + 1,), dtype=torch.bool, device=dev)
@@ -687,54 +774,75 @@ class FabricProgram:
             order = torch.argsort((~live_now).to(torch.int8), dim=1,
                                   stable=True).to(torch.int32)
             live = (order, n_live)
-        return FaultMasks(row_down, lane_down, row_duty, row_cor_p, fseed,
+        return FaultMasks(row_down, nic_down, row_duty, row_cor_p, fseed,
                           live)
 
     def transport_args(self, st: FabricState, t: int,
-                       sendable_msg: torch.Tensor, eff_nic=None) -> tuple:
-        """Arguments of the transition stage at tick ``t`` (stage 1)."""
+                       sendable_msg: torch.Tensor, eff_nic=None,
+                       lanes: Optional[Lanes] = None) -> tuple:
+        """Arguments of the transition stage at tick ``t`` (stage 1):
+        ``flow_transition``'s, or ``flow_transition_active``'s on the
+        slate of ``lanes``."""
         due = type(st.pipe)(*[a[t % self.H] for a in st.pipe])
-        return (st.flows, due, sendable_msg[self.dep.msg_of_flow.long()],
-                self.src, t, self.trans_dims, eff_nic)
+        gate = (sendable_msg[self.dep.msg_of_flow.long()] if lanes is None
+                else lanes.idx)
+        return (st.flows, due, gate, self.src, t, self.trans_dims, eff_nic)
 
     def serve_args(self, st: FabricState, t: int, tx, probe_tx, sel,
                    probe_valid, paused_row=None,
-                   fm: Optional[FaultMasks] = None) -> tuple:
+                   fm: Optional[FaultMasks] = None,
+                   lanes: Optional[Lanes] = None) -> tuple:
         """Stage 2 (spray/ECMP injection targets over the tick's live
         uplinks; a down NIC's data and probes withheld from the enqueue)
-        and the arguments of the serve/enqueue stage at tick ``t``; also
-        returns the new oblivious round-robin pointers and the data
-        injection rows."""
+        and the arguments of the serve/enqueue stage at tick ``t``, per
+        transport lane: the N flows, or the active set's ``lanes`` (the
+        oblivious round robin then writes its pointers back through the
+        slate).  Also returns the new oblivious round-robin pointers and
+        the data injection rows."""
         TS, S = self.TS, self.S
+        if lanes is None:
+            src, dst, stor, same, fix = (self.src, self.dst, self.src_tor,
+                                         self.same_tor, self.fixed_ent)
+        else:
+            src, dst, stor, same, fix = (lanes.src, lanes.dst, lanes.src_tor,
+                                         lanes.same_tor, lanes.fixed_ent)
         obl_rr = st.obl_rr
         if not self.proto.uses_spray:  # the flow's pinned entropy
             ent, ent_probe = tx.entropy, probe_tx.entropy
         elif self.lb_code == 1:       # oblivious spray
-            ent_obl = (st.obl_rr + 1) % self.cfg.max_paths
+            if lanes is None:
+                ent_obl = (st.obl_rr + 1) % self.cfg.max_paths
+                obl_rr = torch.where(sel, ent_obl, st.obl_rr)
+            else:
+                ent_obl = (st.obl_rr[lanes.flow.long()] + 1) \
+                    % self.cfg.max_paths
+                obl_rr = _set_rows(st.obl_rr,
+                                   torch.where(sel, lanes.idx, self.N),
+                                   ent_obl, self.N)
             ent, ent_probe = ent_obl, ent_obl
-            obl_rr = torch.where(sel, ent_obl, st.obl_rr)
         elif self.lb_code == 2:     # fixed single path
-            ent, ent_probe = self.fixed_ent, self.fixed_ent
+            ent, ent_probe = fix, fix
         else:                       # adaptive spray (the transport's pick)
             ent, ent_probe = tx.entropy, probe_tx.entropy
         live = fm.live if fm is not None else None
-        spine = self.at.ecmp_spine(self.src, self.dst, ent, live)
-        inj_q = torch.where(self.same_tor, 2 * TS + self.dst,
-                            self.src_tor * S + spine).to(torch.int32)
-        spine_p = self.at.ecmp_spine(self.src, self.dst, ent_probe, live)
-        inj_qp = torch.where(self.same_tor, 2 * TS + self.dst,
-                             self.src_tor * S + spine_p).to(torch.int32)
+        spine = self.at.ecmp_spine(src, dst, ent, live)
+        inj_q = torch.where(same, 2 * TS + dst,
+                            stor * S + spine).to(torch.int32)
+        spine_p = self.at.ecmp_spine(src, dst, ent_probe, live)
+        inj_qp = torch.where(same, 2 * TS + dst,
+                             stor * S + spine_p).to(torch.int32)
         faults = (None,) * 4
         if fm is not None:
-            if fm.lane_down is not None:
-                sel = sel & ~fm.lane_down
-                probe_valid = probe_valid & ~fm.lane_down
+            if fm.nic_down is not None:
+                lane_down = fm.nic_down[src.long()]
+                sel = sel & ~lane_down
+                probe_valid = probe_valid & ~lane_down
             faults = (fm.row_down, fm.row_duty, fm.row_cor_p, fm.fseed)
         args = (st.q, st.qhead, st.qsize, self.dst, self.dst_tor,
                 self.total_pkts, self.tail_b, tx.psn, probe_tx.psn,
                 ent.to(torch.int32), ent_probe.to(torch.int32), spine,
                 spine_p, sel, probe_valid, inj_q, inj_qp, t, self.serve_dims,
-                paused_row, *faults)
+                paused_row, *faults, None if lanes is None else lanes.flow)
         return args, obl_rr, inj_q
 
     def pfc_state(self, st: FabricState) -> PfcState:
@@ -754,13 +862,25 @@ class FabricProgram:
             sendable_msg & (st.msg_release_tick < 0), t,
             st.msg_release_tick).to(torch.int32)
 
+        # 0a. the active set's lanes: released flows not yet done
+        lanes = None
+        if self.A:
+            done_prev = self.proto.done(st.flows)
+            lanes, overflow = self.lane_slate(
+                sendable_msg[dep.msg_of_flow.long()] & ~done_prev)
+
         # 0b. PFC effective-pause masks; 0c. the fault schedule's masks
         eff_nic, paused_row = self.eff_pause(st, t)
         fm = self.fault_masks(t)
 
         # 1. transport lanes: due ACKs, timers, sends, NIC arbitration
-        flows, tx, probe_tx, probe_valid, sel, can_tx = flow_transition(
-            *self.transport_args(st, t, sendable_msg, eff_nic))
+        targs = self.transport_args(st, t, sendable_msg, eff_nic, lanes)
+        if lanes is None:
+            flows, tx, probe_tx, probe_valid, sel, can_tx = flow_transition(
+                *targs)
+        else:
+            (flows, tx, probe_tx, probe_valid, sel, can_tx,
+             done_lane) = flow_transition_active(*targs)
         pipe_valid = st.pipe.valid.clone()
         pipe_valid[t % H] = False
         pipe = st.pipe._replace(valid=pipe_valid)
@@ -770,15 +890,18 @@ class FabricProgram:
         blackholed, corrupt_drops = st.blackholed, st.corrupt_drops
         if self.FW:
             rtx_n = (sel & tx.is_rtx).sum(dtype=torch.int32)
-        if fm is not None and fm.lane_down is not None:
+        if fm is not None and fm.nic_down is not None:
+            lane_down = fm.nic_down[
+                (self.src if lanes is None else lanes.src).long()]
             blackholed = blackholed + (
-                (sel & fm.lane_down).sum(dtype=torch.int32)
-                + (probe_valid & fm.lane_down).sum(dtype=torch.int32))
+                (sel & lane_down).sum(dtype=torch.int32)
+                + (probe_valid & lane_down).sum(dtype=torch.int32))
 
         # 2. spray / ECMP injection targets; 3. ring service + two-pass
         # enqueue (the ring is updated in place)
         args, obl_rr, inj_q = self.serve_args(st, t, tx, probe_tx, sel,
-                                              probe_valid, paused_row, fm)
+                                              probe_valid, paused_row, fm,
+                                              lanes)
         (qhead, qsize, pop, has, ecn_out, pop_bytes, cand_qid, accept,
          drops_add, cand_bytes, surv, bh_add, cor_add) = serve_enqueue(*args)
         fclip = pop.flow.clamp(0, N - 1)
@@ -819,10 +942,16 @@ class FabricProgram:
         if self.pfc:
             pfc = pfc_account(pfc, has, pop, pop_bytes, cand_qid, cand_bytes,
                               accept, st.q, qhead, st.qsize, qsize, t,
-                              self.pfc_flows, self.pfc_dims)
+                              self.pfc_flows, self.pfc_dims,
+                              None if lanes is None else lanes.idx)
 
-        # 6. completion + metrics
-        done = self.proto.done(flows)
+        # 6. completion + metrics (under the active set only lanes can
+        # finish: a flow completes on an ACK, and every released unfinished
+        # flow is a lane)
+        if lanes is None:
+            done = self.proto.done(flows)
+        else:
+            done = _set_rows(done_prev, lanes.idx, done_lane, N)
         done_tick = torch.where(done & (st.done_tick < 0), t,
                                 st.done_tick).to(torch.int32)
         undone = torch.zeros(dep.n_msgs, dtype=torch.int32,
@@ -839,7 +968,7 @@ class FabricProgram:
         group_done_tick = torch.where(
             (g_undone == 0) & (st.group_done_tick < 0), t,
             st.group_done_tick).to(torch.int32)
-        acc_data = accept[2 * TS:2 * TS + N]
+        acc_data = accept[2 * TS:2 * TS + sel.shape[0]]
         tx_rows = st.tx_rows.clone()
         tx_rows.index_add_(0, torch.where(acc_data, inj_q, Q).long(),
                            torch.ones_like(inj_q))
@@ -856,6 +985,8 @@ class FabricProgram:
             done_tick=done_tick, msg_done=msg_done,
             msg_release_tick=msg_release_tick, msg_done_tick=msg_done_tick,
             group_done_tick=group_done_tick,
+            act_overflow=(st.act_overflow + overflow if lanes is not None
+                          else st.act_overflow),
             ecn_marks=st.ecn_marks + ecn_add,
             qdepth_hi=torch.maximum(st.qdepth_hi, qsize), tx_rows=tx_rows,
             blackholed=blackholed, corrupt_drops=corrupt_drops,
@@ -1016,6 +1147,12 @@ def _finish_metrics(metrics: dict, fin: dict, cfg: FabricConfig,
     metrics["msg_group_ids"] = tuple(dep.group_ids[g] for g in gof)
     metrics["drops"] = int(fin["drops"])
     metrics["pauses"] = int(fin["pauses"])
+    ov = int(fin["act_overflow"])
+    if ov:
+        raise RuntimeError(
+            f"active_cap={dims.get('active_cap')} exceeded on {ov} tick(s) "
+            f"— sendable flows beyond the cap would silently stall; raise "
+            f"FabricConfig.active_cap (or set it to None)")
     metrics["delivered_final"] = np.asarray(fin["delivered"])
     metrics["ecn_marks"] = int(fin["ecn_marks"])
     metrics["qdepth_hi_pkts"] = np.asarray(fin["qdepth_hi"])[:dims["Q"]]
@@ -1026,6 +1163,12 @@ def _finish_metrics(metrics: dict, fin: dict, cfg: FabricConfig,
     metrics["corrupt_drops"] = int(fin["corrupt_drops"])
     metrics["tx_rows_pkts"] = np.asarray(fin["tx_rows"])[:dims["Q"]]
     metrics["win_retx"] = np.asarray(fin["win_retx"])
+    # group completion only for traces with group structure, as in the
+    # reference (several groups; dependency edges are not ported)
+    if dep.n_groups > 1:
+        gdt = np.asarray(fin["group_done_tick"])
+        metrics["group_ids"] = dep.group_ids
+        metrics["group_done_us"] = _us_or_none(gdt + 1, gdt >= 0, tick_us)
     metrics["queue_ids"] = {
         "tor_up": lambda t_, s_: t_ * S + s_,
         "spine_down": lambda s_, t_: TS + s_ * T + t_,
@@ -1038,6 +1181,19 @@ _FINAL_KEYS = ("done_tick", "msg_done_tick", "msg_release_tick",
                "group_done_tick", "drops", "pauses", "delivered",
                "act_overflow", "ecn_marks", "qdepth_hi", "blackholed",
                "corrupt_drops", "tx_rows", "win_retx")
+
+
+def _trace_dep(messages, device) -> DepSpec:
+    """The ``DepSpec`` of a deps-free trace: one flow per message, the
+    messages' groups in ascending id order."""
+    group_ids = tuple(sorted({getattr(m, "group", 0) for m in messages}))
+    gix = {g: i for i, g in enumerate(group_ids)}
+    return _trivial_dep(len(messages), device)._replace(
+        n_groups=len(group_ids),
+        group_of_msg=torch.tensor([gix[getattr(m, "group", 0)]
+                                   for m in messages], dtype=torch.int32,
+                                  device=device),
+        msg_ids=tuple(m.mid for m in messages), group_ids=group_ids)
 
 
 def run_fabric_trace(topo: FatTree, messages, n_ticks: int,
@@ -1061,15 +1217,8 @@ def run_fabric_trace(topo: FatTree, messages, n_ticks: int,
     _check_flows(flows, topo.n_hosts)
     if cfg.faults is not None:
         validate_faults(cfg.faults, topo)
-    group_ids = tuple(sorted({getattr(m, "group", 0) for m in messages}))
-    gix = {g: i for i, g in enumerate(group_ids)}
     n = len(messages)
-    dep = _trivial_dep(n, dev)._replace(
-        n_groups=len(group_ids),
-        group_of_msg=torch.tensor([gix[getattr(m, "group", 0)]
-                                   for m in messages], dtype=torch.int32,
-                                  device=dev),
-        msg_ids=tuple(m.mid for m in messages), group_ids=group_ids)
+    dep = _trace_dep(messages, dev)
     src, dst, total_pkts, tails, ent0 = _flow_arrays(flows, cfg)
     prog = FabricProgram(topo, n, n_ticks, cfg, dev, dep)
     prog.bind(src, dst, total_pkts, tails, _arrival_array(messages),
@@ -1095,7 +1244,9 @@ def run_fabric(topo: FatTree, flows: Sequence[Tuple[int, int, float]],
 
 def summarize(metrics: dict) -> dict:
     """Event-oracle-style summary (max/avg FCT, unfinished, drops, pauses
-    and the observability counters), keyed as the reference's."""
+    and the observability counters), keyed as the reference's; a trace of
+    several groups adds the per-group keys (``group_fct``,
+    ``max_collective_time``, ``finished_groups``, ``total_groups``)."""
     fcts = [f for f in metrics["fct_us"] if f is not None]
     out = {
         "max_fct": max(fcts) if fcts else float("nan"),
@@ -1122,6 +1273,15 @@ def summarize(metrics: dict) -> dict:
         out["qdepth_max_pkts"] = int(qhi.max()) if qhi.size else 0
         out["qdepth_p99_pkts"] = (float(np.percentile(qhi, 99))
                                   if qhi.size else 0.0)
+    gd = metrics.get("group_done_us")
+    if gd is not None:
+        gids = metrics.get("group_ids", tuple(range(len(gd))))
+        group_fct = {g: t for g, t in zip(gids, gd) if t is not None}
+        out["group_fct"] = group_fct
+        out["max_collective_time"] = (max(group_fct.values())
+                                      if group_fct else float("nan"))
+        out["finished_groups"] = len(group_fct)
+        out["total_groups"] = len(gd)
     mgids = metrics.get("msg_group_ids")
     if mgids is not None:
         by_g: dict = {}

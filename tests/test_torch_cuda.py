@@ -3,8 +3,9 @@
 Skips without a CUDA device (and imports no JAX, so it also runs on the
 card's machine): ``PYTHONPATH=src python -m pytest -m cuda
 tests/test_torch_cuda.py``.  ``chip_smoke.py`` runs the same checks at the
-full perm1024 / incast1024 / perm8k shapes (STrack, RoCEv2, PFC, faults)
-and at llama3-8b's, mamba2-2.7b's and zamba2-2.7b's.
+full perm1024 / incast1024 / perm8k shapes (STrack, RoCEv2, PFC, faults),
+at infer1024's under the active set, and at llama3-8b's, mamba2-2.7b's
+and zamba2-2.7b's.
 """
 import dataclasses
 import json
@@ -294,6 +295,91 @@ def test_faulted_fabric_on_the_card_equals_the_cpu(cuda):
             assert m_gpu[k] == m_cpu[k], (protocol, k)
         np.testing.assert_array_equal(m_gpu["win_retx"], m_cpu["win_retx"])
         assert m_cpu["blackholed_pkts"] > 0 and m_cpu["corrupt_drops"] > 0
+
+
+def _open_loop_program(dev, n_ticks, **kw):
+    """The capped program (32 lanes of 40 flows) of the active-set state
+    tests' open-loop 4x4 trace (``torch_parity.OPEN_LOOP_TENANTS``), built
+    with the port's generator, on ``dev``."""
+    from repro_torch.sim.traffic import InferenceTenant, mixed_scenario
+    from torch_parity import OPEN_LOOP_TENANTS
+    sc, _ = mixed_scenario(full_bisection(4, 4), (),
+                           [InferenceTenant(**t) for t in OPEN_LOOP_TENANTS],
+                           net=NetworkSpec(link_gbps=400.0), seed=0)
+    cfg = TF.FabricConfig(net=sc.net, trace_every=0, active_cap=32, **kw)
+    prog = TF.FabricProgram(sc.topo, len(sc.messages), n_ticks, cfg, dev,
+                            TF._trace_dep(sc.messages, dev))
+    src, dst, total, tails, ent0 = TF._flow_arrays(sc.flows, cfg)
+    prog.bind(src, dst, total, tails, TF._arrival_array(sc.messages),
+              cfg.lb_mode, ent0)
+    return sc, cfg, prog
+
+
+@pytest.mark.parametrize("protocol", ["strack", "rocev2"])
+def test_active_set_kernels_match_plain(cuda, protocol):
+    """The active transition (on clones of the flow record, which it
+    updates in place), the lane-mapped serve/enqueue and, under RoCEv2's
+    PFC, the PFC stage with the lanes' sources, against their plain
+    versions on 200 dense ticks of the capped open-loop trace, where the
+    slate holds padded lanes, fills to its last lane and holds flow N-1."""
+    _, _, prog = _open_loop_program(cuda, 200, protocol=protocol)
+    st = prog.init_state()
+    padded = full = 0
+    for t in range(200):
+        eff_nic, prow = prog.eff_pause(st, t)
+        sendable = prog.sendable_msg(st, t)
+        lanes, _ = prog.lane_slate(sendable[prog.dep.msg_of_flow.long()]
+                                   & ~prog.proto.done(st.flows))
+        targs = prog.transport_args(st, t, sendable, eff_nic, lanes)
+        out = fk.flow_transition_active(TF._clone_tree(targs[0]),
+                                        *targs[1:])
+        _same(out, fk.flow_transition_active_plain(
+            TF._clone_tree(targs[0]), *targs[1:]))
+        _, tx, ptx, pv, sel, _, _ = out
+        sargs, _, _ = prog.serve_args(st, t, tx, ptx, sel, pv, prow, None,
+                                      lanes)
+        rings = [type(st.q)(*[f.clone() for f in st.q]) for _ in range(2)]
+        res = fk.serve_enqueue(rings[0], *sargs[1:])
+        _same(res, fk.serve_enqueue_plain(rings[1], *sargs[1:]))
+        _same(tuple(f[:prog.Q] for f in rings[0]),
+              tuple(f[:prog.Q] for f in rings[1]))
+        if prog.pfc:
+            pargs = (prog.pfc_state(st), res[3], res[2], res[5], res[6],
+                     res[9], res[7], rings[0], res[0], st.qsize, res[1], t,
+                     prog.pfc_flows, prog.pfc_dims, lanes.idx)
+            _same(fk.pfc_account(*pargs), fk.pfc_account_plain(*pargs))
+        ok = lanes.idx < prog.N
+        padded += int((~ok).any())
+        full += int(ok.all())
+        st, _, _ = prog.tick(st, t)
+    assert padded > 0 and full > 0
+
+
+@pytest.mark.parametrize("protocol", ["strack", "rocev2"])
+def test_capped_fabric_on_the_card_equals_the_cpu(cuda, protocol):
+    sc, cfg, _ = _open_loop_program(cuda, 6000, protocol=protocol)
+    cfg = dataclasses.replace(cfg, time_warp=True)
+    fk.reset_launches()
+    fin_g, m_gpu = TF.run_fabric_trace(sc.topo, sc.messages, 6000, cfg,
+                                       device=cuda)
+    name = ("flow_transition_roce_active" if protocol == "rocev2"
+            else "flow_transition_active")
+    assert fk.launches[name] > 0 and fk.launches["serve_enqueue"] > 0
+    assert fk.launches["flow_transition"] == 0
+    assert fk.launches["flow_transition_roce"] == 0
+    fin_c, m_cpu = TF.run_fabric_trace(sc.topo, sc.messages, 6000, cfg,
+                                       device="cpu")
+    np.testing.assert_array_equal(m_gpu["done_tick"], m_cpu["done_tick"])
+    for k in ("warp_trips", "pauses", "drops", "ecn_marks", "retransmits",
+              "group_done_us"):
+        assert m_gpu[k] == m_cpu[k], k
+    _same(_cpu(fin_g.flows), fin_c.flows)
+
+
+def _cpu(tree):
+    if isinstance(tree, tuple):
+        return type(tree)(*[_cpu(v) for v in tree])
+    return tree.cpu()
 
 
 @pytest.mark.parametrize("B,H,K,Tq,Tk,hd,causal,window,q_offset", [

@@ -105,9 +105,9 @@ def test_port_matches_perm1024_reference_on_cpu():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(protocol="rocev2", active_cap=8), "A8"),
+    (dict(protocol="rocev2", active_cap=8, subflows=2), "A6"),
     (dict(pfc=True, subflows=4), "A6"),
-    (dict(active_cap=8), "A8"),
+    (dict(active_cap=8, backend="events"), "A10"),
     (dict(shard=2), "A11"),
     (dict(subflows=4), "A6"),
     (dict(faults=link_flap(0, 0, 10, 60), trace_every=1), "A5"),

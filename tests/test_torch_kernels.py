@@ -94,6 +94,8 @@ def test_wrappers_dispatch_by_device_without_counting_cpu_calls():
     qid = torch.zeros(4, dtype=torch.int32)
     fk.rank_in_queue(qid, torch.ones(4, dtype=torch.bool), 2)
     assert fk.launches == {"flow_transition": 0, "flow_transition_roce": 0,
+                           "flow_transition_active": 0,
+                           "flow_transition_roce_active": 0,
                            "serve_enqueue": 0, "rank_in_queue": 0,
                            "pfc_account": 0}
     with pytest.raises(ValueError, match="no kernel"):

@@ -4,8 +4,10 @@ Run as a script to regenerate the committed reference files (perm1024 and
 incast1024 under STrack; perm1024 and incast1024 under RoCEv2 with PFC,
 incast1024 under lossy RoCEv2 and under STrack with PFC; perm1024 under
 the CHAOS1024 fault schedule with STrack and with RoCEv2, and linkdown1024
-as t=0 uplink flaps; the llama3-8b, mamba2-2.7b and zamba2-2.7b SMOKE
-serve references) from the JAX package:
+as t=0 uplink flaps; infer1024 under the active set at ``active_cap=512``
+with STrack (its uncapped run and its cap-320 overflow count beside it)
+and with RoCEv2; the llama3-8b, mamba2-2.7b and zamba2-2.7b SMOKE serve
+references) from the JAX package:
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/torch_parity.py
 """
@@ -20,6 +22,7 @@ import torch
 
 from repro_torch.convert import leaves
 from repro_torch.profile import CHAOS1024 as _CHAOS1024
+from repro_torch.profile import INFER1024_CAP, INFER1024_TENANTS
 
 # The port's CPU tests run many tiny tensor ops; intra-op threads only
 # contend with the other test workers for the cores.
@@ -72,6 +75,21 @@ CHAOS_REFS = {
     "linkdown1024_strack": ("linkdown1024", {}, "dead_links"),
 }
 CHAOS_REF_PATHS = {name: REF_DIR / f"{name}_ref.json" for name in CHAOS_REFS}
+
+#: The infer1024 files pin the PFC files' keys and the per-tenant and
+#: per-group tables (four tenants, one group each).
+INFER_SUMMARY_KEYS = PFC_SUMMARY_KEYS + (
+    "tenant_fct", "group_fct", "max_collective_time", "finished_groups",
+    "total_groups")
+#: file stem -> RunConfig fields of the infer1024 run under the active set.
+INFER_REFS = {
+    "infer1024_strack_cap512": dict(active_cap=INFER1024_CAP),
+    "infer1024_rocev2_cap512": dict(protocol="rocev2",
+                                    active_cap=INFER1024_CAP),
+}
+INFER_REF_PATHS = {name: REF_DIR / f"{name}_ref.json" for name in INFER_REFS}
+#: The cap below infer1024's peak live-flow count: the run raises.
+INFER1024_SMALL_CAP = 320
 
 
 def _bits(a: np.ndarray) -> np.ndarray:
@@ -126,6 +144,115 @@ def jax_linkdown1024():
                              64 * 2 ** 10, net=NetworkSpec(link_gbps=400.0))
 
 
+def jax_infer1024(shape=(32, 32)):
+    """The JAX package's infer1024 trace: ``traffic.mixed_scenario`` with
+    four ``InferenceTenant`` of ``INFER1024_TENANTS`` and no training job,
+    seed 0, 400 Gbps, on ``full_bisection(*shape)`` (perm1024's fabric at
+    full width)."""
+    from repro.core.params import NetworkSpec
+    from repro.sim.topology import full_bisection
+    from repro.sim.traffic import InferenceTenant, mixed_scenario
+    tenants = [InferenceTenant(f"inf{i}", **INFER1024_TENANTS)
+               for i in range(4)]
+    return mixed_scenario(full_bisection(*shape), (), tenants,
+                          net=NetworkSpec(link_gbps=400.0), seed=0)[0]
+
+
+#: The two inference tenants of the active-set state tests' open-loop 4x4
+#: trace: 40 flows of 16-80 KiB arriving over ticks 3-154, at most 32 of
+#: them live at once.
+OPEN_LOOP_TENANTS = (
+    dict(name="a", n_flows=24, mean_interarrival_ticks=5.0,
+         size_bytes=32 * 2 ** 10, size_jitter=0.5, n_targets=2),
+    dict(name="b", n_flows=16, mean_interarrival_ticks=8.0,
+         size_bytes=64 * 2 ** 10, size_jitter=0.25, n_targets=3))
+
+
+def open_loop_trace():
+    """The JAX package's open-loop 4x4 trace (``mixed_scenario`` of the
+    ``OPEN_LOOP_TENANTS``, seed 0, 400 Gbps); its ``Message`` records feed
+    both packages."""
+    from repro.core.params import NetworkSpec
+    from repro.sim.topology import full_bisection
+    from repro.sim.traffic import InferenceTenant, mixed_scenario
+    tenants = [InferenceTenant(**t) for t in OPEN_LOOP_TENANTS]
+    return mixed_scenario(full_bisection(4, 4), (), tenants,
+                          net=NetworkSpec(link_gbps=400.0), seed=0)[0].messages
+
+
+def arrival_trace(cls):
+    """Four messages, then four more that arrive at ticks 120-141, built
+    with either package's ``Message`` class ``cls``: the two-stage trace
+    of ``tests/test_rank_active.py`` with its dependency edges replaced by
+    arrival ticks (at most five flows live at once)."""
+    msgs = [cls(mid=i, src=i, dst=(i + 4) % 8, size=float(12288 + 4096 * i),
+                group=0) for i in range(4)]
+    msgs += [cls(mid=4 + i, src=(i + 4) % 8, dst=i,
+                 size=float(20480 + 4096 * i), group=1, arrival=120 + 7 * i)
+             for i in range(4)]
+    return msgs
+
+
+def jax_final_state(topo, messages, n_ticks: int, cfg):
+    """The JAX package's final ``FabricState`` of a deps-free trace, run as
+    ``run_fabric_trace`` runs it but without the host metrics (which raise
+    on an active-set overflow)."""
+    import jax.numpy as jnp
+    from repro.sim import fabric as F
+    flows, dep = F.expand_messages(messages, cfg.subflows)
+    fd = F.build_fault_data(cfg.faults, topo.n_tor, topo.n_spine,
+                            topo.hosts_per_tor)
+    src, dst, total, tails, ent0 = F._flow_arrays(flows, cfg)
+    prog = F._get_program(topo, int(src.shape[0]), n_ticks, cfg, dep)
+    return prog.jit_single(src, dst, total, tails, ent0,
+                           jnp.int32(F.LB_MODES.index(cfg.lb_mode)),
+                           F._arrival_array(messages), fd)[0]
+
+
+def port_program(topo, messages, n_ticks: int, cfg):
+    """The port's bound ``FabricProgram`` of a deps-free trace on the
+    CPU, as ``run_fabric_trace`` builds it."""
+    from repro_torch.sim import fabric as TF
+    prog = TF.FabricProgram(topo, len(messages), n_ticks, cfg, "cpu",
+                            TF._trace_dep(messages, "cpu"))
+    src, dst, total, tails, ent0 = TF._flow_arrays(
+        [(m.src, m.dst, m.size) for m in messages], cfg)
+    prog.bind(src, dst, total, tails, TF._arrival_array(messages),
+              cfg.lb_mode, ent0)
+    return prog
+
+
+def overflow_ticks(err: Exception) -> int:
+    """The tick count of either package's active-set overflow error."""
+    import re
+    return int(re.search(r"exceeded on (\d+) tick", str(err)).group(1))
+
+
+def infer_reference(name: str) -> dict:
+    """The JAX package's infer1024 run of one ``INFER_REFS`` entry: every
+    key of ``INFER_SUMMARY_KEYS``, warp trips, end tick, done ticks; for
+    STrack also the uncapped run (``uncapped``) and the overflow count of
+    the run at ``INFER1024_SMALL_CAP`` (``small_cap``,
+    ``small_cap_overflow_ticks``)."""
+    from repro.sim.workloads import RunConfig, _fabric_cfg, _scenario_ticks
+    from repro.sim.fabric import run_fabric_trace
+    sc = jax_infer1024()
+    kw = INFER_REFS[name]
+    out = _reference(sc, kw, INFER_SUMMARY_KEYS)
+    if kw.get("protocol", "strack") == "strack":
+        out["uncapped"] = _reference(sc, {}, INFER_SUMMARY_KEYS)
+        cfg = RunConfig(active_cap=INFER1024_SMALL_CAP)
+        try:
+            run_fabric_trace(sc.topo, sc.messages, _scenario_ticks(sc, cfg),
+                             _fabric_cfg(sc, cfg))
+        except RuntimeError as e:
+            out["small_cap"] = INFER1024_SMALL_CAP
+            out["small_cap_overflow_ticks"] = overflow_ticks(e)
+        else:
+            raise AssertionError("infer1024 at the small cap did not raise")
+    return out
+
+
 def perm1024_reference() -> dict:
     """The JAX package's perm1024 run under the default RunConfig: summary
     keys, warp trips, end tick, done ticks."""
@@ -173,7 +300,9 @@ def _reference(sc, kw=None, keys=REF_SUMMARY_KEYS) -> dict:
     _, m = run_fabric_trace(sc.topo, sc.messages, n_ticks,
                             _fabric_cfg(sc, cfg))
     s = summarize(m)
-    out = {k: list(s[k]) if isinstance(s[k], tuple) else s[k] for k in keys}
+    # JSON's own form: tuples as lists, the tenant and group tables keyed
+    # by strings
+    out = json.loads(json.dumps({k: s[k] for k in keys}))
     out.update(n_ticks=int(n_ticks), warp_trips=int(m["warp_trips"]),
                end_tick=int(m["end_tick"]),
                done_tick=[int(v) for v in np.asarray(m["done_tick"])])
@@ -283,6 +412,8 @@ def write_references() -> None:
                for name, path in PFC_REF_PATHS.items()]
     makers += [(path, lambda n=name: chaos_reference(n))
                for name, path in CHAOS_REF_PATHS.items()]
+    makers += [(path, lambda n=name: infer_reference(n))
+               for name, path in INFER_REF_PATHS.items()]
     for path, make in makers:
         path.write_text(json.dumps(make(), sort_keys=True) + "\n")
         print(f"wrote {path}")
