@@ -94,10 +94,16 @@ Phases (any failure exits non-zero; nothing is caught):
   7. serve: llama3-8b, bf16, attn_impl="pallas", random weights from a
      CUDA generator (seed 0; 16 GB):
      (a) the flash-attention kernel against its plain version on the card
-         at the q/k/v of layers 0 and 31 of both prefills below, at decode
-         with q_offset 0, 511 and 543, and on random inputs (non-causal,
-         window 96, MQA, f32, f32 queries on bf16 k/v, head dims 64 and
-         16, ragged Tq = Tk = 100): 2e-5 in f32, 2e-2 in bf16;
+         at the q/k/v of layers 0 and 31 of both prefills below (the tc
+         route), at decode with q_offset 0, 511 and 543 (the decode
+         route), and on random inputs (non-causal, window 96, MQA, f32 and
+         f32 queries on bf16 k/v on the fma route, head dims 64 and 16,
+         ragged Tq = Tk = 100; the tc route's edges: Tq = 1000 = 7 x 128 +
+         104, Tk past the last kv tile, q_offset 50 at Tq 100, window 96
+         at Tq 600, hd 16 / 64 / 80, a row with no live key; the decode
+         route's: B = 1 at Tq = 1..4, MQA, hd 80 with a window, f32, a row
+         with no live key): 2e-5 in f32, 2e-2 in bf16, each call on the
+         route kernels.flash_attention._route names for it;
      (b) prefill of 4 x 1000 tokens and 1 x 4096: finite logits, within
          SERVE_REL_L2 of the same model with attention through the plain
          version;
@@ -109,8 +115,10 @@ Phases (any failure exits non-zero; nothing is caught):
          src/repro_torch/testdata/llama3_smoke_serve_ref.json (1e-4; the
          bf16-cache decode 2e-2);
      the serve path (both prefills and greedy_generate) runs once more with
-     the launch count reset before and read after: prefill tokens/s,
-     decode ms per step, peak memory;
+     the launch count reset before and read after (by route: both bf16
+     prefills on tc, every decode step on decode, fma never; fma runs only
+     in the f32 checks and the SMOKE prefill): prefill tokens/s, decode ms
+     per step, peak memory;
   8. serve, Mamba2 (the llama3 weights freed first): mamba2-2.7b (64
      layers, ~5.4 GB) and zamba2-2.7b (54 layers and the shared block,
      attn_impl="pallas"), bf16, random weights (seed 0):
@@ -124,8 +132,10 @@ Phases (any failure exits non-zero; nothing is caught):
      (c) zamba2 prefill 4 x 1024 through both kernels against both plain
          versions (SSM_REL_L2); the flash kernel against its plain version at hd 80 on
          the q/k/v of the first and last application of the shared block
-         and at decode offsets 0, 63, 79; a short greedy_generate (4 x 64
-         prompt tokens, 16 new) equal to a step-by-step decode;
+         (tc) and at decode offsets 0, 63, 79 (decode); a short
+         greedy_generate (4 x 64 prompt tokens, 16 new) equal to a
+         step-by-step decode, every prefill call on tc and every decode
+         call on decode;
      (a) the SSD kernel against its plain version, y and final state, on
          the captured inputs of layer 0 and the last layer of mamba2's
          prefills and layer 0 of zamba2's, on the cases of
@@ -145,9 +155,11 @@ Phases (any failure exits non-zero; nothing is caught):
      `fault_*` fields of serve_enqueue from phase 6c; the active set's
      flow_transition_active and flow_transition_roce_active, and the
      `active_*` fields of serve_enqueue, rank_in_queue and pfc_account,
-     from phase 6d; for
-     flash attention SDPA's time as `library_ms`, at the prefill-1000 and
-     decode-544 shapes and at zamba2's hd 80; for the SSD scan at mamba2's
+     from phase 6d; for flash attention SDPA's time as `library_ms`, and
+     under `routes` each route's device and wall ms, launches, bound,
+     plain and SDPA times and factor to SDPA: tc at prefill-1000,
+     prefill-4096 and zamba2's prefill-1024 (hd 80), decode at decode-544,
+     fma at prefill-1000's shapes in f32; for the SSD scan at mamba2's
      prefill 4 x 1024 and 1 x 4096 inputs), the card's name and power
      limit, and the final `{"ok": true, ...}` line.
 
@@ -214,7 +226,9 @@ OWN_KERNELS = {
     "serve_enqueue": ("serve_kernel", "accept_kernel", "place_kernel",
                       "count_kernel", "scan_kernel", "resolve_kernel"),
     "rank_in_queue": ("count_kernel", "scan_kernel", "resolve_kernel"),
-    "flash_attention": ("fa_kernel",),
+    "flash_attention tc": ("tc_kernel",),
+    "flash_attention decode": ("dec_kernel",),
+    "flash_attention fma": ("fa_kernel",),
     "ssd_scan": ("ssd_kernel",),
 }
 
@@ -1024,10 +1038,13 @@ def routed(name, fn, capture=None, store=None):
 
 def flash_timing(q, k, v, kw) -> dict:
     """The flash-attention kernel, its plain version and SDPA on one call's
-    model-layout inputs: device and wall ms, the bound (the causal live
-    part of the products at the bf16 rate, or the bytes)."""
+    model-layout inputs: device and wall ms, the route the call takes, the
+    bound (the causal live part of the products at the bf16 tensor-core
+    rate, or at the CUDA cores' f32 rate for f32 inputs; or the bytes), and
+    the kernel's device time over SDPA's."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops as kops
     B, Tq, H, hd = q.shape
     Tk, K = k.shape[1], k.shape[2]
@@ -1036,7 +1053,9 @@ def flash_timing(q, k, v, kw) -> dict:
     flops = 4 * hd * live * B * H
     moved = 2 * q.numel() * q.element_size() + 2 * k.numel() * \
         k.element_size()
-    bnd, by = bound_ms(moved, flops, BF16_OPS_PER_S)
+    bnd, by = bound_ms(moved, flops, BF16_OPS_PER_S
+                       if q.dtype == torch.bfloat16 else FP32_OPS_PER_S)
+    kind = fa._route(Tq, hd, q.dtype, k.dtype, H, K)
     mask = None if off == 0 else (
         torch.arange(Tk, device=q.device)[None, :]
         <= torch.arange(Tq, device=q.device)[:, None] + off)
@@ -1046,14 +1065,17 @@ def flash_timing(q, k, v, kw) -> dict:
     library = lambda: F.scaled_dot_product_attention(
         qh, kh, vh, attn_mask=mask, is_causal=mask is None,
         enable_gqa=K != H)
+    ms, lib_ms = own_device_ms(f"flash_attention {kind}", run), \
+        device_ms(library)[0]
     return {"shape": f"q {tuple(q.shape)}, k/v {tuple(k.shape)} (B,T,H,hd)"
                      f", {str(q.dtype).split('.')[-1]}, q_offset {off}",
-            "ms": own_device_ms("flash_attention", run),
+            "fa_route": kind, "ms": ms,
             "plain_ms": device_ms(plain, reps=10)[0],
-            "bound_ms": bnd, "bound_by": by,
-            "library_ms": device_ms(library)[0],
+            "bound_ms": bnd, "bound_by": by, "library_ms": lib_ms,
+            "sdpa_factor": ms / lib_ms,
             "wall_ms": wall_ms(run), "plain_wall_ms": wall_ms(plain,
-                                                              reps=10)}
+                                                              reps=10),
+            "library_wall_ms": wall_ms(library)}
 
 
 def serve(dev) -> dict:
@@ -1132,23 +1154,38 @@ def serve(dev) -> dict:
                      if t in (0, 511, 543) else None, captured)
 
     # the serve path, counted and timed
-    gen, launches = serve_path(
+    gen, launches, routes = serve_path(
         "llama3-8b", cfg, params,
         {"prefill-1000": (p1000, logits["prefill-1000"]),
          "prefill-4096": (p4096, logits["prefill-4096"])}, p512, 32)
     assert launches == {"flash_attention": cfg.n_layers * (2 + 512 + 32 - 1),
                         "ssd_scan": 0}, launches
+    # both bf16 prefills on the tensor cores, every decode step on decode
+    assert routes == {"tc": cfg.n_layers * 2,
+                      "decode": cfg.n_layers * (512 + 32 - 1), "fma": 0}, \
+        routes
     assert torch.equal(gen, steps), (gen, steps)
-    launches = launches["flash_attention"]
+    launches, main_routes = launches["flash_attention"], routes
     log("[serve] (c) llama3-8b greedy_generate's tokens equal the "
         "step-by-step decode's")
 
-    # (a) the kernel against its plain version on the card
+    # (a) the kernel against its plain version on the card, each call on
+    # the route _route names for it
     max_err = 0.0
+    checked = {"tc": 0, "decode": 0, "fma": 0}
 
     def check(what, fn, ref, q, k, v, **kw):
         nonlocal max_err
+        before = dict(fa.route_launches)
         got, want = fn(q, k, v, **kw), ref(q, k, v, **kw)
+        # (B, H, T, hd), or the model layout (B, T, H, hd) of captured calls
+        qh, kh = (q, k) if fn is fa.flash_attention else (
+            q.transpose(1, 2), k.transpose(1, 2))
+        kind = fa._route(qh.shape[2], qh.shape[3], q.dtype, k.dtype,
+                         qh.shape[1], kh.shape[1])
+        assert fa.route_launches[kind] == before[kind] + 1, (
+            what, kind, before, fa.route_launches)
+        checked[kind] += 1
         tol = FA_TOL[str(q.dtype).split(".")[-1]]
         assert got.dtype == want.dtype == q.dtype and got.shape == want.shape
         d = (got.float() - want.float()).abs()
@@ -1172,15 +1209,48 @@ def serve(dev) -> dict:
             ("hd=64 window=40 q_offset=37", (1, 4, 2, 100, 150, 64), f32,
              f32, dict(window=40, q_offset=37)),
             ("hd=16 decode q_offset=99", (3, 4, 1, 1, 100, 16), f32, bf16,
-             dict(q_offset=99))):
+             dict(q_offset=99)),
+            # the tc route's edges: a ragged q tile (1000 = 7 x 128 + 104),
+            # Tk past the last whole kv tile, q_offset > 0, the window's
+            # trailing edge inside a tile, hd 16 / 64 / 80 (boxes zero-
+            # filled past hd), a row with no live key
+            ("tc Tq=1000", (1, 8, 2, 1000, 1000, 128), bf16, bf16, {}),
+            ("tc non-causal Tk=300", (2, 32, 8, 100, 300, 128), bf16, bf16,
+             dict(causal=False)),
+            ("tc q_offset=50 Tq=100", (1, 32, 8, 100, 150, 128), bf16, bf16,
+             dict(q_offset=50)),
+            ("tc window=96 Tq=600", (1, 8, 2, 600, 600, 128), bf16, bf16,
+             dict(window=96)),
+            ("tc hd=16", (1, 4, 2, 200, 200, 16), bf16, bf16, {}),
+            ("tc hd=64 G=4", (2, 8, 2, 300, 300, 64), bf16, bf16, {}),
+            ("tc hd=80", (2, 8, 8, 300, 300, 80), bf16, bf16, {}),
+            ("tc no live key", (1, 4, 2, 8, 8, 16), bf16, bf16,
+             dict(q_offset=-4)),
+            # the decode route's: B = 1, Tq = 1..4 (the keys split over
+            # blocks), MQA's 32 rows, hd 80, a row with no live key
+            *((f"decode B=1 Tq={t}", (1, 32, 8, t, 544, 128), bf16, bf16,
+               dict(q_offset=544 - t)) for t in (1, 2, 3, 4)),
+            ("decode MQA", (2, 32, 1, 1, 300, 128), bf16, bf16,
+             dict(q_offset=299)),
+            ("decode hd=80 window=96", (2, 8, 8, 2, 300, 80), bf16, bf16,
+             dict(q_offset=250, window=96)),
+            ("decode f32", (2, 8, 2, 3, 200, 64), f32, f32,
+             dict(q_offset=197)),
+            ("decode no live key", (1, 4, 2, 4, 8, 16), bf16, bf16,
+             dict(q_offset=-4))):
         q = torch.randn((B, H, Tq, hd), generator=g, device=dev).to(qdt)
         k = torch.randn((B, K, Tk, hd), generator=g, device=dev).to(kvdt)
         v = torch.randn((B, K, Tk, hd), generator=g, device=dev).to(kvdt)
         errs[f"random {what}"] = check(what, fa.flash_attention,
                                        flash_attention_ref, q, k, v, **kw)
+        if "no live key" in what:   # every query before key 0: zeros
+            out = fa.flash_attention(q, k, v, **kw)
+            assert not bool(out[:, :, :4].any()), what
     torch.cuda.synchronize()
+    assert all(checked.values()), checked
     log("[serve] (a) flash_attention matches its plain version (max abs "
-        "error): " + "; ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+        "error): " + "; ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f"; checks by route {checked}")
 
     # (d) the SMOKE config in f32 against the JAX-made reference
     ref = json.loads((TESTDATA / "llama3_smoke_serve_ref.json").read_text())
@@ -1198,8 +1268,11 @@ def serve(dev) -> dict:
                                                               float(d.max()))
         errs[what] = float(d.max())
 
+    fa.reset_launches()
     hold("pallas prefill", make_prefill_step(scfg)(sp, {"tokens": stoks}),
          "prefill_last_logits", SMOKE_TOL)
+    assert fa.route_launches == {"tc": 0, "decode": 0,
+                                 "fma": scfg.n_layers}, fa.route_launches
     for impl, cdt, key, tol in (
             ("pallas", f32, "decode_logits_f32_cache", SMOKE_TOL),
             ("naive", f32, "decode_logits_f32_cache", SMOKE_TOL),
@@ -1214,8 +1287,12 @@ def serve(dev) -> dict:
             out.append(lg)
         hold(f"{impl} decode, {str(cdt).split('.')[-1]} cache",
              torch.stack(out), key, tol)
+    assert fa.route_launches == {
+        "tc": 0, "decode": scfg.n_layers * ref["steps"],
+        "fma": scfg.n_layers}, fa.route_launches
     log(f"[serve] (d) llama3-8b SMOKE, f32, on the card vs the JAX "
-        f"reference (max abs error): {errs}")
+        f"reference (max abs error): {errs}; the prefill on fma, the f32 "
+        f"decode on the decode route")
 
     # kernel times and bounds at the prefill-1000 and decode-544 shapes
     def timing(name):
@@ -1224,14 +1301,24 @@ def serve(dev) -> dict:
 
     prefill_t = timing("prefill-1000 layer 0")
     decode_t = timing("decode q_offset=543 layer 0")
+    (q, k, v), kw = captured["prefill-1000 layer 0"]
+    fma_t = flash_timing(q.float(), k.float(), v.float(), kw)  # f32 inputs
+    assert (prefill_t["fa_route"], decode_t["fa_route"],
+            fma_t["fa_route"]) == ("tc", "decode", "fma")
     entry = {"name": "flash_attention", "route": "cuda",
              "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
              "replaces": "src/repro/kernels/flash_attention.py:90",
              "launches": launches, "max_abs_err": max_err}
     entry.update(prefill_t)
+    entry["routes"] = {
+        "tc": dict(prefill_t, launches=main_routes["tc"],
+                   prefill_4096=timing("prefill-4096 layer 0")),
+        "decode": dict(decode_t, launches=main_routes["decode"]),
+        "fma": dict(fma_t, launches=main_routes["fma"],
+                    note="f32 inputs at prefill-1000's shapes; the f32 "
+                         "checks and SMOKE prefills only")}
     entry["decode_544"] = decode_t
-    log(f"[serve] flash_attention at prefill-1000: {prefill_t}; at "
-        f"decode-544: {decode_t}")
+    log(f"[serve] flash_attention by route: {entry['routes']}")
     return entry
 
 
@@ -1275,7 +1362,7 @@ def serve_path(arch, cfg, params, prefills, prompt, new) -> tuple:
     run's logits)}``, which must give those logits again, then
     greedy_generate of ``new`` tokens after ``prompt``.  Logs prefill
     tokens/s, decode ms per step and peak memory.  Returns (generated
-    tokens, launches by kernel)."""
+    tokens, launches by kernel, flash-attention launches by route)."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd_scan as ssd
@@ -1301,14 +1388,15 @@ def serve_path(arch, cfg, params, prefills, prompt, new) -> tuple:
     wall = time.time() - t0
     launches = {"flash_attention": fa.launches["flash_attention"],
                 "ssd_scan": ssd.launches["ssd_scan"]}
+    routes = dict(fa.route_launches)
     n_steps = T + new - 1
     log(f"[serve] {arch} serve path: prefill " + ", ".join(rates)
         + f"; greedy_generate {B} x ({T} + {new}) in {wall:.3f}s: "
         f"{wall / n_steps * 1e3:.3f} ms per decode step of {B} requests "
         f"({B * n_steps / wall:.1f} tokens/s); peak memory "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB; "
-        f"launches {launches}")
-    return gen, launches
+        f"launches {launches}, flash_attention by route {routes}")
+    return gen, launches, routes
 
 
 def ssd_timing(x, dt, A, B_, C_, chunk) -> dict:
@@ -1451,7 +1539,7 @@ def serve_ssm(dev) -> tuple:
         for name, toks in (("prefill-1024", p1024), ("prefill-4096", p4096))}
     steps = stepwise("[ssm] (b) mamba2-2.7b", cfg, params, p512, 32,
                      SSM_REL_L2)
-    gen, launches = serve_path(
+    gen, launches, _ = serve_path(
         "mamba2-2.7b", cfg, params,
         {"prefill-1024": (p1024, logits["prefill-1024"]),
          "prefill-4096": (p4096, logits["prefill-4096"])}, p512, 32)
@@ -1476,14 +1564,16 @@ def serve_ssm(dev) -> tuple:
                      SSM_REL_L2, lambda t: {0: f"zamba2-2.7b decode q_offset="
                                             f"{t}"} if t in (0, 63, 79)
                      else None, captured)
-    gen, launches = serve_path("zamba2-2.7b", cfg, params,
-                               {"prefill-1024": (pz, got)}, p64, 16)
+    gen, launches, routes = serve_path("zamba2-2.7b", cfg, params,
+                                       {"prefill-1024": (pz, got)}, p64, 16)
     assert torch.equal(gen, steps), (gen, steps)
     assert launches == {"ssd_scan": cfg.n_layers,
                         "flash_attention": n_app * (1 + 64 + 16 - 1)}, \
         launches
+    assert routes == {"tc": n_app, "decode": n_app * (64 + 16 - 1),
+                      "fma": 0}, routes
     ssd_launches["zamba2-2.7b"] = launches["ssd_scan"]
-    fa_launches = launches["flash_attention"]
+    fa_launches, fa_routes = launches["flash_attention"], routes
     log("[ssm] (c) zamba2-2.7b greedy_generate's tokens equal the "
         "step-by-step decode's")
     del params
@@ -1574,6 +1664,7 @@ def serve_ssm(dev) -> tuple:
     entry.update(timing["prefill-1024"])
     entry["prefill_4096"] = timing["prefill-4096"]
     return entry, {"launches_zamba2": fa_launches,
+                   "routes_zamba2": fa_routes,
                    "max_abs_err_hd80": max(fa_errs.values()),
                    "zamba2_prefill_1024_hd80": fa_t}
 
@@ -2228,6 +2319,10 @@ def main() -> int:
     # ---- 8. serve: mamba2-2.7b and zamba2-2.7b through the SSD kernel -----
     ssd_entry, fa_zamba2 = serve_ssm(dev)
     kernels[-1].update(fa_zamba2)
+    for fa_route, by_route in kernels[-1]["routes"].items():
+        by_route["launches_zamba2"] = fa_zamba2["routes_zamba2"][fa_route]
+    kernels[-1]["routes"]["tc"]["zamba2_prefill_1024_hd80"] = \
+        fa_zamba2["zamba2_prefill_1024_hd80"]
     kernels[-1]["max_abs_err"] = max(kernels[-1]["max_abs_err"],
                                      fa_zamba2["max_abs_err_hd80"])
     kernels.append(ssd_entry)

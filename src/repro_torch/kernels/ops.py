@@ -2,8 +2,9 @@
 
 Models call these.  Attention's layouts are converted from the model's
 (B, T, H, hd) convention to the kernel's (B, H, T, hd) as views (the
-kernel reads through strides, so nothing is copied); the SSD scan takes
-the model's layout as it is.
+kernel reads through strides, so nothing is copied, and writes its output
+in the model layout, so the caller's reshape to (B, T, H * hd) is a view
+too); the SSD scan takes the model's layout as it is.
 """
 from __future__ import annotations
 

@@ -115,7 +115,8 @@ SERVE = {"prefill-1000": ("llama3-8b", 4, 1000),
 OWN_KERNELS = ("apply_kernel", "commit_kernel", "serve_kernel",
                "accept_kernel", "place_kernel", "count_kernel",
                "scan_kernel", "resolve_kernel", "pfc_ingress_kernel",
-               "pfc_gate_kernel", "fa_kernel", "ssd_kernel")
+               "pfc_gate_kernel", "fa_kernel", "tc_kernel", "dec_kernel",
+               "ssd_kernel")
 
 
 def _fabric_run(name: str):

@@ -81,14 +81,18 @@ def test_infer_generator_at_8x8_equals_jax():
 
 
 def _c_fields(text: str, name: str) -> list:
-    """Field names of ``struct name`` in a CUDA source, in order."""
+    """Field names of ``struct name`` in a CUDA source, in order (an
+    array's name without its extent)."""
     import re
     body = re.search(r"struct %s \{(.*?)\n\};" % name, text, re.S).group(1)
     out = []
     for decl in re.sub(r"//.*", "", body).split(";"):
+        decl = re.sub(r"\[[^]]*\]", "", decl)
         words = decl.replace("*", " ").replace(",", " , ").split()
-        words = [w for w in words if w != "const"][1:]   # drop the type
-        out += [w for w in words if w != ","]
+        words = [w for w in words if w != "const"]
+        n_type = 2 if words[:1] in (["long"], ["unsigned"]) and words[1] in (
+            "long", "int", "char", "short") else 1      # long long, ...
+        out += [w for w in words[n_type:] if w != ","]  # drop the type
     return out
 
 
@@ -96,9 +100,12 @@ def test_kernel_structs_match_their_ctypes_bindings():
     """Every parameter and pointer struct of the fabric kernels' C entry
     points lists the same fields in the same order as its ctypes mirror in
     ``kernels/_cuda_bind.py`` (a field out of place passes one pointer for
-    another, which no CPU run would show)."""
+    another, which no CPU run would show); so does flash attention's
+    ``FaArgs`` (every route's arguments, the decode split's scratch and
+    counters among them) its mirror in ``kernels/flash_attention.py``."""
     from pathlib import Path
     from repro_torch.kernels import _cuda_bind as B
+    from repro_torch.kernels import flash_attention as fa
     csrc = Path(B.__file__).parent / "csrc"
     pairs = {"transition": [("TransParams", B.TransParams),
                             ("TransOut", B.TransOut),
@@ -116,7 +123,8 @@ def test_kernel_structs_match_their_ctypes_bindings():
                                ("ServeIn", B.ServeIn),
                                ("ServeOut", B.ServeOut),
                                ("PfcParams", B.PfcParams),
-                               ("PfcIn", B.PfcIn), ("PfcState", B.PfcPtrs)]}
+                               ("PfcIn", B.PfcIn), ("PfcState", B.PfcPtrs)],
+             "flash_attention": [("FaArgs", fa.FaArgs)]}
     for source, structs in pairs.items():
         text = (csrc / f"{source}.cu").read_text()
         for name, cls in structs:

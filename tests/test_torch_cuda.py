@@ -392,6 +392,11 @@ def _cpu(tree):
     (2, 4, 2, 1, 512, 64, True, None, 300),
     (3, 4, 1, 1, 100, 16, True, None, 99),
     (1, 2, 1, 8, 8, 16, True, None, -4),
+    (1, 4, 4, 200, 200, 80, True, None, 0),       # hd 80, ragged q tile
+    (1, 8, 2, 1000, 1000, 128, True, None, 0),    # 1000 = 7 x 128 + 104
+    (1, 8, 2, 4, 300, 128, True, None, 296),      # decode, keys split
+    (2, 32, 1, 2, 200, 64, True, None, 198),      # decode, 64 rows of MQA
+    (1, 4, 2, 4, 8, 16, True, None, -4),          # decode, no live key
 ])
 @pytest.mark.parametrize("dtypes", [("float32", "float32"),
                                     ("bfloat16", "bfloat16"),
@@ -400,7 +405,10 @@ def test_flash_attention_kernel_matches_plain(cuda, B, H, K, Tq, Tk, hd,
                                               causal, window, q_offset,
                                               dtypes):
     """The CUDA kernel against its plain version on the card, on the cases
-    of tests/test_torch_flash.py: 2e-5 in f32, 2e-2 in bf16."""
+    of tests/test_torch_flash.py and the edges of the tc and decode routes
+    (hd 80, a ragged q tile, the decode's key split, a row with no live
+    key): 2e-5 in f32, 2e-2 in bf16.  The call takes the route _route
+    names."""
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device=cuda).manual_seed(Tq * 7 + Tk)
     qdt, kvdt = (getattr(torch, d) for d in dtypes)
@@ -411,6 +419,7 @@ def test_flash_attention_kernel_matches_plain(cuda, B, H, K, Tq, Tk, hd,
     fa.reset_launches()
     got = fa.flash_attention(q, k, v, **kw)
     assert fa.launches["flash_attention"] == 1
+    assert fa.route_launches[fa._route(Tq, hd, qdt, kvdt, H, K)] == 1
     want = flash_attention_ref(q, k, v, **kw)
     assert got.dtype == qdt and got.shape == want.shape
     tol = 2e-5 if qdt == torch.float32 else 2e-2
