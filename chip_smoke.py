@@ -136,11 +136,14 @@ Phases (any failure exits non-zero; nothing is caught):
          greedy_generate (4 x 64 prompt tokens, 16 new) equal to a
          step-by-step decode, every prefill call on tc and every decode
          call on decode;
-     (a) the SSD kernel against its plain version, y and final state, on
-         the captured inputs of layer 0 and the last layer of mamba2's
+     (a) the SSD kernel (four chunk-parallel launches, float32 FMAs in
+         the plain version's order) against its plain version, y and
+         final state, on the
+         captured inputs of layer 0 and the last layer of mamba2's
          prefills and layer 0 of zamba2's, on the cases of
-         tests/test_kernels.py in f32 and bf16, at T = 45 (an odd L), and
-         at T = 128 against the sequential ssd_ref: 1e-4 in f32, 5e-2 in
+         tests/test_kernels.py in f32 and bf16, at T = 45 (an odd L), at
+         T = 960 in 20 ragged chunks of 48 (P = 72, N = 20), and at
+         T = 128 against the sequential ssd_ref: 1e-4 in f32, 5e-2 in
          bf16;
      (d) the f32 SMOKE configs of both against the JAX-made
          src/repro_torch/testdata/{mamba2,zamba2}_smoke_serve_ref.json
@@ -160,7 +163,8 @@ Phases (any failure exits non-zero; nothing is caught):
      plain and SDPA times and factor to SDPA: tc at prefill-1000,
      prefill-4096 and zamba2's prefill-1024 (hd 80), decode at decode-544,
      fma at prefill-1000's shapes in f32; for the SSD scan at mamba2's
-     prefill 4 x 1024 and 1 x 4096 inputs), the card's name and power
+     prefill 4 x 1024 and 1 x 4096 inputs and zamba2's 4 x 1024, with the
+     first kernel's times as `was_ms`), the card's name and power
      limit, and the final `{"ok": true, ...}` line.
 
 It needs a CUDA device and the repository around it: without either it
@@ -229,7 +233,8 @@ OWN_KERNELS = {
     "flash_attention tc": ("tc_kernel",),
     "flash_attention decode": ("dec_kernel",),
     "flash_attention fma": ("fa_kernel",),
-    "ssd_scan": ("ssd_kernel",),
+    "ssd_scan": ("ssd_cb_kernel", "ssd_state_kernel", "ssd_pass_kernel",
+                 "ssd_out_kernel"),
 }
 
 
@@ -1399,7 +1404,7 @@ def serve_path(arch, cfg, params, prefills, prompt, new) -> tuple:
     return gen, launches, routes
 
 
-def ssd_timing(x, dt, A, B_, C_, chunk) -> dict:
+def ssd_timing(x, dt, A, B_, C_, chunk, was_ms=None) -> dict:
     """The SSD kernel and its plain version on one call's inputs: device
     and wall ms, and the bound.  Operations counted as the function needs
     them: per (b, h, chunk) the causal half of the intra product P @ dt*x
@@ -1407,7 +1412,8 @@ def ssd_timing(x, dt, A, B_, C_, chunk) -> dict:
     0) and the state update (2 L N P each); C B^T once per (b, chunk),
     lower triangle (B and C are shared across heads); float32 at the
     CUDA cores' rate.  Bytes: x, dt, A, B, C read and y and the final
-    state written once."""
+    state written once.  ``was_ms``: the first kernel's device time at
+    these shapes (PERF.md's kernel table, row 5)."""
     from repro_torch.kernels import ssd_scan as ssd
     from repro_torch.kernels.ref import ssd_chunked_ref
     Bb, T, H, P = x.shape
@@ -1427,6 +1433,7 @@ def ssd_timing(x, dt, A, B_, C_, chunk) -> dict:
             "ms": own_device_ms("ssd_scan", run),
             "plain_ms": device_ms(plain, reps=5)[0],
             "bound_ms": bnd, "bound_by": by, "library_ms": None,
+            "was_ms": was_ms,
             "wall_ms": wall_ms(run), "plain_wall_ms": wall_ms(plain, reps=5),
             "gflop": flops / 1e9, "mbytes": moved / 1e6}
 
@@ -1594,7 +1601,8 @@ def serve_ssm(dev) -> tuple:
     for (B, T, H, P, N, chunk) in ((1, 128, 2, 32, 16, 32),
                                    (2, 256, 4, 64, 64, 128),
                                    (1, 64, 8, 16, 32, 64),
-                                   (2, 45, 3, 16, 8, 128)):
+                                   (2, 45, 3, 16, 8, 128),
+                                   (2, 960, 3, 72, 20, 48)):
         for dtype in (torch.float32, torch.bfloat16):
             rnd = lambda *shape: torch.randn(shape, generator=g, device=dev)
             x = rnd(B, T, H, P).to(dtype)
@@ -1648,21 +1656,27 @@ def serve_ssm(dev) -> tuple:
             f"equal")
 
     # ---- (e) times ---------------------------------------------------------
-    timing = {name: ssd_timing(*captured[f"mamba2 {name} layer 0"][0])
-              for name in ("prefill-1024", "prefill-4096")}
+    #: the first kernel's device ms at these inputs (PERF.md, row 5)
+    was = {"mamba2 prefill-1024": 1.8499098, "mamba2 prefill-4096": 2.9791805,
+           "zamba2 prefill-1024": None}
+    timing = {name: ssd_timing(*captured[f"{name} layer 0"][0], was_ms=ms)
+              for name, ms in was.items()}
     (q, k, v), kw = captured["zamba2 prefill-1024 attention 0"]
     fa_t = flash_timing(q, k, v, kw)
-    log(f"[ssm] ssd_scan at mamba2 prefill-1024: {timing['prefill-1024']}; "
-        f"at prefill-4096: {timing['prefill-4096']}; flash_attention at "
-        f"zamba2 prefill-1024 (hd 80): {fa_t}")
+    log(f"[ssm] ssd_scan at mamba2 prefill-1024: "
+        f"{timing['mamba2 prefill-1024']}; at prefill-4096: "
+        f"{timing['mamba2 prefill-4096']}; at zamba2 prefill-1024: "
+        f"{timing['zamba2 prefill-1024']}; flash_attention at zamba2 "
+        f"prefill-1024 (hd 80): {fa_t}")
     entry = {"name": "ssd_scan", "route": "cuda",
              "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
              "replaces": "src/repro/kernels/ssd_scan.py:63",
              "launches": sum(ssd_launches.values()),
              "launches_by_path": ssd_launches,
              "max_abs_err": max(ssd_errs.values())}
-    entry.update(timing["prefill-1024"])
-    entry["prefill_4096"] = timing["prefill-4096"]
+    entry.update(timing["mamba2 prefill-1024"])
+    entry["prefill_4096"] = timing["mamba2 prefill-4096"]
+    entry["zamba2_prefill_1024"] = timing["zamba2 prefill-1024"]
     return entry, {"launches_zamba2": fa_launches,
                    "routes_zamba2": fa_routes,
                    "max_abs_err_hd80": max(fa_errs.values()),

@@ -6,7 +6,12 @@ of L = min(chunk, T) steps, the intra-chunk product, the carried state's
 contribution and the state update, all in float32.  :func:`ssd_scan` runs
 :func:`.ref.ssd_chunked_ref` for CPU tensors and launches
 ``csrc/ssd_scan.cu`` for CUDA tensors, or raises; there is no fallback and
-no switch.  Every launch adds one to ``launches["ssd_scan"]``.
+no switch.  The CUDA route is chunk-parallel: four launches (C B^T per
+chunk, each chunk's own state, the state passing, the outputs) through
+scratch that :func:`_plan` sizes and the wrapper allocates, with every
+sum in the plain version's order (float32 FMAs), so that it gives the
+plain version's y and state bit for bit.  Every wrapper call adds one to
+``launches["ssd_scan"]``, whatever number of CUDA launches it makes.
 """
 from __future__ import annotations
 
@@ -21,8 +26,9 @@ from .ref import ssd_chunk_len, ssd_chunked_ref
 #: Launches of the kernel since the last :func:`reset_launches`.
 launches = {"ssd_scan": 0}
 
-#: Largest chunk length and state size the kernel takes (its tiles of
-#: C^T, B^T and P^T live in shared memory: 128 x 132 floats each).
+#: Largest chunk length and state size the kernel takes (C^T and B^T of a
+#: chunk, B and (C B^T)^T sit in a block's shared memory: 128 x 132 floats
+#: each).
 MAX_CHUNK = 128
 MAX_STATE = 128
 
@@ -36,9 +42,23 @@ def reset_launches() -> None:
 class SsdArgs(Structure):
     """Mirrors ``struct SsdArgs`` in ``csrc/ssd_scan.cu``."""
 
-    _fields_ = ([(n, c_void_p) for n in ("x", "dt", "A", "B", "C", "y",
-                                         "state")]
+    _fields_ = ([(n, c_void_p) for n in ("x", "dt", "A", "Bm", "Cm", "y",
+                                         "state", "cbt", "ct", "cs", "st")]
                 + [(n, c_int) for n in ("Bb", "T", "H", "P", "N", "L")])
+
+
+def _plan(Bb: int, T: int, H: int, P: int, N: int, L: int) -> dict:
+    """The CUDA route's float32 scratch, ``{name: shape}`` in the order of
+    ``SsdArgs``: (C B^T)^T and C^T of each (b, chunk), cs of each (b, h,
+    chunk) and each chunk's (N, P) state.  Raises on L or N above what the
+    kernels take."""
+    if L > MAX_CHUNK or N > MAX_STATE:
+        raise ValueError(f"ssd_scan kernel: chunk length {L} (at most "
+                         f"{MAX_CHUNK}), state size {N} (at most "
+                         f"{MAX_STATE})")
+    nc = T // L
+    return {"cbt": (Bb, nc, L * L), "ct": (Bb, nc, N * L),
+            "cs": (Bb, H, nc, L), "st": (Bb, H, nc, N, P)}
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -53,7 +73,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
     T must be a multiple of L = min(chunk, T).  x and B_/C_ are float32 or
     bfloat16; dt and A float32.  The kernel takes contiguous tensors, L
-    and N up to 128."""
+    and N up to 128.  One call adds one to ``launches["ssd_scan"]``."""
     if x.dim() != 4 or dt.dim() != 3 or A.dim() != 1 or B_.dim() != 3 \
             or C_.shape != B_.shape:
         raise ValueError(f"ssd_scan: x {tuple(x.shape)}, dt "
@@ -75,10 +95,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if route(x) == "plain":
         y, state = ssd_chunked_ref(x, dt, A, B_, C_, chunk)
         return y.to(x.dtype), state
-    if L > MAX_CHUNK or N > MAX_STATE:
-        raise ValueError(f"ssd_scan kernel: chunk length {L} (at most "
-                         f"{MAX_CHUNK}), state size {N} (at most "
-                         f"{MAX_STATE})")
+    plan = _plan(Bb, T, H, P, N, L)
     check("ssd_scan x", x, x.dtype)
     check("ssd_scan dt", dt, torch.float32)
     check("ssd_scan A", A, torch.float32)
@@ -86,9 +103,11 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     check("ssd_scan C", C_, B_.dtype)
     y = torch.empty_like(x)
     state = torch.empty((Bb, H, N, P), dtype=torch.float32, device=x.device)
+    scratch = [torch.empty(shape, dtype=torch.float32, device=x.device)
+               for shape in plan.values()]
     args = SsdArgs(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B_.data_ptr(),
                    C_.data_ptr(), y.data_ptr(), state.data_ptr(),
-                   Bb, T, H, P, N, L)
+                   *(t.data_ptr() for t in scratch), Bb, T, H, P, N, L)
     lib = load("ssd_scan", _declare)
     launch(lib.ssd_scan, ctypes.byref(args), int(x.dtype == torch.bfloat16),
            int(B_.dtype == torch.bfloat16), stream(x))

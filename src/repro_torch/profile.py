@@ -116,7 +116,8 @@ OWN_KERNELS = ("apply_kernel", "commit_kernel", "serve_kernel",
                "accept_kernel", "place_kernel", "count_kernel",
                "scan_kernel", "resolve_kernel", "pfc_ingress_kernel",
                "pfc_gate_kernel", "fa_kernel", "tc_kernel", "dec_kernel",
-               "ssd_kernel")
+               "ssd_cb_kernel", "ssd_state_kernel", "ssd_pass_kernel",
+               "ssd_out_kernel")
 
 
 def _fabric_run(name: str):

@@ -102,10 +102,13 @@ def test_kernel_structs_match_their_ctypes_bindings():
     ``kernels/_cuda_bind.py`` (a field out of place passes one pointer for
     another, which no CPU run would show); so does flash attention's
     ``FaArgs`` (every route's arguments, the decode split's scratch and
-    counters among them) its mirror in ``kernels/flash_attention.py``."""
+    counters among them) its mirror in ``kernels/flash_attention.py``, and
+    the SSD scan's ``SsdArgs`` (its four launches' scratch among them) its
+    mirror in ``kernels/ssd_scan.py``."""
     from pathlib import Path
     from repro_torch.kernels import _cuda_bind as B
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ssd
     csrc = Path(B.__file__).parent / "csrc"
     pairs = {"transition": [("TransParams", B.TransParams),
                             ("TransOut", B.TransOut),
@@ -124,7 +127,8 @@ def test_kernel_structs_match_their_ctypes_bindings():
                                ("ServeOut", B.ServeOut),
                                ("PfcParams", B.PfcParams),
                                ("PfcIn", B.PfcIn), ("PfcState", B.PfcPtrs)],
-             "flash_attention": [("FaArgs", fa.FaArgs)]}
+             "flash_attention": [("FaArgs", fa.FaArgs)],
+             "ssd_scan": [("SsdArgs", ssd.SsdArgs)]}
     for source, structs in pairs.items():
         text = (csrc / f"{source}.cu").read_text()
         for name, cls in structs:

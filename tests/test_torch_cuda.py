@@ -460,20 +460,39 @@ def test_llama3_smoke_serve_on_the_card_matches_the_jax_reference(cuda):
 @pytest.mark.parametrize("B,T,H,P,N,chunk", [
     (1, 128, 2, 32, 16, 32), (2, 256, 4, 64, 64, 128), (1, 64, 8, 16, 32, 64),
     (2, 45, 3, 16, 8, 128), (1, 512, 3, 72, 128, 128), (2, 96, 2, 8, 20, 48),
+    (1, 4096, 80, 64, 128, 128), (4, 1024, 80, 64, 64, 128),
+    (2, 960, 3, 72, 20, 48),
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_ssd_scan_kernel_matches_plain(cuda, B, T, H, P, N, chunk, dtype):
     """The CUDA kernel against its plain version on the card: y and the
     final state, 1e-4 in f32 and 5e-2 in bf16 (the reference's own
-    tolerances), on the cases of tests/test_torch_ssd.py and on ragged
-    shapes (P = 72: a partial column slice; N = 20; L = 48)."""
+    tolerances), on the cases of tests/test_torch_ssd.py, at mamba2's
+    (1 x 4096) and zamba2's (4 x 1024, N = 64) prefill shapes and on
+    ragged shapes (P = 72: a partial column slice; N = 20; L = 48; 20
+    chunks of 48)."""
+    _ssd_kernel_vs_plain(cuda, B, T, H, P, N, chunk, dtype, 0.3, 0.0)
+
+
+@pytest.mark.parametrize("B,T,H,P,N,chunk", [(2, 512, 4, 64, 128, 128),
+                                             (2, 960, 3, 72, 20, 48)])
+def test_ssd_scan_kernel_with_decays_that_underflow(cuda, B, T, H, P, N,
+                                                    chunk):
+    """A = -exp(3 + 0.5 z) (~-7 to -55): most decays exp(cs_l - cs_m) and
+    chunk decays exp(cs_L) underflow to 0, at the same tolerance."""
+    _ssd_kernel_vs_plain(cuda, B, T, H, P, N, chunk, "float32", 0.5, 3.0)
+
+
+def _ssd_kernel_vs_plain(cuda, B, T, H, P, N, chunk, dtype, a_scale,
+                         a_shift):
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device=cuda).manual_seed(T * 7 + N)
     dt_ = getattr(torch, dtype)
     x = torch.randn((B, T, H, P), generator=g, device=cuda).to(dt_)
     dt = torch.nn.functional.softplus(torch.randn((B, T, H), generator=g,
                                                   device=cuda))
-    A = -torch.exp(torch.randn((H,), generator=g, device=cuda) * 0.3)
+    A = -torch.exp(torch.randn((H,), generator=g, device=cuda) * a_scale
+                   + a_shift)
     Bm = (torch.randn((B, T, N), generator=g, device=cuda) / N ** 0.5).to(dt_)
     Cm = (torch.randn((B, T, N), generator=g, device=cuda) / N ** 0.5).to(dt_)
     ssd.reset_launches()
