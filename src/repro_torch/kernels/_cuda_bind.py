@@ -4,12 +4,16 @@ The structs below mirror, field for field, the ones declared in
 ``csrc/transition.cu``, ``csrc/transition_roce.cu`` and
 ``csrc/serve_enqueue.cu``; the kernels take
 pointers from ``Tensor.data_ptr()`` and PyTorch's current stream.  Every
-output and scratch buffer is allocated here with ``torch.empty``, after
-the inputs' device, dtype, shape and contiguity are checked.
+output and scratch buffer is allocated here with ``torch.empty`` (the
+one-launch serve/enqueue and PFC kernels cut theirs from one allocation
+per dtype), after the inputs' device, dtype, shape and contiguity are
+checked.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 from ctypes import POINTER, Structure, c_float, c_int, c_void_p
 
 import torch
@@ -20,8 +24,14 @@ from ..core.reliability import REORDER_WINDOW, RelState, SackMsg
 from ..core.transport import FlowState, TxPacket
 from ..numerics import Now, f32, now_plus, recip32
 from ..sim.dcqcn_fab import RoceFlow, RoceMsg
-from .fabric_kernels import (PfcState, PktQ, _check, _launch, _stream,
-                             rank_in_queue)
+from .fabric_kernels import PfcState, PktQ, _check, _launch, _stream
+
+#: Fixed bucket slots of a queue in the serve kernel (``kBucket`` of
+#: ``csrc/serve_enqueue.cu``).
+BUCKET = 16
+#: Counters a warp of the PFC kernel holds: HPT + S and T at most this
+#: (``32 kRows``).
+PFC_WARP_COUNTERS = 128
 
 
 def _ptrs(name, fields):
@@ -82,8 +92,6 @@ class ServeParams(Structure):
 
 _RING_FIELDS = ("flow", "psn", "ts", "probe", "ecn", "ent", "ready", "spine")
 Ring = _ptrs("Ring", _RING_FIELDS)
-Cands = _ptrs("Cands", ("qid", "valid", "flow", "psn", "ts", "probe", "ecn",
-                        "ent", "spine", "bytes"))
 ServeIn = _ptrs("ServeIn", (
     "qhead", "qsize", "dst", "dst_tor", "total_pkts", "tail_b", "tx_psn",
     "probe_psn", "ent_d", "ent_p", "spine_d", "spine_p", "sel",
@@ -92,10 +100,12 @@ ServeIn = _ptrs("ServeIn", (
 
 
 class ServeOut(Structure):
-    _fields_ = [("pop", Ring), ("has", c_void_p), ("ecn_out", c_void_p),
-                ("pop_bytes", c_void_p), ("qhead", c_void_p),
-                ("qsize", c_void_p), ("qsize1", c_void_p), ("surv", c_void_p),
-                ("fault_counts", c_void_p)]
+    _fields_ = [("pop", Ring)] + [(n, c_void_p) for n in (
+        "has", "ecn_out", "pop_bytes", "qhead", "qsize", "surv", "cand_qid",
+        "accept", "cand_bytes", "counts")]
+
+
+ServeScratch = _ptrs("ServeScratch", ("cnt", "fixed", "over", "stage"))
 
 
 class PfcParams(Structure):
@@ -133,19 +143,16 @@ def declare(name: str, lib: ctypes.CDLL) -> None:
             P(RoceScratch), c_void_p]
         lib.roce_transition.restype = c_int
     elif name == "serve_enqueue":
-        lib.se_serve.argtypes = [P(ServeParams), P(Ring), P(ServeIn),
-                                 P(ServeOut), P(Cands), c_void_p]
-        lib.se_accept.argtypes = [P(ServeParams), P(Cands), c_void_p,
-                                  c_void_p, c_void_p, c_void_p, c_void_p]
-        lib.se_place.argtypes = [P(ServeParams), P(Cands), c_void_p,
-                                 c_void_p, c_void_p, c_void_p, P(Ring),
-                                 c_void_p, c_void_p]
+        lib.se_serve_enqueue.argtypes = [P(ServeParams), P(Ring), P(ServeIn),
+                                         P(ServeOut), P(ServeScratch),
+                                         c_void_p]
         lib.se_pfc.argtypes = [P(PfcParams), P(PfcIn), P(PfcPtrs),
                                P(PfcPtrs), c_void_p]
         lib.se_draw.argtypes = [c_int, c_void_p, c_void_p, c_void_p,
                                 c_void_p, c_int, c_void_p]
-        for fn in (lib.se_serve, lib.se_accept, lib.se_place, lib.se_pfc,
-                   lib.se_draw):
+        lib.se_floor.argtypes = [c_int, c_int, c_void_p]
+        for fn in (lib.se_serve_enqueue, lib.se_pfc, lib.se_draw,
+                   lib.se_floor):
             fn.restype = c_int
     else:
         raise ValueError(name)
@@ -314,12 +321,35 @@ def transition_roce(lib, flows: RoceFlow, due: RoceMsg, sendable, src,
     return res if act_idx is None else res + (done,)
 
 
+@functools.lru_cache(maxsize=64)
+def _layout(spec: tuple) -> tuple:
+    """``spec``'s pieces grouped by dtype: ``((dtype, total, indices,
+    sizes, shapes), ...)``."""
+    groups = {}
+    for i, (dt, shape) in enumerate(spec):
+        groups.setdefault(dt, []).append((i, math.prod(shape), shape))
+    return tuple((dt, sum(n for _, n, _ in g), tuple(i for i, _, _ in g),
+                  [n for _, n, _ in g], tuple(sh for _, _, sh in g))
+                 for dt, g in groups.items())
+
+
+def _carve(dev, spec):
+    """Tensors of ``spec``'s ``(dtype, shape)`` pairs, cut from one
+    allocation per dtype (``split``: one call for all the views)."""
+    out = [None] * len(spec)
+    for dt, total, idx, sizes, shapes in _layout(tuple(spec)):
+        pieces = torch.empty((total,), dtype=dt, device=dev).split(sizes)
+        for i, piece, shape in zip(idx, pieces, shapes):
+            out[i] = piece if len(shape) == 1 else piece.view(shape)
+    return out
+
+
 def serve_enqueue(lib, q, qhead, qsize, dst, dst_tor, total_pkts, tail_b,
                   tx_psn, probe_psn, ent_d, ent_p, spine, spine_p, sel,
                   probe_valid, inj_q, inj_qp, t: int, d, paused_row=None,
                   row_down=None, row_duty=None, row_cor_p=None, fseed=None,
                   lane_flow=None):
-    """Launch the serve/enqueue chain; same contract as
+    """Launch ``se_serve_enqueue`` (one launch); same contract as
     ``fabric_kernels.serve_enqueue_plain`` (ring updated in place)."""
     T, S, NH, N, cap = d.n_tor, d.n_spine, d.n_hosts, d.n_flows, d.cap
     TS = T * S
@@ -358,17 +388,15 @@ def serve_enqueue(lib, q, qhead, qsize, dst, dst_tor, total_pkts, tail_b,
                          f"row_cor_p, got {fseed!r}")
     faulted = any(x is not None for x in (row_down, row_duty, row_cor_p))
 
-    pop = PktQ(*[torch.empty((Q,), dtype=dt, device=dev) for dt in ring_dt])
-    has = torch.empty((Q,), dtype=bt, device=dev)
-    ecn_out = torch.empty((Q,), dtype=bt, device=dev)
-    pop_bytes = torch.empty((Q,), dtype=f32t, device=dev)
-    qhead_o, qsize_o, qsize1 = [torch.empty((Q + 1,), dtype=i32, device=dev)
-                                for _ in range(3)]
-    surv = torch.empty((Q,), dtype=bt, device=dev) if faulted else has
-    counts = torch.empty((2,), dtype=i32, device=dev) if faulted else None
-    cdt = (i32, bt, i32, i32, f32t, bt, bt, i32, i32, f32t)
-    cands = [torch.empty((M,), dtype=dt, device=dev) for dt in cdt]
-    cand_qid, cand_valid, cand_bytes = cands[0], cands[1], cands[-1]
+    (pflow, ppsn, pent, pready, pspine, qhead_o, qsize_o, cand_qid, counts,
+     pts, pop_bytes, cand_bytes, cnt, fixed, over, stage, pprobe, pecn, has,
+     ecn_out, accept, surv) = _carve(
+        dev, [(i32, (Q,))] * 5 + [(i32, (Q + 1,))] * 2
+        + [(i32, (M,)), (i32, (3,)), (f32t, (Q,)), (f32t, (Q,)),
+           (f32t, (M,)), (i32, (Q + 3,)), (i32, ((Q + 1) * BUCKET,)),
+           (i32, (M,)), (i32, (2 * M,))]
+        + [(bt, (Q,))] * 4 + [(bt, (M,)), (bt, (Q if faulted else 0,))])
+    pop = PktQ(pflow, ppsn, pts, pprobe, pecn, pent, pready, pspine)
     kmin, kmax = d.kmin_p, d.kmax_p
     prm = ServeParams(
         t=t, Q=Q, TS=TS, T=T, S=S, N=N, L=L, M=M, cap=cap, K=d.K,
@@ -378,33 +406,23 @@ def serve_enqueue(lib, q, qhead, qsize, dst, dst_tor, total_pkts, tail_b,
         krecip=recip32(max(kmax - kmin, 1e-9)),
         t_dither=f32(f32(t) * f32(12.9898)), mtu=f32(d.mtu_bytes),
         ack_bytes=f32(64))
-    ring = _struct(Ring, q)
-    c = _struct(Cands, cands)
-    stream = _stream(qhead)
-    _launch(lib.se_serve, ctypes.byref(prm), ctypes.byref(ring),
-          ctypes.byref(_struct(ServeIn, (
-              qhead, qsize, dst, dst_tor, total_pkts, tail_b, tx_psn,
-              probe_psn, ent_d, ent_p, spine, spine_p, sel, probe_valid,
-              inj_q, inj_qp, paused_row, row_down, row_duty, row_cor_p,
-              lane_flow))),
-          ctypes.byref(ServeOut(_struct(Ring, pop), _p(has), _p(ecn_out),
-                                _p(pop_bytes), _p(qhead_o), _p(qsize_o),
-                                _p(qsize1), _p(surv if faulted else None),
-                                _p(counts))),
-          ctypes.byref(c), stream)
-
-    rank_v = rank_in_queue(cand_qid, cand_valid, Q)
-    accept = torch.empty((M,), dtype=bt, device=dev)
-    drops = torch.empty((), dtype=i32, device=dev)
-    _launch(lib.se_accept, ctypes.byref(prm), ctypes.byref(c), _p(rank_v),
-          _p(qsize1), _p(accept), _p(drops), stream)
-    rank_a = rank_in_queue(cand_qid, accept, Q)
-    _launch(lib.se_place, ctypes.byref(prm), ctypes.byref(c), _p(accept),
-          _p(rank_a), _p(qhead_o), _p(qsize1), ctypes.byref(ring),
-          _p(qsize_o), stream)
-    bh_add, cor_add = (counts[0], counts[1]) if faulted else (None, None)
+    _launch(lib.se_serve_enqueue, ctypes.byref(prm),
+            ctypes.byref(_struct(Ring, q)),
+            ctypes.byref(_struct(ServeIn, (
+                qhead, qsize, dst, dst_tor, total_pkts, tail_b, tx_psn,
+                probe_psn, ent_d, ent_p, spine, spine_p, sel, probe_valid,
+                inj_q, inj_qp, paused_row, row_down, row_duty, row_cor_p,
+                lane_flow))),
+            ctypes.byref(ServeOut(
+                _struct(Ring, pop), *[_p(x) for x in (
+                    has, ecn_out, pop_bytes, qhead_o, qsize_o,
+                    surv if faulted else None, cand_qid, accept, cand_bytes,
+                    counts)])),
+            ctypes.byref(_struct(ServeScratch, (cnt, fixed, over, stage))),
+            _stream(qhead))
+    bh_add, cor_add = (counts[1], counts[2]) if faulted else (None, None)
     return (qhead_o, qsize_o, pop, has, ecn_out, pop_bytes, cand_qid, accept,
-            drops, cand_bytes, surv, bh_add, cor_add)
+            counts[0], cand_bytes, surv if faulted else has, bh_add, cor_add)
 
 
 def fault_draw(lib, seed: int, row, t, psn):
@@ -422,10 +440,19 @@ def fault_draw(lib, seed: int, row, t, psn):
     return out
 
 
+def launch_floor(lib, device, blocks: int = 0, n_sync: int = 0) -> None:
+    """One launch of nothing, for the card's launch floor: an empty kernel
+    of one warp (``blocks`` 0), or the one-launch kernels' persistent
+    launch of ``blocks`` blocks that does ``n_sync`` grid-wide barriers and
+    nothing else.  Not a wrapper: it counts no launch."""
+    stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    _launch(lib.se_floor, blocks, n_sync, stream)
+
+
 def pfc_account(lib, st: PfcState, has, pop, pop_bytes, cand_qid,
                 cand_bytes, accept, q, qhead, qsize0, qsize, t: int, fl, d,
                 lanes=None):
-    """Launch ``se_pfc``; same contract as
+    """Launch ``se_pfc`` (one launch); same contract as
     ``fabric_kernels.pfc_account_plain``."""
     T, S, NH, HPT = d.n_tor, d.n_spine, d.n_hosts, d.hosts_per_tor
     TS = T * S
@@ -466,7 +493,11 @@ def pfc_account(lib, st: PfcState, has, pop, pop_bytes, cand_qid,
     if M != 2 * TS + 2 * L:
         raise ValueError(f"cand_qid: expected {2 * TS + 2 * L} candidates, "
                          f"got {M}")
-    out = PfcState(*[torch.empty_like(x) for x in st])
+    if HPT + S > PFC_WARP_COUNTERS or T > PFC_WARP_COUNTERS:
+        raise ValueError(f"pfc_account: a ToR's hosts and spines ({HPT} + "
+                         f"{S}) and the ToRs ({T}) must each be at most "
+                         f"{PFC_WARP_COUNTERS}, the counters one warp holds")
+    out = PfcState(*_carve(dev, [(x.dtype, tuple(x.shape)) for x in st]))
     prm = PfcParams(Q=Q, TS=TS, T=T, S=S, NH=NH, HPT=HPT, N=N, L=L, cap=cap,
                     PD=d.PD, line_row=t % d.PD if d.PD > 0 else 0,
                     buf=f32(d.buffer_bytes), alpha=f32(d.alpha),

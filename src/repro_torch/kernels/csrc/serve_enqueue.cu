@@ -1,5 +1,5 @@
 // Ring service + two-pass enqueue of the fabric tick, with its fault
-// branches, and the tick's PFC stage.
+// branches, and the tick's PFC stage: one launch each.
 //
 // Replaces: repro/kernels/fabric_kernels.py serve_enqueue_kernel (:184)
 // -> fused_stage_kernel (Pallas, pallas_call at :176), running
@@ -12,12 +12,33 @@
 // ~100 KB): a few hundred KB, well under a microsecond at 3.35 TB/s.  The
 // TPU kernel kept the whole ring in VMEM; here the ring stays in device
 // memory and is touched only at the head slots and the placed slots, so
-// the kernel moves O(Q + M) bytes, never the O(Q x cap) ring.  The chain
-// is three short launches of its own (serve + candidate build,
-// drop/accept, ring placement) around the two rank passes of the chunked
-// ranker (rank.cu), with no host sync.  The reference counts all pairs
-// for M <= 256 candidates instead; both give the same rank wherever the
-// flag is set, and only flagged entries are read.
+// the kernel moves O(Q + M) bytes, never the O(Q x cap) ring.  Every
+// step is O(1) work a thread, so the cost is latency: the launch,
+// dependent loads and grid-wide barriers, never bandwidth.
+//
+// Design: one cooperative launch (every block resident), grid-stride
+// loops, two grid-wide barriers:
+//   1. serve each row and build each candidate (as the reference does);
+//      zero the per-queue counts; a valid candidate is flagged in accept;
+//   2. each valid candidate takes a place in its queue's bucket from an
+//      integer atomic, in no particular order: the first kBucket of a
+//      queue in its fixed slots, any more in one overflow list;
+//   3. one thread a queue walks its bucket in candidate order: occupancy
+//      qsize1 + rank_v, the drop decision, rank_a among the accepted (not
+//      derived from rank_v: a probe accepted past a dropped data packet
+//      breaks the prefix), the ring slot and the new qsize.  A bucket of
+//      up to kSmall is sorted in the thread's registers; a larger one is
+//      taken by the whole warp, which gathers it (its fixed slots, then
+//      its entries of the overflow list), sorts it by index (each
+//      element's rank among the bucket, 32 at a time through shuffles:
+//      O(k^2 / 32), slow only for a bucket of hundreds) and walks it 32
+//      candidates at a time, rank_a from a ballot.
+// The result depends on nothing the atomics ordered.  The drop and fault
+// counters are zeroed inside (block 0, before the first barrier) and
+// summed once per block at the end; no memset is left.  The reference
+// counts all pairs for M <= 256 candidates and ranks with its chunked
+// ranker above; every path gives the same rank wherever the flag is set,
+// and only flagged entries are read.
 //
 // Under PFC a paused row (paused_row, the effective pause mask; null on
 // lossy queues) pops nothing, and every candidate's wire bytes go out in
@@ -38,19 +59,34 @@
 // integers, the same stream the reference computes on two 32-bit limbs
 // (repro/sim/faults.py:385-451).  Only the survivors become fabric
 // advances (surv); the two counts are integer atomics, exact in any
-// order.  Still one thread per row: the draw is ~40 integer operations,
-// evaluated only for a surviving data packet on a corrupting row.  The PFC stage (se_pfc) is the reference tick's inline
-// stage 6b (repro/sim/fabric.py:1741-1841), which has no Pallas kernel:
-// one thread per ingress counter and per queue applies that counter's
-// dequeues and accepted enqueues in the reference's scatter order
-// (sequential float adds, never float atomics), then one thread per port
-// sums its switch's queue bytes into the dynamic threshold and steps the
-// pause gate.  Bound: bytes, O(ports x (S + HPT) + Q) reads a tick.
-// Under the active set a host's injections are its flows' lanes: the
-// host's thread walks its flows (by_src, ascending) and finds each one's
-// lane by binary search in the ascending slate, so it still adds them in
-// lane order, as the reference's scatter does.
+// order.
+//
+// The PFC stage (se_pfc) is the reference tick's inline stage 6b
+// (repro/sim/fabric.py:1741-1841), which has no Pallas kernel; bound:
+// bytes, O(ports x (S + HPT) + Q) reads a tick.  One cooperative launch,
+// one grid-wide barrier:
+//   1. one warp a ToR applies its uplink and host-down rows' dequeues to
+//      the ingress counters of its hosts and of its spine downlinks, one
+//      warp a spine its downlink rows' to the ToR uplinks into it: each
+//      lane loads up to kRows rows, and each row's term goes to the
+//      counter's owning lane through shuffles, in row order, into that
+//      lane's registers; each host's lane then adds its lanes' data
+//      injections, then its probes, in lane order (under the active set
+//      each flow's lane is found by a binary search of the slate held in
+//      shared memory), their loads issued with the rows'; one thread a
+//      queue adds the accepted bytes onto qbytes in candidate order (a
+//      warp where a queue took two or more);
+//   2. one warp a switch sums its occupancy once, in the plain version's
+//      order, and steps the pause gate of each of its ports.
+// Every counter adds its terms in the order of the reference's scatters:
+// dequeues by row, accepted advances, data injections, probes (ROADMAP
+// C14); sequential float adds, never float atomics or a tree.  A warp
+// holds at most kRows x 32 counters (HPT + S and T at most 128).
+#include <cooperative_groups.h>
+
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 struct ServeParams {
   int t, Q, TS, T, S, N, L, M, cap, K;
@@ -68,19 +104,6 @@ struct Ring {  // [Q+1, cap] each
   int* ent;
   int* ready;
   int* spine;
-};
-
-struct Cands {  // [M] each (ready is t + 1 + K for all)
-  int* qid;
-  bool* valid;
-  int* flow;
-  int* psn;
-  float* ts;
-  bool* probe;
-  bool* ecn;
-  int* ent;
-  int* spine;
-  float* bytes;  // wire bytes
 };
 
 struct ServeIn {
@@ -108,18 +131,49 @@ struct ServeIn {
 };
 
 struct ServeOut {
-  Ring pop;          // [Q] each
-  bool* has;         // [Q]
-  bool* ecn_out;     // [Q]
-  float* pop_bytes;  // [Q]
-  int* qhead;        // [Q+1]
-  int* qsize;        // [Q+1] (qsize after serve; placement adds to it)
-  int* qsize1;       // [Q+1] scratch: qsize after serve
-  bool* surv;        // [Q] the popped packets that go on; null w/o faults
-  int* fault_counts;  // [2] blackholed, corrupted; null without faults
+  Ring pop;           // [Q] each
+  bool* has;          // [Q]
+  bool* ecn_out;      // [Q]
+  float* pop_bytes;   // [Q]
+  int* qhead;         // [Q+1]
+  int* qsize;         // [Q+1]
+  bool* surv;         // [Q] the popped packets that go on; null w/o faults
+  int* cand_qid;      // [M]
+  bool* accept;       // [M]
+  float* cand_bytes;  // [M] wire bytes
+  int* counts;        // [3] drops, blackholed, corrupted
+};
+
+struct ServeScratch {  // one int32 allocation
+  int* cnt;    // [Q+3] valid candidates of each queue; [Q+1] the overflow
+               // list's length, [Q+2] the staging area's
+  int* fixed;  // [(Q+1) kBucket] each queue's first kBucket candidates
+  int* over;   // [M] the rest, of any queue
+  int* stage;  // [2M] a large bucket gathered, then in candidate order
 };
 
 namespace {
+
+constexpr int kThreads = 256;
+constexpr int kBucket = 16;  // fixed bucket slots of a queue (<= 32)
+constexpr int kSmall = 8;    // a bucket one thread walks alone
+constexpr int kRows = 4;     // rows and counters a lane of a PFC warp holds
+constexpr int kFlowRows = 8; // flows a lane of a ToR warp loads at once
+
+__device__ __forceinline__ void grid_sync() { cg::this_grid().sync(); }
+
+// Loads of what other threads wrote before the last barrier: from L2.
+__device__ __forceinline__ int ld_i(const int* p) { return __ldcg(p); }
+__device__ __forceinline__ float ld_f(const float* p) { return __ldcg(p); }
+__device__ __forceinline__ bool ld_b(const bool* p) {
+  return __ldcg(reinterpret_cast<const unsigned char*>(p)) != 0;
+}
+
+__device__ __forceinline__ unsigned lanemask_lt() {
+  unsigned m;
+  asm("mov.u32 %0, %%lanemask_lt;" : "=r"(m));
+  return m;
+}
 
 __device__ __forceinline__ float wire_bytes(int flow, int psn, bool probe,
                                             const ServeIn& in,
@@ -154,129 +208,306 @@ __device__ __forceinline__ float fault_u01(int seed, int row, int t,
   return (float)(unsigned int)(s >> 40) * 0x1p-24f;
 }
 
-__global__ void serve_kernel(ServeParams p, Ring ring, ServeIn in,
-                             ServeOut out, Cands c) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i == p.Q) {  // trash row resets
-    out.qhead[p.Q] = 0;
-    out.qsize[p.Q] = 0;
-    out.qsize1[p.Q] = 0;
+// Phase 1 for row i (i < Q): pop the head, mark, apply the fault rows;
+// the row's fabric advance is candidate i (i < 2 TS).  qsize holds qsize1
+// (after service) until the walk adds the accepted.
+__device__ void serve_row(int i, const ServeParams& p, const Ring& ring,
+                          const ServeIn& in, const ServeOut& out,
+                          int* s_cnt) {
+  int qs = in.qsize[i];
+  int h = floor_mod(in.qhead[i], p.cap);
+  size_t slot = (size_t)i * p.cap + h;
+  int flow = ring.flow[slot], psn = ring.psn[slot];
+  float ts = ring.ts[slot];
+  bool probe = ring.probe[slot], ecn = ring.ecn[slot];
+  int ent = ring.ent[slot], ready = ring.ready[slot];
+  int spine = ring.spine[slot];
+  bool has = (qs > 0) && (ready <= p.t) &&
+             !(in.paused_row != nullptr && in.paused_row[i]) &&
+             (in.row_duty == nullptr || in.row_duty[i]);
+  float residual = (float)(qs - 1 > 0 ? qs - 1 : 0);
+  float frac = fminf(fmaxf((residual - p.kmin) * p.krecip, 0.0f), 1.0f);
+  float arg = p.t_dither + (float)i * 78.233f;  // no contraction
+  float dither = fabsf(glibc_sinf(arg));
+  bool mark = has && !probe && (frac > dither * 0.999f);
+  bool ecn_o = ecn || mark;
+  out.pop.flow[i] = flow;
+  out.pop.psn[i] = psn;
+  out.pop.ts[i] = ts;
+  out.pop.probe[i] = probe;
+  out.pop.ecn[i] = ecn;
+  out.pop.ent[i] = ent;
+  out.pop.ready[i] = ready;
+  out.pop.spine[i] = spine;
+  out.has[i] = has;
+  out.ecn_out[i] = ecn_o;
+  float bytes = wire_bytes(flow, psn, probe, in, p);
+  out.pop_bytes[i] = bytes;
+  out.qhead[i] = in.qhead[i] + (int)has;
+  out.qsize[i] = qs - (int)has;
+  bool surv = has;
+  if (in.row_down != nullptr && has && in.row_down[i]) {
+    surv = false;
+    atomicAdd(&s_cnt[1], 1);
   }
-  if (i < p.Q) {
-    int qs = in.qsize[i];
-    int h = floor_mod(in.qhead[i], p.cap);
-    size_t slot = (size_t)i * p.cap + h;
-    int flow = ring.flow[slot], psn = ring.psn[slot];
-    float ts = ring.ts[slot];
-    bool probe = ring.probe[slot], ecn = ring.ecn[slot];
-    int ent = ring.ent[slot], ready = ring.ready[slot];
-    int spine = ring.spine[slot];
-    bool has = (qs > 0) && (ready <= p.t) &&
-               !(in.paused_row != nullptr && in.paused_row[i]) &&
-               (in.row_duty == nullptr || in.row_duty[i]);
-    float residual = (float)(qs - 1 > 0 ? qs - 1 : 0);
-    float frac = fminf(fmaxf((residual - p.kmin) * p.krecip, 0.0f), 1.0f);
-    float arg = p.t_dither + (float)i * 78.233f;  // no contraction
-    float dither = fabsf(glibc_sinf(arg));
-    bool mark = has && !probe && (frac > dither * 0.999f);
-    bool ecn_o = ecn || mark;
-    out.pop.flow[i] = flow;
-    out.pop.psn[i] = psn;
-    out.pop.ts[i] = ts;
-    out.pop.probe[i] = probe;
-    out.pop.ecn[i] = ecn;
-    out.pop.ent[i] = ent;
-    out.pop.ready[i] = ready;
-    out.pop.spine[i] = spine;
-    out.has[i] = has;
-    out.ecn_out[i] = ecn_o;
-    float bytes = wire_bytes(flow, psn, probe, in, p);
-    out.pop_bytes[i] = bytes;
-    out.qhead[i] = in.qhead[i] + (int)has;
-    out.qsize[i] = qs - (int)has;
-    out.qsize1[i] = qs - (int)has;
-    bool surv = has;
-    if (in.row_down != nullptr && has && in.row_down[i]) {
-      surv = false;
-      atomicAdd(&out.fault_counts[0], 1);
-    }
-    if (in.row_cor_p != nullptr && surv && !probe &&
-        fault_u01(p.fseed, i, p.t, psn) < in.row_cor_p[i]) {
-      surv = false;
-      atomicAdd(&out.fault_counts[1], 1);
-    }
-    if (out.surv != nullptr) out.surv[i] = surv;
-    if (i < 2 * p.TS) {  // fabric advance: tor_up -> spine_down -> host_down
-      int f = clampi(flow, 0, p.N - 1);
-      bool up = i < p.TS;
-      int spine_row = up ? i % p.S : (i - p.TS) / p.T;
-      c.qid[i] = up ? p.TS + spine_row * p.T + in.dst_tor[f]
-                    : 2 * p.TS + in.dst[f];
-      c.valid[i] = surv;
-      c.flow[i] = flow;
-      c.psn[i] = psn;
-      c.ts[i] = ts;
-      c.probe[i] = probe;
-      c.ecn[i] = ecn_o;
-      c.ent[i] = ent;
-      c.spine[i] = spine;
-      c.bytes[i] = bytes;
-    }
+  if (in.row_cor_p != nullptr && surv && !probe &&
+      fault_u01(p.fseed, i, p.t, psn) < in.row_cor_p[i]) {
+    surv = false;
+    atomicAdd(&s_cnt[2], 1);
   }
-  if (i >= 2 * p.TS && i < p.M) {  // NIC injections: data lanes, then probes
-    int l = i - 2 * p.TS;
-    bool is_probe = l >= p.L;
-    if (is_probe) l -= p.L;
-    int flow = in.lane_flow != nullptr ? in.lane_flow[l] : l;
-    int psn = is_probe ? in.probe_psn[l] : in.tx_psn[l];
-    c.qid[i] = is_probe ? in.inj_qp[l] : in.inj_q[l];
-    c.valid[i] = is_probe ? in.probe_valid[l] : in.sel[l];
-    c.flow[i] = flow;
-    c.psn[i] = psn;
-    c.ts[i] = p.now;
-    c.probe[i] = is_probe;
-    c.ecn[i] = false;
-    c.ent[i] = is_probe ? in.ent_p[l] : in.ent_d[l];
-    c.spine[i] = is_probe ? in.spine_p[l] : in.spine_d[l];
-    c.bytes[i] = wire_bytes(flow, psn, is_probe, in, p);
+  if (out.surv != nullptr) out.surv[i] = surv;
+  if (i < 2 * p.TS) {  // fabric advance: tor_up -> spine_down -> host_down
+    int f = clampi(flow, 0, p.N - 1);
+    bool up = i < p.TS;
+    int spine_row = up ? i % p.S : (i - p.TS) / p.T;
+    out.cand_qid[i] = up ? p.TS + spine_row * p.T + in.dst_tor[f]
+                         : 2 * p.TS + in.dst[f];
+    out.accept[i] = surv;
+    out.cand_bytes[i] = bytes;
   }
 }
 
-__global__ void accept_kernel(ServeParams p, Cands c,
-                              const int* __restrict__ rank_v,
-                              const int* __restrict__ qsize1,
-                              bool* __restrict__ accept,
-                              int* __restrict__ drops) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= p.M) return;
-  bool valid = c.valid[i];
-  int occ = qsize1[c.qid[i]] + rank_v[i];
-  bool dropped = valid && ((!c.probe[i] && occ >= p.data_drop) ||
-                           occ >= p.hard);
-  accept[i] = valid && !dropped;
-  if (dropped) atomicAdd(drops, 1);
+// Phase 1 for NIC injection candidate i (2 TS <= i < M): data lanes, then
+// probes.
+__device__ void inject(int i, const ServeParams& p, const ServeIn& in,
+                       const ServeOut& out) {
+  int l = i - 2 * p.TS;
+  bool is_probe = l >= p.L;
+  if (is_probe) l -= p.L;
+  int flow = in.lane_flow != nullptr ? in.lane_flow[l] : l;
+  int psn = is_probe ? in.probe_psn[l] : in.tx_psn[l];
+  out.cand_qid[i] = is_probe ? in.inj_qp[l] : in.inj_q[l];
+  out.accept[i] = is_probe ? in.probe_valid[l] : in.sel[l];
+  out.cand_bytes[i] = wire_bytes(flow, psn, is_probe, in, p);
 }
 
-__global__ void place_kernel(ServeParams p, Cands c,
-                             const bool* __restrict__ accept,
-                             const int* __restrict__ rank_a,
-                             const int* __restrict__ qhead1,
-                             const int* __restrict__ qsize1, Ring ring,
-                             int* __restrict__ qsize) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= p.M || !accept[i]) return;
-  int q = c.qid[i];
-  int pos = floor_mod(qhead1[q] + qsize1[q] + rank_a[i], p.cap);
-  size_t slot = (size_t)q * p.cap + pos;
-  ring.flow[slot] = c.flow[i];
-  ring.psn[slot] = c.psn[i];
-  ring.ts[slot] = c.ts[i];
-  ring.probe[slot] = c.probe[i];
-  ring.ecn[slot] = c.ecn[i];
-  ring.ent[slot] = c.ent[i];
-  ring.ready[slot] = p.t + 1 + p.K;
-  ring.spine[slot] = c.spine[i];
-  atomicAdd(&qsize[q], 1);
+// A candidate's ring fields (ready is t + 1 + K for all).
+struct Fields {
+  int flow, psn, ent, spine;
+  float ts;
+  bool probe, ecn;
+};
+
+__device__ __forceinline__ Fields fields_of(int e, const ServeParams& p,
+                                            const ServeIn& in,
+                                            const ServeOut& out) {
+  Fields c;
+  if (e < 2 * p.TS) {  // a fabric advance: the popped packet
+    c.flow = ld_i(out.pop.flow + e);
+    c.psn = ld_i(out.pop.psn + e);
+    c.ts = ld_f(out.pop.ts + e);
+    c.probe = ld_b(out.pop.probe + e);
+    c.ecn = ld_b(out.ecn_out + e);
+    c.ent = ld_i(out.pop.ent + e);
+    c.spine = ld_i(out.pop.spine + e);
+  } else {  // a NIC injection of lane l
+    int l = e - 2 * p.TS;
+    c.probe = l >= p.L;
+    if (c.probe) l -= p.L;
+    c.flow = in.lane_flow != nullptr ? in.lane_flow[l] : l;
+    c.psn = c.probe ? in.probe_psn[l] : in.tx_psn[l];
+    c.ts = p.now;
+    c.ecn = false;
+    c.ent = c.probe ? in.ent_p[l] : in.ent_d[l];
+    c.spine = c.probe ? in.spine_p[l] : in.spine_d[l];
+  }
+  return c;
+}
+
+__device__ __forceinline__ void place(const Fields& c, int q, int pos,
+                                      const ServeParams& p,
+                                      const Ring& ring) {
+  size_t s = (size_t)q * p.cap + pos;
+  ring.flow[s] = c.flow;
+  ring.psn[s] = c.psn;
+  ring.ts[s] = c.ts;
+  ring.probe[s] = c.probe;
+  ring.ecn[s] = c.ecn;
+  ring.ent[s] = c.ent;
+  ring.ready[s] = p.t + 1 + p.K;
+  ring.spine[s] = c.spine;
+}
+
+// One thread walks row q's bucket of 1 <= k <= kSmall candidates (its
+// fixed slots fx): sorted by index in registers (odd-even transposition),
+// every candidate's fields loaded at once, then the decisions and the
+// ring writes in candidate order.  Returns the accepted count.
+__device__ int walk_small(int q, const int* fx, int k, int qs1, int qh1,
+                          const ServeParams& p, const Ring& ring,
+                          const ServeIn& in, const ServeOut& out,
+                          int* s_cnt) {
+  int e[kSmall];
+#pragma unroll
+  for (int u = 0; u < kSmall; ++u) e[u] = u < k ? ld_i(fx + u) : 0x7fffffff;
+#pragma unroll
+  for (int i = 0; i < kSmall; ++i) {
+#pragma unroll
+    for (int u = i & 1; u + 1 < kSmall; u += 2) {
+      const int a = e[u], b = e[u + 1];
+      e[u] = min(a, b);
+      e[u + 1] = max(a, b);
+    }
+  }
+  Fields c[kSmall];
+#pragma unroll
+  for (int u = 0; u < kSmall; ++u)
+    if (u < k) c[u] = fields_of(e[u], p, in, out);
+  int n_acc = 0, drops = 0;
+#pragma unroll
+  for (int u = 0; u < kSmall; ++u) {  // rank_v = u, rank_a = n_acc
+    if (u < k) {
+      const bool dropped =
+          (!c[u].probe && qs1 + u >= p.data_drop) || qs1 + u >= p.hard;
+      out.accept[e[u]] = !dropped;
+      if (dropped) {
+        ++drops;
+      } else {
+        place(c[u], q, floor_mod(qh1 + qs1 + n_acc, p.cap), p, ring);
+        ++n_acc;
+      }
+    }
+  }
+  if (drops) atomicAdd(&s_cnt[0], drops);
+  return n_acc;
+}
+
+// The whole warp walks row q's bucket of k > kSmall candidates: gathered
+// into a staging area (its fixed slots, then its entries of the overflow
+// list), sorted by index into the next k entries, then walked 32 at a
+// time in that order.  Returns the accepted count (on every lane).
+__device__ int walk_bucket(int q, int k, int qs1, int qh1,
+                           const ServeParams& p, const Ring& ring,
+                           const ServeIn& in, const ServeOut& out,
+                           const ServeScratch& sc, int* s_cnt) {
+  const int lane = threadIdx.x & 31;
+  int base = lane == 0 ? atomicAdd(&sc.cnt[p.Q + 2], 2 * k) : 0;
+  base = __shfl_sync(FULL_MASK, base, 0);
+  int* buf = sc.stage + base;
+  int* srt = buf + k;
+  const int nf = k < kBucket ? k : kBucket;
+  if (lane < nf) buf[lane] = ld_i(sc.fixed + (size_t)q * kBucket + lane);
+  if (k > kBucket) {
+    const int n_over = ld_i(sc.cnt + p.Q + 1);
+    int at = nf;
+    for (int c = 0; c < n_over; c += 32) {
+      int e = c + lane < n_over ? ld_i(sc.over + c + lane) : -1;
+      bool mine = e >= 0 && ld_i(out.cand_qid + e) == q;
+      unsigned bal = __ballot_sync(FULL_MASK, mine);
+      if (mine) buf[at + __popc(bal & lanemask_lt())] = e;
+      at += __popc(bal);
+    }
+  }
+  __syncwarp();
+  for (int c0 = 0; c0 < k; c0 += 32) {  // each element's rank = its place
+    int j = c0 + lane;
+    int x = j < k ? ld_i(buf + j) : 0x7fffffff;
+    int pos = 0;
+    for (int c1 = 0; c1 < k; c1 += 32) {
+      int y = c1 == c0 ? x : (c1 + lane < k ? ld_i(buf + c1 + lane)
+                                            : 0x7fffffff);
+      int m = k - c1 < 32 ? k - c1 : 32;
+      for (int s = 0; s < m; ++s) pos += __shfl_sync(FULL_MASK, y, s) < x;
+    }
+    if (j < k) srt[pos] = x;
+  }
+  __syncwarp();
+  int n_acc = 0, drops = 0;
+  for (int c0 = 0; c0 < k; c0 += 32) {
+    int j = c0 + lane;
+    bool ok = j < k;
+    int e = ok ? ld_i(srt + j) : 0;
+    Fields f;
+    if (ok) f = fields_of(e, p, in, out);
+    int occ = qs1 + j;
+    bool dropped = ok && ((!f.probe && occ >= p.data_drop) || occ >= p.hard);
+    bool acc = ok && !dropped;
+    unsigned bal = __ballot_sync(FULL_MASK, acc);
+    if (ok) {
+      out.accept[e] = acc;
+      if (acc) {
+        int ra = n_acc + __popc(bal & lanemask_lt());
+        place(f, q, floor_mod(qh1 + qs1 + ra, p.cap), p, ring);
+      }
+    }
+    drops += dropped;
+    n_acc += __popc(bal);
+  }
+  if (drops) atomicAdd(&s_cnt[0], drops);
+  return n_acc;
+}
+
+__global__ void __launch_bounds__(kThreads)
+    serve_enqueue_kernel(ServeParams p, Ring ring, ServeIn in, ServeOut out,
+                         ServeScratch sc) {
+  __shared__ int s_cnt[3];  // drops, blackholed, corrupted
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int gtid = blockIdx.x * blockDim.x + tid;
+  const int stride = gridDim.x * blockDim.x;
+  const int nq = p.Q + 1;
+  if (tid < 3) s_cnt[tid] = 0;
+  if (gtid < 3) out.counts[gtid] = 0;
+  __syncthreads();
+
+  // 1. serve, build the candidates, zero the counts
+  const int n1 = nq + 2 > p.M ? nq + 2 : p.M;
+  for (int i = gtid; i < n1; i += stride) {
+    if (i < nq + 2) sc.cnt[i] = 0;
+    if (i < p.Q) {
+      serve_row(i, p, ring, in, out, s_cnt);
+    } else if (i == p.Q) {  // the trash row
+      out.qhead[p.Q] = 0;
+      out.qsize[p.Q] = 0;
+    }
+    if (i >= 2 * p.TS && i < p.M) inject(i, p, in, out);
+  }
+  grid_sync();
+
+  // 2. each valid candidate into its queue's bucket: a fixed slot, or the
+  // overflow list
+  for (int i = gtid; i < p.M; i += stride) {
+    if (!out.accept[i]) continue;
+    const int q = out.cand_qid[i];
+    const int s = atomicAdd(&sc.cnt[q], 1);
+    if (s < kBucket)
+      sc.fixed[(size_t)q * kBucket + s] = i;
+    else
+      sc.over[atomicAdd(&sc.cnt[p.Q + 1], 1)] = i;
+  }
+  grid_sync();
+
+  // 3. the walk: one thread a queue, a warp for a bucket past kSmall
+  for (int q0 = gtid - lane; q0 < nq; q0 += stride) {
+    const int q = q0 + lane;
+    const bool act = q < nq;
+    const int k = act ? ld_i(sc.cnt + q) : 0;
+    const bool real = act && q < p.Q;
+    const int qs1 = real ? out.qsize[q] : 0;  // this thread's own write
+    const int qh1 = real ? out.qhead[q] : 0;
+    int n_acc = 0;
+    if (k >= 1 && k <= kSmall)
+      n_acc = walk_small(q, sc.fixed + (size_t)q * kBucket, k, qs1, qh1, p,
+                         ring, in, out, s_cnt);
+    unsigned big = __ballot_sync(FULL_MASK, k > kSmall);
+    while (big) {
+      const int src = __ffs(big) - 1;
+      big &= big - 1;
+      int r = walk_bucket(__shfl_sync(FULL_MASK, q, src),
+                          __shfl_sync(FULL_MASK, k, src),
+                          __shfl_sync(FULL_MASK, qs1, src),
+                          __shfl_sync(FULL_MASK, qh1, src), p, ring, in, out,
+                          sc, s_cnt);
+      if (lane == src) n_acc = r;
+    }
+    if (real) out.qsize[q] = qs1 + n_acc;
+  }
+  __syncthreads();
+  if (tid < 3 && s_cnt[tid] != 0) atomicAdd(&out.counts[tid], s_cnt[tid]);
+}
+
+// No work but n_sync grid-wide barriers: the launch floor of the
+// cooperative launch (n_sync = 0: a launch of nothing).
+__global__ void __launch_bounds__(kThreads) floor_kernel(int n_sync) {
+  for (int i = 0; i < n_sync; ++i) grid_sync();
 }
 
 __global__ void draw_kernel(int seed, const int* __restrict__ row,
@@ -287,20 +518,71 @@ __global__ void draw_kernel(int seed, const int* __restrict__ row,
   if (i < n) out[i] = fault_u01(seed, row[i], t[i], psn[i]);
 }
 
+int n_sms() {
+  static int cached[16] = {0};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= 16) return 132;
+  if (cached[dev] == 0)
+    cudaDeviceGetAttribute(&cached[dev], cudaDevAttrMultiProcessorCount,
+                           dev);
+  return cached[dev];
+}
+
+// Launch kern cooperatively on `want` blocks, or on as many as the card
+// holds at once if fewer.
+template <auto kern, class... Args>
+int launch_cooperative(int want, size_t smem, cudaStream_t stream,
+                       Args... args) {
+  static size_t opted = 48 * 1024;  // one instantiation per kernel
+  if (smem > opted) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    opted = smem;
+  }
+  static int per_sm = 0, per_sm_smem = -1;
+  if ((int)smem != per_sm_smem) {
+    cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kern, kThreads, smem);
+    if (err != cudaSuccess) return (int)err;
+    per_sm_smem = (int)smem;
+  }
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const int most = per_sm * n_sms();
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(want < 1 ? 1 : (want < most ? want : most));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t err = cudaLaunchKernelEx(&cfg, kern, args...);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
+}
+
 }  // namespace
 
-extern "C" int se_serve(const ServeParams* p, const Ring* ring,
-                        const ServeIn* in, const ServeOut* out,
-                        const Cands* c, cudaStream_t stream) {
-  if (out->fault_counts != nullptr) {
-    cudaError_t err =
-        cudaMemsetAsync(out->fault_counts, 0, 2 * sizeof(int), stream);
-    if (err != cudaSuccess) return (int)err;
+extern "C" int se_serve_enqueue(const ServeParams* p, const Ring* ring,
+                                const ServeIn* in, const ServeOut* out,
+                                const ServeScratch* sc, cudaStream_t stream) {
+  int n = (p->Q + 3 > p->M ? p->Q + 3 : p->M);
+  return launch_cooperative<serve_enqueue_kernel>(
+      (n + kThreads - 1) / kThreads, 0, stream, *p, *ring, *in, *out, *sc);
+}
+
+// The launch floor: an empty kernel of one warp (blocks 0), or the
+// cooperative launch of `blocks` blocks that does nothing but n_sync
+// grid-wide barriers.
+extern "C" int se_floor(int blocks, int n_sync, cudaStream_t stream) {
+  if (blocks == 0) {
+    floor_kernel<<<1, 32, 0, stream>>>(0);
+    return (int)cudaGetLastError();
   }
-  int n = (p->Q + 1 > p->M ? p->Q + 1 : p->M);
-  serve_kernel<<<(n + 255) / 256, 256, 0, stream>>>(*p, *ring, *in, *out,
-                                                     *c);
-  return (int)cudaGetLastError();
+  return launch_cooperative<floor_kernel>(blocks, 0, stream, n_sync);
 }
 
 // The draw alone, at n keys (for holding it against its plain version).
@@ -309,26 +591,6 @@ extern "C" int se_draw(int seed, const int* row, const int* t, const int* psn,
   if (n == 0) return 0;
   draw_kernel<<<(n + 255) / 256, 256, 0, stream>>>(seed, row, t, psn, out,
                                                    n);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int se_accept(const ServeParams* p, const Cands* c,
-                         const int* rank_v, const int* qsize1, bool* accept,
-                         int* drops, cudaStream_t stream) {
-  cudaError_t err = cudaMemsetAsync(drops, 0, sizeof(int), stream);
-  if (err != cudaSuccess) return (int)err;
-  accept_kernel<<<(p->M + 255) / 256, 256, 0, stream>>>(*p, *c, rank_v,
-                                                         qsize1, accept,
-                                                         drops);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int se_place(const ServeParams* p, const Cands* c,
-                        const bool* accept, const int* rank_a,
-                        const int* qhead1, const int* qsize1,
-                        const Ring* ring, int* qsize, cudaStream_t stream) {
-  place_kernel<<<(p->M + 255) / 256, 256, 0, stream>>>(
-      *p, *c, accept, rank_a, qhead1, qsize1, *ring, qsize);
   return (int)cudaGetLastError();
 }
 
@@ -377,174 +639,365 @@ struct PfcState {
 
 namespace {
 
-__device__ __forceinline__ int pop_lane(const PfcIn& in, const PfcParams& p,
-                                        int row) {
-  return clampi(in.pop_flow[row], 0, p.N - 1);
-}
+constexpr int kSlateSmem = 8192;  // the largest slate held in shared memory
 
 // The transport lane of flow f: f itself on the dense program, else its
-// position in the ascending slate, -1 when it holds no lane this tick.
-__device__ __forceinline__ int lane_of(const PfcIn& in, const PfcParams& p,
-                                       int f) {
-  if (in.lanes == nullptr) return f;
-  int lo = 0, hi = p.L;  // first lane with lanes[lane] >= f
+// position in the ascending slate (n entries at slate), -1 when it holds
+// no lane this tick.
+__device__ __forceinline__ int lane_of(const int* slate, int n, int f) {
+  if (slate == nullptr) return f;
+  int lo = 0, hi = n;  // first lane with slate[lane] >= f
   while (lo < hi) {
     int mid = (lo + hi) >> 1;
-    if (in.lanes[mid] < f)
+    if (slate[mid] < f)
       lo = mid + 1;
     else
       hi = mid;
   }
-  return lo < p.L && in.lanes[lo] == f ? lo : -1;
+  return lo < n && slate[lo] == f ? lo : -1;
 }
 
-// Ingress counters and queue bytes, each summed in the reference's order:
-// dequeues (by row), then accepted advances, data and probe injections.
-__global__ void pfc_ingress_kernel(PfcParams p, PfcIn in, PfcState st,
-                                   PfcState out) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  int TS = p.TS, M0 = 2 * TS, ports = p.NH + 2 * TS;
-  if (i == 0) *out.pauses = *st.pauses;  // the gate launch adds the new
-  if (i < ports) {  // the delay line; the gate launch writes row line_row
-    int rows = p.PD > 0 ? p.PD : 1;
-    for (int r = 0; r < rows; ++r)
-      out.pfc_line[(size_t)r * ports + i] = st.pfc_line[(size_t)r * ports + i];
+// The warp hands out U x 32 terms to their counters' owners, in
+// order: lane l's u-th term is term u 32 + l, (tg[u], v[u]) with tg -1
+// for none; counter x belongs to lane x % 32, whose acc[x / 32] adds the
+// value.  Only the terms that exist pass through the shuffles.
+template <int U>
+__device__ __forceinline__ void hand_out(const int* tg, const float* v,
+                                         float* acc) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    unsigned live = __ballot_sync(FULL_MASK, tg[u] >= 0);
+    while (live) {
+      const int s = __ffs(live) - 1;
+      live &= live - 1;
+      const int x = __shfl_sync(FULL_MASK, tg[u], s);
+      const float y = __shfl_sync(FULL_MASK, v[u], s);
+      if ((x & 31) == lane) {
+#pragma unroll
+        for (int r = 0; r < kRows; ++r)
+          if (x >> 5 == r) acc[r] = acc[r] + y;
+      }
+    }
   }
-  if (i < p.NH) {  // host h's NIC, at ToR(h)
-    int h = i, tor = h / p.HPT;
-    float v = st.ing_host[h];
-    for (int s = 0; s < p.S; ++s) {
-      int row = tor * p.S + s;
-      if (in.has[row] && in.src[pop_lane(in, p, row)] == h)
-        v = v + (-in.pop_bytes[row]);
+}
+
+__device__ __forceinline__ float slot_bytes(const PfcIn& in,
+                                            const PfcParams& p, size_t s) {
+  int f = clampi(in.ring_flow[s], 0, p.N - 1);
+  return in.ring_probe[s] ? p.ack_bytes
+         : (in.ring_psn[s] >= in.total_pkts[f] - 1 ? in.tail_b[f] : p.mtu);
+}
+
+// ToR t: its uplink rows' and host-down rows' dequeues into the ingress
+// counters of its hosts (counter j) and its spine downlinks (HPT + s);
+// then its hosts' data injections, then their probes (its hosts' flows
+// are by_src[src_start[t HPT] .. src_start[(t + 1) HPT]), each host's in
+// lane order); then each downlink's accepted advance.  The loads go in
+// three rounds: the rows, counters and flow range; the rows' flows'
+// sources and the hosts' flows; those flows' sources, lanes, accept flags
+// and bytes.
+__device__ void tor_ingress(int t, const PfcParams& p, const PfcIn& in,
+                            const PfcState& st, const PfcState& out,
+                            const int* slate) {
+  const int lane = threadIdx.x & 31;
+  const int HPT = p.HPT, S = p.S, T = p.T, TS = p.TS, M0 = 2 * TS;
+  const int h0 = t * HPT, n = S + HPT;
+  const int f0 = in.src_start[h0], f1 = in.src_start[h0 + HPT];
+  float acc[kRows], v[kRows];
+  int tg[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int x = lane + 32 * r;
+    acc[r] = x < HPT ? st.ing_host[h0 + x]
+                     : (x < n ? st.ing_sd[(x - HPT) * T + t] : 0.0f);
+    const int row = x < S ? t * S + x : M0 + h0 + (x - S);
+    const bool has = x < n && in.has[row];
+    const int f = clampi(x < n ? in.pop_flow[row] : 0, 0, p.N - 1);
+    const int spn = x >= S && x < n ? in.pop_spine[row] : -1;
+    v[r] = x < n ? -in.pop_bytes[row] : 0.0f;
+    tg[r] = -1;
+    if (!has) continue;
+    if (x < S || in.same_tor[f]) {  // its source host, if in ToR t
+      const int h = in.src[f] - h0;
+      if (h >= 0 && h < HPT) tg[r] = h;
+    } else if (spn >= 0 && spn < S) {  // the spine it came down from
+      tg[r] = HPT + spn;
     }
-    for (int j = 0; j < p.HPT; ++j) {
-      int row = M0 + tor * p.HPT + j;
-      int f = pop_lane(in, p, row);
-      if (in.has[row] && in.same_tor[f] && in.src[f] == h)
-        v = v + (-in.pop_bytes[row]);
-    }
-    int k0 = in.src_start[h], k1 = in.src_start[h + 1];
-    for (int k = k0; k < k1; ++k) {
-      int l = lane_of(in, p, in.by_src[k]);
-      if (l >= 0 && in.accept[M0 + l]) v = v + in.cand_bytes[M0 + l];
-    }
-    for (int k = k0; k < k1; ++k) {
-      int l = lane_of(in, p, in.by_src[k]);
-      int c = M0 + p.L + l;
-      if (l >= 0 && in.accept[c]) v = v + in.cand_bytes[c];
-    }
-    out.ing_host[h] = v;
-    return;
   }
-  i -= p.NH;
-  if (i < TS) {  // ToR t's uplink into spine s: ing_up[t, s]
-    int t = i / p.S, s = i % p.S;
-    float v = st.ing_up[i];
-    for (int t2 = 0; t2 < p.T; ++t2) {
-      int row = TS + s * p.T + t2;
-      if (in.has[row] && in.src_tor[pop_lane(in, p, row)] == t)
-        v = v + (-in.pop_bytes[row]);
+  hand_out<kRows>(tg, v, acc);
+  // the injections, kFlowRows x 32 flows at a time: their data terms, then
+  // their probes (all data terms first where the ToR has more flows)
+  const int chunk = 32 * kFlowRows;
+  for (int pass = 0; pass < 2; ++pass) {
+    for (int c = f0; c < f1; c += chunk) {
+      int td[kFlowRows], tp[kFlowRows];
+      float wd[kFlowRows], wp[kFlowRows];
+#pragma unroll
+      for (int u = 0; u < kFlowRows; ++u) {
+        const int k = c + 32 * u + lane;
+        const int f = k < f1 ? in.by_src[k] : -1;
+        const int host = f >= 0 ? in.src[f] - h0 : -1;
+        const int l = f >= 0 ? lane_of(slate, p.L, f) : -1;
+        const int cd = M0 + pass * p.L + l;
+        td[u] = l >= 0 && in.accept[cd] ? host : -1;
+        wd[u] = l >= 0 ? in.cand_bytes[cd] : 0.0f;
+        tp[u] = -1;
+        wp[u] = 0.0f;
+        if (pass == 0 && f1 - f0 <= chunk && l >= 0) {  // one chunk: both
+          tp[u] = in.accept[M0 + p.L + l] ? host : -1;
+          wp[u] = in.cand_bytes[M0 + p.L + l];
+        }
+      }
+      hand_out<kFlowRows>(td, wd, acc);
+      if (f1 - f0 <= chunk) hand_out<kFlowRows>(tp, wp, acc);
     }
-    if (in.accept[i]) v = v + in.cand_bytes[i];
-    out.ing_up[i] = v;
-    return;
+    if (f1 - f0 <= chunk) break;
   }
-  i -= TS;
-  if (i < TS) {  // spine s's downlink into ToR t: ing_sd[s, t]
-    int s = i / p.T, t = i % p.T;
-    float v = st.ing_sd[i];
-    for (int j = 0; j < p.HPT; ++j) {
-      int row = M0 + t * p.HPT + j;
-      int f = pop_lane(in, p, row);
-      if (in.has[row] && !in.same_tor[f] && in.pop_spine[row] == s)
-        v = v + (-in.pop_bytes[row]);
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int x = lane + 32 * r;
+    if (x < HPT) {
+      out.ing_host[h0 + x] = acc[r];
+    } else if (x < n) {
+      const int i = (x - HPT) * T + t;
+      out.ing_sd[i] = in.accept[TS + i] ? acc[r] + in.cand_bytes[TS + i]
+                                        : acc[r];
     }
-    if (in.accept[TS + i]) v = v + in.cand_bytes[TS + i];
-    out.ing_sd[i] = v;
-    return;
   }
-  i -= TS;
-  if (i < p.Q) {  // queue row i: served bytes out, accepted bytes in
-    bool has = in.has[i];
-    float v = st.qbytes[i];
-    if (has) v = v + (-in.pop_bytes[i]);
-    int qs1 = in.qsize0[i] - (int)has;
-    int added = in.qsize[i] - qs1;
-    int base = in.qhead[i] + qs1;
-    // the accepted, in candidate order, each added onto the occupancy (the
-    // reference's qbytes + segment_sum, which XLA folds into one
-    // scatter-add onto qbytes: with fractional tails the order shows)
-    for (int r = 0; r < added; ++r) {
-      size_t slot = (size_t)i * p.cap + floor_mod(base + r, p.cap);
-      int f = clampi(in.ring_flow[slot], 0, p.N - 1);
-      float w = in.ring_probe[slot] ? p.ack_bytes
-                : (in.ring_psn[slot] >= in.total_pkts[f] - 1 ? in.tail_b[f]
-                                                              : p.mtu);
-      v = v + w;
+}
+
+// Spine s: its downlink rows' dequeues into the uplinks of their source
+// ToRs (counter t), then each uplink's accepted advance.
+__device__ void spine_ingress(int s, const PfcParams& p, const PfcIn& in,
+                              const PfcState& st, const PfcState& out) {
+  const int lane = threadIdx.x & 31;
+  const int S = p.S, T = p.T;
+  float acc[kRows], v[kRows];
+  int tg[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int t = lane + 32 * r;
+    acc[r] = t < T ? st.ing_up[t * S + s] : 0.0f;
+    const int row = p.TS + s * T + t;
+    const bool has = t < T && in.has[row];
+    const int f = clampi(t < T ? in.pop_flow[row] : 0, 0, p.N - 1);
+    v[r] = t < T ? -in.pop_bytes[row] : 0.0f;
+    const int tt = has ? in.src_tor[f] : -1;
+    tg[r] = tt >= 0 && tt < T ? tt : -1;
+  }
+  hand_out<kRows>(tg, v, acc);
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int t = lane + 32 * r;
+    if (t < T)
+      out.ing_up[t * S + s] =
+          in.accept[t * S + s] ? acc[r] + in.cand_bytes[t * S + s] : acc[r];
+  }
+}
+
+// Queues q0 .. q0 + 31, one a lane: the served bytes out, the accepted
+// bytes in, in candidate order (the ring slots they were placed in); a
+// queue that took two or more is summed by the whole warp.
+__device__ void queue_bytes(int q0, const PfcParams& p, const PfcIn& in,
+                            const PfcState& st, const PfcState& out) {
+  const int lane = threadIdx.x & 31;
+  const int q = q0 + lane;
+  int added = 0, base = 0;
+  float v = 0.0f;
+  if (q < p.Q) {
+    bool has = in.has[q];
+    v = st.qbytes[q];
+    if (has) v = v + (-in.pop_bytes[q]);
+    int qs1 = in.qsize0[q] - (int)has;
+    added = in.qsize[q] - qs1;
+    base = in.qhead[q] + qs1;
+    if (added == 1)
+      v = v + slot_bytes(in, p, (size_t)q * p.cap + floor_mod(base, p.cap));
+  }
+  unsigned big = __ballot_sync(FULL_MASK, added >= 2);
+  while (big) {
+    const int src = __ffs(big) - 1;
+    big &= big - 1;
+    const int qq = q0 + src;
+    const int n = __shfl_sync(FULL_MASK, added, src);
+    const int b = __shfl_sync(FULL_MASK, base, src);
+    float w = __shfl_sync(FULL_MASK, v, src);
+    for (int c = 0; c < n; c += 32) {
+      float x = c + lane < n
+                    ? slot_bytes(in, p,
+                                 (size_t)qq * p.cap + floor_mod(b + c + lane,
+                                                                p.cap))
+                    : 0.0f;
+      int m = n - c < 32 ? n - c : 32;
+      for (int s = 0; s < m; ++s) w = w + __shfl_sync(FULL_MASK, x, s);
     }
-    out.qbytes[i] = v;
-  } else if (i == p.Q) {
+    if (lane == src) v = w;
+  }
+  if (q < p.Q)
+    out.qbytes[q] = v;
+  else if (q == p.Q)
     out.qbytes[p.Q] = 0.0f;
+}
+
+// v + x[0] + ... + x[n-1] on every lane of the warp, one add after
+// another, where lane l holds x[32 u + l] in xs[u].
+__device__ __forceinline__ float ordered_sum(float v, const float* xs,
+                                             int n) {
+#pragma unroll
+  for (int u = 0; u < kRows; ++u) {
+    int m = n - u * 32;
+    if (m > 32) m = 32;
+    for (int s = 0; s < m; ++s) v = v + __shfl_sync(FULL_MASK, xs[u], s);
   }
+  return v;
 }
 
 __device__ __forceinline__ float xoff_of(const PfcParams& p, float occ) {
   return p.alpha * fmaxf(p.buf - occ, 0.0f) * p.inv;
 }
 
-__device__ __forceinline__ float tor_occ(const PfcParams& p, const float* qb,
-                                         int t) {
-  float a = 0.0f, b = 0.0f;
-  for (int s = 0; s < p.S; ++s) a = a + qb[t * p.S + s];
-  for (int j = 0; j < p.HPT; ++j) b = b + qb[2 * p.TS + t * p.HPT + j];
-  return a + b;
-}
-
-// One hysteresis step per port against its switch's dynamic threshold.
-__global__ void pfc_gate_kernel(PfcParams p, PfcState st, PfcState out) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  int TS = p.TS;
-  if (i >= p.NH + 2 * TS) return;
-  const float* qb = out.qbytes;
-  float ing, xoff;
-  bool old;
-  if (i < p.NH) {  // NIC h, paused by ToR(h)
-    ing = out.ing_host[i];
-    xoff = xoff_of(p, tor_occ(p, qb, i / p.HPT));
-    old = st.paused_nic[i];
-  } else if (i < p.NH + TS) {  // spine_down[s][t], paused by ToR t
-    int k = i - p.NH;
-    ing = out.ing_sd[k];
-    xoff = xoff_of(p, tor_occ(p, qb, k % p.T));
-    old = st.paused_sd[k];
-  } else {  // tor_up[t][s], paused by spine s
-    int k = i - p.NH - TS, s = k % p.S;
-    float occ = 0.0f;
-    for (int t = 0; t < p.T; ++t) occ = occ + qb[TS + s * p.T + t];
-    ing = out.ing_up[k];
-    xoff = xoff_of(p, occ);
-    old = st.paused_up[k];
-  }
+// One hysteresis step of port `port` (NIC h, then spine_down [s][t], then
+// tor_up [t][s]) against its switch's xoff; returns 1 on a new pause.
+__device__ __forceinline__ int gate(const PfcParams& p, float ing, float xoff,
+                                    bool old, bool* paused, int port,
+                                    const PfcState& out) {
   bool pause = ing > xoff, resume = ing < p.xon * xoff;
   bool now = pause || (old && !resume);
-  if (i < p.NH)
-    out.paused_nic[i] = now;
-  else if (i < p.NH + TS)
-    out.paused_sd[i - p.NH] = now;
-  else
-    out.paused_up[i - p.NH - TS] = now;
-  if (p.PD > 0) out.pfc_line[(size_t)p.line_row * (p.NH + 2 * TS) + i] = now;
-  if (now && !old) atomicAdd(out.pauses, 1);
+  *paused = now;
+  if (p.PD > 0)
+    out.pfc_line[(size_t)p.line_row * (p.NH + 2 * p.TS) + port] = now;
+  return now && !old;
+}
+
+// ToR t's occupancy (its uplink rows, then its host-down rows) and its
+// ports' gates: its NICs (counter j) and its spine downlinks (HPT + s).
+__device__ int tor_gates(int t, const PfcParams& p, const PfcState& st,
+                         const PfcState& out) {
+  const int lane = threadIdx.x & 31;
+  const int HPT = p.HPT, S = p.S, T = p.T, TS = p.TS, n = HPT + S;
+  float xa[kRows], xb[kRows], ing[kRows];
+  bool old[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int x = lane + 32 * r;
+    xa[r] = x < S ? ld_f(out.qbytes + t * S + x) : 0.0f;
+    xb[r] = x < HPT ? ld_f(out.qbytes + 2 * TS + t * HPT + x) : 0.0f;
+    ing[r] = 0.0f;
+    old[r] = false;
+    if (x < HPT) {
+      ing[r] = ld_f(out.ing_host + t * HPT + x);
+      old[r] = st.paused_nic[t * HPT + x];
+    } else if (x < n) {
+      ing[r] = ld_f(out.ing_sd + (x - HPT) * T + t);
+      old[r] = st.paused_sd[(x - HPT) * T + t];
+    }
+  }
+  const float a = ordered_sum(0.0f, xa, S), b = ordered_sum(0.0f, xb, HPT);
+  const float xoff = xoff_of(p, a + b);
+  int fresh = 0;
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int x = lane + 32 * r;
+    if (x < HPT) {
+      const int h = t * HPT + x;
+      fresh += gate(p, ing[r], xoff, old[r], out.paused_nic + h, h, out);
+    } else if (x < n) {
+      const int k = (x - HPT) * T + t;
+      fresh += gate(p, ing[r], xoff, old[r], out.paused_sd + k, p.NH + k,
+                    out);
+    }
+  }
+  return fresh;
+}
+
+// Spine s's occupancy (its downlink rows) and the gates of the ToR
+// uplinks into it (counter t).
+__device__ int spine_gates(int s, const PfcParams& p, const PfcState& st,
+                           const PfcState& out) {
+  const int lane = threadIdx.x & 31;
+  const int S = p.S, T = p.T, TS = p.TS;
+  float xs[kRows], ing[kRows];
+  bool old[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int t = lane + 32 * r;
+    xs[r] = t < T ? ld_f(out.qbytes + TS + s * T + t) : 0.0f;
+    ing[r] = t < T ? ld_f(out.ing_up + t * S + s) : 0.0f;
+    old[r] = t < T && st.paused_up[t * S + s];
+  }
+  const float xoff = xoff_of(p, ordered_sum(0.0f, xs, T));
+  int fresh = 0;
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int t = lane + 32 * r;
+    if (t < T) {
+      const int k = t * S + s;
+      fresh += gate(p, ing[r], xoff, old[r], out.paused_up + k,
+                    p.NH + TS + k, out);
+    }
+  }
+  return fresh;
+}
+
+__global__ void __launch_bounds__(kThreads)
+    pfc_kernel(PfcParams p, PfcIn in, PfcState st, PfcState out) {
+  extern __shared__ int s_slate[];  // [L] under the active set
+  __shared__ int s_pauses;
+  const int tid = threadIdx.x;
+  const int gtid = blockIdx.x * blockDim.x + tid;
+  const int stride = gridDim.x * blockDim.x;
+  const int gwarp = gtid >> 5, nwarps = stride >> 5;
+  const int T = p.T, S = p.S;
+  const int ports = p.NH + 2 * p.TS;
+  const int* slate = nullptr;
+  if (in.lanes != nullptr) {
+    if (p.L <= kSlateSmem) {
+      for (int i = tid; i < p.L; i += blockDim.x) s_slate[i] = in.lanes[i];
+      slate = s_slate;
+    } else {
+      slate = in.lanes;
+    }
+  }
+  if (tid == 0) s_pauses = 0;
+  if (gtid == 0) *out.pauses = *st.pauses;
+  __syncthreads();
+
+  // 1. the ingress counters and queue bytes; the delay line's other rows
+  const int rows = p.PD > 0 ? p.PD : 1;
+  for (int i = gtid; i < rows * ports; i += stride)
+    if (p.PD == 0 || i / ports != p.line_row) out.pfc_line[i] = st.pfc_line[i];
+  const int nqw = (p.Q + 1 + 31) / 32;
+  for (int w = gwarp; w < T + S + nqw; w += nwarps) {
+    if (w < T)
+      tor_ingress(w, p, in, st, out, slate);
+    else if (w < T + S)
+      spine_ingress(w - T, p, in, st, out);
+    else
+      queue_bytes((w - T - S) * 32, p, in, st, out);
+  }
+  grid_sync();
+
+  // 2. each switch's occupancy once, then its ports' gates
+  int fresh = 0;
+  for (int w = gwarp; w < T + S; w += nwarps)
+    fresh += w < T ? tor_gates(w, p, st, out) : spine_gates(w - T, p, st, out);
+  if (fresh) atomicAdd(&s_pauses, fresh);
+  __syncthreads();
+  if (tid == 0 && s_pauses != 0) atomicAdd(out.pauses, s_pauses);
 }
 
 }  // namespace
 
 extern "C" int se_pfc(const PfcParams* p, const PfcIn* in, const PfcState* st,
                       const PfcState* out, cudaStream_t stream) {
-  int ports = p->NH + 2 * p->TS;
-  int n = ports + p->Q + 1;
-  pfc_ingress_kernel<<<(n + 255) / 256, 256, 0, stream>>>(*p, *in, *st, *out);
-  pfc_gate_kernel<<<(ports + 255) / 256, 256, 0, stream>>>(*p, *st, *out);
-  return (int)cudaGetLastError();
+  if (p->HPT + p->S > 32 * kRows || p->T > 32 * kRows)
+    return (int)cudaErrorInvalidValue;
+  size_t smem = 0;
+  if (in->lanes != nullptr && p->L <= kSlateSmem)
+    smem = sizeof(int) * (size_t)p->L;
+  int warps = p->T + p->S + (p->Q + 1 + 31) / 32;
+  return launch_cooperative<pfc_kernel>(
+      (warps + kThreads / 32 - 1) / (kThreads / 32), smem, stream, *p, *in,
+      *st, *out);
 }

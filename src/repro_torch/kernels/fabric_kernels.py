@@ -21,6 +21,11 @@ wrapper                          reference kernel (Pallas)              CUDA sou
                                  (``fabric.py`` stage 6b)
 ===============================  =====================================  ==========================
 
+On the card :func:`serve_enqueue` and :func:`pfc_account` are one launch
+each, and the ranker's work runs inside serve/enqueue's kernel: the
+fabric's tick no longer launches ``csrc/rank.cu``, which stays the
+counterpart of ``rank_in_queue_kernel``.
+
 Under PFC the transition takes the NICs' effective pause mask and serve
 the paused rows; :func:`pfc_account` then keeps the byte counters and the
 pause gates.  Under a fault schedule serve takes the tick's down,
@@ -479,10 +484,14 @@ def serve_enqueue(q: PktQ, qhead, qsize, dst, dst_tor, total_pkts, tail_b,
                   paused_row=None, row_down=None, row_duty=None,
                   row_cor_p=None, fseed=None, lane_flow=None):
     """The serve/enqueue stage: plain version on CPU tensors,
-    ``csrc/serve_enqueue.cu`` on CUDA tensors (serve + candidate build
-    with the fault rows and the corruption draw, rank, drop/accept, rank,
-    ring placement; both rank passes are :func:`rank_in_queue`).  The ring
-    ``q`` is updated in place either way; ``paused_row`` is the PFC gate
+    ``csrc/serve_enqueue.cu`` on CUDA tensors, one launch of a persistent
+    kernel (serve + candidate build with the fault rows and the corruption
+    draw; each queue's valid candidates counted into a bucket; one thread
+    a queue walks its bucket in candidate order for the drop decision,
+    the rank among the accepted and the ring placement, a warp where a
+    bucket holds more than eight: the ranker's work without its
+    launches).  The ring ``q`` is updated in place either way;
+    ``paused_row`` is the PFC gate
     (``None`` on lossy queues), ``row_down``, ``row_duty``, ``row_cor_p``
     and ``fseed`` the tick's faults (``None`` without a schedule),
     ``lane_flow`` the lanes' flows under the active set (``None``: lane =
@@ -665,13 +674,16 @@ def pfc_account_plain(st: PfcState, has, pop: PktQ, pop_bytes, cand_qid,
 def pfc_account(st: PfcState, has, pop: PktQ, pop_bytes, cand_qid,
                 cand_bytes, accept, q: PktQ, qhead, qsize0, qsize, t: int,
                 fl: PfcFlows, d: PfcDims, lanes=None) -> PfcState:
-    """The PFC stage: plain version on CPU tensors; on CUDA tensors two
-    launches of ``csrc/serve_enqueue.cu`` (one thread per ingress counter
-    and per queue, each summing its updates in the reference's order; then
-    one thread per port for the gate).  Returns the new state; the input
-    state is left as it was.  Under the active set (``lanes``, the slate)
-    each host's thread finds its flows' lanes by binary search in the
-    ascending slate, so it still sums its injections in lane order."""
+    """The PFC stage: plain version on CPU tensors; on CUDA tensors one
+    launch of ``csrc/serve_enqueue.cu`` (a warp per ToR and per spine
+    hands each dequeued row's bytes to its ingress counter in row order,
+    a thread per queue adds the accepted bytes; after a grid-wide barrier
+    a warp per switch sums its occupancy once and steps its ports' gates;
+    every counter sums its updates in the reference's order).  Returns the
+    new state; the input state is left as it was.  Under the active set
+    (``lanes``, the slate) each host's lane finds its flows' lanes by
+    binary search in the ascending slate, held in shared memory, so it
+    still sums its injections in lane order."""
     args = (st, has, pop, pop_bytes, cand_qid, cand_bytes, accept, q, qhead,
             qsize0, qsize, t, fl, d, lanes)
     if _route(has) == "plain":

@@ -21,9 +21,9 @@ ring-buffer tensors, ticked in the reference's stage order:
   2. spray/ECMP injection targets over the live uplinks (RoCEv2: the
      flow's pinned entropy); a down NIC blackholes what it sends,
   3. ring service of unpaused, duty-open rows + two-pass enqueue
-     (``kernels.serve_enqueue``, ranking through ``kernels.rank_in_queue``
-     past 256 candidates); down rows blackhole what they pop, corrupting
-     rows drop data on a counter-keyed draw,
+     (``kernels.serve_enqueue``: one launch on the card; its plain version
+     ranks like ``kernels.rank_in_queue``); down rows blackhole what they
+     pop, corrupting rows drop data on a counter-keyed draw,
   4. deliveries of the surviving packets -> receivers -> the per-flow
      return pipe,
   5. under PFC (the reference's stage 6b), ingress byte accounting, the

@@ -104,7 +104,8 @@ def test_kernel_structs_match_their_ctypes_bindings():
     ``FaArgs`` (every route's arguments, the decode split's scratch and
     counters among them) its mirror in ``kernels/flash_attention.py``, and
     the SSD scan's ``SsdArgs`` (its four launches' scratch among them) its
-    mirror in ``kernels/ssd_scan.py``."""
+    mirror in ``kernels/ssd_scan.py``; and the serve kernel's bucket slots
+    and the PFC warp's counters their Python mirrors."""
     from pathlib import Path
     from repro_torch.kernels import _cuda_bind as B
     from repro_torch.kernels import flash_attention as fa
@@ -122,9 +123,9 @@ def test_kernel_structs_match_their_ctypes_bindings():
                                  ("RoceFlowPtrs", B.RoceFlowPtrs),
                                  ("RoceMsgPtrs", B.RoceMsgPtrs)],
              "serve_enqueue": [("ServeParams", B.ServeParams),
-                               ("Ring", B.Ring), ("Cands", B.Cands),
-                               ("ServeIn", B.ServeIn),
+                               ("Ring", B.Ring), ("ServeIn", B.ServeIn),
                                ("ServeOut", B.ServeOut),
+                               ("ServeScratch", B.ServeScratch),
                                ("PfcParams", B.PfcParams),
                                ("PfcIn", B.PfcIn), ("PfcState", B.PfcPtrs)],
              "flash_attention": [("FaArgs", fa.FaArgs)],
@@ -134,3 +135,11 @@ def test_kernel_structs_match_their_ctypes_bindings():
         for name, cls in structs:
             assert _c_fields(text, name) == [f[0] for f in cls._fields_], \
                 (source, name)
+    # the serve kernel's fixed bucket slots, which the wrapper's scratch
+    # allocation counts, and the PFC warp's counters, which it checks
+    import re
+    text = (csrc / "serve_enqueue.cu").read_text()
+    const = lambda n: int(re.search(r"constexpr int %s = (\d+);" % n,
+                                     text).group(1))
+    assert const("kBucket") == B.BUCKET
+    assert 32 * const("kRows") == B.PFC_WARP_COUNTERS

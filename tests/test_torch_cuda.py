@@ -63,7 +63,7 @@ def test_fabric_on_the_card_equals_the_cpu(cuda):
     fk.reset_launches()
     _, m_gpu = TF.run_fabric_trace(sc.topo, sc.messages, 2000, cfg,
                                    device=cuda)
-    strack = ("flow_transition", "serve_enqueue", "rank_in_queue")
+    strack = ("flow_transition", "serve_enqueue")  # the ranker: inside
     assert all((n > 0) == (k in strack) for k, n in fk.launches.items()), \
         fk.launches
     _, m_cpu = TF.run_fabric_trace(sc.topo, sc.messages, 2000, cfg,
@@ -206,6 +206,204 @@ def test_rocev2_pfc_fabric_on_the_card_equals_the_cpu(cuda):
               "rto_fires"):
         assert m_gpu[k] == m_cpu[k], k
     _same(tuple(x.cpu() for x in fin_g.flows), fin_c.flows)
+
+
+def _program(sc, dev, n_ticks, **kw):
+    cfg = TF.FabricConfig(net=sc.net, trace_every=0, **kw)
+    prog = TF.FabricProgram(sc.topo, len(sc.messages), n_ticks, cfg, dev)
+    src, dst, total, tails, ent0 = TF._flow_arrays(sc.flows, cfg)
+    prog.bind(src, dst, total, tails, TF._arrival_array(sc.messages),
+              cfg.lb_mode, ent0)
+    return prog
+
+
+def _to_cpu(tree):
+    """``tree`` (tensors in tuples and named tuples) with every tensor on
+    the CPU."""
+    if isinstance(tree, torch.Tensor):
+        return tree.cpu()
+    if isinstance(tree, tuple):
+        items = [_to_cpu(x) for x in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") else tuple(items)
+    return tree
+
+
+def _serve_and_pfc(prog, st, t, sargs, lanes=None):
+    """serve/enqueue on ``sargs`` and, under PFC, the PFC stage on its
+    result, each against its plain version on the same inputs.  The PFC
+    stage is held against its plain version on the CPU, whose
+    ``index_add_`` sums a queue's bytes in candidate order (on the card
+    its atomics may not)."""
+    rings = [type(st.q)(*[f.clone() for f in st.q]) for _ in range(2)]
+    res = fk.serve_enqueue(rings[0], *sargs[1:])
+    _same(res, fk.serve_enqueue_plain(rings[1], *sargs[1:]))
+    _same(tuple(f[:prog.Q] for f in rings[0]),
+          tuple(f[:prog.Q] for f in rings[1]))
+    if prog.pfc:
+        pargs = (prog.pfc_state(st), res[3], res[2], res[5], res[6], res[9],
+                 res[7], rings[0], res[0], sargs[2], res[1], t,
+                 prog.pfc_flows, prog.pfc_dims, lanes)
+        _same(_to_cpu(fk.pfc_account(*pargs)),
+              fk.pfc_account_plain(*_to_cpu(pargs)))
+    return res
+
+
+def _fractional(x) -> bool:
+    return bool((x != torch.floor(x)).any())
+
+
+@pytest.mark.parametrize("msg_bytes", [256 * 2 ** 10, 256 * 2 ** 10 - 0.7],
+                         ids=["whole", "fractional"])
+@pytest.mark.parametrize("protocol", ["strack", "rocev2"])
+def test_serve_enqueue_kernel_on_large_buckets_and_ring_wrap(
+        cuda, protocol, msg_bytes):
+    """The one-launch serve/enqueue (and under RoCEv2 the PFC stage) on the
+    cases the walk of a bucket and the ring's wrap make hard, against the
+    plain versions: a 8x16 incast whose host-down queue 0 takes every
+    sender's advance (dense ticks that drop); every lane's data and probe
+    injected into one row (a bucket of about 2 N, past the fixed bucket
+    slots), into a host-down and a ToR uplink row; a probe burst (every
+    probe valid); every row's packets moved along its ring so that its
+    tail is at the ring's last slots, alone and with the one bucket.
+    Messages of a whole number of MTUs, and 0.7 bytes short of it, whose
+    fractional tails make the order of the PFC stage's float sums show
+    (the case asserts that fractional bytes were in play)."""
+    sc = incast_scenario(full_bisection(8, 16), 64, msg_bytes,
+                         net=NetworkSpec(link_gbps=400.0))
+    prog = _program(sc, cuda, 400, protocol=protocol)
+    st = prog.init_state()
+    drops, frac = 0, False
+    for t in range(120):
+        eff_nic, prow = prog.eff_pause(st, t)
+        targs = prog.transport_args(st, t, prog.sendable_msg(st, t), eff_nic)
+        _, tx, ptx, pv, sel, _ = fk.flow_transition(*targs)
+        sargs, _, _ = prog.serve_args(st, t, tx, ptx, sel, pv, prow)
+        if t % 8 == 0 or t >= 100:
+            res = _serve_and_pfc(prog, st, t, sargs)
+            drops += int(res[8])
+            frac |= _fractional(res[9][res[7]])
+            if prog.pfc:
+                frac |= _fractional(prog.pfc_state(st).qbytes)
+        if t in (60, 104):
+            L, TS, cap = prog.N, prog.TS, prog.cap
+            ones = torch.ones((L,), dtype=torch.bool, device=cuda)
+            burst = list(sargs)
+            burst[14] = ones
+            _serve_and_pfc(prog, st, t, tuple(burst))
+            for row in (2 * TS + 3, 5):
+                one = list(sargs)
+                one[15] = torch.full((L,), row, dtype=torch.int32,
+                                     device=cuda)
+                one[16] = one[15]
+                one[13] = ones
+                one[14] = torch.arange(L, device=cuda) % 3 == 0
+                res = _serve_and_pfc(prog, st, t, tuple(one))
+                # lossy queues drop the bucket's tail; PFC's drop nothing
+                assert (int(res[8]) > 0) == (not prog.pfc)
+                assert bool(res[7][2 * TS:].any())
+            for end in (cap - 1, cap - 2):  # each row's tail at slot end
+                shift = (end - sargs[1] - sargs[2]) % cap
+                shift[-1] = 0
+                cols = (torch.arange(cap, device=cuda)[None, :]
+                        - shift[:, None]) % cap
+                rolled = st._replace(q=type(st.q)(
+                    *[f.gather(1, cols.long()) for f in st.q]))
+                wrap = list(sargs)
+                wrap[1] = sargs[1] + shift
+                _serve_and_pfc(prog, rolled, t, tuple(wrap))
+                _serve_and_pfc(prog, rolled, t,
+                               tuple(wrap[:13] + one[13:17] + wrap[17:]))
+        st, _, _ = prog.tick(st, t)
+    assert drops > 0 or protocol == "rocev2"
+    assert frac == (msg_bytes % 1 != 0)
+
+
+@pytest.mark.parametrize("protocol", ["strack", "rocev2"])
+def test_serve_and_pfc_kernels_at_perm8k_shapes(cuda, protocol):
+    """serve/enqueue and (RoCEv2) the PFC stage on dense ticks of perm8k
+    (``full_bisection(128, 64)``: Q = 24576 rows, M = 32768 candidates,
+    HPT + S = 128 counters a ToR warp)."""
+    sc = permutation_scenario(full_bisection(128, 64), 64 * 2 ** 10,
+                              net=NetworkSpec(link_gbps=400.0), seed=0)
+    prog = _program(sc, cuda, 100, protocol=protocol)
+    assert (prog.Q, 2 * prog.TS + 2 * prog.N) == (24576, 32768)
+    st = prog.init_state()
+    for t in range(20):
+        eff_nic, prow = prog.eff_pause(st, t)
+        targs = prog.transport_args(st, t, prog.sendable_msg(st, t), eff_nic)
+        _, tx, ptx, pv, sel, _ = fk.flow_transition(*targs)
+        sargs, _, _ = prog.serve_args(st, t, tx, ptx, sel, pv, prow)
+        if t in (3, 8, 16, 19):
+            _serve_and_pfc(prog, st, t, sargs)
+        st, _, _ = prog.tick(st, t)
+
+
+def test_serve_and_pfc_are_one_launch_each(cuda):
+    """On CUDA tensors one serve_enqueue call and one pfc_account call each
+    run exactly one device operation, their own kernel (no memset, no
+    ranker): ``torch.profiler`` over 10 calls at an incast tick under
+    RoCEv2 + PFC."""
+    from torch.profiler import ProfilerActivity, profile
+    sc = incast_scenario(full_bisection(4, 4), 8, 512 * 2 ** 10,
+                         net=NetworkSpec(link_gbps=400.0))
+    prog = _program(sc, cuda, 200, protocol="rocev2",
+                    switch_buffer_bytes=2e5)
+    st = prog.init_state()
+    for t in range(40):
+        st, _, _ = prog.tick(st, t)
+    eff_nic, prow = prog.eff_pause(st, 40)
+    targs = prog.transport_args(st, 40, prog.sendable_msg(st, 40), eff_nic)
+    _, tx, ptx, pv, sel, _ = fk.flow_transition(*targs)
+    sargs, _, _ = prog.serve_args(st, 40, tx, ptx, sel, pv, prow)
+    ring = type(st.q)(*[f.clone() for f in st.q])
+    res = fk.serve_enqueue(ring, *sargs[1:])
+    pargs = (prog.pfc_state(st), res[3], res[2], res[5], res[6], res[9],
+             res[7], ring, res[0], st.qsize, res[1], 40, prog.pfc_flows,
+             prog.pfc_dims)
+    for fn, own in ((lambda: fk.serve_enqueue(ring, *sargs[1:]),
+                     "serve_enqueue_kernel"),
+                    (lambda: fk.pfc_account(*pargs), "pfc_kernel")):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                fn()
+            torch.cuda.synchronize()
+        events = {ev.key: ev.count for ev in prof.key_averages()
+                  if ev.device_type == torch.autograd.DeviceType.CUDA}
+        assert len(events) == 1, events
+        ((name, count),) = events.items()
+        assert own in name and count == 10, events
+
+
+def test_pfc_account_kernel_with_an_all_padded_slate(cuda):
+    """The PFC stage under the active set when no lane holds a flow (every
+    lane of the slate N): the capped open-loop trace under RoCEv2 + PFC,
+    the transition, serve/enqueue and the PFC stage on that slate against
+    their plain versions at ticks where the queues hold packets."""
+    _, _, prog = _open_loop_program(cuda, 200, protocol="rocev2")
+    st = prog.init_state()
+    held = 0
+    for t in range(150):
+        if t in (40, 80, 120, 149):
+            lanes = prog.lanes(torch.full((prog.A,), prog.N,
+                                          dtype=torch.int32, device=cuda))
+            eff_nic, prow = prog.eff_pause(st, t)
+            targs = prog.transport_args(st, t, prog.sendable_msg(st, t),
+                                        eff_nic, lanes)
+            out = fk.flow_transition_active(TF._clone_tree(targs[0]),
+                                            *targs[1:])
+            _same(out, fk.flow_transition_active_plain(
+                TF._clone_tree(targs[0]), *targs[1:]))
+            _, tx, ptx, pv, sel, _, _ = out
+            sargs, _, _ = prog.serve_args(st, t, tx, ptx, sel, pv, prow,
+                                          None, lanes)
+            res = _serve_and_pfc(prog, st, t, sargs, lanes.idx)
+            assert not bool(res[7][2 * prog.TS:].any())
+            held += int(st.qsize[:prog.Q].sum())
+        st, _, _ = prog.tick(st, t)
+    assert held > 0
 
 
 #: Every fault class at once on a 4x4 fabric (tests/test_torch_faults_state.py).
