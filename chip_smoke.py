@@ -18,9 +18,11 @@ Phases (any failure exits non-zero; nothing is caught):
      RTOs fire, probes go out and flows enter recovery; and the ranker at
      M = 255 ... 32768 (off the main paths: its work runs inside
      serve_enqueue's kernel);
-  2b. serve_enqueue and pfc_account run one device operation a call, their
-     own kernel and no memset (torch.profiler), on the dense, PFC, fault
-     and active-set paths;
+  2b. both transitions (STrack, RoCEv2), serve_enqueue and pfc_account run
+     one device operation a call, their own kernel and no memset
+     (torch.profiler), on the dense, PFC (and STrack's PFC NIC gate),
+     fault and active-set paths; these are the kernels line's device times
+     of those wrappers and paths;
   3. goldens perm16_strack / incast8_strack (tests/golden/*.json) through
      repro_torch.sim.workloads.run on the card;
   4. the main path at full width: perm1024 (1024 hosts, 64 KiB, 400 Gbps)
@@ -165,8 +167,9 @@ Phases (any failure exits non-zero; nothing is caught):
   9. a `kernels` JSON line (launches on the main paths; each kernel's
      device time per call from torch.profiler, and the wrapper's wall time
      per call; the plain version's device and wall time; the bound; for
-     serve_enqueue and pfc_account and each of their path fields a
-     call's time in a CUDA graph of 20 back-to-back calls (`chain_ms`);
+     the transitions, serve_enqueue and pfc_account and each of their path
+     fields a call's time in a CUDA graph of 20 back-to-back calls
+     (`chain_ms`);
      once, beside the list, the card's launch floor (`launch_floor_ms`:
      an empty kernel in such a graph; `barrier_floor_ms`: the cooperative
      launch and grid barriers alone);
@@ -243,7 +246,10 @@ SSM_REL_L2 = 0.15
 #: Each wrapper's own CUDA kernels (csrc/*.cu); a wrapper call launches
 #: these and memsets, nothing else.
 OWN_KERNELS = {
-    "flow_transition": ("apply_kernel", "commit_kernel"),
+    "flow_transition": ("strack_kernel",),
+    "flow_transition_roce": ("roce_kernel",),
+    "flow_transition_active": ("strack_kernel",),
+    "flow_transition_roce_active": ("roce_kernel",),
     "serve_enqueue": ("serve_enqueue_kernel",),
     "pfc_account": ("pfc_kernel",),
     "rank_in_queue": ("count_kernel", "scan_kernel", "resolve_kernel"),
@@ -306,6 +312,12 @@ def nbytes(tree) -> int:
     distinct = {id(t): t for _, t in leaves(tree)
                 if isinstance(t, torch.Tensor)}
     return sum(t.numel() * t.element_size() for t in distinct.values())
+
+
+def index_bytes(index) -> int:
+    """Bytes of a source index the transition kernels read: the flows by
+    source and the blocks' offsets."""
+    return nbytes((index.by_src, index.blocks))
 
 
 def wall_ms(fn, reps: int = 30) -> float:
@@ -426,43 +438,47 @@ def one_launch(calls: list, reps: int = 20) -> list:
     """Fail unless each call of ``calls`` (``(name, fn, what)``: a wrapper
     and a call of it) runs exactly one device operation, the wrapper's own
     kernel and no memset: ``torch.profiler`` over ``reps`` calls of each,
-    in turn, in one session, must record exactly that sequence of kernels
-    (a lost record fails too).  Returns each call's device ms."""
+    a session a call, must record exactly that sequence of kernels.  An
+    extra or foreign event fails at once; a session that recorded fewer
+    events than calls lost records (the profiler does, late in a long
+    process) and is taken again, at most three times.  Returns each
+    call's device ms."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    for _, fn, _ in calls:
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _, fn, _ in calls:
-            for _ in range(reps):
-                fn()
-        torch.cuda.synchronize()
-    evs = sorted((e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA),
-                 key=lambda e: e.time_range.start)
-    assert len(evs) == reps * len(calls), (
-        "one device operation a call", len(evs), reps * len(calls),
-        sorted({e.name[:60] for e in evs}))
     out = []
-    for i, (name, _, what) in enumerate(calls):
-        mine = evs[i * reps:(i + 1) * reps]
-        bad = [e.name for e in mine
-               if not any(o in e.name for o in OWN_KERNELS[name])]
-        assert not bad, (what, name, bad[:3])
-        ms = sum(e.time_range.elapsed_us() for e in mine) / reps / 1e3
+    for name, fn, what in calls:
+        fn()
+        for attempt in range(3):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+            evs = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+            bad = [e.name for e in evs
+                   if not any(o in e.name for o in OWN_KERNELS[name])]
+            assert not bad and len(evs) <= reps, (
+                "one device operation a call", what, name, len(evs), reps,
+                sorted({e.name[:60] for e in evs}))
+            if len(evs) == reps:
+                break
+            log(f"[one launch] {name} {what}: {len(evs)} device events "
+                f"recorded for {reps} calls (attempt {attempt + 1})")
+        assert len(evs) == reps, ("records lost three times", what, name)
+        ms = sum(e.time_range.elapsed_us() for e in evs) / reps / 1e3
         log(f"[one launch] {name} {what}: one device operation a call "
-            f"({mine[0].name[:60]}), {ms:.7f} ms")
+            f"({evs[0].name[:60]}), {ms:.7f} ms")
         out.append(ms)
     return out
 
 
 def capture_tick(sc, cfg, t: int, dev, capped: bool = False) -> tuple:
     """Dense ticks of ``sc`` under ``cfg`` on the card up to tick ``t``, and
-    the serve/enqueue arguments of tick ``t`` (with the ring, cloned), and
-    under PFC the PFC stage's (on the kernel's result).  Returns ``(prog,
-    sargs, ring, pargs)``."""
+    the transition's arguments of tick ``t``, the serve/enqueue arguments
+    (with the ring, cloned), and under PFC the PFC stage's (on the
+    kernel's result).  Returns ``(prog, targs, sargs, ring, pargs)``."""
     from repro_torch.kernels import fabric_kernels as fk
     from repro_torch.sim.fabric import _clone_tree
     prog = fabric_program(sc, cfg, dev)
@@ -488,19 +504,25 @@ def capture_tick(sc, cfg, t: int, dev, capped: bool = False) -> tuple:
         pargs = (prog.pfc_state(st), res[3], res[2], res[5], res[6], res[9],
                  res[7], ring_k, res[0], st.qsize, res[1], t, prog.pfc_flows,
                  prog.pfc_dims, None if lanes is None else lanes.idx)
-    return prog, sargs, ring, pargs
+    return prog, targs, sargs, ring, pargs
 
 
 def one_launch_paths(dev) -> dict:
-    """Phase 2b: serve_enqueue and pfc_account are one device operation a
-    call on every path (early in the process, while the profiler keeps its
-    records): the dense program (perm1024 tick 16), PFC (incast1024 RoCEv2
-    + PFC tick 100), faults (perm1024 under CHAOS1024, tick 28) and the
-    active set (infer1024 at A = 512, tick 400: STrack, and RoCEv2 + PFC).
-    Returns their device ms a call (the kernels line's ``ms`` of these
-    kernels and paths: the same ticks its timings replay), keyed by kernel
-    and path ("serve_enqueue", "serve_enqueue pfc", "serve_enqueue fault",
-    "serve_enqueue active", "pfc_account", "pfc_account active")."""
+    """Phase 2b: the transitions, serve_enqueue and pfc_account are one
+    device operation a call on every path (early in the process, while the
+    profiler keeps its records): the dense program (perm1024 tick 16),
+    PFC (incast1024 RoCEv2 + PFC tick 100; the STrack transition's NIC
+    gate at incast1024 STrack + PFC tick 64), faults (perm1024 under
+    CHAOS1024, tick 28) and the active set (infer1024 at A = 512, tick
+    400: STrack, and RoCEv2 + PFC; the active transitions step a clone of
+    the flow record, again and again).  Returns their device ms a call
+    (the kernels line's ``ms`` of these kernels and paths: the same ticks
+    its timings replay), keyed by wrapper and path ("flow_transition",
+    "flow_transition pfc", "flow_transition fault",
+    "flow_transition_roce", "flow_transition_active",
+    "flow_transition_roce_active", "serve_enqueue", "serve_enqueue pfc",
+    "serve_enqueue fault", "serve_enqueue active", "pfc_account",
+    "pfc_account active")."""
     from repro_torch.core.params import NetworkSpec
     from repro_torch.kernels import fabric_kernels as fk
     from repro_torch.profile import (CHAOS1024, INFER1024_CAP,
@@ -519,6 +541,8 @@ def one_launch_paths(dev) -> dict:
             ("", "dense (perm1024 t=16)", perm1024, RunConfig(), 16, False),
             (" pfc", "PFC (incast1024 rocev2 t=100)", incast1024,
              RunConfig(protocol="rocev2"), 100, False),
+            (" strack pfc", "PFC gate (incast1024 strack pfc t=64)",
+             incast1024, RunConfig(pfc=True), 64, False),
             (" fault", "faults (perm1024 CHAOS1024 t=28)", perm1024,
              RunConfig(faults=CHAOS1024), 28, False),
             (" active", "active set (infer1024 strack A=512 t=400)", infer,
@@ -526,7 +550,22 @@ def one_launch_paths(dev) -> dict:
             (" active", "active set (infer1024 rocev2 A=512 t=400)", infer,
              RunConfig(protocol="rocev2", active_cap=INFER1024_CAP), 400,
              True)):
-        _, sargs, ring, pargs = capture_tick(sc, cfg, t, dev, capped)
+        prog, targs, sargs, ring, pargs = capture_tick(sc, cfg, t, dev,
+                                                       capped)
+        name = "flow_transition" + ("_roce" if prog.proto.name == "rocev2"
+                                    else "") + ("_active" if capped else "")
+        if capped:
+            fl = _clone_tree(targs[0])
+            calls.append((name, lambda f=fl, a=targs:
+                          fk.flow_transition_active(f, *a[1:]), what))
+            keys.append(name)
+        else:
+            calls.append((name, lambda a=targs: fk.flow_transition(*a),
+                          what))
+            keys.append(name if name.endswith("_roce") else
+                        name + key.replace(" strack", ""))
+        if key == " strack pfc":
+            continue
         ring_k = _clone_tree(ring)
         calls.append(("serve_enqueue", lambda r=ring_k, a=sargs:
                       fk.serve_enqueue(r, *a[1:]), what))
@@ -816,7 +855,7 @@ def roce_pfc(dev, strack: dict, prof_ms: dict) -> tuple:
         out_k = transition(label, prog, targs, seen)
         if forced_nic is not None:
             transition(label + " (NICs paused)", prog,
-                       targs[:6] + (forced_nic,), seen["forced"])
+                       targs[:6] + (forced_nic, targs[7]), seen["forced"])
         _, tx, ptx, pv, sel, _ = out_k
         sargs, _, _ = prog.serve_args(st, t, tx, ptx, sel, pv, prow)
         rings = [type(st.q)(*[f.clone() for f in st.q]) for _ in range(2)]
@@ -920,7 +959,8 @@ def roce_pfc(dev, strack: dict, prof_ms: dict) -> tuple:
         flow = random_roce_flow(rng, n, dims_r.p, now)
         fl = dq.RoceFlow(**cuda(flow))
         due = dq.RoceMsg(**cuda(random_roce_msg(rng, n, flow)))
-        targs = (fl, due, sendable, src, t, dims_r, eff_nic)
+        index = fk.src_index(src, dims_r.n_hosts)
+        targs = (fl, due, sendable, src, t, dims_r, eff_nic, index)
         out = fk.flow_transition(*targs)
         same("flow_transition_roce", f"random RoceFlow t={t}", out,
              fk.flow_transition_plain(*targs))
@@ -939,7 +979,7 @@ def roce_pfc(dev, strack: dict, prof_ms: dict) -> tuple:
                                                                dims_s.p))),
                           rel=RelState(**cuda(rel_d)))
         sdue = SackMsg(**cuda(random_sack(rng, n, dims_s.p, rel_d, now)))
-        targs = (flows, sdue, sendable, src, t, dims_s, eff_nic)
+        targs = (flows, sdue, sendable, src, t, dims_s, eff_nic, index)
         out = fk.flow_transition(*targs)
         same("flow_transition", f"random FlowState under PFC t={t}", out,
              fk.flow_transition_plain(*targs))
@@ -1008,9 +1048,9 @@ def roce_pfc(dev, strack: dict, prof_ms: dict) -> tuple:
     # kernel times and bounds at incast1024's shapes (RoCEv2 + PFC at tick
     # 100; STrack + PFC at tick 64 for flow_transition's PFC path).  Late
     # in this process the profiler loses records (section 7 of PERF.md),
-    # so the kernels' device time comes from CUDA-graph replays
-    # (``graph_ms``), serve_enqueue's and pfc_account's from phase 2b's
-    # profile; the plain versions' from ``device_ms``
+    # so the kernels' device time comes from phase 2b's profile of the
+    # same ticks, beside a call among 20 in a graph (``chain_ms``); the
+    # plain versions' from ``device_ms``
     l_roce = runs["incast1024"][0]
     prog, (targs, sargs, ring, pargs) = captured["incast1024 rocev2"]
     _, (targs_s, _, _, _) = captured["incast1024 strack pfc"]
@@ -1036,11 +1076,13 @@ def roce_pfc(dev, strack: dict, prof_ms: dict) -> tuple:
         "flow_transition_roce": (lambda: fk.flow_transition(*targs),
                                  lambda: fk.flow_transition_plain(*targs),
                                  bound_ms(nbytes(targs[:4]) + nbytes(targs[6])
+                                          + index_bytes(targs[7])
                                           + nbytes(out_r),
                                           targs[2].numel() * 40)),
         "flow_transition": (lambda: fk.flow_transition(*targs_s),
                             lambda: fk.flow_transition_plain(*targs_s),
                             bound_ms(nbytes(targs_s[:4]) + nbytes(targs_s[6])
+                                     + index_bytes(targs_s[7])
                                      + nbytes(out_s),
                                      targs_s[2].numel() * (2 * 512 + 64))),
         "serve_enqueue": (lambda: fk.serve_enqueue(ring_k, *sargs[1:]),
@@ -1057,11 +1099,9 @@ def roce_pfc(dev, strack: dict, prof_ms: dict) -> tuple:
         row = {"plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
                "wall_ms": wall_ms(kern),
                "plain_wall_ms": wall_ms(plain, reps=10)}
-        if name in ("serve_enqueue", "pfc_account"):  # ms: phase 2b's
-            key = name if name == "pfc_account" else "serve_enqueue pfc"
-            row.update(ms=prof_ms[key], chain_ms=chain_ms(kern))
-        else:
-            row["ms"] = graph_ms(kern)
+        key = {"serve_enqueue": "serve_enqueue pfc",
+               "flow_transition": "flow_transition pfc"}.get(name, name)
+        row.update(ms=prof_ms[key], chain_ms=chain_ms(kern))  # phase 2b's
         if name == "flow_transition_roce":
             entries.append({
                 "name": name, "route": "cuda",
@@ -2266,7 +2306,7 @@ def active_set(dev, prof_ms: dict) -> tuple:
         # the live lanes' flow rows read and written, their due rows and
         # sources, the slate, the per-lane outputs
         t_bytes = (ok * (2 * row_b + due_b + 4) + 4 * cap
-                   + nbytes(out[1:]))
+                   + index_bytes(targs[7]) + nbytes(out[1:]))
         per_lane = 2 * 512 + 64 if name == "flow_transition_active" else 40
         bnd, by = bound_ms(t_bytes, ok * per_lane)
         plain_ms, _ = device_ms(plain, reps=10)
@@ -2276,7 +2316,8 @@ def active_set(dev, prof_ms: dict) -> tuple:
             "source": f"{csrc}/{src}",
             "replaces": "src/repro/kernels/fabric_kernels.py:191",
             "launches": runs[name], "max_abs_err": max_err[name],
-            "ms": graph_ms(kern), "plain_ms": plain_ms, "bound_ms": bnd,
+            "ms": prof_ms[name], "chain_ms": chain_ms(kern),
+            "plain_ms": plain_ms, "bound_ms": bnd,
             "bound_by": by, "library_ms": None, "wall_ms": wall_ms(kern),
             "plain_wall_ms": wall_ms(plain, reps=10),
             "shape": f"infer1024 {prog.proto.name} A={cap} t={t} "
@@ -2480,7 +2521,8 @@ def main() -> int:
         src = torch.from_numpy(rng.integers(0, n // 4, n).astype(np.int32)
                                ).to(dev)
         out = check_transition(f"random flows t={t}",
-                               (flows, due, sendable, src, t, dims))
+                               (flows, due, sendable, src, t, dims, None,
+                                fk.src_index(src, dims.n_hosts)))
         seen["rto"] += int((out[0].rel.rto_fires
                             > flows.rel.rto_fires).sum())
         seen["recoveries"] += int((out[0].rel.recoveries
@@ -2530,8 +2572,8 @@ def main() -> int:
     s_bytes = (2 * 4 * (Q + 1) + Q * slot_bytes + nbytes(sargs[3:17])
                + nbytes(res_k) + n_acc * slot_bytes)
     bounds = {
-        "flow_transition": bound_ms(nbytes(targs[:4]) + nbytes(out_k),
-                                    n * 2 * 512 + n * 64),
+        "flow_transition": bound_ms(nbytes(targs[:4]) + index_bytes(targs[7])
+                                    + nbytes(out_k), n * 2 * 512 + n * 64),
         "serve_enqueue": bound_ms(s_bytes, Q * 40 + M * 20),
         "rank_in_queue": bound_ms(M * (4 + 1) + M * 4, M * 128),
     }
@@ -2554,7 +2596,7 @@ def main() -> int:
             "wall_ms": wall_ms(kern), "plain_wall_ms": wall_ms(plain,
                                                                reps=10),
             "graph_ms": graph_ms(kern)})
-        if name == "serve_enqueue":
+        if name in ("serve_enqueue", "flow_transition"):
             kernels[-1]["chain_ms"] = chain_ms(kern)
         if name == "rank_in_queue":  # off the main paths since PR 20
             kernels[-1]["main_paths"] = ("0 launches: its work runs inside "
@@ -2608,8 +2650,8 @@ def main() -> int:
     log(f"[floor] {floors}")
     for entry in kernels:  # launches on the main path (phase 4)
         entry["launches"] = launches[entry["name"]]
-        if entry["name"] == "serve_enqueue":  # the profiler's, phase 2b
-            entry["ms"] = prof_ms["serve_enqueue"]
+        if entry["name"] in ("serve_enqueue", "flow_transition"):
+            entry["ms"] = prof_ms[entry["name"]]  # the profiler's, phase 2b
 
     # ---- 6b. RoCEv2 (DCQCN + go-back-N) and PFC on the fabric ------------
     pfc_entries, pfc_paths = roce_pfc(
@@ -2626,6 +2668,8 @@ def main() -> int:
     # ---- 6c. chaos: flaps, degrades and corruption on the fabric ----------
     fault = chaos(dev, w_perm, prof_ms)
     for entry in kernels:
+        if entry["name"] == "flow_transition":  # its fault path, phase 2b
+            entry["fault_ms"] = prof_ms["flow_transition fault"]
         if entry["name"] == "serve_enqueue":
             entry.update(fault)
             entry["max_abs_err"] = max(entry["max_abs_err"],

@@ -4,10 +4,9 @@ The structs below mirror, field for field, the ones declared in
 ``csrc/transition.cu``, ``csrc/transition_roce.cu`` and
 ``csrc/serve_enqueue.cu``; the kernels take
 pointers from ``Tensor.data_ptr()`` and PyTorch's current stream.  Every
-output and scratch buffer is allocated here with ``torch.empty`` (the
-one-launch serve/enqueue and PFC kernels cut theirs from one allocation
-per dtype), after the inputs' device, dtype, shape and contiguity are
-checked.
+output and scratch buffer is allocated here, cut from one allocation per
+dtype (``_carve``), after the inputs' device, dtype, shape and contiguity
+are checked.
 """
 from __future__ import annotations
 
@@ -24,7 +23,8 @@ from ..core.reliability import REORDER_WINDOW, RelState, SackMsg
 from ..core.transport import FlowState, TxPacket
 from ..numerics import Now, f32, now_plus, recip32
 from ..sim.dcqcn_fab import RoceFlow, RoceMsg
-from .fabric_kernels import PfcState, PktQ, _check, _launch, _stream
+from .fabric_kernels import (PfcState, PktQ, _check, _launch, _stream,
+                             row_chunk)
 
 #: Fixed bucket slots of a queue in the serve kernel (``kBucket`` of
 #: ``csrc/serve_enqueue.cu``).
@@ -40,7 +40,7 @@ def _ptrs(name, fields):
 
 
 class TransParams(Structure):
-    _fields_ = ([(n, c_int) for n in ("t", "timer_tick", "N", "L", "NH",
+    _fields_ = ([(n, c_int) for n in ("t", "timer_tick", "N", "L", "NB",
                                       "NR", "P", "B")]
                 + [(n, c_float) for n in (
                     "now", "probe_at", "rto_at", "mtu", "tq", "th",
@@ -61,13 +61,8 @@ class TransOut(Structure):
                 ("done_lane", c_void_p)]
 
 
-TransScratch = _ptrs("TransScratch", (
-    "best", "score", "np_psn_next", "np_bytes_sent", "np_clear",
-    "np_bitmap", "np_rr", "np_last_reset"))
-
-
 class RoceParams(Structure):
-    _fields_ = ([(n, c_int) for n in ("t", "timer_tick", "N", "L", "NH",
+    _fields_ = ([(n, c_int) for n in ("t", "timer_tick", "N", "L", "NB",
                                       "NR", "F")]
                 + [(n, c_float) for n in (
                     "now", "pace_at", "rto_at", "rto_rearm", "window", "mtu",
@@ -77,9 +72,6 @@ class RoceParams(Structure):
 
 RoceFlowPtrs = _ptrs("RoceFlowPtrs", RoceFlow._fields)
 RoceMsgPtrs = _ptrs("RoceMsgPtrs", RoceMsg._fields)
-RoceScratch = _ptrs("RoceScratch", (
-    "best", "score", "np_rate", "np_target", "np_bytes_ctr",
-    "np_next_send_ts", "np_b_stage"))
 
 
 class ServeParams(Structure):
@@ -110,7 +102,8 @@ ServeScratch = _ptrs("ServeScratch", ("cnt", "fixed", "over", "stage"))
 
 class PfcParams(Structure):
     _fields_ = ([(n, c_int) for n in ("Q", "TS", "T", "S", "NH", "HPT", "N",
-                                      "L", "cap", "PD", "line_row")]
+                                      "L", "cap", "PD", "line_row", "cS",
+                                      "cHPT", "cT")]
                 + [(n, c_float) for n in ("buf", "alpha", "inv", "xon", "mtu",
                                           "ack_bytes")])
 
@@ -132,15 +125,13 @@ def declare(name: str, lib: ctypes.CDLL) -> None:
         lib.rank_in_queue.restype = c_int
     elif name == "transition":
         lib.strack_transition.argtypes = [
-            P(TransParams), P(FlowPtrs), P(SackPtrs), c_void_p, c_void_p,
-            c_void_p, c_void_p, P(FlowPtrs), P(TransOut), P(TransScratch),
-            c_void_p]
+            P(TransParams), P(FlowPtrs), P(SackPtrs)] + [c_void_p] * 6 + [
+            P(FlowPtrs), P(TransOut), c_void_p]
         lib.strack_transition.restype = c_int
     elif name == "transition_roce":
         lib.roce_transition.argtypes = [
-            P(RoceParams), P(RoceFlowPtrs), P(RoceMsgPtrs), c_void_p,
-            c_void_p, c_void_p, c_void_p, P(RoceFlowPtrs), P(TransOut),
-            P(RoceScratch), c_void_p]
+            P(RoceParams), P(RoceFlowPtrs), P(RoceMsgPtrs)] + [c_void_p] * 6 + [
+            P(RoceFlowPtrs), P(TransOut), c_void_p]
         lib.roce_transition.restype = c_int
     elif name == "serve_enqueue":
         lib.se_serve_enqueue.argtypes = [P(ServeParams), P(Ring), P(ServeIn),
@@ -171,20 +162,6 @@ def _flat(flows: FlowState):
     return list(flows.cc) + list(flows.spray) + list(flows.rel)
 
 
-def _lane_outputs(n: int, dev, act_idx):
-    """The per-lane outputs of a transition launch: ``(lanes, tx,
-    probe_tx, probe_valid, sel, can_tx, done_lane)`` (``done_lane`` None on
-    the dense program), and an ``e(dtype, *trailing)`` allocator of per-lane
-    scratch."""
-    lanes = n if act_idx is None else act_idx.shape[0]
-    e = lambda dt, *tail: torch.empty((lanes,) + tail, dtype=dt, device=dev)
-    bt, i32 = torch.bool, torch.int32
-    tx = TxPacket(e(bt), e(i32), e(i32), e(bt), e(bt))
-    ptx = TxPacket(e(bt), e(i32), e(i32), e(bt), e(bt))
-    done = None if act_idx is None else e(bt)
-    return (lanes, tx, ptx, e(bt), e(bt), e(bt), done), e
-
-
 def _lane_args(sendable, src, act_idx):
     """Check the lane inputs of a transition launch: ``sendable`` (bool[N])
     on the dense program, ``act_idx`` (i32[A]) under the active set."""
@@ -200,13 +177,44 @@ def _lane_args(sendable, src, act_idx):
     return n, dev
 
 
+def _outputs(record, dev, lanes: int, active: bool):
+    """A transition launch's outputs, cut from one allocation per dtype:
+    a fresh flow record shaped as ``record`` (a flat list of its leaves;
+    ``None`` under the active set, which updates the record in place), and
+    the per-lane ``tx, probe_tx, probe_valid, sel, can_tx, done_lane``
+    (``done_lane`` None on the dense program)."""
+    bt, i32 = torch.bool, torch.int32
+    spec = [(x.dtype, tuple(x.shape)) for x in record or ()]
+    lane_dt = [bt, i32, i32, bt, bt] * 2 + [bt] * (4 if active else 3)
+    parts = _carve(dev, spec + [(dt, (lanes,)) for dt in lane_dt])
+    fresh, lane = parts[:len(spec)], parts[len(spec):]
+    return (fresh, TxPacket(*lane[:5]), TxPacket(*lane[5:10]), lane[10],
+            lane[11], lane[12], lane[13] if active else None)
+
+
+def _launch_transition(fn, prm, flows_in, due, sendable, src, eff_nic,
+                       act_idx, index, flows_out, outs, ptrs_cls, msg_cls):
+    """One launch of a transition entry point (``fn``) on PyTorch's current
+    stream."""
+    tx, ptx, probe_valid, sel, can_tx, done = outs
+    o = TransOut(tx=_struct(TxPtrs, tx), probe=_struct(TxPtrs, ptx),
+                 probe_valid=_p(probe_valid), sel=_p(sel),
+                 can_tx=_p(can_tx), done_lane=_p(done))
+    _launch(fn, ctypes.byref(prm), ctypes.byref(_struct(ptrs_cls, flows_in)),
+            ctypes.byref(_struct(msg_cls, due)), _p(sendable), _p(eff_nic),
+            _p(act_idx), _p(index.by_src), _p(index.src_sorted),
+            _p(index.blocks), ctypes.byref(_struct(ptrs_cls, flows_out)),
+            ctypes.byref(o), _stream(src))
+
+
 def transition(lib, flows: FlowState, due: SackMsg, sendable, src, t: int,
-               d, eff_nic=None, act_idx=None):
-    """Launch ``strack_transition``; same contract as
+               d, eff_nic=None, index=None, act_idx=None):
+    """Launch ``strack_transition`` (one launch); same contract as
     ``fabric_kernels.flow_transition_plain``, or under the active set
     (``act_idx``, ``sendable`` None) as
     ``fabric_kernels.flow_transition_active_plain``: the flow record is
-    then updated in place and ``done_lane`` returned last."""
+    then updated in place and ``done_lane`` returned last.  ``index`` is
+    the program's ``SrcIndex``."""
     p = d.p
     n, dev = _lane_args(sendable, src, act_idx)
     P, B, W = p.max_paths, p.sack_bitmap_bits, REORDER_WINDOW
@@ -217,9 +225,14 @@ def transition(lib, flows: FlowState, due: SackMsg, sendable, src, t: int,
                 psn_next=(i32, (n,)), total_pkts=(i32, (n,)),
                 in_recovery=(bt, (n,)), recover_high=(i32, (n,)),
                 rto_fires=(i32, (n,)), recoveries=(i32, (n,)))
-    for name, t_ in zip(_FLOW_FIELDS, _flat(flows)):
+    flat = _flat(flows)
+    for name, t_ in zip(_FLOW_FIELDS, flat):
         dt, shape = want.get(name, (f32t, (n,)))
         _check(f"flows.{name}", t_, dt, shape, dev)
+        if name in ("sacked", "claimed") and t_.data_ptr() % 16:
+            raise ValueError(f"flows.{name}: the kernel moves a ledger row "
+                             f"16 bytes a lane; its storage must be 16-byte "
+                             f"aligned")
     due_want = dict(valid=bt, epsn=i32, sack_base=i32, sack_bits=bt,
                     bytes_recvd=f32t, ooo_cnt=i32, ecn=bt, entropy=i32,
                     ts=f32t, probe_reply=bt)
@@ -227,23 +240,21 @@ def transition(lib, flows: FlowState, due: SackMsg, sendable, src, t: int,
         shape = (n, B) if name == "sack_bits" else (n,)
         _check(f"due.{name}", t_, due_want[name], shape, dev)
 
-    if act_idx is None:
-        out_leaves = [torch.empty_like(x) for x in _flat(flows)]
-        nc, ns = len(CCState._fields), len(SprayState._fields)
-        out = FlowState(cc=CCState(*out_leaves[:nc]),
-                        spray=SprayState(*out_leaves[nc:nc + ns]),
-                        rel=RelState(*out_leaves[nc + ns:]))
+    active = act_idx is not None
+    lanes = act_idx.shape[0] if active else n
+    fresh, *outs = _outputs(None if active else flat, dev, lanes, active)
+    if active:
+        out_leaves, out = flat, flows   # in place
     else:
-        out_leaves, out = _flat(flows), flows   # in place
-    (lanes, tx, ptx, probe_valid, sel, can_tx, done), e = _lane_outputs(
-        n, dev, act_idx)
-    scratch = [torch.empty((d.n_hosts,), dtype=i32, device=dev), e(i32),
-               e(i32), e(f32t), e(i32), e(i32, 8), e(i32), e(f32t)]
-
+        nc, ns = len(CCState._fields), len(SprayState._fields)
+        out_leaves = fresh
+        out = FlowState(cc=CCState(*fresh[:nc]),
+                        spray=SprayState(*fresh[nc:nc + ns]),
+                        rel=RelState(*fresh[nc + ns:]))
     now = Now(t, d.tick_us)
     prm = TransParams(
         t=t, timer_tick=int(t % d.timer_every == 0), N=n, L=lanes,
-        NH=d.n_hosts,
+        NB=index.blocks.shape[0] - 1,
         NR=d.n_real, P=P, B=B, now=float(now),
         probe_at=now_plus(now, p.probe_rtts * p.base_rtt_us),
         rto_at=now_plus(now, p.rto_us), mtu=f32(p.mtu_bytes),
@@ -256,18 +267,11 @@ def transition(lib, flows: FlowState, due: SackMsg, sendable, src, t: int,
         mtu_recip=recip32(p.mtu_bytes), two_base_rtt=f32(2 * p.base_rtt_us),
         reset_after=f32(p.bitmap_reset_rtts * p.base_rtt_us),
         min_ooo=float(p.min_ooo_threshold), eps=f32(1e-9))
-    o = TransOut(tx=_struct(TxPtrs, tx), probe=_struct(TxPtrs, ptx),
-                 probe_valid=_p(probe_valid), sel=_p(sel),
-                 can_tx=_p(can_tx), done_lane=_p(done))
-    _launch(lib.strack_transition, ctypes.byref(prm),
-            ctypes.byref(_struct(FlowPtrs, _flat(flows))),
-            ctypes.byref(_struct(SackPtrs, due)), _p(sendable), _p(src),
-            _p(eff_nic), _p(act_idx),
-            ctypes.byref(_struct(FlowPtrs, out_leaves)),
-            ctypes.byref(o), ctypes.byref(_struct(TransScratch, scratch)),
-            _stream(src))
-    res = (out, tx, ptx, probe_valid, sel, can_tx)
-    return res if act_idx is None else res + (done,)
+    _launch_transition(lib.strack_transition, prm, flat, due, sendable, src,
+                       eff_nic, act_idx, index, out_leaves, outs, FlowPtrs,
+                       SackPtrs)
+    res = (out, *outs[:5])
+    return res + (outs[5],) if active else res
 
 
 _ROCE_INT = ("snd_una", "psn_next", "total_pkts", "t_stage", "b_stage",
@@ -275,8 +279,8 @@ _ROCE_INT = ("snd_una", "psn_next", "total_pkts", "t_stage", "b_stage",
 
 
 def transition_roce(lib, flows: RoceFlow, due: RoceMsg, sendable, src,
-                    t: int, d, eff_nic=None, act_idx=None):
-    """Launch ``roce_transition``; same contract as
+                    t: int, d, eff_nic=None, index=None, act_idx=None):
+    """Launch ``roce_transition`` (one launch); same contract as
     ``fabric_kernels.flow_transition_plain`` under the RoCEv2 record, or,
     with ``act_idx``, as ``flow_transition_active_plain`` (in place)."""
     p = d.p
@@ -289,16 +293,15 @@ def transition_roce(lib, flows: RoceFlow, due: RoceMsg, sendable, src,
     for name, t_, dt in zip(RoceMsg._fields, due,
                             (bt, bt, bt, bt, i32, f32t)):
         _check(f"due.{name}", t_, dt, (n,), dev)
-    out = (RoceFlow(*[torch.empty_like(x) for x in flows])
-           if act_idx is None else flows)   # in place under the active set
-    (lanes, tx, ptx, probe_valid, sel, can_tx, done), e = _lane_outputs(
-        n, dev, act_idx)
-    scratch = [torch.empty((d.n_hosts,), dtype=i32, device=dev), e(i32),
-               e(f32t), e(f32t), e(f32t), e(f32t), e(i32)]
+    active = act_idx is not None
+    lanes = act_idx.shape[0] if active else n
+    fresh, *outs = _outputs(None if active else list(flows), dev, lanes,
+                            active)
+    out = flows if active else RoceFlow(*fresh)  # in place under the cap
     now = Now(t, d.tick_us)
     prm = RoceParams(
         t=t, timer_tick=int(t % d.timer_every == 0), N=n, L=lanes,
-        NH=d.n_hosts,
+        NB=index.blocks.shape[0] - 1,
         NR=d.n_real, F=dc.f_fast_recovery, now=float(now),
         pace_at=now_plus(now, 0.5 * p.tick_us), rto_at=now_plus(now, p.rto_us),
         rto_rearm=f32(float(now) + f32(p.rto_us)), window=f32(p.window_pkts), mtu=f32(p.mtu_bytes),
@@ -307,18 +310,11 @@ def transition_roce(lib, flows: RoceFlow, due: RoceMsg, sendable, src,
         min_rate=f32(dc.min_rate_Bpus), keep=f32(1 - dc.g), g=f32(dc.g),
         alpha_timer=f32(dc.alpha_timer_us), rate_timer=f32(dc.rate_timer_us),
         eps=f32(1e-9))
-    o = TransOut(tx=_struct(TxPtrs, tx), probe=_struct(TxPtrs, ptx),
-                 probe_valid=_p(probe_valid), sel=_p(sel),
-                 can_tx=_p(can_tx), done_lane=_p(done))
-    _launch(lib.roce_transition, ctypes.byref(prm),
-            ctypes.byref(_struct(RoceFlowPtrs, flows)),
-            ctypes.byref(_struct(RoceMsgPtrs, due)), _p(sendable), _p(src),
-            _p(eff_nic), _p(act_idx),
-            ctypes.byref(_struct(RoceFlowPtrs, out)),
-            ctypes.byref(o), ctypes.byref(_struct(RoceScratch, scratch)),
-            _stream(src))
-    res = (out, tx, ptx, probe_valid, sel, can_tx)
-    return res if act_idx is None else res + (done,)
+    _launch_transition(lib.roce_transition, prm, flows, due, sendable, src,
+                       eff_nic, act_idx, index, out, outs, RoceFlowPtrs,
+                       RoceMsgPtrs)
+    res = (out, *outs[:5])
+    return res + (outs[5],) if active else res
 
 
 @functools.lru_cache(maxsize=64)
@@ -500,6 +496,7 @@ def pfc_account(lib, st: PfcState, has, pop, pop_bytes, cand_qid,
     out = PfcState(*_carve(dev, [(x.dtype, tuple(x.shape)) for x in st]))
     prm = PfcParams(Q=Q, TS=TS, T=T, S=S, NH=NH, HPT=HPT, N=N, L=L, cap=cap,
                     PD=d.PD, line_row=t % d.PD if d.PD > 0 else 0,
+                    cS=row_chunk(S), cHPT=row_chunk(HPT), cT=row_chunk(T),
                     buf=f32(d.buffer_bytes), alpha=f32(d.alpha),
                     inv=recip32(1 + d.alpha), xon=f32(d.xon_frac),
                     mtu=f32(d.mtu_bytes), ack_bytes=f32(64))

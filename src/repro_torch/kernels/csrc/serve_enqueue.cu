@@ -76,8 +76,9 @@
 //      shared memory), their loads issued with the rows'; one thread a
 //      queue adds the accepted bytes onto qbytes in candidate order (a
 //      warp where a queue took two or more);
-//   2. one warp a switch sums its occupancy once, in the plain version's
-//      order, and steps the pause gate of each of its ports.
+//   2. one warp a switch sums its occupancy once, in the reference's
+//      chunked order (ROADMAP C16), and steps the pause gate of each of
+//      its ports.
 // Every counter adds its terms in the order of the reference's scatters:
 // dequeues by row, accepted advances, data injections, probes (ROADMAP
 // C14); sequential float adds, never float atomics or a tree.  A warp
@@ -598,6 +599,7 @@ extern "C" int se_draw(int seed, const int* row, const int* t, const int* psn,
 
 struct PfcParams {
   int Q, TS, T, S, NH, HPT, N, L, cap, PD, line_row;
+  int cS, cHPT, cT;  // the chunks the occupancy rows are summed in
   float buf, alpha, inv, xon, mtu, ack_bytes;
 };
 
@@ -840,17 +842,27 @@ __device__ void queue_bytes(int q0, const PfcParams& p, const PfcIn& in,
     out.qbytes[p.Q] = 0.0f;
 }
 
-// v + x[0] + ... + x[n-1] on every lane of the warp, one add after
-// another, where lane l holds x[32 u + l] in xs[u].
-__device__ __forceinline__ float ordered_sum(float v, const float* xs,
-                                             int n) {
+// x[0] + ... + x[n-1] on every lane of the warp, as the reference's
+// program sums a row (ROADMAP C16): from zero, each chunk of c (a divisor
+// of n) summed from zero one add after another, then the chunks' sums one
+// after another; lane l holds x[32 u + l] in xs[u].
+__device__ __forceinline__ float ordered_sum(const float* xs, int n, int c) {
+  float total = 0.0f, part = 0.0f;
+  int j = 0;
 #pragma unroll
   for (int u = 0; u < kRows; ++u) {
     int m = n - u * 32;
     if (m > 32) m = 32;
-    for (int s = 0; s < m; ++s) v = v + __shfl_sync(FULL_MASK, xs[u], s);
+    for (int s = 0; s < m; ++s) {
+      part = part + __shfl_sync(FULL_MASK, xs[u], s);
+      if (++j == c) {
+        total = total + part;
+        part = 0.0f;
+        j = 0;
+      }
+    }
   }
-  return v;
+  return total;
 }
 
 __device__ __forceinline__ float xoff_of(const PfcParams& p, float occ) {
@@ -893,7 +905,7 @@ __device__ int tor_gates(int t, const PfcParams& p, const PfcState& st,
       old[r] = st.paused_sd[(x - HPT) * T + t];
     }
   }
-  const float a = ordered_sum(0.0f, xa, S), b = ordered_sum(0.0f, xb, HPT);
+  const float a = ordered_sum(xa, S, p.cS), b = ordered_sum(xb, HPT, p.cHPT);
   const float xoff = xoff_of(p, a + b);
   int fresh = 0;
 #pragma unroll
@@ -926,7 +938,7 @@ __device__ int spine_gates(int s, const PfcParams& p, const PfcState& st,
     ing[r] = t < T ? ld_f(out.ing_up + t * S + s) : 0.0f;
     old[r] = t < T && st.paused_up[t * S + s];
   }
-  const float xoff = xoff_of(p, ordered_sum(0.0f, xs, T));
+  const float xoff = xoff_of(p, ordered_sum(xs, T, p.cT));
   int fresh = 0;
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {

@@ -21,10 +21,12 @@ wrapper                          reference kernel (Pallas)              CUDA sou
                                  (``fabric.py`` stage 6b)
 ===============================  =====================================  ==========================
 
-On the card :func:`serve_enqueue` and :func:`pfc_account` are one launch
-each, and the ranker's work runs inside serve/enqueue's kernel: the
-fabric's tick no longer launches ``csrc/rank.cu``, which stays the
-counterpart of ``rank_in_queue_kernel``.
+On the card every wrapper of the tick is one launch: the transitions
+arbitrate each NIC inside one block, over the program's
+:class:`SrcIndex` (the flows grouped by source); the ranker's work runs
+inside serve/enqueue's kernel, so the fabric's tick no longer launches
+``csrc/rank.cu``, which stays the counterpart of
+``rank_in_queue_kernel``.
 
 Under PFC the transition takes the NICs' effective pause mask and serve
 the paused rows; :func:`pfc_account` then keeps the byte counters and the
@@ -47,6 +49,7 @@ they run on PyTorch's current stream.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -182,6 +185,60 @@ def rank_in_queue(qid: torch.Tensor, flag: torch.Tensor,
 
 
 # --------------------------------------------------------------------------- #
+# The flows grouped by source NIC, built once a run
+# --------------------------------------------------------------------------- #
+
+#: Flows a block of the transition kernels takes: whole sources, at most
+#: this many flows, or one source with more (``kWarps`` of
+#: ``csrc/transition.cu``).
+BLOCK_FLOWS = 16
+
+
+class SrcIndex(NamedTuple):
+    """The flows grouped by source NIC (a CSR of ``src``), built once a run
+    by :func:`src_index`: the transitions arbitrate each NIC inside one
+    block of ``blocks``, the PFC stage sums a host's injections in flow
+    order."""
+
+    by_src: torch.Tensor      # i32[N]: flows sorted by src, stable
+    src_start: torch.Tensor   # i32[NH + 1]: offsets of each host in by_src
+    blocks: torch.Tensor      # i32[B + 1]: offsets in by_src of the blocks
+    src_sorted: torch.Tensor  # i32[N]: src[by_src], the sources in order
+
+
+def _blocks(counts: list, cap: int) -> list:
+    """Offsets of consecutive runs of whole sources of at most ``cap``
+    flows each (a source with more: a run of its own), given each source's
+    flow count."""
+    out, pos, fill = [0], 0, 0
+    for c in counts:
+        if c and fill and fill + c > cap:
+            out.append(pos)
+            fill = 0
+        pos += c
+        fill += c
+        if fill > cap:
+            out.append(pos)
+            fill = 0
+    if fill:
+        out.append(pos)
+    return out
+
+
+def src_index(src: torch.Tensor, n_hosts: int) -> SrcIndex:
+    """The :class:`SrcIndex` of ``src`` (i32[N], hosts in ``[0,
+    n_hosts)``), on ``src``'s device; made on the host (one read of
+    ``src``)."""
+    s = src.cpu().long()
+    src_sorted, by_src = torch.sort(s, stable=True)
+    counts = torch.bincount(s, minlength=n_hosts)
+    start = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
+    blocks = torch.tensor(_blocks(counts.tolist(), BLOCK_FLOWS))
+    return SrcIndex(*[x.to(device=src.device, dtype=torch.int32)
+                      for x in (by_src, start, blocks, src_sorted)])
+
+
+# --------------------------------------------------------------------------- #
 # Kernel 1 of the reference: per-flow transport transitions
 # --------------------------------------------------------------------------- #
 
@@ -194,15 +251,17 @@ def _empty_tx(n: int, device) -> TxPacket:
 
 def flow_transition_plain(flows, due, sendable: torch.Tensor,
                           src: torch.Tensor, t: int, d: TransDims,
-                          eff_nic=None, lane_id=None):
+                          eff_nic=None, index=None, lane_id=None):
     """``dense_trans_core``: apply the due message, run the timer sweep on
     timer ticks (a probe only once the flow has sent data), offer the next
     packet, and arbitrate each NIC round-robin (the lowest ``(lane - t) %
     NR`` of the flows that can send wins).  Under PFC (``eff_nic``, the
     NICs' effective pause mask) a probe of a paused NIC is withheld with
     its timer state, and a paused NIC's winner commits nothing.
-    ``lane_id`` (i32[n]) is each lane's flow index for the round robin,
-    the lane itself by default.
+    ``index`` (the program's :class:`SrcIndex`, which the kernels need)
+    is not read: each NIC's minimum is a ``scatter_reduce``.  ``lane_id``
+    (i32[n]) is each lane's flow index for the round robin, the lane
+    itself by default.
 
     Returns ``(flows, tx, probe_tx, probe_valid, sel, can_tx)``."""
     proto = d.proto
@@ -233,13 +292,27 @@ def flow_transition_plain(flows, due, sendable: torch.Tensor,
     return fl, tx, probe_tx, probe_valid, sel, can_tx
 
 
+def _check_index(index, n: int, dev) -> None:
+    if index is None:
+        raise ValueError("index: the transition kernels take the program's "
+                         "SrcIndex (src_index)")
+    _check("index.by_src", index.by_src, torch.int32, (n,), dev)
+    _check("index.src_sorted", index.src_sorted, torch.int32, (n,), dev)
+    _check("index.blocks", index.blocks, torch.int32,
+           (index.blocks.shape[0],), dev)
+    if index.blocks.shape[0] < 1:
+        raise ValueError("index.blocks: expected at least one offset")
+
+
 def flow_transition(flows, due, sendable: torch.Tensor, src: torch.Tensor,
-                    t: int, d: TransDims, eff_nic=None):
+                    t: int, d: TransDims, eff_nic=None, index=None):
     """The transition stage: plain version on CPU tensors; on CUDA tensors
-    ``csrc/transition.cu`` (STrack) or ``csrc/transition_roce.cu``
-    (RoCEv2), two launches each: apply + arbitrate, then commit the NIC
-    winners.  ``eff_nic`` (bool[NH]) is the PFC gate, ``None`` on lossy
-    queues."""
+    one launch of ``csrc/transition.cu`` (STrack) or
+    ``csrc/transition_roce.cu`` (RoCEv2): a block takes the whole sources
+    of one block of ``index`` (the program's :class:`SrcIndex`), steps
+    their flows, finds each NIC's minimum score in shared memory and
+    commits the winners' sends.  ``eff_nic`` (bool[NH]) is the PFC gate,
+    ``None`` on lossy queues."""
     n = sendable.shape[0]
     _check("sendable", sendable, torch.bool, (n,))
     _check("src", src, torch.int32, (n,), sendable.device)
@@ -247,15 +320,16 @@ def flow_transition(flows, due, sendable: torch.Tensor, src: torch.Tensor,
         _check("eff_nic", eff_nic, torch.bool, (d.n_hosts,), sendable.device)
     if _route(sendable) == "plain":
         return flow_transition_plain(flows, due, sendable, src, t, d,
-                                     eff_nic)
+                                     eff_nic, index)
+    _check_index(index, n, sendable.device)
     from . import _cuda_bind
     if d.proto.name == "rocev2":
         out = _cuda_bind.transition_roce(_lib("transition_roce"), flows, due,
-                                         sendable, src, t, d, eff_nic)
+                                         sendable, src, t, d, eff_nic, index)
         launches["flow_transition_roce"] += 1
     else:
         out = _cuda_bind.transition(_lib("transition"), flows, due, sendable,
-                                    src, t, d, eff_nic)
+                                    src, t, d, eff_nic, index)
         launches["flow_transition"] += 1
     return out
 
@@ -286,14 +360,15 @@ def _scatter_rows_(tree, rows, idx: torch.Tensor, n: int) -> None:
 
 def flow_transition_active_plain(flows, due, act_idx: torch.Tensor,
                                  src: torch.Tensor, t: int, d: TransDims,
-                                 eff_nic=None):
+                                 eff_nic=None, index=None):
     """``active_trans_core``: the transition on the lanes of the slate
     ``act_idx`` (i32[A], released unfinished flows in ascending order,
     padded with N).  Gathers the lanes' flow rows and due rows (``due`` is
     the [N] return-pipe slot of this tick), runs :func:`flow_transition_plain`
     on them with the flows' own indices as round-robin ids and the lanes'
     sources as NIC segments, and scatters the rows back into the [N] flow
-    record IN PLACE; flows outside the slate keep their rows.  A padded
+    record IN PLACE; flows outside the slate keep their rows.  ``index``
+    is not read.  A padded
     lane is inert: it writes no row, offers nothing and its ``tx`` and
     ``probe_tx`` rows are zeros.
 
@@ -316,11 +391,12 @@ def flow_transition_active_plain(flows, due, act_idx: torch.Tensor,
 
 def flow_transition_active(flows, due, act_idx: torch.Tensor,
                            src: torch.Tensor, t: int, d: TransDims,
-                           eff_nic=None):
+                           eff_nic=None, index=None):
     """The transition stage on the active set: plain version on CPU
-    tensors; on CUDA tensors ``csrc/transition.cu`` (STrack) or
-    ``csrc/transition_roce.cu`` (RoCEv2) with the slate, two launches
-    each: apply + arbitrate over the lanes, then commit the NIC winners.
+    tensors; on CUDA tensors one launch of ``csrc/transition.cu`` (STrack)
+    or ``csrc/transition_roce.cu`` (RoCEv2) with the slate: a block walks
+    the flows of its sources in ``index``, keeps those of the slate (their
+    lanes found by binary search) and arbitrates as the dense launch does.
     The flow record is updated in place either way."""
     n = src.shape[0]
     a = act_idx.shape[0]
@@ -330,15 +406,17 @@ def flow_transition_active(flows, due, act_idx: torch.Tensor,
         _check("eff_nic", eff_nic, torch.bool, (d.n_hosts,), act_idx.device)
     if _route(act_idx) == "plain":
         return flow_transition_active_plain(flows, due, act_idx, src, t, d,
-                                            eff_nic)
+                                            eff_nic, index)
+    _check_index(index, n, act_idx.device)
     from . import _cuda_bind
     if d.proto.name == "rocev2":
         out = _cuda_bind.transition_roce(_lib("transition_roce"), flows, due,
-                                         None, src, t, d, eff_nic, act_idx)
+                                         None, src, t, d, eff_nic, index,
+                                         act_idx)
         launches["flow_transition_roce_active"] += 1
     else:
         out = _cuda_bind.transition(_lib("transition"), flows, due, None,
-                                    src, t, d, eff_nic, act_idx)
+                                    src, t, d, eff_nic, index, act_idx)
         launches["flow_transition_active"] += 1
     return out
 
@@ -552,14 +630,12 @@ class PfcFlows(NamedTuple):
     src_start: torch.Tensor   # i32[NH + 1]: offsets of each host in by_src
 
 
-def pfc_flows(src, src_tor, same_tor, total_pkts, tail_b, n_hosts: int
-              ) -> PfcFlows:
-    """:class:`PfcFlows` of one run (the per-host lane lists included)."""
-    by_src = torch.sort(src, stable=True).indices.to(torch.int32)
-    counts = torch.bincount(src.long(), minlength=n_hosts)
-    start = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
-    return PfcFlows(src, src_tor, same_tor, total_pkts, tail_b, by_src,
-                    start.to(torch.int32))
+def pfc_flows(src, src_tor, same_tor, total_pkts, tail_b,
+              index: SrcIndex) -> PfcFlows:
+    """:class:`PfcFlows` of one run (the per-host lane lists from the
+    program's :class:`SrcIndex`)."""
+    return PfcFlows(src, src_tor, same_tor, total_pkts, tail_b, index.by_src,
+                    index.src_start)
 
 
 def _scatter_add(vec: torch.Tensor, idx: torch.Tensor, val: torch.Tensor
@@ -577,6 +653,31 @@ def pfc_gate(paused, ingress_bytes, xoff_bytes, xon_frac: float):
     pause = ingress_bytes > xoff_bytes
     resume = ingress_bytes < f32(xon_frac) * xoff_bytes
     return pause | (paused & (~resume))
+
+
+@functools.lru_cache(maxsize=None)
+def row_chunk(n: int) -> int:
+    """The chunk in which the reference's program sums a row of ``n``
+    floats: the largest divisor of ``n`` up to 32 (ROADMAP C16)."""
+    return max(c for c in range(1, min(n, 32) + 1) if n % c == 0)
+
+
+def row_sums(x: torch.Tensor) -> torch.Tensor:
+    """Each row of ``x`` [R, n] summed as XLA's CPU reduction sums it inside
+    the reference's tick: from zero, the row's chunks of
+    :func:`row_chunk` ``(n)`` each summed from zero left to right, then
+    the chunks' sums left to right (``torch.sum`` sums in another order,
+    which a fractional tail shows in the last bit; ROADMAP C16)."""
+    r, n = x.shape
+    c = row_chunk(n) if n else 1
+    chunks = x.reshape(r, n // c, c)
+    part = x.new_zeros((r, n // c))
+    for j in range(c):
+        part = part + chunks[:, :, j]
+    total = x.new_zeros((r,))
+    for k in range(n // c):
+        total = total + part[:, k]
+    return total
 
 
 def pfc_account_plain(st: PfcState, has, pop: PktQ, pop_bytes, cand_qid,
@@ -647,8 +748,9 @@ def pfc_account_plain(st: PfcState, has, pop: PktQ, pop_bytes, cand_qid,
                       torch.where(accept, cand_bytes, 0.0))
     qbytes[Q] = 0.0
     qb = qbytes[:Q]
-    tor_occ = qb[:TS].reshape(T, S).sum(1) + qb[2 * TS:].reshape(T, HPT).sum(1)
-    spine_occ = qb[TS:2 * TS].reshape(S, T).sum(1)
+    tor_occ = (row_sums(qb[:TS].reshape(T, S))
+               + row_sums(qb[2 * TS:].reshape(T, HPT)))
+    spine_occ = row_sums(qb[TS:2 * TS].reshape(S, T))
     a, inv = f32(d.alpha), recip32(1 + d.alpha)
     buf = f32(d.buffer_bytes)
     xoff_tor = a * torch.clamp_min(buf - tor_occ, 0.0) * inv

@@ -112,7 +112,7 @@ SERVE = {"prefill-1000": ("llama3-8b", 4, 1000),
          "zamba2-prefill-1024": ("zamba2-2.7b", 4, 1024),
          "zamba2-decode": ("zamba2-2.7b", 4, 544)}
 #: CUDA kernel names of the hand-written kernels (csrc/*.cu).
-OWN_KERNELS = ("apply_kernel", "commit_kernel", "serve_enqueue_kernel",
+OWN_KERNELS = ("strack_kernel", "roce_kernel", "serve_enqueue_kernel",
                "count_kernel", "scan_kernel", "resolve_kernel", "pfc_kernel",
                "fa_kernel", "tc_kernel", "dec_kernel",
                "ssd_cb_kernel", "ssd_state_kernel", "ssd_pass_kernel",

@@ -66,7 +66,7 @@ from ..core.reliability import SackMsg
 from ..kernels.fabric_kernels import (PfcDims, PfcState, PktQ, ServeDims,
                                       TransDims, flow_transition,
                                       flow_transition_active, pfc_account,
-                                      pfc_flows, serve_enqueue)
+                                      pfc_flows, serve_enqueue, src_index)
 from ..numerics import Now, f32, recip32
 from . import dcqcn_fab as dq
 from .faults import FaultData, FaultSpec, build_fault_data, duty_open, \
@@ -639,8 +639,13 @@ class FabricProgram:
         self.flow_cols = torch.stack([self.src, self.dst, self.src_tor,
                                       self.fixed_ent,
                                       self.same_tor.to(torch.int32)], 1)
+        # the flows grouped by source: the transitions arbitrate each NIC
+        # inside one block of it, the PFC stage sums a host's injections
+        # in its order
+        self.src_index = src_index(self.src, self.NH)
         self.pfc_flows = (pfc_flows(self.src, self.src_tor, self.same_tor,
-                                    self.total_pkts, self.tail_b, self.NH)
+                                    self.total_pkts, self.tail_b,
+                                    self.src_index)
                           if self.pfc else None)
 
     def init_state(self) -> FabricState:
@@ -782,11 +787,13 @@ class FabricProgram:
                        lanes: Optional[Lanes] = None) -> tuple:
         """Arguments of the transition stage at tick ``t`` (stage 1):
         ``flow_transition``'s, or ``flow_transition_active``'s on the
-        slate of ``lanes``."""
+        slate of ``lanes``; the program's source index last, on every
+        protocol and path."""
         due = type(st.pipe)(*[a[t % self.H] for a in st.pipe])
         gate = (sendable_msg[self.dep.msg_of_flow.long()] if lanes is None
                 else lanes.idx)
-        return (st.flows, due, gate, self.src, t, self.trans_dims, eff_nic)
+        return (st.flows, due, gate, self.src, t, self.trans_dims, eff_nic,
+                self.src_index)
 
     def serve_args(self, st: FabricState, t: int, tx, probe_tx, sel,
                    probe_valid, paused_row=None,

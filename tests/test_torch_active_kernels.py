@@ -104,8 +104,9 @@ def test_kernel_structs_match_their_ctypes_bindings():
     ``FaArgs`` (every route's arguments, the decode split's scratch and
     counters among them) its mirror in ``kernels/flash_attention.py``, and
     the SSD scan's ``SsdArgs`` (its four launches' scratch among them) its
-    mirror in ``kernels/ssd_scan.py``; and the serve kernel's bucket slots
-    and the PFC warp's counters their Python mirrors."""
+    mirror in ``kernels/ssd_scan.py``; and the serve kernel's bucket slots,
+    the PFC warp's counters and the STrack transition's block of warps
+    (the source index's flows a block) their Python mirrors."""
     from pathlib import Path
     from repro_torch.kernels import _cuda_bind as B
     from repro_torch.kernels import flash_attention as fa
@@ -115,11 +116,9 @@ def test_kernel_structs_match_their_ctypes_bindings():
                             ("TransOut", B.TransOut),
                             ("FlowPtrs", B.FlowPtrs),
                             ("SackPtrs", B.SackPtrs),
-                            ("TransScratch", B.TransScratch),
                             ("TxPtrs", B.TxPtrs)],
              "transition_roce": [("RoceParams", B.RoceParams),
                                  ("RoceOut", B.TransOut),
-                                 ("RoceScratch", B.RoceScratch),
                                  ("RoceFlowPtrs", B.RoceFlowPtrs),
                                  ("RoceMsgPtrs", B.RoceMsgPtrs)],
              "serve_enqueue": [("ServeParams", B.ServeParams),
@@ -143,3 +142,6 @@ def test_kernel_structs_match_their_ctypes_bindings():
                                      text).group(1))
     assert const("kBucket") == B.BUCKET
     assert 32 * const("kRows") == B.PFC_WARP_COUNTERS
+    from repro_torch.kernels.fabric_kernels import BLOCK_FLOWS
+    text = (csrc / "transition.cu").read_text()
+    assert const("kWarps") == BLOCK_FLOWS

@@ -114,7 +114,8 @@ def test_roce_transition_kernel_matches_plain(cuda, t, paused):
     src = torch.from_numpy(rng.integers(0, 256, n).astype(np.int32)).to(cuda)
     eff_nic = (torch.from_numpy(rng.random(n) < 0.5).to(cuda) if paused
                else None)
-    args = (fl, due, sendable, src, t, d, eff_nic)
+    args = (fl, due, sendable, src, t, d, eff_nic,
+            fk.src_index(src, d.n_hosts))
     fk.reset_launches()
     got = fk.flow_transition(*args)
     assert fk.launches["flow_transition_roce"] == 1
@@ -147,10 +148,124 @@ def test_strack_transition_pfc_gate_matches_plain(cuda):
     sendable = torch.from_numpy(rng.random(n) < 0.9).to(cuda)
     src = torch.from_numpy(rng.integers(0, 256, n).astype(np.int32)).to(cuda)
     eff_nic = torch.from_numpy(rng.random(n) < 0.5).to(cuda)
-    args = (flows, due, sendable, src, t, d, eff_nic)
+    args = (flows, due, sendable, src, t, d, eff_nic,
+            fk.src_index(src, d.n_hosts))
     got = fk.flow_transition(*args)
     _same(got, fk.flow_transition_plain(*args))
     assert (got[2].valid & eff_nic[src.long()]).any()
+
+
+def _random_flows(cuda, protocol, d, n, t, rng):
+    """Random flow states and due messages of ``n`` flows (numpy seed)."""
+    from repro_torch.core.cc import CCState
+    from repro_torch.core.lb import SprayState
+    from repro_torch.core.reliability import RelState, SackMsg
+    from repro_torch.core.transport import FlowState
+    from repro_torch.numerics import Now
+    from repro_torch.sim import dcqcn_fab as dq
+    now = float(Now(t, d.tick_us))
+    if protocol == "rocev2":
+        flow = random_roce_flow(rng, n, d.p, now)
+        return (_cuda_tree(dq.RoceFlow, flow, cuda),
+                _cuda_tree(dq.RoceMsg, random_roce_msg(rng, n, flow), cuda))
+    rel_d = random_rel(rng, n, d.p)
+    flows = FlowState(cc=_cuda_tree(CCState, random_cc(rng, n, d.p), cuda),
+                      spray=_cuda_tree(SprayState, random_spray(rng, n, d.p),
+                                       cuda),
+                      rel=_cuda_tree(RelState, rel_d, cuda))
+    return flows, _cuda_tree(SackMsg, random_sack(rng, n, d.p, rel_d, now),
+                             cuda)
+
+
+def _trans_dims(cuda, protocol):
+    sc = permutation_scenario(full_bisection(4, 4), 64 * 2 ** 10,
+                              net=NetworkSpec(link_gbps=400.0), seed=0)
+    cfg = TF.FabricConfig(net=sc.net, protocol=protocol, trace_every=0)
+    return TF.FabricProgram(sc.topo, 16, 10, cfg, cuda).trans_dims
+
+
+#: stress layouts of the sources: case -> (flows, hosts, round-robin
+#: modulus or None for the flow count, share of paused NICs)
+SRC_CASES = {"one_source": (1024, 1024, None, 0.0),
+             "random_src": (1024, 1024, None, 0.0),
+             "ties": (1024, 1024, 3, 0.0),
+             "paused": (1024, 1024, None, 0.5),
+             "perm8k": (8192, 8192, None, 0.0)}
+
+
+def _src_layout(case, n, n_hosts, rng):
+    if case == "one_source":  # more flows than a block has warps
+        return np.full(n, 7, np.int32)
+    if case == "perm8k":
+        return np.arange(n, dtype=np.int32)
+    # 256 sources among the hosts, the rest empty
+    hosts = np.sort(rng.choice(n_hosts, 256, replace=False))
+    return hosts[rng.integers(0, 256, n)].astype(np.int32)
+
+
+@pytest.mark.parametrize("active", [False, True], ids=["dense", "active"])
+@pytest.mark.parametrize("case", sorted(SRC_CASES))
+@pytest.mark.parametrize("protocol", ["strack", "rocev2"])
+def test_transition_kernels_match_plain_on_source_layouts(cuda, protocol,
+                                                          case, active):
+    """Both transitions against their plain versions, bit for bit, on
+    random flow states at timer and other ticks, over source layouts that
+    stress the arbitration by source blocks: every flow on one source (a
+    block walks it twice), 256 random sources among 1024 hosts (empty
+    hosts between), a round-robin modulus of 3 (scores tie: every lane of
+    the minimum is selected), half the NICs paused, and perm8k's 8192
+    lanes; dense, and under the active set on a random slate of a third
+    of the flows padded to half of them."""
+    n, n_hosts, nr, paused = SRC_CASES[case]
+    d = _trans_dims(cuda, protocol)._replace(n_hosts=n_hosts,
+                                             n_real=nr or n)
+    rng = np.random.default_rng([n, len(case), int(active)])
+    src = torch.from_numpy(_src_layout(case, n, n_hosts, rng)).to(cuda)
+    index = fk.src_index(src, n_hosts)
+    eff_nic = (torch.from_numpy(rng.random(n_hosts) < paused).to(cuda)
+               if paused else None)
+    won = 0
+    for t in (2400, 2403):
+        flows, due = _random_flows(cuda, protocol, d, n, t, rng)
+        if not active:
+            sendable = torch.from_numpy(rng.random(n) < 0.9).to(cuda)
+            args = (flows, due, sendable, src, t, d, eff_nic, index)
+            fk.reset_launches()
+            got = fk.flow_transition(*args)
+            assert sum(fk.launches.values()) == 1
+            _same(got, fk.flow_transition_plain(*args))
+        else:
+            live = np.sort(rng.choice(n, n // 3, replace=False))
+            slate = np.full(n // 2, n, np.int32)
+            slate[:live.size] = live
+            act = torch.from_numpy(slate).to(cuda)
+            args = (due, act, src, t, d, eff_nic, index)
+            got = fk.flow_transition_active(TF._clone_tree(flows), *args)
+            _same(got, fk.flow_transition_active_plain(
+                TF._clone_tree(flows), *args))
+        won += int(got[4].sum())
+        if case == "ties" and not active:
+            per_src = torch.bincount(src[got[4]].long(), minlength=n_hosts)
+            assert int(per_src.max()) > 1   # tied winners on one NIC
+    assert won > 0
+
+
+@pytest.mark.parametrize("protocol", ["strack", "rocev2"])
+def test_transition_kernels_on_an_all_padded_slate(cuda, protocol):
+    """Every lane of the slate N: zero offers, nothing selected, the flow
+    record untouched, as the plain version."""
+    d = _trans_dims(cuda, protocol)._replace(n_hosts=1024, n_real=1024)
+    rng = np.random.default_rng(11)
+    src = torch.from_numpy(rng.integers(0, 1024, 1024).astype(np.int32)
+                           ).to(cuda)
+    flows, due = _random_flows(cuda, protocol, d, 1024, 2400, rng)
+    act = torch.full((512,), 1024, dtype=torch.int32, device=cuda)
+    args = (due, act, src, 2400, d, None, fk.src_index(src, 1024))
+    mine = TF._clone_tree(flows)
+    got = fk.flow_transition_active(mine, *args)
+    _same(got, fk.flow_transition_active_plain(TF._clone_tree(flows), *args))
+    _same(mine, flows)
+    assert not bool(got[4].any())
 
 
 @pytest.mark.parametrize("protocol", ["rocev2", "strack"])
@@ -375,6 +490,66 @@ def test_serve_and_pfc_are_one_launch_each(cuda):
         assert len(events) == 1, events
         ((name, count),) = events.items()
         assert own in name and count == 10, events
+
+
+def test_transition_paths_are_one_launch_each(cuda):
+    """On CUDA tensors each transition call runs exactly one device
+    operation, its own kernel (no memset, no second kernel):
+    ``torch.profiler`` over 10 calls of each path, STrack dense, STrack
+    with the PFC gate, RoCEv2 + PFC, and the active set under STrack and
+    under RoCEv2 + PFC, in one profiler session (each call's events in
+    turn: exactly its kernel, ten times)."""
+    from torch.profiler import ProfilerActivity, profile
+    inc = incast_scenario(full_bisection(4, 4), 8, 512 * 2 ** 10,
+                          net=NetworkSpec(link_gbps=400.0))
+    perm = permutation_scenario(full_bisection(8, 16), 64 * 2 ** 10,
+                                net=NetworkSpec(link_gbps=400.0), seed=0)
+    calls = []
+    for what, sc, kw, own in (
+            ("strack dense", perm, {}, "strack_kernel"),
+            ("strack pfc", inc, dict(pfc=True, switch_buffer_bytes=2e5),
+             "strack_kernel"),
+            ("rocev2 pfc", inc, dict(protocol="rocev2",
+                                     switch_buffer_bytes=2e5),
+             "roce_kernel")):
+        prog = _program(sc, cuda, 200, **kw)
+        st = prog.init_state()
+        for t in range(40):
+            st, _, _ = prog.tick(st, t)
+        eff_nic, _ = prog.eff_pause(st, 40)
+        targs = prog.transport_args(st, 40, prog.sendable_msg(st, 40),
+                                    eff_nic)
+        calls.append((what, lambda a=targs: fk.flow_transition(*a), own))
+    for protocol, own in (("strack", "strack_kernel"),
+                          ("rocev2", "roce_kernel")):
+        _, _, prog = _open_loop_program(cuda, 200, protocol=protocol)
+        st = prog.init_state()
+        for t in range(60):
+            st, _, _ = prog.tick(st, t)
+        sendable = prog.sendable_msg(st, 60)
+        lanes, _ = prog.lane_slate(sendable[prog.dep.msg_of_flow.long()]
+                                   & ~prog.proto.done(st.flows))
+        eff_nic, _ = prog.eff_pause(st, 60)
+        targs = prog.transport_args(st, 60, sendable, eff_nic, lanes)
+        fl = TF._clone_tree(targs[0])
+        calls.append((f"{protocol} active", lambda f=fl, a=targs:
+                      fk.flow_transition_active(f, *a[1:]), own))
+    for _, fn, _ in calls:
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _, fn, _ in calls:
+            for _ in range(10):
+                fn()
+        torch.cuda.synchronize()
+    evs = sorted((e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA),
+                 key=lambda e: e.time_range.start)
+    assert len(evs) == 10 * len(calls), sorted({e.name for e in evs})
+    for i, (what, _, own) in enumerate(calls):
+        mine = evs[10 * i:10 * (i + 1)]
+        assert all(own in e.name for e in mine), (what, mine[0].name)
 
 
 def test_pfc_account_kernel_with_an_all_padded_slate(cuda):
