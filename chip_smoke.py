@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Run the PyTorch/CUDA port on one NVIDIA GPU: the STrack fabric (with
-RoCEv2, PFC, chaos and the active set), then LM serving: llama3-8b at
-full width through the flash-attention kernel,
-mamba2-2.7b and zamba2-2.7b at full width and depth through the SSD scan
-kernel (and zamba2's shared attention through the flash kernel).
+RoCEv2, PFC, chaos, the active set and collectives), then LM serving:
+llama3-8b at full width through the flash-attention kernel, mamba2-2.7b
+and zamba2-2.7b at full width and depth through the SSD scan kernel (and
+zamba2's shared attention through the flash kernel).
 
     python3 chip_smoke.py
 
@@ -19,10 +19,11 @@ Phases (any failure exits non-zero; nothing is caught):
      M = 255 ... 32768 (off the main paths: its work runs inside
      serve_enqueue's kernel);
   2b. both transitions (STrack, RoCEv2), serve_enqueue and pfc_account run
-     one device operation a call, their own kernel and no memset
-     (torch.profiler), on the dense, PFC (and STrack's PFC NIC gate),
-     fault and active-set paths; these are the kernels line's device times
-     of those wrappers and paths;
+     one device operation a call, their own kernel and no memset (a call
+     captured in a CUDA graph is one node, the wrapper's kernel), on the
+     dense, PFC (and STrack's PFC NIC gate), fault and active-set paths;
+     torch.profiler's times of these calls are the kernels line's device
+     times of those wrappers and paths;
   3. goldens perm16_strack / incast8_strack (tests/golden/*.json) through
      repro_torch.sim.workloads.run on the card;
   4. the main path at full width: perm1024 (1024 hosts, 64 KiB, 400 Gbps)
@@ -105,6 +106,36 @@ Phases (any failure exits non-zero; nothing is caught):
          tick count (95), the one error caught;
      (d) wall time a trip capped and uncapped, device launches a tick,
          the new kernels' times and bounds at A = 512;
+  6e. dependency-scheduled collectives and sub-flow striping
+     (repro_torch.profile.COLLECTIVE1024 on the perm1024 fabric: hd1024,
+     eight HD allreduces of 128 ranks and 128 KiB, 14,336 messages;
+     a2a1024, 32 all-to-alls of 32 ranks with window 8, 31 flows a
+     source):
+     (a) goldens ring8_strack / ring8_roce4 / a2a_strack;
+     (b) the transitions, serve_enqueue and (under PFC, against its plain
+         version on the CPU) pfc_account against their plain versions on
+         the card, exact: at hd1024 ticks where completions release
+         children and the children first offer (STrack; RoCEv2 + PFC at
+         four sub-flows, 56 stripes a source), at a2a1024 ticks where
+         sources of 31 flows hold gated and offering flows, at ticks of a
+         small-buffer all-to-all of 16 ranks at four sub-flows under
+         RoCEv2 + PFC whose NICs pause (stripes of a message withheld
+         behind them; pauses must occur), and the active kernels at ticks
+         of allreduce8k's spot cell at active_cap=48; each case must
+         occur; the collective ticks' one device operation a call is
+         phase 2b's;
+     (c) hd1024 under STrack (dense, and at active_cap=1024 against the
+         same file), under RoCEv2 + PFC at four sub-flows, a2a1024 under
+         STrack and the spot cell at its cap, each launching exactly its
+         path's kernels, held exactly against its JAX-made file in
+         src/repro_torch/testdata/ (every summary key, the per-group
+         table, done ticks, each message's release and done tick, the
+         trace's digest);
+     (d) a [collective] line: STrack against the 4-QP RoCEv2 on hd1024,
+         wall, warp trips, launches a trip, max_collective_time;
+     (e) the `collective_*` fields of the transitions', serve_enqueue's
+         and pfc_account's entries: device ms at the collective ticks,
+         wall, plain and bound;
   7. serve: llama3-8b, bf16, attn_impl="pallas", random weights from a
      CUDA generator (seed 0; 16 GB):
      (a) the flash-attention kernel against its plain version on the card
@@ -178,7 +209,8 @@ Phases (any failure exits non-zero; nothing is caught):
      `fault_*` fields of serve_enqueue from phase 6c; the active set's
      flow_transition_active and flow_transition_roce_active, and the
      `active_*` fields of serve_enqueue, rank_in_queue and pfc_account,
-     from phase 6d; for flash attention SDPA's time as `library_ms`, and
+     from phase 6d; the `collective_*` fields from phase 6e; for flash
+     attention SDPA's time as `library_ms`, and
      under `routes` each route's device and wall ms, launches, bound,
      plain and SDPA times and factor to SDPA: tc at prefill-1000,
      prefill-4096 and zamba2's prefill-1024 (hd 80), decode at decode-544,
@@ -434,21 +466,56 @@ def own_device_ms(name: str, fn, reps: int = 20) -> float:
     return ms
 
 
+def graph_nodes(fn) -> list:
+    """The device operations of one ``fn()`` call: the call captured in a
+    CUDA graph, each node's declaration in the graph's DOT dump
+    (``cudaGraphDebugDotPrint``; a kernel node names its function, a
+    memset or copy node its kind).  Capture records every operation the
+    call puts on its stream, and loses none."""
+    import re
+    import tempfile
+    import warnings
+    import torch
+    graph = torch.cuda.CUDAGraph(keep_graph=True)  # kept to be dumped
+    with torch.cuda.graph(graph):
+        fn()
+    with tempfile.TemporaryDirectory() as tmp, warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # torch warns of every dump
+        dot_path = Path(tmp) / "call.dot"
+        graph.debug_dump(str(dot_path))
+        dot = dot_path.read_text()
+    graph.reset()
+    # a node's declaration; an edge reads '"a" -> "b" [headlabel=...]'
+    heads = list(re.finditer(r'(?<!-> )"graph_\d+_node_\d+"\[', dot))
+    return [dot[h.start():(heads[i + 1].start() if i + 1 < len(heads)
+                           else len(dot))]
+            for i, h in enumerate(heads)]
+
+
 def one_launch(calls: list, reps: int = 20) -> list:
     """Fail unless each call of ``calls`` (``(name, fn, what)``: a wrapper
     and a call of it) runs exactly one device operation, the wrapper's own
-    kernel and no memset: ``torch.profiler`` over ``reps`` calls of each,
-    a session a call, must record exactly that sequence of kernels.  An
-    extra or foreign event fails at once; a session that recorded fewer
-    events than calls lost records (the profiler does, late in a long
-    process) and is taken again, at most three times.  Returns each
-    call's device ms."""
+    kernel and no memset: one call captured in a CUDA graph must hold
+    exactly one node, and that node must name the wrapper's kernel
+    (``graph_nodes``).  Its device ms: ``torch.profiler`` over ``reps``
+    calls, a session a call, every recorded device event the wrapper's
+    kernel and no more than ``reps`` of them, else the run fails.  The
+    profiler loses records in runs of sessions (it has kept 19 and 7 of
+    20), so the time is the mean over the events it kept, and a session
+    that kept none is taken again, at most six times.  Returns each call's
+    device ms."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     out = []
     for name, fn, what in calls:
         fn()
-        for attempt in range(3):
+        torch.cuda.synchronize()
+        nodes = graph_nodes(fn)
+        assert len(nodes) == 1 and any(o in nodes[0]
+                                       for o in OWN_KERNELS[name]), (
+            "one device operation a call (graph)", what, name, len(nodes),
+            [n[:200] for n in nodes])
+        for attempt in range(6):
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
@@ -462,14 +529,15 @@ def one_launch(calls: list, reps: int = 20) -> list:
             assert not bad and len(evs) <= reps, (
                 "one device operation a call", what, name, len(evs), reps,
                 sorted({e.name[:60] for e in evs}))
-            if len(evs) == reps:
+            if evs:
                 break
+        assert evs, ("no device event recorded six times", what, name)
+        if len(evs) < reps:
             log(f"[one launch] {name} {what}: {len(evs)} device events "
                 f"recorded for {reps} calls (attempt {attempt + 1})")
-        assert len(evs) == reps, ("records lost three times", what, name)
-        ms = sum(e.time_range.elapsed_us() for e in evs) / reps / 1e3
+        ms = sum(e.time_range.elapsed_us() for e in evs) / len(evs) / 1e3
         log(f"[one launch] {name} {what}: one device operation a call "
-            f"({evs[0].name[:60]}), {ms:.7f} ms")
+            f"({evs[0].name[:60]}; graph: 1 node), {ms:.7f} ms")
         out.append(ms)
     return out
 
@@ -513,19 +581,26 @@ def one_launch_paths(dev) -> dict:
     profiler keeps its records): the dense program (perm1024 tick 16),
     PFC (incast1024 RoCEv2 + PFC tick 100; the STrack transition's NIC
     gate at incast1024 STrack + PFC tick 64), faults (perm1024 under
-    CHAOS1024, tick 28) and the active set (infer1024 at A = 512, tick
+    CHAOS1024, tick 28), the active set (infer1024 at A = 512, tick
     400: STrack, and RoCEv2 + PFC; the active transitions step a clone of
-    the flow record, again and again).  Returns their device ms a call
-    (the kernels line's ``ms`` of these kernels and paths: the same ticks
-    its timings replay), keyed by wrapper and path ("flow_transition",
-    "flow_transition pfc", "flow_transition fault",
-    "flow_transition_roce", "flow_transition_active",
-    "flow_transition_roce_active", "serve_enqueue", "serve_enqueue pfc",
-    "serve_enqueue fault", "serve_enqueue active", "pfc_account",
-    "pfc_account active")."""
+    the flow record, again and again) and collectives (a2a1024 under
+    STrack at tick 54, where children of tick 53's completions first
+    offer beside gated flows in sources of 31; hd1024 under RoCEv2 + PFC
+    at four sub-flows, 56 stripes a source, at tick 65, likewise).
+    Returns their device ms a call (the kernels line's ``ms`` of these
+    kernels and paths: the same ticks its timings replay), keyed by
+    wrapper and path ("flow_transition", "flow_transition pfc",
+    "flow_transition fault", "flow_transition_roce",
+    "flow_transition_active", "flow_transition_roce_active",
+    "flow_transition collective", "flow_transition_roce collective",
+    "serve_enqueue", "serve_enqueue pfc", "serve_enqueue fault",
+    "serve_enqueue active", "serve_enqueue collective", "serve_enqueue
+    collective pfc", "pfc_account", "pfc_account active", "pfc_account
+    collective")."""
     from repro_torch.core.params import NetworkSpec
     from repro_torch.kernels import fabric_kernels as fk
     from repro_torch.profile import (CHAOS1024, INFER1024_CAP,
+                                     collective1024_scenario,
                                      infer1024_scenario)
     from repro_torch.sim.fabric import _clone_tree
     from repro_torch.sim.topology import full_bisection
@@ -536,6 +611,8 @@ def one_launch_paths(dev) -> dict:
     perm1024 = permutation_scenario(t32, 64 * 2 ** 10, net=net400, seed=0)
     incast1024 = incast_scenario(t32, 256, 16 * 2 ** 10, net=net400)
     infer = infer1024_scenario()
+    a2a1024 = collective1024_scenario("a2a1024")
+    hd1024 = collective1024_scenario("hd1024")
     calls, keys = [], []
     for key, what, sc, cfg, t, capped in (
             ("", "dense (perm1024 t=16)", perm1024, RunConfig(), 16, False),
@@ -549,7 +626,11 @@ def one_launch_paths(dev) -> dict:
              RunConfig(active_cap=INFER1024_CAP), 400, True),
             (" active", "active set (infer1024 rocev2 A=512 t=400)", infer,
              RunConfig(protocol="rocev2", active_cap=INFER1024_CAP), 400,
-             True)):
+             True),
+            (" collective", "collective (a2a1024 strack t=54)", a2a1024,
+             RunConfig(), 54, False),
+            (" collective pfc", "collective (hd1024 rocev2 x4 t=65)",
+             hd1024, RunConfig(protocol="rocev2", subflows=4), 65, False)):
         prog, targs, sargs, ring, pargs = capture_tick(sc, cfg, t, dev,
                                                        capped)
         name = "flow_transition" + ("_roce" if prog.proto.name == "rocev2"
@@ -562,7 +643,8 @@ def one_launch_paths(dev) -> dict:
         else:
             calls.append((name, lambda a=targs: fk.flow_transition(*a),
                           what))
-            keys.append(name if name.endswith("_roce") else
+            keys.append(name + " collective" if "collective" in key else
+                        name if name.endswith("_roce") else
                         name + key.replace(" strack", ""))
         if key == " strack pfc":
             continue
@@ -714,17 +796,12 @@ ROCE_KERNELS = ("flow_transition_roce", "serve_enqueue")
 
 def fabric_program(sc, cfg, dev):
     """A bound ``FabricProgram`` of scenario ``sc`` under ``cfg`` (a
-    ``RunConfig``) on ``dev``, for dense ticking by hand."""
-    from repro_torch.sim.fabric import (FabricProgram, _arrival_array,
-                                        _flow_arrays)
+    ``RunConfig``: its sub-flows, the trace's dependency edges and
+    arrivals) on ``dev``, for dense ticking by hand."""
+    from repro_torch.sim.fabric import trace_program
     from repro_torch.sim.workloads import _fabric_cfg, _scenario_ticks
-    fcfg = _fabric_cfg(sc, cfg)
-    prog = FabricProgram(sc.topo, len(sc.messages), _scenario_ticks(sc, cfg),
-                         fcfg, dev)
-    src, dst, total, tails, ent0 = _flow_arrays(sc.flows, fcfg)
-    prog.bind(src, dst, total, tails, _arrival_array(sc.messages),
-              fcfg.lb_mode, ent0)
-    return prog
+    return trace_program(sc.topo, sc.messages, _scenario_ticks(sc, cfg),
+                         _fabric_cfg(sc, cfg), dev)
 
 
 #: Entries of the infer1024 reference file that are not the capped run's
@@ -739,13 +816,16 @@ def hold_against_reference(name, sc, cfg, kernels, ref=None) -> tuple:
     package), or against ``ref`` where given: every summary key the file
     has (floats to 1e-6; the chaos files' ``blackholed_pkts``,
     ``corrupt_drops`` and ``win_retx`` among them, the infer1024 files'
-    tenant and group tables), warp trips, end tick, every done tick.  Fails
-    unless each kernel of ``kernels`` launched, and unless no other fabric
-    kernel did.  Returns ``(launches, summary, wall seconds)``."""
+    tenant and group tables), warp trips, end tick, every done tick (the
+    collective files: also each message's release and done tick, and the
+    trace's size and digest).  Fails unless each kernel of ``kernels``
+    launched, and unless no other fabric kernel did.  Returns
+    ``(launches, summary, wall seconds)``."""
     import torch
     from repro_torch.kernels import fabric_kernels as fk
     from repro_torch.sim.fabric import run_fabric_trace, summarize
-    from repro_torch.sim.workloads import _fabric_cfg, _scenario_ticks
+    from repro_torch.sim.workloads import (_fabric_cfg, _scenario_ticks,
+                                           trace_digest)
     if ref is None:
         ref = json.loads((TESTDATA / f"{name}_ref.json").read_text())
     ref = {k: v for k, v in ref.items() if k not in INFER_EXTRA_KEYS}
@@ -754,8 +834,8 @@ def hold_against_reference(name, sc, cfg, kernels, ref=None) -> tuple:
     torch.cuda.synchronize()
     fk.reset_launches()
     t0 = time.time()
-    _, m = run_fabric_trace(sc.topo, sc.messages, n_ticks,
-                            _fabric_cfg(sc, cfg), device="cuda")
+    final, m = run_fabric_trace(sc.topo, sc.messages, n_ticks,
+                                _fabric_cfg(sc, cfg), device="cuda")
     wall = time.time() - t0
     launches = dict(fk.launches)
     s = summarize(m)
@@ -763,6 +843,13 @@ def hold_against_reference(name, sc, cfg, kernels, ref=None) -> tuple:
     got = json.loads(json.dumps({k: s[k] for k in ref if k in s}))
     got.update(warp_trips=m["warp_trips"], end_tick=m["end_tick"],
                n_ticks=n_ticks, done_tick=[int(v) for v in m["done_tick"]])
+    if "trace_sha256" in ref:   # a collective file
+        got.update(trace_sha256=trace_digest(sc.messages),
+                   n_msgs=len(sc.messages),
+                   n_edges=sum(len(x.deps) for x in sc.messages),
+                   n_flows=len(got["done_tick"]),
+                   msg_release_tick=final.msg_release_tick.tolist(),
+                   msg_done_tick=final.msg_done_tick.tolist())
     for k in ("blackholed_pkts", "corrupt_drops", "win_retx"):
         assert k not in ref or k in got, (name, k)
     for k, v in ref.items():
@@ -2373,6 +2460,301 @@ def active_set(dev, prof_ms: dict) -> tuple:
     return entries, paths
 
 
+def collective_tick(label, prog, st, t, same, seen):
+    """Every kernel of a dense tick of a collective against its plain
+    version on the card, at tick ``t`` of ``st``: the transition (STrack,
+    or RoCEv2 with the PFC NIC gate), serve/enqueue (on two clones of the
+    ring) and, under PFC, the PFC stage (against its plain version on the
+    CPU: striped messages have fractional tails, whose sums the plain
+    version's atomics on the card would order freely).  Adds to ``seen``:
+    the first offers of messages released by completions, the sources of
+    more than ``BLOCK_FLOWS`` flows that hold both gated and offering
+    flows, the largest source, paused NICs, stripes withheld behind them,
+    winners, accepted packets and new pauses.  Returns the transition's,
+    serve/enqueue's (beside a clone of the ring) and the PFC stage's
+    arguments."""
+    import torch
+    from repro_torch.kernels import fabric_kernels as fk
+    from repro_torch.sim.fabric import _clone_tree
+    name = ("flow_transition_roce" if prog.proto.name == "rocev2"
+            else "flow_transition")
+    eff_nic, prow = prog.eff_pause(st, t)
+    sendable = prog.sendable_msg(st, t)
+    targs = prog.transport_args(st, t, sendable, eff_nic)
+    out_k = fk.flow_transition(*targs)
+    same(name, f"{label} {name} t={t}", out_k,
+         fk.flow_transition_plain(*targs))
+    _, tx, ptx, pv, sel, can = out_k
+    src, mof = prog.src.long(), prog.dep.msg_of_flow.long()
+    child = (sendable & (st.msg_release_tick < 0)
+             & (prog.dep.init_pending.to(sendable.device) > 0))
+    seen["first_offers"] += int((child[mof] & can).sum())
+    n_src = torch.bincount(src, minlength=prog.NH)
+    per_src = lambda v: torch.zeros(prog.NH, dtype=torch.int32,
+                                    device=src.device).index_add_(
+        0, src, v.to(torch.int32))
+    big = n_src > fk.BLOCK_FLOWS
+    seen["big_mixed"] += int((big & (per_src(~targs[2]) > 0)
+                              & (per_src(can) > 0)).sum())
+    seen["max_src"] = max(seen["max_src"], int(n_src.max()))
+    if eff_nic is not None:
+        seen["nics_paused"] += int(eff_nic.sum())
+        seen["withheld"] += int((can & eff_nic[src] & ~sel).sum())
+    seen["sel"] += int(sel.sum())
+    sargs, _, _ = prog.serve_args(st, t, tx, ptx, sel, pv, prow)
+    rings = [_clone_tree(st.q) for _ in range(2)]
+    res_k = fk.serve_enqueue(rings[0], *sargs[1:])
+    same("serve_enqueue", f"{label} serve_enqueue t={t}", res_k,
+         fk.serve_enqueue_plain(rings[1], *sargs[1:]))
+    same("serve_enqueue", f"{label} ring t={t}",
+         [f[:prog.Q] for f in rings[0]], [f[:prog.Q] for f in rings[1]])
+    seen["accepted"] += int(res_k[7].sum())
+    pargs = None
+    if prog.pfc:
+        pargs = (prog.pfc_state(st), res_k[3], res_k[2], res_k[5], res_k[6],
+                 res_k[9], res_k[7], rings[0], res_k[0], st.qsize, res_k[1],
+                 t, prog.pfc_flows, prog.pfc_dims)
+        pfc_k = fk.pfc_account(*pargs)
+        same("pfc_account", f"{label} pfc_account t={t}", to_cpu(pfc_k),
+             fk.pfc_account_plain(*to_cpu(pargs)))
+        seen["new_pauses"] += int(pfc_k.pauses) - int(st.pauses)
+    return targs, (sargs, _clone_tree(st.q)), pargs
+
+
+def collective_walk(label, prog, ticks, same, capture_at=None):
+    """Dense ticks of ``prog`` up to ``max(ticks)``, every kernel against
+    its plain version at ``ticks`` (``collective_tick``).  Returns
+    ``(seen, captured)``: the counts summed over those ticks (with
+    ``releases``, the messages those ticks' completions released), and at
+    ``capture_at`` a clone of the state and the kernels' arguments."""
+    import torch
+    from repro_torch.sim.fabric import _clone_tree
+    seen = dict.fromkeys(("first_offers", "big_mixed", "max_src",
+                          "nics_paused", "withheld", "sel", "accepted",
+                          "new_pauses", "releases"), 0)
+    st, captured = prog.init_state(), None
+    for t in range(max(ticks) + 1):
+        if t in ticks:
+            stc = _clone_tree(st) if t == capture_at else None
+            r = collective_tick(label, prog, st, t, same, seen)
+            if stc is not None:
+                captured = (stc, r)
+        new, _, _ = prog.tick(st, t)
+        if t in ticks:
+            seen["releases"] += int(((new.pending <= 0)
+                                     & (st.pending > 0)).sum())
+        st = new
+    torch.cuda.synchronize()
+    log(f"[collective] {label}: the transition, serve_enqueue"
+        + (" and pfc_account" if prog.pfc else "")
+        + f" match their plain versions at ticks {sorted(ticks)}; summed "
+        f"over those ticks {seen}")
+    return seen, captured
+
+
+def collectives(dev, prof_ms: dict) -> dict:
+    """Phase 6e: dependency-scheduled collectives and sub-flow striping.
+    Returns the ``collective_*`` fields of the ``flow_transition``,
+    ``flow_transition_roce``, ``serve_enqueue`` and ``pfc_account``
+    entries: their device ms at the collective ticks of phase 2b, wall and
+    plain times, bounds, launches on the full-width runs."""
+    import torch
+    from repro_torch.core.params import NetworkSpec
+    from repro_torch.kernels import fabric_kernels as fk
+    from repro_torch.profile import (ALLREDUCE8K_SPOT_CAP,
+                                     allreduce8k_spot_scenario,
+                                     collective1024_scenario)
+    from repro_torch.sim.topology import full_bisection
+    from repro_torch.sim.workloads import (RunConfig, collective_scenario,
+                                           run)
+    max_err = dict.fromkeys(("flow_transition", "flow_transition_roce",
+                             "serve_enqueue", "pfc_account",
+                             "flow_transition_active", "rank_in_queue"),
+                            0.0)
+
+    def same(key, what, a, b):
+        max_err[key] = max(max_err[key], assert_same(what, a, b))
+
+    # (a) goldens ring8_strack, ring8_roce4, a2a_strack (tests/golden)
+    net100 = NetworkSpec(link_gbps=100.0)
+    t24 = full_bisection(2, 4)
+    ring8 = collective_scenario(t24, "ring", 1, 8, 512 * 2 ** 10,
+                                net=net100, seed=0, chunk=32 * 2 ** 10)
+    a2a8 = collective_scenario(t24, "a2a", 2, 4, 256 * 2 ** 10, net=net100,
+                               seed=0, chunk=128 * 2 ** 10, window=2)
+    roce4 = RunConfig(protocol="rocev2", subflows=4)
+    for name, sc, cfg in (("ring8_strack", ring8, RunConfig()),
+                          ("ring8_roce4", ring8, roce4),
+                          ("a2a_strack", a2a8, RunConfig())):
+        want = json.loads((ROOT / "tests" / "golden" / f"{name}.json")
+                          .read_text())
+        t0 = time.time()
+        got = run(sc, cfg, device="cuda")
+        for k, v in want.items():
+            if isinstance(v, float):
+                assert math.isclose(got[k], v, rel_tol=1e-6), (name, k,
+                                                               got[k], v)
+            else:
+                assert got[k] == v, (name, k, got[k], v)
+        log(f"[golden] {name}: {want} matched in {time.time() - t0:.2f}s "
+            f"({got['warp_trips']} warp trips)")
+
+    # (b) the kernels against their plain versions at collective ticks:
+    # hd1024's first completions (tick 64) release children, which offer
+    # at 65 (and again at 116-117); a2a1024's sources of 31 flows hold 8
+    # offering and 23 gated flows, children of tick 53's completions offer
+    # at 54; hd1024 under RoCEv2 + PFC at four sub-flows has sources of 56
+    # stripes; the small-buffer a2a of 16 ranks at four sub-flows pauses
+    # every NIC from tick 22, stripes of one message behind it
+    hd = collective1024_scenario("hd1024")
+    a2a = collective1024_scenario("a2a1024")
+    progs = {"hd": fabric_program(hd, RunConfig(), dev)}
+    seen, cap_hd = collective_walk("hd1024 strack", progs["hd"],
+                                   {8, 64, 65, 116, 117}, same,
+                                   capture_at=65)
+    assert seen["releases"] > 0 and seen["first_offers"] > 0, seen
+    seen, cap_a = collective_walk("a2a1024 strack",
+                                  fabric_program(a2a, RunConfig(), dev),
+                                  {8, 53, 54, 59, 64}, same, capture_at=54)
+    assert seen["max_src"] == 31 and seen["big_mixed"] > 0, seen
+    assert seen["releases"] > 0 and seen["first_offers"] > 0, seen
+    progs["r4"] = fabric_program(hd, roce4, dev)
+    seen, cap_r = collective_walk("hd1024 rocev2 x4", progs["r4"],
+                                  {8, 64, 65, 117}, same, capture_at=65)
+    assert seen["max_src"] == 56 and seen["big_mixed"] > 0, seen
+    assert seen["first_offers"] > 0, seen
+    small = collective_scenario(full_bisection(4, 4), "a2a", 1, 16,
+                                512 * 2 ** 10,
+                                net=NetworkSpec(link_gbps=400.0), seed=0,
+                                window=4)
+    seen, _ = collective_walk(
+        "a2a16 rocev2 x4 pfc 200KB",
+        fabric_program(small, RunConfig(protocol="rocev2", subflows=4,
+                                        switch_buffer_bytes=2e5), dev),
+        {22, 30, 60, 120}, same)
+    assert seen["new_pauses"] > 0 and seen["nics_paused"] > 0, seen
+    assert seen["withheld"] > 0 and seen["big_mixed"] > 0, seen
+    # allreduce8k's spot cell at its cap: the active kernels on slates
+    # that children join (first releases at 28 and 42)
+    spot = allreduce8k_spot_scenario()
+    spot_cfg = RunConfig(active_cap=ALLREDUCE8K_SPOT_CAP)
+    seen, _, _ = active_walk("allreduce8k spot cap 48",
+                             fabric_program(spot, spot_cfg, dev),
+                             {27, 28, 42, 43}, same)
+    assert seen["padded"] > 0 and seen["sel"] > 0, seen
+    log(f"[collective] allreduce8k spot cap {ALLREDUCE8K_SPOT_CAP}: the "
+        f"active transition, serve_enqueue and rank_in_queue match their "
+        f"plain versions at ticks 27, 28, 42, 43: {seen}")
+
+    # (c) the full-width runs against their JAX-made files, each launching
+    # exactly its path's kernels; hd1024 at active_cap=1024 (at most 1024
+    # messages live) against the uncapped file
+    ref_hd = json.loads((TESTDATA / "hd1024_strack_ref.json").read_text())
+    l_hd, s_hd, w_hd = hold_against_reference("hd1024_strack", hd,
+                                              RunConfig(), STRACK_KERNELS)
+    l_cap, _, w_cap = hold_against_reference(
+        "hd1024_strack_cap1024", hd, RunConfig(active_cap=1024),
+        ("flow_transition_active", "serve_enqueue"), ref=ref_hd)
+    l_r4, s_r4, w_r4 = hold_against_reference(
+        "hd1024_roce4", hd, roce4, ROCE_KERNELS + ("pfc_account",))
+    l_a, s_a, w_a = hold_against_reference("a2a1024_strack", a2a,
+                                           RunConfig(), STRACK_KERNELS)
+    hold_against_reference("allreduce8k_spot_cap48", spot, spot_cfg,
+                           ("flow_transition_active", "serve_enqueue"))
+
+    # (d) STrack against the 4-QP RoCEv2 on hd1024
+    trips = ref_hd["warp_trips"]
+    trips_r4 = json.loads((TESTDATA / "hd1024_roce4_ref.json").read_text()
+                          )["warp_trips"]
+    lpt_s = tick_launches(progs["hd"], cap_hd[0], 65, 16)
+    lpt_r = tick_launches(progs["r4"], cap_r[0], 65, 16)
+    log(f"[collective] hd1024: STrack wall {w_hd:.3f}s, {trips} warp trips "
+        f"({w_hd * 1e3 / trips:.3f} ms a trip), "
+        f"{sum(l_hd.values()) / trips:.3f} kernel launches a trip, "
+        f"{lpt_s:.1f} device launches a tick (66-81), max_collective_time "
+        f"{s_hd['max_collective_time']:.5f} us; at active_cap=1024 wall "
+        f"{w_cap:.3f}s ({w_cap * 1e3 / trips:.3f} ms a trip); RoCEv2 + PFC "
+        f"x4 wall {w_r4:.3f}s, {trips_r4} warp trips "
+        f"({w_r4 * 1e3 / trips_r4:.3f} ms a trip), "
+        f"{sum(l_r4.values()) / trips_r4:.3f} kernel launches a trip, "
+        f"{lpt_r:.1f} device launches a tick, max_collective_time "
+        f"{s_r4['max_collective_time']:.5f} us; STrack / RoCEv2 x4 "
+        f"{s_hd['max_collective_time'] / s_r4['max_collective_time']:.4f}; "
+        f"a2a1024 STrack wall {w_a:.3f}s, max_collective_time "
+        f"{s_a['max_collective_time']:.5f} us")
+
+    # (e) the kernels' times at the collective ticks of phase 2b
+    # (a2a1024 tick 54, hd1024 x4 tick 65), beside their bounds
+    (targs_a, (sargs_a, ring_a), _), (targs_r, (sargs_r, ring_r), pargs_r) \
+        = cap_a[1], cap_r[1]
+    paths = {}
+
+    def timed(key, prof_key, kern, plain, n_bytes, n_ops, launches, shape):
+        bnd, by = bound_ms(n_bytes, n_ops)
+        plain_ms, _ = device_ms(plain, reps=10)
+        return {f"{key}_ms": prof_ms[prof_key],
+                f"{key}_wall_ms": wall_ms(kern),
+                f"{key}_chain_ms": chain_ms(kern),
+                f"{key}_plain_ms": plain_ms,
+                f"{key}_plain_wall_ms": wall_ms(plain, reps=10),
+                f"{key}_bound_ms": bnd, f"{key}_bound_by": by,
+                f"{key}_launches": launches, f"{key}_shape": shape}
+
+    for name, targs, ops, launches, shape in (
+            ("flow_transition", targs_a, 2 * 512 + 64,
+             l_a["flow_transition"] + l_hd["flow_transition"],
+             "a2a1024 strack t=54 (31 flows a source)"),
+            ("flow_transition_roce", targs_r, 40,
+             l_r4["flow_transition_roce"],
+             "hd1024 rocev2 x4 t=65 (56 stripes a source)")):
+        out = fk.flow_transition(*targs)
+        paths[name] = timed(
+            "collective", f"{name} collective",
+            lambda a=targs: fk.flow_transition(*a),
+            lambda a=targs: fk.flow_transition_plain(*a),
+            nbytes(targs[:4]) + (nbytes(targs[6]) if targs[6] is not None
+                                 else 0)
+            + index_bytes(targs[7]) + nbytes(out), targs[2].numel() * ops,
+            launches, shape)
+        paths[name]["collective_max_abs_err"] = max_err[name]
+    paths["serve_enqueue"] = {"collective_max_abs_err":
+                              max_err["serve_enqueue"]}
+    for key, sargs, ring, launches, shape in (
+            ("collective", sargs_a, ring_a,
+             l_a["serve_enqueue"] + l_hd["serve_enqueue"],
+             "a2a1024 strack t=54"),
+            ("collective_pfc", sargs_r, ring_r, l_r4["serve_enqueue"],
+             "hd1024 rocev2 x4 t=65")):
+        res_k = fk.serve_enqueue(type(ring)(*[f.clone() for f in ring]),
+                                 *sargs[1:])
+        ring_k = type(ring)(*[f.clone() for f in ring])
+        ring_p = type(ring)(*[f.clone() for f in ring])
+        Q, M = ring.flow.shape[0] - 1, res_k[6].numel()
+        slot_bytes = sum(f.element_size() for f in ring)
+        n_acc = int(res_k[7].sum())
+        s_bytes = (2 * 4 * (Q + 1) + Q * slot_bytes + nbytes(sargs[3:17])
+                   + nbytes(res_k) + n_acc * slot_bytes)
+        paths["serve_enqueue"].update(timed(
+            key, "serve_enqueue " + key.replace("_", " "),
+            lambda r=ring_k, a=sargs: fk.serve_enqueue(r, *a[1:]),
+            lambda r=ring_p, a=sargs: fk.serve_enqueue_plain(r, *a[1:]),
+            s_bytes, Q * 40 + M * 20, launches, shape))
+    pfc_k = fk.pfc_account(*pargs_r)
+    Q, M = pargs_r[1].numel(), pargs_r[4].numel()
+    p_bytes = (nbytes(pargs_r[0]) + Q * 13 + M * 5 + 3 * 4 * (Q + 1)
+               + int(pargs_r[6].sum()) * 9 + nbytes(pargs_r[12])
+               + nbytes(pfc_k))
+    paths["pfc_account"] = timed(
+        "collective", "pfc_account collective",
+        lambda: fk.pfc_account(*pargs_r),
+        lambda: fk.pfc_account_plain(*pargs_r), p_bytes, Q * 8 + M * 4,
+        l_r4["pfc_account"], "hd1024 rocev2 x4 t=65")
+    paths["pfc_account"]["collective_max_abs_err"] = max_err["pfc_account"]
+    for name in ("flow_transition_active", "rank_in_queue"):  # spot cell
+        paths[name] = {"collective_max_abs_err": max_err[name]}
+    return paths
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2683,6 +3065,14 @@ def main() -> int:
         entry["max_abs_err"] = max(entry["max_abs_err"], entry.get(
             "active_max_abs_err", 0.0))
     kernels.extend(act_entries)
+    torch.cuda.empty_cache()
+
+    # ---- 6e. dependency-scheduled collectives and sub-flow striping -------
+    coll = collectives(dev, prof_ms)
+    for entry in kernels:
+        entry.update(coll.get(entry["name"], {}))
+        entry["max_abs_err"] = max(entry["max_abs_err"], entry.get(
+            "collective_max_abs_err", 0.0))
     torch.cuda.empty_cache()
 
     # ---- 7. serve: llama3-8b through the flash-attention kernel -----------

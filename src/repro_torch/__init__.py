@@ -5,7 +5,9 @@ never ``jax`` or anything of ``repro``.  Its layout mirrors the reference
 so that each module's counterpart is easy to find:
 ``core/{params,cc,lb,reliability,transport}.py`` (per-flow STrack logic,
 batched over flows), ``sim/{topology,fabric,workloads,traffic}.py`` (the
-multi-queue fat-tree, its front door and the open-loop traffic generator), ``kernels/fabric_kernels.py``
+multi-queue fat-tree, its front door and the traffic generator),
+``collective/algorithms.py`` (the collectives' message traces),
+``kernels/fabric_kernels.py``
 (the three fabric kernels, CUDA sources under ``kernels/csrc/``), and the
 serving path of the dense, Mamba2 and hybrid language models:
 ``configs/``, ``models/{config,layers,ssm,lm}.py``, ``runtime/serve.py``,

@@ -7,6 +7,8 @@
         perm1024-chaos-strack perm1024-chaos-rocev2
     PYTHONPATH=src python -m repro_torch.profile --scenario \
         infer1024-strack infer1024-strack-dense infer1024-rocev2
+    PYTHONPATH=src python -m repro_torch.profile --scenario hd1024 \
+        hd1024-roce4 a2a1024
     PYTHONPATH=src python -m repro_torch.profile --scenario prefill-1000 \
         prefill-4096 decode-544
     PYTHONPATH=src python -m repro_torch.profile --scenario \
@@ -26,7 +28,9 @@ perm1024-chaos-rocev2 (perm1024 under the ``CHAOS1024`` fault schedule,
 STrack over lossy queues and RoCEv2 over PFC), infer1024-strack and
 infer1024-rocev2 (four open-loop inference tenants, 4096 flows, under the
 active set at ``active_cap=512``) and infer1024-strack-dense (the same
-uncapped); serve cells run a model in bf16 with
+uncapped), hd1024 and a2a1024 (the ``COLLECTIVE1024`` collectives under
+STrack) and hd1024-roce4 (hd1024 under RoCEv2 + PFC striped over four
+sub-flows, the paper's 4-QP RoCEv2); serve cells run a model in bf16 with
 ``attn_impl="pallas"`` and random weights from seed 0 (one model on the
 card at a time): llama3-8b ``prefill-1000`` (4 x 1000 tokens),
 ``prefill-4096`` (1 x 4096) and ``decode-544`` (8 decode steps of 4
@@ -87,6 +91,37 @@ def infer1024_scenario(shape=(32, 32)):
                           net=NetworkSpec(link_gbps=400.0), seed=0)[0]
 
 
+#: The collective runs on the perm1024 fabric (400 Gbps, seed 0): name ->
+#: ``collective_scenario``'s algorithm, jobs, ranks a job, bytes and
+#: generator keywords.  ``hd1024`` is allreduce8k's job shape (HD
+#: allreduce, 128 ranks, 128 KiB; ``benchmarks/perf.py``) eight times over
+#: (14,336 messages, 13,312 edges); ``a2a1024`` is 32 windowed all-to-alls
+#: of 32 ranks (31,744 messages, 31 flows a source).
+COLLECTIVE1024 = {"hd1024": ("hd", 8, 128, 128 * 2 ** 10, {}),
+                  "a2a1024": ("a2a", 32, 32, 512 * 2 ** 10, {"window": 8})}
+#: allreduce8k's spot cell (``benchmarks/perf.py``): two HD allreduces of 8
+#: ranks on ``full_bisection(4, 4)`` at 100 Gbps, under the active set.
+ALLREDUCE8K_SPOT_CAP = 48
+
+
+def collective1024_scenario(name: str, shape=(32, 32)):
+    """The ``COLLECTIVE1024`` trace ``name`` on ``full_bisection(*shape)``
+    (the perm1024 fabric by default)."""
+    from .sim.workloads import collective_scenario
+    algo, jobs, ranks, nbytes, kw = COLLECTIVE1024[name]
+    return collective_scenario(full_bisection(*shape), algo, jobs, ranks,
+                               nbytes, net=NetworkSpec(link_gbps=400.0),
+                               seed=0, **kw)
+
+
+def allreduce8k_spot_scenario():
+    """allreduce8k's spot trace (run it at ``ALLREDUCE8K_SPOT_CAP``)."""
+    from .sim.workloads import collective_scenario
+    return collective_scenario(full_bisection(4, 4), "hd", 2, 8,
+                               128 * 2 ** 10,
+                               net=NetworkSpec(link_gbps=100.0), seed=0)
+
+
 #: fabric scenario -> (traffic, fat-tree shape, RunConfig fields).
 FABRIC = {"perm1024": ("perm", (32, 32), {}),
           "perm8k": ("perm", (128, 64), {}),
@@ -101,7 +136,11 @@ FABRIC = {"perm1024": ("perm", (32, 32), {}),
           "infer1024-rocev2": ("infer", (32, 32),
                                {"protocol": "rocev2",
                                 "active_cap": INFER1024_CAP}),
-          "infer1024-strack-dense": ("infer", (32, 32), {})}
+          "infer1024-strack-dense": ("infer", (32, 32), {}),
+          "hd1024": ("hd1024", (32, 32), {}),
+          "hd1024-roce4": ("hd1024", (32, 32),
+                           {"protocol": "rocev2", "subflows": 4}),
+          "a2a1024": ("a2a1024", (32, 32), {})}
 #: serve cell -> (model, requests, tokens).
 SERVE = {"prefill-1000": ("llama3-8b", 4, 1000),
          "prefill-4096": ("llama3-8b", 1, 4096),
@@ -127,6 +166,8 @@ def _fabric_run(name: str):
                                   net=net, seed=0)
     elif traffic == "infer":
         sc = infer1024_scenario(shape)
+    elif traffic in COLLECTIVE1024:
+        sc = collective1024_scenario(traffic, shape)
     else:
         sc = incast_scenario(full_bisection(*shape), 256, 16 * 2 ** 10,
                              net=net)

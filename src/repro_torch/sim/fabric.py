@@ -7,8 +7,8 @@ path per flow: ``dcqcn_fab``), over lossy queues or lossless PFC queues: a
 downlink queues -> per-host downlink queues) held as fixed-shape
 ring-buffer tensors, ticked in the reference's stage order:
 
-  0. dependency gate (deps-free traces: a message is sendable from its
-     open-loop arrival tick on),
+  0. dependency gate: a message is sendable once every message it
+     depends on has completed and its open-loop arrival tick has come,
      0a. under the active set (``active_cap = A``), the lane slate: the
      released, unfinished flows in ascending order, padded with N to A
      lanes (``FabricProgram.lane_slate``),
@@ -29,7 +29,9 @@ ring-buffer tensors, ticked in the reference's stage order:
   5. under PFC (the reference's stage 6b), ingress byte accounting, the
      pause/resume gates and the pause-frame delay line
      (``kernels.pfc_account``),
-  6. completion and observability counters.
+  6. completion (a message is done when all its stripes are; a newly
+     done message releases its children on the next tick) and
+     observability counters.
 
 Time model: 1 tick = 1 MTU serialization time; every hop adds one tick of
 serialization plus ``K`` ticks of propagation (the departure-time lane
@@ -43,9 +45,11 @@ state stays [N], and a run in which more than A flows were live on some
 tick raises ``RuntimeError`` when it ends.  A cap at or above N runs the
 dense program.
 
-Everything the reference supports beyond this — sharding, sub-flow
-striping, dependency edges and the per-tick trace — raises
-``NotImplementedError`` naming its ROADMAP item.
+Messages are striped over ``subflows`` equal sub-flows and carry
+dependency edges (:func:`expand_messages`), as in the reference: the
+collectives of ``repro_torch.collective`` run on the same program.
+Everything the reference supports beyond this — sharding and the per-tick
+trace — raises ``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -273,8 +277,12 @@ class _FlowMsg(NamedTuple):
 
 
 class DepSpec(NamedTuple):
-    """Static message structure a fabric program closes over (this slice:
-    one message per flow, no dependency edges)."""
+    """Static message structure a fabric program closes over.  Flows are
+    the striped sub-flows of messages: ``msg_of_flow`` maps each sub-flow
+    to its message; ``edge_parent[e] -> edge_child[e]`` are the dependency
+    edges (the child waits for the parent); ``init_pending`` is each
+    message's in-degree.  ``msg_ids`` / ``group_ids`` keep the caller's
+    identifiers for reporting."""
 
     n_msgs: int
     n_groups: int
@@ -285,6 +293,43 @@ class DepSpec(NamedTuple):
     edge_child: torch.Tensor    # i32[E]
     msg_ids: tuple
     group_ids: tuple
+
+
+def expand_messages(messages, subflows: int = 1, device="cpu"):
+    """Fan messages out into striped sub-flows -> ``(flows, dep)``:
+    ``flows`` the ``[(src, dst, bytes), ...]`` sub-flows (each message
+    split into ``subflows`` equal stripes, the oracle's multi-QP striping)
+    and ``dep`` the :class:`DepSpec` tying them back together."""
+    k = max(1, int(subflows))
+    messages = list(messages)
+    if not messages:
+        raise ValueError("expand_messages() needs at least one message")
+    mid_ix = {m.mid: i for i, m in enumerate(messages)}
+    if len(mid_ix) != len(messages):
+        raise ValueError("duplicate message ids in trace")
+    group_ids = tuple(sorted({m.group for m in messages}))
+    gid_ix = {g: i for i, g in enumerate(group_ids)}
+    flows, msg_of_flow = [], []
+    edge_parent, edge_child, pending = [], [], []
+    for i, m in enumerate(messages):
+        pending.append(len(m.deps))
+        for d in m.deps:
+            if d not in mid_ix:
+                raise ValueError(f"message {m.mid} depends on unknown "
+                                 f"message {d}")
+            edge_parent.append(mid_ix[d])
+            edge_child.append(i)
+        for _ in range(k):
+            flows.append((m.src, m.dst, m.size / k))
+            msg_of_flow.append(i)
+    i32 = lambda v: torch.tensor(v, dtype=torch.int32, device=device)
+    return flows, DepSpec(
+        n_msgs=len(messages), n_groups=len(group_ids),
+        msg_of_flow=i32(msg_of_flow),
+        group_of_msg=i32([gid_ix[m.group] for m in messages]),
+        init_pending=i32(pending), edge_parent=i32(edge_parent),
+        edge_child=i32(edge_child), msg_ids=tuple(m.mid for m in messages),
+        group_ids=group_ids)
 
 
 def _trivial_dep(n: int, device="cpu") -> DepSpec:
@@ -393,7 +438,6 @@ def check_slice(cfg: FabricConfig) -> None:
                         f"{type(cfg.faults).__name__}")
     todo = [
         (int(cfg.shard) > 1, "shard > 1", "A11"),
-        (int(cfg.subflows) > 1, "subflows > 1", "A6"),
         (trace_every > 0, "trace_every > 0 (per-tick trace)", "A5"),
     ]
     for bad, what, item in todo:
@@ -555,9 +599,8 @@ class FabricProgram:
         Q = 2 * TS + NH
         N = n_flows
         self.dep = dep if dep is not None else _trivial_dep(N, device)
-        if int(self.dep.edge_parent.shape[0]) > 0:
-            raise NotImplementedError(
-                "repro_torch does not port dependency edges yet (ROADMAP A6)")
+        # a trace with edges releases messages inside a tick (stage 6)
+        self.has_edges = int(self.dep.edge_parent.shape[0]) > 0
         tick_us = net.mtu_serialize_us
         drop_pkts = int(net.drop_bytes // net.mtu_bytes)
         buffer_pkts = int(cfg.switch_buffer_bytes // net.mtu_bytes)
@@ -686,9 +729,9 @@ class FabricProgram:
     # ---- one tick -------------------------------------------------------
     def sendable_msg(self, st: FabricState, t: int) -> torch.Tensor:
         """Messages released at tick ``t``: dependencies met and open-loop
-        arrival reached.  A tick leaves ``pending`` as it is (dependency
-        edges are not ported), so the mask of a tick's input state serves
-        the transition, the warp loop's idle test and ``warp_target``."""
+        arrival reached.  The mask of a tick's input state serves the
+        transition, the warp loop's idle test and ``warp_target`` (see
+        :meth:`run` for the messages a tick releases)."""
         return (st.pending <= 0) & (self.arrival <= t)
 
     def lane_slate(self, act_mask: torch.Tensor):
@@ -966,6 +1009,16 @@ class FabricProgram:
         undone.index_add_(0, dep.msg_of_flow.long(), (~done).to(torch.int32))
         msg_done = undone == 0
         newly = msg_done & (~st.msg_done)
+        pending = st.pending
+        if self.has_edges:
+            # newly completed messages release their children: sendable
+            # from the next tick on, through stage 0's gate (an integer
+            # sum, the same in any order)
+            dec = torch.zeros(dep.n_msgs, dtype=torch.int32,
+                              device=self.device)
+            dec.index_add_(0, dep.edge_child.long(),
+                           newly[dep.edge_parent.long()].to(torch.int32))
+            pending = pending - dec
         msg_done_tick = torch.where(newly, t, st.msg_done_tick
                                     ).to(torch.int32)
         g_undone = torch.zeros(dep.n_groups, dtype=torch.int32,
@@ -989,7 +1042,7 @@ class FabricProgram:
             **pfc._asdict(),
             flows=flows, rcv=rcv, qhead=qhead, qsize=qsize, pipe=pipe,
             obl_rr=obl_rr, drops=drops, delivered=delivered,
-            done_tick=done_tick, msg_done=msg_done,
+            done_tick=done_tick, pending=pending, msg_done=msg_done,
             msg_release_tick=msg_release_tick, msg_done_tick=msg_done_tick,
             group_done_tick=group_done_tick,
             act_overflow=(st.act_overflow + overflow if lanes is not None
@@ -1070,6 +1123,8 @@ class FabricProgram:
         t, trips = 0, 0
         while t < self.n_ticks:
             st, can_any, sendable_msg = self.tick(st, t)
+            # a message this tick released wakes the next tick through
+            # warp_target's t_arr (test_torch_collective_warp.py asserts it)
             idle = (~can_any) & ~(sendable_msg
                                   & (st.msg_release_tick < 0)).any()
             if self.pfc and self.PD > 0:
@@ -1171,8 +1226,8 @@ def _finish_metrics(metrics: dict, fin: dict, cfg: FabricConfig,
     metrics["tx_rows_pkts"] = np.asarray(fin["tx_rows"])[:dims["Q"]]
     metrics["win_retx"] = np.asarray(fin["win_retx"])
     # group completion only for traces with group structure, as in the
-    # reference (several groups; dependency edges are not ported)
-    if dep.n_groups > 1:
+    # reference: dependency edges or several groups
+    if int(dep.edge_parent.shape[0]) > 0 or dep.n_groups > 1:
         gdt = np.asarray(fin["group_done_tick"])
         metrics["group_ids"] = dep.group_ids
         metrics["group_done_us"] = _us_or_none(gdt + 1, gdt >= 0, tick_us)
@@ -1190,52 +1245,40 @@ _FINAL_KEYS = ("done_tick", "msg_done_tick", "msg_release_tick",
                "corrupt_drops", "tx_rows", "win_retx")
 
 
-def _trace_dep(messages, device) -> DepSpec:
-    """The ``DepSpec`` of a deps-free trace: one flow per message, the
-    messages' groups in ascending id order."""
-    group_ids = tuple(sorted({getattr(m, "group", 0) for m in messages}))
-    gix = {g: i for i, g in enumerate(group_ids)}
-    return _trivial_dep(len(messages), device)._replace(
-        n_groups=len(group_ids),
-        group_of_msg=torch.tensor([gix[getattr(m, "group", 0)]
-                                   for m in messages], dtype=torch.int32,
-                                  device=device),
-        msg_ids=tuple(m.mid for m in messages), group_ids=group_ids)
+def trace_program(topo: FatTree, messages, n_ticks: int, cfg: FabricConfig,
+                  device) -> FabricProgram:
+    """The bound :class:`FabricProgram` of a message trace on ``device``:
+    each message striped over ``cfg.subflows`` sub-flows, its dependency
+    edges and open-loop arrival kept."""
+    flows, dep = expand_messages(messages, cfg.subflows, device)
+    _check_flows(flows, topo.n_hosts)
+    if cfg.faults is not None:
+        validate_faults(cfg.faults, topo)
+    src, dst, total_pkts, tails, ent0 = _flow_arrays(flows, cfg)
+    prog = FabricProgram(topo, len(flows), n_ticks, cfg, device, dep)
+    prog.bind(src, dst, total_pkts, tails, _arrival_array(messages),
+              cfg.lb_mode, ent0)
+    return prog
 
 
 def run_fabric_trace(topo: FatTree, messages, n_ticks: int,
                      cfg: FabricConfig = FabricConfig(), device="cuda"):
-    """Simulate a message trace on the fat-tree -> (final_state, metrics).
+    """Simulate a dependency-edged message trace on the fat-tree ->
+    (final_state, metrics).
 
     ``messages`` are records with ``mid/src/dst/size/deps/group/arrival``
-    (``workloads.Message``).  Runs on ``device`` ("cuda" by default; raises
-    without a GPU)."""
+    (``workloads.Message``); ``cfg.subflows`` stripes each message over
+    that many single-QP sub-flows.  Runs on ``device`` ("cuda" by
+    default; raises without a GPU)."""
     dev = resolve_device(device)
     check_slice(cfg)
-    messages = list(messages)
-    if not messages:
-        raise ValueError("run_fabric_trace() needs at least one message")
-    if any(getattr(m, "deps", ()) for m in messages):
-        raise NotImplementedError(
-            "repro_torch does not port dependency edges yet (ROADMAP A6)")
-    if len({m.mid for m in messages}) != len(messages):
-        raise ValueError("duplicate message ids in trace")
-    flows = [(m.src, m.dst, m.size) for m in messages]
-    _check_flows(flows, topo.n_hosts)
-    if cfg.faults is not None:
-        validate_faults(cfg.faults, topo)
-    n = len(messages)
-    dep = _trace_dep(messages, dev)
-    src, dst, total_pkts, tails, ent0 = _flow_arrays(flows, cfg)
-    prog = FabricProgram(topo, n, n_ticks, cfg, dev, dep)
-    prog.bind(src, dst, total_pkts, tails, _arrival_array(messages),
-              cfg.lb_mode, ent0)
+    prog = trace_program(topo, messages, n_ticks, cfg, dev)
     final, metrics = prog.run()
     fin = {k: getattr(final, k).cpu().numpy() for k in _FINAL_KEYS}
     fin["retx"] = prog.proto.stat_retx(final.flows).cpu().numpy()
     fin.update({k: v.cpu().numpy() for k, v in
                 prog.proto.stat_recovery(final.flows).items()})
-    metrics = _finish_metrics(dict(metrics), fin, cfg, prog.dims, dep)
+    metrics = _finish_metrics(dict(metrics), fin, cfg, prog.dims, prog.dep)
     return final, metrics
 
 
@@ -1251,9 +1294,10 @@ def run_fabric(topo: FatTree, flows: Sequence[Tuple[int, int, float]],
 
 def summarize(metrics: dict) -> dict:
     """Event-oracle-style summary (max/avg FCT, unfinished, drops, pauses
-    and the observability counters), keyed as the reference's; a trace of
-    several groups adds the per-group keys (``group_fct``,
-    ``max_collective_time``, ``finished_groups``, ``total_groups``)."""
+    and the observability counters), keyed as the reference's; a trace
+    with dependency edges or several groups adds the per-group keys
+    (``group_fct``, ``max_collective_time``, ``finished_groups``,
+    ``total_groups``), keyed by the caller's group ids."""
     fcts = [f for f in metrics["fct_us"] if f is not None]
     out = {
         "max_fct": max(fcts) if fcts else float("nan"),

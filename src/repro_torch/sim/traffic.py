@@ -16,10 +16,10 @@ finished are live: the traffic the active set (``RunConfig.active_cap``)
 is for.  Each tenant is one ``group``; ``summarize`` reports FCT
 percentiles per tenant (``tenant_fct``).
 
-Training tenants (:class:`TrainingJob`, dependency-chained collectives)
-need ``collective.algorithms`` and dependency edges and raise
-``NotImplementedError`` naming ROADMAP A6; the soak runner stays with
-ROADMAP A10.
+A :class:`TrainingJob` is a training tenant: ``steps`` chained
+collectives of ``repro_torch.collective.algorithms`` on a fixed placement,
+each step's message waiting for its counterpart of the step before.  The
+soak runner stays with ROADMAP A10.
 """
 from __future__ import annotations
 
@@ -77,7 +77,10 @@ def _shuffled(n: int, seed: int, *counters: int) -> List[int]:
 @dataclass(frozen=True)
 class TrainingJob:
     """One training tenant: ``steps`` chained collectives on a fixed
-    placement (the reference's record; not generated here yet)."""
+    placement.  ``algo_kw`` is a tuple of (key, value) pairs passed to the
+    collective generator (e.g. ``(("chunk", 32768),)``).  ``hosts`` pins
+    the placement; None carves a disjoint slice of the seed-shuffled host
+    list."""
 
     name: str
     algo: str = "ring"
@@ -109,6 +112,30 @@ class InferenceTenant:
 # --------------------------------------------------------------------------- #
 # The generator
 # --------------------------------------------------------------------------- #
+
+def _job_messages(job: TrainingJob, tenant_idx: int, job_hosts: Sequence[int],
+                  n_hosts: int, mid_base: int) -> List[Message]:
+    from ..collective.algorithms import multi_job  # cycle: algorithms <- sim
+    msgs, placement = multi_job(job.algo, 1, job.ranks, n_hosts,
+                                job.collective_bytes, hosts=list(job_hosts),
+                                **dict(job.algo_kw))
+    per_step = len(msgs)
+    out: List[Message] = []
+    for s in range(job.steps):
+        base = mid_base + s * per_step
+        prev = mid_base + (s - 1) * per_step
+        for m in msgs:
+            deps = tuple(d + base for d in m.deps)
+            if s > 0:
+                # chain the steps: each message also waits for its
+                # same-index message of the previous step
+                deps = deps + (prev + m.mid,)
+            out.append(Message(
+                mid=base + m.mid, src=placement[m.src],
+                dst=placement[m.dst], size=m.size, deps=deps,
+                group=tenant_idx, arrival=job.start_tick))
+    return out
+
 
 def _burst_messages(ten: InferenceTenant, tenant_idx: int,
                     targets: Sequence[int], n_hosts: int, mid_base: int,
@@ -144,29 +171,42 @@ def mixed_scenario(topo: FatTree, jobs: Sequence[TrainingJob],
 
     Returns ``(scenario, tenant_of_group)`` where group ``g`` in the
     scenario (and in ``summarize()['tenant_fct']``) belongs to tenant
-    ``tenant_of_group[g]``.  Targets depend only on ``seed``; burst
-    arrivals, sources and sizes depend on ``(seed, epoch)``.  Training
-    jobs raise ``NotImplementedError`` (ROADMAP A6)."""
+    ``tenant_of_group[g]``.  Placements and targets depend only on
+    ``seed``; burst arrivals, sources and sizes on ``(seed, epoch)``; the
+    trace's structure (message count, deps, groups) on neither."""
     net = net or NetworkSpec()
     names = [j.name for j in jobs] + [t.name for t in tenants]
     if len(set(names)) != len(names):
         raise ValueError(f"duplicate tenant names: {names}")
-    if jobs:
-        raise NotImplementedError(
-            "repro_torch does not port training jobs in mixed_scenario yet "
-            "(collectives and dependency edges, ROADMAP A6)")
-    # seed-keyed placement pool; burst targets come off the back
+    # seed-keyed placement pool; jobs take disjoint slices off the front,
+    # burst targets come off the back
     pool = _shuffled(topo.n_hosts, seed, 0)
+    cursor = 0
     messages: List[Message] = []
     tenant_of_group: Dict[int, str] = {}
+    for g, job in enumerate(jobs):
+        if job.hosts is not None:
+            job_hosts = list(job.hosts)
+        else:
+            if cursor + job.ranks > topo.n_hosts:
+                raise ValueError(f"job {job.name!r}: not enough hosts "
+                                 f"({cursor + job.ranks} needed, "
+                                 f"{topo.n_hosts} available)")
+            job_hosts = pool[cursor:cursor + job.ranks]
+            cursor += job.ranks
+        messages += _job_messages(job, g, job_hosts, topo.n_hosts,
+                                  len(messages))
+        tenant_of_group[g] = job.name
     back = topo.n_hosts
-    for g, ten in enumerate(tenants):
+    for i, ten in enumerate(tenants):
+        g = len(jobs) + i
         if ten.targets is not None:
             targets = list(ten.targets)
         else:
             n_t = max(1, min(ten.n_targets, topo.n_hosts))
-            targets = pool[max(0, back - n_t):back] or pool[-n_t:]
-            back = max(0, back - n_t)
+            targets = pool[max(cursor, back - n_t):back]
+            targets = targets or pool[-n_t:]
+            back = max(cursor, back - n_t)
         messages += _burst_messages(ten, g, targets, topo.n_hosts,
                                     len(messages), seed, epoch)
         tenant_of_group[g] = ten.name

@@ -1,7 +1,9 @@
 """The experiment front door of the port: Scenario + RunConfig + run().
 
 The port of ``repro.sim.workloads`` for the fabric backend: the same
-:class:`Message` / :class:`Scenario` records and builders, a
+:class:`Message` / :class:`Scenario` records (messages with dependency
+edges, striped over ``RunConfig.subflows``) and builders, the collectives
+of :func:`collective_scenario` among them, a
 :class:`RunConfig` with the fields this slice honours, and :func:`run`,
 which returns the reference's summary dict.  ``run`` takes ``device``
 ("cuda" by default; it raises without a GPU).
@@ -151,6 +153,42 @@ def incast_scenario(topo: FatTree, fan_in: int, msg_bytes: float,
     return Scenario.from_flows(
         f"incast_{fan_in}to1", topo, net,
         [(s, dst, float(msg_bytes)) for s in srcs])
+
+
+def trace_digest(messages) -> str:
+    """A hash of a message list (records with ``mid/src/dst/size/deps/
+    group/arrival``): each message's fields in order, so two generators
+    that emit the same trace give the same digest."""
+    import hashlib
+    h = hashlib.sha256()
+    for m in messages:
+        h.update(repr((m.mid, m.src, m.dst, float(m.size), tuple(m.deps),
+                       m.group, m.arrival)).encode())
+    return h.hexdigest()
+
+
+def collective_scenario(topo: FatTree, algo: str, n_jobs: int,
+                        ranks_per_job: int, collective_bytes: float,
+                        net: Optional[NetworkSpec] = None, seed: int = 0,
+                        **algo_kw) -> Scenario:
+    """Dependency-scheduled collective trace (Figs 1-2, 21-28) as a
+    Scenario: ``n_jobs`` instances of ``algo`` (ring / dbt / hd / a2a from
+    ``repro_torch.collective.algorithms``), each group randomly placed on
+    the cluster (the reference's shuffle of ``seed``); rank ids are
+    resolved to hosts here.  ``algo_kw`` reaches the generator
+    (``chunk=``, ``window=`` for a2a)."""
+    from ..collective.algorithms import multi_job  # cycle: algorithms <- us
+    net = net or NetworkSpec()
+    msgs, placement = multi_job(algo, n_jobs, ranks_per_job, topo.n_hosts,
+                                collective_bytes, seed=seed, **algo_kw)
+    return Scenario(
+        name=f"{algo}_x{n_jobs}r{ranks_per_job}",
+        topo=topo, net=net,
+        messages=tuple(Message(mid=m.mid, src=placement[m.src],
+                               dst=placement[m.dst], size=m.size,
+                               deps=tuple(m.deps), group=m.group,
+                               arrival=m.arrival)
+                       for m in msgs))
 
 
 @dataclass(frozen=True)

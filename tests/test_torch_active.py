@@ -3,7 +3,7 @@ the traffic generator, capped runs and the overflow.
 
 * ``traffic.mixed_scenario`` emits the reference's trace message for
   message: infer1024's four inference tenants, other seeds, given targets,
-  no size jitter; a training job raises naming ROADMAP A6.
+  no size jitter; training jobs are generated (ROADMAP A6).
 * An arrival-gated trace on ``full_bisection(2, 4)``: four messages, then
   four more arriving at ticks 120-141 (at most five flows live at once).
   Under STrack, RoCEv2 + PFC and STrack under time warp the port at caps
@@ -91,9 +91,15 @@ def test_splitmix_stream_equals_jax():
 
 
 def test_training_job_raises_naming_a6():
+    """Training jobs are generated since A6 (message for message against
+    JAX: ``tests/test_torch_collective.py``); a job that does not fit the
+    fabric raises as the reference does, and so do duplicate names."""
     job = TT.TrainingJob("train", ranks=4)
-    with pytest.raises(NotImplementedError, match="A6"):
-        TT.mixed_scenario(full_bisection(4, 4), (job,), ())
+    sc, groups = TT.mixed_scenario(full_bisection(4, 4), (job,), ())
+    assert groups == {0: "train"} and len(sc.messages) == 4 * 6
+    with pytest.raises(ValueError, match="not enough hosts"):
+        TT.mixed_scenario(full_bisection(2, 2),
+                          (job, dataclasses.replace(job, name="b")), ())
     with pytest.raises(ValueError, match="duplicate"):
         TT.mixed_scenario(full_bisection(4, 4), (),
                           (TT.InferenceTenant("a"), TT.InferenceTenant("a")))

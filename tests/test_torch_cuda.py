@@ -680,12 +680,7 @@ def _open_loop_program(dev, n_ticks, **kw):
                            [InferenceTenant(**t) for t in OPEN_LOOP_TENANTS],
                            net=NetworkSpec(link_gbps=400.0), seed=0)
     cfg = TF.FabricConfig(net=sc.net, trace_every=0, active_cap=32, **kw)
-    prog = TF.FabricProgram(sc.topo, len(sc.messages), n_ticks, cfg, dev,
-                            TF._trace_dep(sc.messages, dev))
-    src, dst, total, tails, ent0 = TF._flow_arrays(sc.flows, cfg)
-    prog.bind(src, dst, total, tails, TF._arrival_array(sc.messages),
-              cfg.lb_mode, ent0)
-    return sc, cfg, prog
+    return sc, cfg, TF.trace_program(sc.topo, sc.messages, n_ticks, cfg, dev)
 
 
 @pytest.mark.parametrize("protocol", ["strack", "rocev2"])

@@ -105,11 +105,12 @@ def test_port_matches_perm1024_reference_on_cpu():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(protocol="rocev2", active_cap=8, subflows=2), "A6"),
-    (dict(pfc=True, subflows=4), "A6"),
+    # sub-flow striping runs (A6); what it is combined with still raises
+    (dict(protocol="rocev2", subflows=2, shard=2), "A11"),
+    (dict(pfc=True, subflows=4, trace_every=1), "A5"),
     (dict(active_cap=8, backend="events"), "A10"),
     (dict(shard=2), "A11"),
-    (dict(subflows=4), "A6"),
+    (dict(subflows=4, backend="events"), "A10"),
     (dict(faults=link_flap(0, 0, 10, 60), trace_every=1), "A5"),
     (dict(trace_every=1), "A5"),
     (dict(backend="events"), "A10"),
@@ -121,11 +122,20 @@ def test_unported_settings_raise_naming_their_roadmap_item(kw, item):
 
 
 def test_dependency_edges_and_sweep_raise():
+    """Dependency edges run (A6): the child starts after its parent is
+    done, and the run reports the collective keys; ``sweep`` still raises
+    naming A5."""
     topo = full_bisection(2, 2)
     sc = Scenario(name="chain", topo=topo, net=NET400, messages=(
         Message(mid=0, src=0, dst=1, size=8192.0),
         Message(mid=1, src=1, dst=2, size=8192.0, deps=(0,))))
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        run(sc, RunConfig(), device="cpu")
+    _, m = TF.run_fabric_trace(topo, sc.messages, 400,
+                               TF.FabricConfig(net=NET400, time_warp=True),
+                               device="cpu")
+    release, fct = m["msg_release_us"], m["fct_us"]
+    assert release[0] == 0.0 and release[1] >= fct[0]
+    s = TF.summarize(m)
+    assert s["unfinished"] == 0 and s["finished_groups"] == 1
+    assert s["max_collective_time"] == release[1] + fct[1]
     with pytest.raises(NotImplementedError, match="ROADMAP A5"):
         sweep([sc], RunConfig(), device="cpu")

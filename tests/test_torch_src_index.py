@@ -113,12 +113,7 @@ def _program(protocol, pfc=None, active_cap=None, faults=None):
     if pfc is not None:
         kw["pfc"] = pfc
     cfg = TF.FabricConfig(net=sc.net, trace_every=0, **kw)
-    prog = TF.FabricProgram(sc.topo, len(sc.messages), 400, cfg, "cpu",
-                            TF._trace_dep(sc.messages, "cpu"))
-    src, dst, total, tails, ent0 = TF._flow_arrays(sc.flows, cfg)
-    prog.bind(src, dst, total, tails, TF._arrival_array(sc.messages),
-              cfg.lb_mode, ent0)
-    return prog
+    return TF.trace_program(sc.topo, sc.messages, 400, cfg, "cpu")
 
 
 PATHS = {"dense": {}, "pfc": dict(pfc=True), "lossy": dict(pfc=False),

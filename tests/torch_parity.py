@@ -6,23 +6,29 @@ incast1024 under lossy RoCEv2 and under STrack with PFC; perm1024 under
 the CHAOS1024 fault schedule with STrack and with RoCEv2, and linkdown1024
 as t=0 uplink flaps; infer1024 under the active set at ``active_cap=512``
 with STrack (its uncapped run and its cap-320 overflow count beside it)
-and with RoCEv2; the llama3-8b, mamba2-2.7b and zamba2-2.7b SMOKE serve
-references) from the JAX package:
+and with RoCEv2; the collectives hd1024 under STrack and under RoCEv2 +
+PFC striped over four sub-flows, a2a1024 under STrack, and allreduce8k's
+spot trace at ``active_cap=48``; the llama3-8b, mamba2-2.7b and
+zamba2-2.7b SMOKE serve references) from the JAX package, all of them or
+those whose file stems are given:
 
-    PYTHONPATH=src JAX_PLATFORMS=cpu python tests/torch_parity.py
+    PYTHONPATH=src JAX_PLATFORMS=cpu python tests/torch_parity.py [STEM ...]
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+import sys
 from pathlib import Path
 
 import numpy as np
 import torch
 
 from repro_torch.convert import leaves
+from repro_torch.sim.workloads import trace_digest
 from repro_torch.profile import CHAOS1024 as _CHAOS1024
-from repro_torch.profile import INFER1024_CAP, INFER1024_TENANTS
+from repro_torch.profile import (ALLREDUCE8K_SPOT_CAP, COLLECTIVE1024,
+                                 INFER1024_CAP, INFER1024_TENANTS)
 
 # The port's CPU tests run many tiny tensor ops; intra-op threads only
 # contend with the other test workers for the cores.
@@ -90,6 +96,20 @@ INFER_REFS = {
 INFER_REF_PATHS = {name: REF_DIR / f"{name}_ref.json" for name in INFER_REFS}
 #: The cap below infer1024's peak live-flow count: the run raises.
 INFER1024_SMALL_CAP = 320
+
+#: The collective files pin every summary key (the per-group and
+#: per-tenant tables among them) and each message's release and done tick.
+COLLECTIVE_SUMMARY_KEYS = INFER_SUMMARY_KEYS
+#: file stem -> (trace: a ``COLLECTIVE1024`` name of ``repro_torch.profile``
+#: or "spot", allreduce8k's spot trace; RunConfig fields).
+COLLECTIVE_REFS = {
+    "hd1024_strack": ("hd1024", {}),
+    "hd1024_roce4": ("hd1024", dict(protocol="rocev2", subflows=4)),
+    "a2a1024_strack": ("a2a1024", {}),
+    "allreduce8k_spot_cap48": ("spot", dict(active_cap=ALLREDUCE8K_SPOT_CAP)),
+}
+COLLECTIVE_REF_PATHS = {name: REF_DIR / f"{name}_ref.json"
+                        for name in COLLECTIVE_REFS}
 
 
 def _bits(a: np.ndarray) -> np.ndarray:
@@ -168,6 +188,97 @@ OPEN_LOOP_TENANTS = (
          size_bytes=64 * 2 ** 10, size_jitter=0.25, n_targets=3))
 
 
+def jax_collective(name: str):
+    """The JAX package's collective trace ``name``: a ``COLLECTIVE1024``
+    entry on ``full_bisection(32, 32)`` at 400 Gbps, or "spot",
+    allreduce8k's spot trace (two HD allreduces of 8 ranks, 128 KiB, on
+    ``full_bisection(4, 4)`` at 100 Gbps), seed 0."""
+    from repro.core.params import NetworkSpec
+    from repro.sim.topology import full_bisection
+    from repro.sim.workloads import collective_scenario
+    if name == "spot":
+        return collective_scenario(full_bisection(4, 4), "hd", 2, 8,
+                                   128 * 2 ** 10,
+                                   net=NetworkSpec(link_gbps=100.0), seed=0)
+    algo, jobs, ranks, nbytes, kw = COLLECTIVE1024[name]
+    return collective_scenario(full_bisection(32, 32), algo, jobs, ranks,
+                               nbytes, net=NetworkSpec(link_gbps=400.0),
+                               seed=0, **kw)
+
+
+#: The golden collectives on ``full_bisection(2, 4)`` at 100 Gbps, seed 0
+#: (``tests/test_golden.py``): name -> ``collective_scenario``'s arguments
+#: and keywords after the topology.  ``ring8`` is a ring allreduce of 8
+#: ranks, 512 KiB in 32 KiB chunks (224 messages, each chunk waiting for
+#: its predecessor's); ``a2a_x2`` two windowed all-to-alls of 4 ranks
+#: (window 2: a rank's third send waits for its first).
+SMALL_COLLECTIVES = {
+    "ring8": (("ring", 1, 8, 512 * 2 ** 10),
+              dict(seed=0, chunk=32 * 2 ** 10)),
+    "a2a_x2": (("a2a", 2, 4, 256 * 2 ** 10),
+               dict(seed=0, chunk=128 * 2 ** 10, window=2))}
+
+
+def jax_small_collective(name: str) -> tuple:
+    """The JAX package's ``SMALL_COLLECTIVES`` trace ``name`` (its
+    ``Message`` records feed both packages)."""
+    from repro.core.params import NetworkSpec
+    from repro.sim.topology import full_bisection
+    from repro.sim.workloads import collective_scenario
+    args, kw = SMALL_COLLECTIVES[name]
+    return collective_scenario(full_bisection(2, 4), *args,
+                               net=NetworkSpec(link_gbps=100.0),
+                               **kw).messages
+
+
+def collective_reference(name: str) -> dict:
+    """The JAX package's run of one ``COLLECTIVE_REFS`` entry: every key of
+    ``COLLECTIVE_SUMMARY_KEYS``, warp trips, end tick, done ticks, each
+    message's release and done tick, and the trace's size (messages,
+    edges, sub-flows) and digest."""
+    trace, kw = COLLECTIVE_REFS[name]
+    sc = jax_collective(trace)
+    out = _reference(sc, kw, COLLECTIVE_SUMMARY_KEYS, msg_ticks=True)
+    out.update(n_msgs=len(sc.messages),
+               n_edges=sum(len(m.deps) for m in sc.messages),
+               n_flows=len(sc.messages) * kw.get("subflows", 1),
+               trace_sha256=trace_digest(sc.messages))
+    return out
+
+
+def committed_collective_file(name: str) -> dict:
+    """One committed full-width ``COLLECTIVE_REFS`` file, after checking
+    that it was made from the trace both packages generate: the digest of
+    the JAX generator's message list, of the port's and the file's agree,
+    as do the message and edge counts; the file's tick budget is the
+    port's for its config, its run finished every message and group, and
+    each message's release precedes its completion.  (Rebuilding these
+    files from JAX takes two to three minutes each on a CPU, so it is done
+    by hand: ``python tests/torch_parity.py <stem>``.)"""
+    from repro_torch.profile import collective1024_scenario
+    from repro_torch.sim.workloads import RunConfig, _scenario_ticks
+    ref = json.loads(COLLECTIVE_REF_PATHS[name].read_text())
+    trace, kw = COLLECTIVE_REFS[name]
+    jmsgs = jax_collective(trace).messages
+    sc = collective1024_scenario(trace)
+    assert trace_digest(jmsgs) == trace_digest(sc.messages) \
+        == ref["trace_sha256"]
+    assert (len(sc.messages), sum(len(m.deps) for m in sc.messages)) == (
+        ref["n_msgs"], ref["n_edges"])
+    assert _scenario_ticks(sc, RunConfig(**kw)) == ref["n_ticks"]
+    assert len(ref["done_tick"]) == ref["n_flows"] == \
+        ref["n_msgs"] * kw.get("subflows", 1)
+    assert ref["unfinished"] == 0
+    assert ref["finished_groups"] == ref["total_groups"]
+    assert all(0 <= r <= d for r, d in zip(ref["msg_release_tick"],
+                                            ref["msg_done_tick"]))
+    assert ref["end_tick"] == ref["n_ticks"]
+    for k in COLLECTIVE_SUMMARY_KEYS + ("msg_release_tick",
+                                        "msg_done_tick"):
+        assert k in ref, k
+    return ref
+
+
 def open_loop_trace():
     """The JAX package's open-loop 4x4 trace (``mixed_scenario`` of the
     ``OPEN_LOOP_TENANTS``, seed 0, 400 Gbps); its ``Message`` records feed
@@ -193,8 +304,21 @@ def arrival_trace(cls):
     return msgs
 
 
+def chain_trace(cls):
+    """Four messages, then four that each wait for one of the first,
+    built with either package's ``Message`` class ``cls``: the two-stage
+    trace of ``tests/test_rank_active.py`` (at most five flows live at
+    once on ``full_bisection(2, 4)``)."""
+    msgs = [cls(mid=i, src=i, dst=(i + 4) % 8, size=float(12288 + 4096 * i),
+                group=0) for i in range(4)]
+    msgs += [cls(mid=4 + i, src=(i + 4) % 8, dst=i,
+                 size=float(20480 + 4096 * i), deps=(i,), group=1)
+             for i in range(4)]
+    return msgs
+
+
 def jax_final_state(topo, messages, n_ticks: int, cfg):
-    """The JAX package's final ``FabricState`` of a deps-free trace, run as
+    """The JAX package's final ``FabricState`` of a trace, run as
     ``run_fabric_trace`` runs it but without the host metrics (which raise
     on an active-set overflow)."""
     import jax.numpy as jnp
@@ -210,16 +334,23 @@ def jax_final_state(topo, messages, n_ticks: int, cfg):
 
 
 def port_program(topo, messages, n_ticks: int, cfg):
-    """The port's bound ``FabricProgram`` of a deps-free trace on the
-    CPU, as ``run_fabric_trace`` builds it."""
+    """The port's bound ``FabricProgram`` of a trace on the CPU, as
+    ``run_fabric_trace`` builds it."""
     from repro_torch.sim import fabric as TF
-    prog = TF.FabricProgram(topo, len(messages), n_ticks, cfg, "cpu",
-                            TF._trace_dep(messages, "cpu"))
-    src, dst, total, tails, ent0 = TF._flow_arrays(
-        [(m.src, m.dst, m.size) for m in messages], cfg)
-    prog.bind(src, dst, total, tails, TF._arrival_array(messages),
-              cfg.lb_mode, ent0)
-    return prog
+    return TF.trace_program(topo, messages, n_ticks, cfg, "cpu")
+
+
+def port_states(topo, messages, ticks, cfg) -> dict:
+    """The port's state after each tick count of ``ticks`` (dense ticks on
+    the CPU, one run): ``{k: FabricState}``."""
+    from repro_torch.sim.fabric import _clone_tree
+    prog = port_program(topo, messages, max(ticks), cfg)
+    st, out = prog.init_state(), {}
+    for t in range(max(ticks)):
+        st, _, _ = prog.tick(st, t)
+        if t + 1 in ticks:   # the ring is updated in place: keep a copy
+            out[t + 1] = _clone_tree(st)
+    return out
 
 
 def overflow_ticks(err: Exception) -> int:
@@ -290,15 +421,16 @@ def chaos_reference(name: str) -> dict:
                       CHAOS_SUMMARY_KEYS)
 
 
-def _reference(sc, kw=None, keys=REF_SUMMARY_KEYS) -> dict:
+def _reference(sc, kw=None, keys=REF_SUMMARY_KEYS, msg_ticks=False) -> dict:
     """One scenario through the JAX package under ``RunConfig(**kw)``:
-    summary keys, warp trips, end tick, done ticks."""
+    summary keys, warp trips, end tick, done ticks (with ``msg_ticks``,
+    each message's release and done tick too)."""
     from repro.sim.fabric import run_fabric_trace, summarize
     from repro.sim.workloads import RunConfig, _fabric_cfg, _scenario_ticks
     cfg = RunConfig(**(kw or {}))
     n_ticks = _scenario_ticks(sc, cfg)
-    _, m = run_fabric_trace(sc.topo, sc.messages, n_ticks,
-                            _fabric_cfg(sc, cfg))
+    final, m = run_fabric_trace(sc.topo, sc.messages, n_ticks,
+                                _fabric_cfg(sc, cfg))
     s = summarize(m)
     # JSON's own form: tuples as lists, the tenant and group tables keyed
     # by strings
@@ -306,6 +438,9 @@ def _reference(sc, kw=None, keys=REF_SUMMARY_KEYS) -> dict:
     out.update(n_ticks=int(n_ticks), warp_trips=int(m["warp_trips"]),
                end_tick=int(m["end_tick"]),
                done_tick=[int(v) for v in np.asarray(m["done_tick"])])
+    if msg_ticks:
+        for k in ("msg_release_tick", "msg_done_tick"):
+            out[k] = [int(v) for v in np.asarray(getattr(final, k))]
     return out
 
 
@@ -414,7 +549,12 @@ def write_references() -> None:
                for name, path in CHAOS_REF_PATHS.items()]
     makers += [(path, lambda n=name: infer_reference(n))
                for name, path in INFER_REF_PATHS.items()]
+    makers += [(path, lambda n=name: collective_reference(n))
+               for name, path in COLLECTIVE_REF_PATHS.items()]
+    only = set(sys.argv[1:])
     for path, make in makers:
+        if only and path.name.removesuffix("_ref.json") not in only:
+            continue
         path.write_text(json.dumps(make(), sort_keys=True) + "\n")
         print(f"wrote {path}")
 
