@@ -136,6 +136,32 @@ Phases (any failure exits non-zero; nothing is caught):
      (e) the `collective_*` fields of the transitions', serve_enqueue's
          and pfc_account's entries: device ms at the collective ticks,
          wall, plain and bound;
+  6f. the experiment front door's batch (sweep(), run_fabric_trace_batch)
+     and the per-tick trace, on full_bisection(32, 32) at 400 Gbps:
+     (a) sweep() of perm1024 seeds 0-7 under STrack (warp on) as one
+         batch, the launch counts reset before and read after (only the
+         batched STrack transition and serve/enqueue launch), each entry
+         equal to its solo run on the card (every state leaf, the
+         summary, warp trips) and to the JAX-made
+         perm1024_sweep8_strack_ref.json, seed 0 to
+         perm1024_strack_ref.json;
+     (b) sweep() of perm1024 under RoCEv2 + PFC at roce_entropy_seed 0-3
+         the same way, against perm1024_sweep4_rocev2_ref.json;
+     (c) perm1024 seed 0 with trace_queues and trace_every=4 over 512
+         ticks against perm1024_trace4_strack_ref.json: integer rows and
+         the delivered rows' bits by sha256, cwnd_mean within
+         TRACE_CWND_RTOL, queue_settle_us exact (and at 0.5 and 1 us);
+     (d) the four batched calls at B = 8 against their batched plain
+         versions (the PFC stage's on the CPU) at dense ticks of perm1024
+         STrack and RoCEv2 + PFC programs and of incast1024 under RoCEv2
+         + PFC where ports pause, every entry stepping and the odd
+         entries frozen (which must come out as they went in); at B = 1
+         the unbatched calls' bits; each batched call one device
+         operation a call (timed after phase 2b, while the profiler keeps
+         its records);
+     (e) printed, no claim: the sweeps' walls against their solo runs,
+         launches and host ms a trip at B = 1 and 8, the batched calls'
+         device ms; the `*_batch` kernels entries;
   7. serve: llama3-8b, bf16, attn_impl="pallas", random weights from a
      CUDA generator (seed 0; 16 GB):
      (a) the flash-attention kernel against its plain version on the card
@@ -284,6 +310,10 @@ OWN_KERNELS = {
     "flow_transition_roce_active": ("roce_kernel",),
     "serve_enqueue": ("serve_enqueue_kernel",),
     "pfc_account": ("pfc_kernel",),
+    "flow_transition_batch": ("strack_kernel",),
+    "flow_transition_roce_batch": ("roce_kernel",),
+    "serve_enqueue_batch": ("serve_enqueue_kernel",),
+    "pfc_account_batch": ("pfc_kernel",),
     "rank_in_queue": ("count_kernel", "scan_kernel", "resolve_kernel"),
     "flash_attention tc": ("tc_kernel",),
     "flash_attention decode": ("dec_kernel",),
@@ -2755,6 +2785,548 @@ def collectives(dev, prof_ms: dict) -> dict:
     return paths
 
 
+#: The batched kernels of the sweep phase and the unbatched ones they stand
+#: in for.
+BATCH_OF = {"flow_transition_batch": "flow_transition",
+            "flow_transition_roce_batch": "flow_transition_roce",
+            "serve_enqueue_batch": "serve_enqueue",
+            "pfc_account_batch": "pfc_account"}
+#: A trace's cwnd_mean row (a mean of N float32 windows) against the
+#: JAX-made file: XLA's summation order on one side and PyTorch's on the
+#: card on the other move the mean by a few ulps (rounding only; a wrong
+#: window moves it by a whole packet over N).
+TRACE_CWND_RTOL = 1e-5
+
+
+def row_digest(rows) -> dict:
+    """A trace key's rows as their count and the sha256 of their int32 (or
+    float32) bytes, as the trace reference file keeps them."""
+    import hashlib
+    import numpy as np
+    a = np.ascontiguousarray(np.asarray(rows))
+    a = a.astype(np.float32 if a.dtype.kind == "f" else np.int32)
+    return {"rows": int(a.shape[0]),
+            "sha256": hashlib.sha256(a.tobytes()).hexdigest()}
+
+
+def entry_of(tree, i: int):
+    """Entry ``i`` of a batch's tree (every tensor's leading axis)."""
+    import torch
+    if isinstance(tree, torch.Tensor):
+        return tree[i]
+    if isinstance(tree, tuple):
+        items = [entry_of(x, i) for x in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") else tuple(items)
+    return tree
+
+
+def real_rows(st, q_rows: int):
+    """A fabric state with its ring trimmed to the real rows (the trash
+    row's contents are never read)."""
+    return st._replace(q=type(st.q)(*[f[..., :q_rows, :] for f in st.q]))
+
+
+def batch_walk(label, prog, ticks, same, capture_at=None) -> tuple:
+    """Dense ticks of the ``BatchProgram`` ``prog`` up to ``max(ticks)``;
+    at each of ``ticks`` every batched kernel against its plain version
+    (the PFC stage against its plain version on the CPU), once with every
+    entry stepping and once with the odd entries frozen, which must come
+    out as they went in.  Returns ``(seen, captured)``: counts summed over
+    the checked ticks, and at ``capture_at`` the batched calls' arguments
+    with every entry stepping."""
+    import torch
+    from repro_torch.kernels import fabric_kernels as fk
+    from repro_torch.sim.fabric import _clone_tree
+    B, Q = prog.B, prog.Q
+    odd = torch.arange(B, device=prog.device) % 2 == 0
+    tname = ("flow_transition_roce_batch" if prog.proto.name == "rocev2"
+             else "flow_transition_batch")
+    seen = dict.fromkeys(("sel", "accepted", "frozen_rows", "new_pauses",
+                          "paused_rows"), 0)
+    st, captured = prog.init_state(), None
+    for t in range(max(ticks) + 1):
+        if t in ticks:
+            eff_nic, prow = prog.eff_pause(st, t)
+            fm = prog.fault_masks(t)
+            sm = (st.pending <= 0) & (prog.arrival <= t)
+            for live in (None, odd):
+                what = f"{label} t={t}" + ("" if live is None
+                                           else " odd entries frozen")
+                targs = prog.transport_args(st, t, sm, eff_nic, live)
+                out_k = fk.flow_transition_batch(*targs)
+                same(tname, f"{what} {tname}", out_k,
+                     fk.flow_transition_batch_plain(*targs))
+                _, tx, ptx, pv, sel, _ = out_k
+                sargs, _, _ = prog.serve_args(st, t, tx, ptx, sel, pv, prow,
+                                              fm, live)
+                rings = [_clone_tree(st.q) for _ in range(2)]
+                res_k = fk.serve_enqueue_batch(rings[0], *sargs[1:])
+                same("serve_enqueue_batch", f"{what} serve_enqueue_batch",
+                     res_k, fk.serve_enqueue_batch_plain(rings[1],
+                                                         *sargs[1:]))
+                same("serve_enqueue_batch", f"{what} ring",
+                     [f[:, :Q] for f in rings[0]],
+                     [f[:, :Q] for f in rings[1]])
+                pargs = None
+                if prog.pfc:
+                    pargs = (prog.pfc_state(st), res_k[3], res_k[2],
+                             res_k[5], res_k[6], res_k[9], res_k[7],
+                             rings[0], res_k[0], st.qsize, res_k[1], t,
+                             prog.pfc_flows, prog.pfc_dims, live)
+                    pfc_k = fk.pfc_account_batch(*pargs)
+                    # the plain version reads no ring: none goes to the CPU
+                    same("pfc_account_batch", f"{what} pfc_account_batch",
+                         to_cpu(pfc_k), fk.pfc_account_batch_plain(
+                             *to_cpu(pargs[:7]), None, *to_cpu(pargs[8:])))
+                    seen["new_pauses"] += int((pfc_k.pauses
+                                               - st.pauses).sum())
+                    seen["paused_rows"] += int(prow.sum())
+                if live is not None:   # the frozen entries are untouched
+                    for b in range(1, B, 2):
+                        assert_same(f"{what} frozen entry {b}",
+                                    entry_of(targs[0], b),
+                                    entry_of(out_k[0], b))
+                        assert not bool(res_k[3][b].any()), (what, b)
+                        assert torch.equal(res_k[0][b], st.qhead[b]), b
+                        assert torch.equal(res_k[1][b], st.qsize[b]), b
+                        if pargs is not None:
+                            assert_same(f"{what} frozen PFC {b}",
+                                        entry_of(pargs[0], b),
+                                        entry_of(pfc_k, b))
+                        seen["frozen_rows"] += prog.N
+                else:
+                    seen["sel"] += int(sel.sum())
+                    seen["accepted"] += int(res_k[7].sum())
+                    if t == capture_at:
+                        captured = (targs, sargs, _clone_tree(st.q), pargs)
+        st, _, _ = prog.tick(st, t)
+    torch.cuda.synchronize()
+    log(f"[sweep] {label}: {tname}, serve_enqueue_batch"
+        + (" and pfc_account_batch" if prog.pfc else "")
+        + f" match their plain versions at B = {B}, ticks {sorted(ticks)}, "
+        f"every entry stepping and the odd ones frozen; {seen}")
+    return seen, captured
+
+
+def batch_args_at(prog, t: int) -> tuple:
+    """Dense ticks of the ``BatchProgram`` ``prog`` up to tick ``t`` and
+    the batched calls' arguments there, every entry stepping: ``(targs,
+    sargs, ring, pargs)`` as ``batch_walk`` captures them."""
+    from repro_torch.kernels import fabric_kernels as fk
+    st = prog.init_state()
+    for t_ in range(t):
+        st, _, _ = prog.tick(st, t_)
+    eff_nic, prow = prog.eff_pause(st, t)
+    targs = prog.transport_args(st, t, (st.pending <= 0)
+                                & (prog.arrival <= t), eff_nic)
+    out = fk.flow_transition_batch(*targs)
+    sargs, _, _ = prog.serve_args(st, t, out[1], out[2], out[4], out[3],
+                                  prow, None)
+    ring, pargs = _clone(st.q), None
+    if prog.pfc:
+        ring_k = _clone(ring)
+        res = fk.serve_enqueue_batch(ring_k, *sargs[1:])
+        pargs = (prog.pfc_state(st), res[3], res[2], res[5], res[6], res[9],
+                 res[7], ring_k, res[0], st.qsize, res[1], t, prog.pfc_flows,
+                 prog.pfc_dims, None)
+    return targs, sargs, ring, pargs
+
+
+def batch_one_launch(dev) -> dict:
+    """Phase 2b for the batched calls (early in the process, while the
+    profiler keeps its records): each is one device operation a call at B
+    = 8, tick 16 of perm1024 seeds 0-7 under STrack and of perm1024 under
+    RoCEv2 + PFC at entropy seeds 0-7.  Returns their device ms a call
+    (phase 6f's kernels entries)."""
+    from repro_torch.core.params import NetworkSpec
+    from repro_torch.kernels import fabric_kernels as fk
+    from repro_torch.sim import fabric as F
+    from repro_torch.sim.topology import full_bisection
+    from repro_torch.sim.workloads import (RunConfig, _fabric_cfg,
+                                           _scenario_ticks,
+                                           permutation_scenario)
+    t32 = full_bisection(32, 32)
+    scs = [permutation_scenario(t32, 64 * 2 ** 10,
+                                net=NetworkSpec(link_gbps=400.0), seed=s)
+           for s in range(8)]
+    n_ticks = _scenario_ticks(scs[0], RunConfig())
+    s8 = batch_args_at(F.batch_program(
+        t32, [sc.messages for sc in scs], n_ticks,
+        _fabric_cfg(scs[0], RunConfig()), device=dev), 16)
+    r8 = batch_args_at(F.batch_program(
+        t32, [scs[0].messages] * 8, n_ticks,
+        _fabric_cfg(scs[0], RunConfig(protocol="rocev2")),
+        entropy_seeds=list(range(8)), device=dev), 16)
+    ring = _clone(s8[2])
+    calls = [("flow_transition_batch",
+              lambda: fk.flow_transition_batch(*s8[0]), "B=8 strack t=16"),
+             ("flow_transition_roce_batch",
+              lambda: fk.flow_transition_batch(*r8[0]), "B=8 rocev2 t=16"),
+             ("serve_enqueue_batch",
+              lambda: fk.serve_enqueue_batch(ring, *s8[1][1:]),
+              "B=8 strack t=16"),
+             ("pfc_account_batch", lambda: fk.pfc_account_batch(*r8[3]),
+              "B=8 rocev2 t=16")]
+    return dict(zip(BATCH_OF, one_launch(calls)))
+
+
+def batch_of_one(label, prog, captured, same) -> None:
+    """Entry 0 of a captured batched tick (``batch_walk``'s) as a batch of
+    one against the unbatched wrappers on the same inputs: the bits of
+    the unbatched calls."""
+    import torch
+    from repro_torch.kernels import fabric_kernels as fk
+    targs, sargs, ring, pargs = captured
+    one = lambda tree: entry_of(tree, 0)
+    first = lambda tree: tree_map(lambda x: x[:1].clone(), tree)
+    src = targs[3][:1]
+    index1 = fk.src_index_batch(src, prog.NH)
+    t, d = targs[4], targs[5]
+    out_b = fk.flow_transition_batch(first(targs[0]), first(targs[1]),
+                                     targs[2][:1], src, t, d,
+                                     first(targs[6]), index1, None)
+    out_s = fk.flow_transition(one(targs[0]), one(targs[1]), targs[2][0],
+                               targs[3][0], t, d, one(targs[6]),
+                               fk.src_index(targs[3][0], prog.NH))
+    name = ("flow_transition_roce" if prog.proto.name == "rocev2"
+            else "flow_transition")
+    same(name + "_batch", f"{label} B=1 vs unbatched {name}",
+         one(out_b), out_s)
+    rings = [first(ring), one(_clone(ring))]
+    res_b = fk.serve_enqueue_batch(rings[0], *first(tuple(sargs[1:17])),
+                                   *sargs[17:19], first(sargs[19]),
+                                   *sargs[20:24], None)
+    res_s = fk.serve_enqueue(rings[1], *one(tuple(sargs[1:17])),
+                             *sargs[17:19], one(sargs[19]), *sargs[20:24])
+    same("serve_enqueue_batch", f"{label} B=1 vs unbatched serve_enqueue",
+         one(res_b[:11]), res_s[:11])
+    same("serve_enqueue_batch", f"{label} B=1 vs unbatched ring",
+         one(rings[0]), rings[1])
+    if pargs is not None:
+        fl = pargs[12]
+        fl1 = fk.pfc_flows_batch(*[x[:1] for x in fl[:5]], index1)
+        pfc_b = fk.pfc_account_batch(first(pargs[0]), *first(pargs[1:11]),
+                                     t, fl1, pargs[13], None)
+        pfc_s = fk.pfc_account(one(pargs[0]), *one(pargs[1:11]), t,
+                               fk.pfc_flows(*[x[0] for x in fl[:5]],
+                                            fk.src_index(fl.src[0],
+                                                         prog.NH)),
+                               pargs[13])
+        same("pfc_account_batch", f"{label} B=1 vs unbatched pfc_account",
+             one(pfc_b), pfc_s)
+    torch.cuda.synchronize()
+    log(f"[sweep] {label}: the batched calls at B = 1 give the unbatched "
+        f"calls' bits")
+
+
+def tree_map(fn, tree):
+    from repro_torch.kernels.fabric_kernels import tree_map as tm
+    return tm(fn, tree)
+
+
+def run_launches(prog) -> tuple:
+    """Device operations (kernels, memsets, copies: ``torch.profiler``
+    tracing the card alone) of one full run of the ``BatchProgram``
+    ``prog``, and its loop's trips."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        prog.run()
+        torch.cuda.synchronize()
+    return (sum(1 for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA),
+            prog.trips)
+
+
+def sweeps(dev, ms: dict) -> list:
+    """Phase 6f: the batched sweep and the per-tick trace.  ``ms`` holds
+    the batched calls' device ms a call (``batch_one_launch``).  Returns
+    the ``kernels`` entries of the four batched calls."""
+    import torch
+    from repro_torch.core.params import NetworkSpec
+    from repro_torch.kernels import fabric_kernels as fk
+    from repro_torch.sim import fabric as F
+    from repro_torch.sim.topology import full_bisection
+    from repro_torch.sim.workloads import (RunConfig, _fabric_cfg,
+                                           _fabric_summary, _queue_settle_us,
+                                           _scenario_ticks, incast_scenario,
+                                           permutation_scenario, sweep)
+    net400 = NetworkSpec(link_gbps=400.0)
+    t32 = full_bisection(32, 32)
+    scs = [permutation_scenario(t32, 64 * 2 ** 10, net=net400, seed=s)
+           for s in range(8)]
+    max_err = dict.fromkeys(BATCH_OF, 0.0)
+
+    def same(key, what, a, b):
+        max_err[key] = max(max_err[key], assert_same(what, a, b))
+
+    def held(name, got, want, keys):
+        for k in keys:
+            if isinstance(want[k], float):
+                assert math.isclose(got[k], want[k], rel_tol=1e-6), (
+                    name, k, got[k], want[k])
+            else:
+                assert got[k] == want[k], (name, k, got[k], want[k])
+
+    def main_path(name, fn, kernels):
+        """``fn()`` with the launch counts reset before and read after;
+        fails unless exactly ``kernels`` launched."""
+        torch.cuda.synchronize()
+        fk.reset_launches()
+        t0 = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = dict(fk.launches)
+        for k, c in launches.items():
+            assert (c > 0) == (k in kernels), \
+                f"{name}: the {k} kernel launched {c} times"
+        return out, wall, launches
+
+    def against_solo(name, cfgs, fcfgs, seeds, want, kernels):
+        """``sweep()`` of ``scs`` under ``cfgs`` (the phase's main path),
+        each entry's solo run, and the batched program's final state: each
+        entry equals its solo run (every state leaf bit for bit, the
+        summary, warp trips) and the JAX-made file's entry."""
+        n_ticks = _scenario_ticks(scs_of[name][0], cfgs[0])
+        assert n_ticks == want["n_ticks"], (name, n_ticks)
+        res, w_sweep, launches = main_path(
+            f"{name} sweep", lambda: sweep(scs_of[name], cfgs,
+                                           device="cuda"), kernels)
+        solo, t0 = [], time.time()
+        for sc, fc in zip(scs_of[name], fcfgs):
+            solo.append(F.run_fabric_trace(sc.topo, sc.messages, n_ticks,
+                                           fc, device="cuda"))
+        torch.cuda.synchronize()
+        w_solo = time.time() - t0
+        prog = F.batch_program(t32, [sc.messages for sc in scs_of[name]],
+                               n_ticks, fcfgs[0], entropy_seeds=seeds,
+                               device="cuda")
+        final, mb = prog.run()
+        final = prog.stacked(final)
+        keys = [k for k in want["entries"][0]
+                if k not in ("warp_trips", "end_tick", "done_tick")]
+        for i, (sc, rc) in enumerate(zip(scs_of[name], cfgs)):
+            f_solo, m_solo = solo[i]
+            assert_same(f"{name} entry {i} final state (batch vs solo)",
+                        real_rows(entry_of(final, i), prog.Q),
+                        real_rows(f_solo, prog.Q))
+            s_solo = _fabric_summary(sc, rc, m_solo)
+            assert res[i] == s_solo, (name, i, res[i], s_solo)
+            assert int(mb["warp_trips"][i]) == s_solo["warp_trips"], i
+            got = json.loads(json.dumps(s_solo))
+            got["done_tick"] = [int(v) for v in m_solo["done_tick"]]
+            held(f"{name} entry {i}", got, want["entries"][i],
+                 keys + ["warp_trips", "end_tick", "done_tick"])
+        log(f"[sweep] {name}: sweep() of {len(cfgs)} entries ({w_sweep:.3f}s"
+            f", launches {launches}) equals each entry's solo run "
+            f"({w_solo:.3f}s for the {len(cfgs)}: every state leaf, the "
+            f"summary, warp trips {[int(v) for v in mb['warp_trips']]}) "
+            f"and the JAX-made file; the batched loop took {prog.trips} "
+            f"trips")
+        return res, w_sweep, w_solo, launches, prog
+
+    t_phase = time.time()
+    marks = {}
+
+    def mark(what):
+        marks[what] = round(time.time() - t_phase, 3)
+
+    # (a) sweep8: perm1024 seeds 0-7 under STrack adaptive, warp on
+    cfg = RunConfig()
+    fcfg = _fabric_cfg(scs[0], cfg)
+    scs_of = {"perm1024_sweep8_strack": scs,
+              "perm1024_sweep4_rocev2": [scs[0]] * 4}
+    want8 = json.loads((TESTDATA / "perm1024_sweep8_strack_ref.json")
+                       .read_text())
+    res8, w_sweep8, w_solo8, l8, prog8 = against_solo(
+        "perm1024_sweep8_strack", [cfg] * 8, [fcfg] * 8, None, want8,
+        ("flow_transition_batch", "serve_enqueue_batch"))
+    ref0 = json.loads((TESTDATA / "perm1024_strack_ref.json").read_text())
+    got0 = dict(res8[0], done_tick=want8["entries"][0]["done_tick"])
+    held("sweep8 entry 0 vs perm1024_strack_ref", got0, ref0,
+         [k for k in ref0 if k != "n_ticks"])
+
+    mark("a")
+    # (b) RoCEv2 + PFC, perm1024 seed 0 under entropy seeds 0-3
+    cfgs = [RunConfig(protocol="rocev2", roce_entropy_seed=s)
+            for s in range(4)]
+    want4 = json.loads((TESTDATA / "perm1024_sweep4_rocev2_ref.json")
+                       .read_text())
+    res4, w_sweep4, w_solo4, l4, _ = against_solo(
+        "perm1024_sweep4_rocev2", cfgs, [_fabric_cfg(scs[0], c)
+                                         for c in cfgs], list(range(4)),
+        want4, ("flow_transition_roce_batch", "serve_enqueue_batch",
+                "pfc_account_batch"))
+
+    mark("b")
+    # (c) perm1024 seed 0's per-tick trace every 4 ticks
+    tcfg = RunConfig(n_ticks=512, trace_queues=True, trace_every=4)
+    want_t = json.loads((TESTDATA / "perm1024_trace4_strack_ref.json")
+                        .read_text())
+    (_, m), w_trace, _ = main_path(
+        "perm1024 trace", lambda: F.run_fabric_trace(
+            t32, scs[0].messages, 512, _fabric_cfg(scs[0], tcfg),
+            device="cuda"), ("flow_transition", "serve_enqueue"))
+    s_t = _fabric_summary(scs[0], tcfg, m)
+    got = json.loads(json.dumps(s_t))
+    got.update(trace_every=int(m["trace_every"]),
+               done_tick=[int(v) for v in m["done_tick"]],
+               rows={k: row_digest(m[k]) for k in want_t["rows"]})
+    held("perm1024_trace4_strack", got, want_t,
+         [k for k in want_t if k not in ("cwnd_mean", "queue_settle_us",
+                                         "queue_settle_us_at")])
+    assert s_t["queue_settle_us"] == want_t["queue_settle_us"], (
+        s_t["queue_settle_us"], want_t["queue_settle_us"])
+    settle_at = {th: _queue_settle_us(m, float(th))
+                 for th in want_t["queue_settle_us_at"]}
+    assert settle_at == want_t["queue_settle_us_at"], settle_at
+    cw = [float(v) for v in m["cwnd_mean"]]
+    assert len(cw) == len(want_t["cwnd_mean"]), len(cw)
+    cw_err = max(abs(a - b) / abs(b) for a, b in zip(cw, want_t["cwnd_mean"]))
+    assert cw_err <= TRACE_CWND_RTOL, cw_err
+    log(f"[sweep] perm1024 trace every 4 ticks: {want_t['rows']['qsize']['rows']}"
+        f" rows equal the JAX-made file (integer rows by sha256, the "
+        f"delivered rows' float32 bits), cwnd_mean within {cw_err:.3g} "
+        f"relative (limit {TRACE_CWND_RTOL}), queue_settle_us "
+        f"{s_t['queue_settle_us']} (at lower thresholds {settle_at}); wall "
+        f"{w_trace:.3f}s")
+
+    mark("c")
+    # (d) the batched kernels at B = 8 against their plain versions, on
+    # dense ticks of (a)'s program and of (b)'s at entropy seeds 0-7
+    seen8, cap8 = batch_walk("perm1024 strack seeds 0-7", F.batch_program(
+        t32, [sc.messages for sc in scs], prog8.n_ticks, fcfg,
+        device="cuda"), {3, 16, 40}, same, capture_at=16)
+    assert seen8["sel"] > 0 and seen8["accepted"] > 0, seen8
+    rcfg = _fabric_cfg(scs[0], cfgs[0])
+    prog8_r = F.batch_program(t32, [scs[0].messages] * 8, prog8.n_ticks,
+                              rcfg, entropy_seeds=list(range(8)),
+                              device="cuda")
+    seen_r, cap_r = batch_walk("perm1024 rocev2 entropy seeds 0-7", prog8_r,
+                               {3, 16, 40}, same, capture_at=16)
+    assert seen_r["sel"] > 0 and seen_r["accepted"] > 0, seen_r
+    # incast1024 under RoCEv2 + PFC, where switch ports pause at 61-72 and
+    # gate their rows from 73 (phase 6b): the PFC stage's gates at B = 8
+    inc = incast_scenario(t32, 256, 16 * 2 ** 10, net=net400)
+    seen_i, _ = batch_walk("incast1024 rocev2 entropy seeds 0-7",
+                           F.batch_program(
+                               t32, [inc.messages] * 8,
+                               _scenario_ticks(inc, cfgs[0]),
+                               _fabric_cfg(inc, cfgs[0]),
+                               entropy_seeds=list(range(8)), device="cuda"),
+                           {64, 73, 100}, same)
+    assert seen_i["new_pauses"] > 0 and seen_i["paused_rows"] > 0, seen_i
+    batch_of_one("perm1024 strack t=16", prog8, cap8, same)
+    batch_of_one("perm1024 rocev2 t=16", prog8_r, cap_r, same)
+    targs8, sargs8, ring8, _ = cap8
+    targs_r, _, _, pargs_r = cap_r
+    ring_k, ring_p = _clone(ring8), _clone(ring8)
+    mark("d")
+
+    # (e) timings, no claim: the sweep against its solo runs; launches and
+    # host ms a trip at B = 1 and B = 8
+    prog1 = F.batch_program(t32, [scs[0].messages], prog8.n_ticks, fcfg,
+                            device="cuda")
+    prog1.run()   # warm: its first run's allocations
+    walls = {1: [], 8: []}
+    for b, prog in ((1, prog1), (8, prog8), (8, prog8), (1, prog1)):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        prog.run()
+        torch.cuda.synchronize()
+        walls[b].append(time.time() - t0)
+    per_trip = {}
+    for b, prog in ((1, prog1), (8, prog8)):
+        n_launch, trips = run_launches(prog)
+        wall = sum(walls[b]) / 2
+        per_trip[b] = dict(trips=trips, launches_a_trip=n_launch / trips,
+                           host_ms_a_trip=wall * 1e3 / trips, wall_s=walls[b])
+    mark("e")
+    log(f"[sweep] timings (no claim): sweep8 {w_sweep8:.3f}s against its 8 "
+        f"solo runs {w_solo8:.3f}s ({w_solo8 / w_sweep8:.3f}x); sweep4 "
+        f"RoCEv2 + PFC {w_sweep4:.3f}s against 4 solo runs {w_solo4:.3f}s; "
+        f"per trip at B = 1: {per_trip[1]}; at B = 8: {per_trip[8]}; device "
+        f"ms a batched call at B = 8: {ms}")
+
+    # the kernels line's entries: the bytes and operations of the
+    # unbatched calls' bounds, over the whole batch
+    Q = prog8.Q
+    slot_bytes = sum(f.element_size() for f in ring8)
+    res8 = fk.serve_enqueue_batch(_clone(ring8), *sargs8[1:])
+    pfc8 = fk.pfc_account_batch(*pargs_r)
+    M = res8[6].shape[-1]
+    work = {   # name: (kernel call, plain call, bytes, operations)
+        "flow_transition_batch": (
+            lambda: fk.flow_transition_batch(*targs8),
+            lambda: fk.flow_transition_batch_plain(*targs8),
+            nbytes(targs8[:4]) + index_bytes(targs8[7])
+            + nbytes(fk.flow_transition_batch(*targs8)),
+            targs8[2].numel() * (2 * 512 + 64)),
+        "flow_transition_roce_batch": (
+            lambda: fk.flow_transition_batch(*targs_r),
+            lambda: fk.flow_transition_batch_plain(*targs_r),
+            nbytes(targs_r[:4]) + nbytes(targs_r[6]) + index_bytes(targs_r[7])
+            + nbytes(fk.flow_transition_batch(*targs_r)),
+            targs_r[2].numel() * 40),
+        "serve_enqueue_batch": (
+            lambda: fk.serve_enqueue_batch(ring_k, *sargs8[1:]),
+            lambda: fk.serve_enqueue_batch_plain(ring_p, *sargs8[1:]),
+            8 * (2 * 4 * (Q + 1) + Q * slot_bytes) + nbytes(sargs8[3:17])
+            + nbytes(res8) + int(res8[7].sum()) * slot_bytes,
+            8 * (Q * 40 + M * 20)),
+        "pfc_account_batch": (
+            lambda: fk.pfc_account_batch(*pargs_r),
+            lambda: fk.pfc_account_batch_plain(*pargs_r),
+            nbytes(pargs_r[0]) + 8 * (Q * 13 + M * 5 + 3 * 4 * (Q + 1))
+            + int(pargs_r[6].sum()) * 9 + nbytes(pargs_r[12]) + nbytes(pfc8),
+            8 * (Q * 8 + M * 4))}
+    meta = {   # name: (source, TPU kernel, launches on the sweeps, shape)
+        "flow_transition_batch": (
+            "transition.cu", "src/repro/kernels/fabric_kernels.py:191",
+            l8["flow_transition_batch"], "perm1024 B=8 t=16"),
+        "flow_transition_roce_batch": (
+            "transition_roce.cu", "src/repro/kernels/fabric_kernels.py:191",
+            l4["flow_transition_roce_batch"], "perm1024 rocev2 B=8 t=16"),
+        "serve_enqueue_batch": (
+            "serve_enqueue.cu", "src/repro/kernels/fabric_kernels.py:184",
+            l8["serve_enqueue_batch"] + l4["serve_enqueue_batch"],
+            "perm1024 B=8 t=16"),
+        "pfc_account_batch": (
+            "serve_enqueue.cu", "src/repro/sim/fabric.py:1741",
+            l4["pfc_account_batch"], "perm1024 rocev2 B=8 t=16")}
+    entries = []
+    for name, (kern, plain, n_bytes, n_ops) in work.items():
+        src, repl, launches, shape = meta[name]
+        bnd, by = bound_ms(n_bytes, n_ops)
+        # the batched plain versions loop the entries: CUDA events around
+        # back-to-back calls (the profiler loses their records)
+        plain_ms = wall_ms(plain, reps=5)
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": repl, "launches": launches,
+            "max_abs_err": max_err[name], "ms": ms[name],
+            "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+            "library_ms": None, "chain_ms": chain_ms(kern),
+            "wall_ms": wall_ms(kern), "batch": 8, "shape": shape,
+            "batch_of": BATCH_OF[name]})
+    entries[0].update(sweep8_wall_s=w_sweep8, solo8_wall_s=w_solo8,
+                      sweep4_rocev2_wall_s=w_sweep4,
+                      solo4_rocev2_wall_s=w_solo4, per_trip_b1=per_trip[1],
+                      per_trip_b8=per_trip[8], trace4_wall_s=w_trace)
+    mark("entries")
+    log(f"[sweep] phase 6f: seconds since its start after each part {marks}")
+    entries[0]["phase_6f_s"] = marks
+    return entries
+
+
+def _clone(tree):
+    from repro_torch.sim.fabric import _clone_tree
+    return _clone_tree(tree)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2788,6 +3360,11 @@ def main() -> int:
     paths = build_all(verbose=True)
     log(f"[build] {len(paths)} kernels in {time.time() - t0:.1f}s: "
         + ", ".join(p.name for p in paths.values()))
+
+    if sys.argv[1:] == ["--phase", "6f"]:   # phase 6f alone, after the build
+        print(json.dumps({"kernels": sweeps(dev, batch_one_launch(dev))}),
+              flush=True)
+        return finish(kind)
 
     # ---- 2. kernels vs plain versions on the card -------------------------
     def program(sc, cfg):
@@ -2984,6 +3561,7 @@ def main() -> int:
             kernels[-1]["main_paths"] = ("0 launches: its work runs inside "
                                          "serve_enqueue's kernel")
     prof_ms = one_launch_paths(dev)
+    batch_ms = batch_one_launch(dev)
 
     # ---- 3. goldens --------------------------------------------------------
     t44 = full_bisection(4, 4)
@@ -3075,6 +3653,10 @@ def main() -> int:
             "collective_max_abs_err", 0.0))
     torch.cuda.empty_cache()
 
+    # ---- 6f. the batched sweep and the per-tick trace ---------------------
+    kernels.extend(sweeps(dev, batch_ms))
+    torch.cuda.empty_cache()
+
     # ---- 7. serve: llama3-8b through the flash-attention kernel -----------
     kernels.append(serve(dev))
     torch.cuda.empty_cache()
@@ -3090,7 +3672,12 @@ def main() -> int:
                                      fa_zamba2["max_abs_err_hd80"])
     kernels.append(ssd_entry)
     print(json.dumps({"kernels": kernels, **floors}), flush=True)
+    return finish(kind)
 
+
+def finish(kind: str) -> int:
+    """The card's name and power limit, then the last line."""
+    import torch
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)

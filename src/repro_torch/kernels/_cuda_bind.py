@@ -32,6 +32,9 @@ BUCKET = 16
 #: Counters a warp of the PFC kernel holds: HPT + S and T at most this
 #: (``32 kRows``).
 PFC_WARP_COUNTERS = 128
+#: The most entries a batched serve/enqueue call takes (``kMaxBatch`` of
+#: ``csrc/serve_enqueue.cu``: a block's counters of every entry).
+MAX_BATCH = 1024
 
 
 def _ptrs(name, fields):
@@ -41,7 +44,7 @@ def _ptrs(name, fields):
 
 class TransParams(Structure):
     _fields_ = ([(n, c_int) for n in ("t", "timer_tick", "N", "L", "NB",
-                                      "NR", "P", "B")]
+                                      "NR", "P", "B", "FE")]
                 + [(n, c_float) for n in (
                     "now", "probe_at", "rto_at", "mtu", "tq", "th",
                     "ewma_keep", "ewma", "beta", "alpha", "gamma", "eta",
@@ -63,7 +66,7 @@ class TransOut(Structure):
 
 class RoceParams(Structure):
     _fields_ = ([(n, c_int) for n in ("t", "timer_tick", "N", "L", "NB",
-                                      "NR", "F")]
+                                      "NR", "F", "FE")]
                 + [(n, c_float) for n in (
                     "now", "pace_at", "rto_at", "rto_rearm", "window", "mtu",
                     "byte_counter", "hai", "rai", "max_rate", "min_rate",
@@ -77,7 +80,7 @@ RoceMsgPtrs = _ptrs("RoceMsgPtrs", RoceMsg._fields)
 class ServeParams(Structure):
     _fields_ = ([(n, c_int) for n in ("t", "Q", "TS", "T", "S", "N", "L",
                                       "M", "cap", "K", "data_drop", "hard",
-                                      "fseed")]
+                                      "fseed", "B")]
                 + [(n, c_float) for n in ("now", "kmin", "krecip",
                                           "t_dither", "mtu", "ack_bytes")])
 
@@ -88,7 +91,7 @@ ServeIn = _ptrs("ServeIn", (
     "qhead", "qsize", "dst", "dst_tor", "total_pkts", "tail_b", "tx_psn",
     "probe_psn", "ent_d", "ent_p", "spine_d", "spine_p", "sel",
     "probe_valid", "inj_q", "inj_qp", "paused_row", "row_down", "row_duty",
-    "row_cor_p", "lane_flow"))
+    "row_cor_p", "lane_flow", "live"))
 
 
 class ServeOut(Structure):
@@ -103,7 +106,7 @@ ServeScratch = _ptrs("ServeScratch", ("cnt", "fixed", "over", "stage"))
 class PfcParams(Structure):
     _fields_ = ([(n, c_int) for n in ("Q", "TS", "T", "S", "NH", "HPT", "N",
                                       "L", "cap", "PD", "line_row", "cS",
-                                      "cHPT", "cT")]
+                                      "cHPT", "cT", "B")]
                 + [(n, c_float) for n in ("buf", "alpha", "inv", "xon", "mtu",
                                           "ack_bytes")])
 
@@ -112,7 +115,7 @@ PfcIn = _ptrs("PfcIn", (
     "has", "pop_flow", "pop_bytes", "pop_spine", "accept", "cand_bytes",
     "ring_flow", "ring_psn", "ring_probe", "qhead", "qsize0", "qsize", "src",
     "src_tor", "same_tor", "total_pkts", "tail_b", "by_src", "src_start",
-    "lanes"))
+    "lanes", "live"))
 PfcPtrs = _ptrs("PfcPtrs", PfcState._fields)
 
 
@@ -125,12 +128,12 @@ def declare(name: str, lib: ctypes.CDLL) -> None:
         lib.rank_in_queue.restype = c_int
     elif name == "transition":
         lib.strack_transition.argtypes = [
-            P(TransParams), P(FlowPtrs), P(SackPtrs)] + [c_void_p] * 6 + [
+            P(TransParams), P(FlowPtrs), P(SackPtrs)] + [c_void_p] * 7 + [
             P(FlowPtrs), P(TransOut), c_void_p]
         lib.strack_transition.restype = c_int
     elif name == "transition_roce":
         lib.roce_transition.argtypes = [
-            P(RoceParams), P(RoceFlowPtrs), P(RoceMsgPtrs)] + [c_void_p] * 6 + [
+            P(RoceParams), P(RoceFlowPtrs), P(RoceMsgPtrs)] + [c_void_p] * 7 + [
             P(RoceFlowPtrs), P(TransOut), c_void_p]
         lib.roce_transition.restype = c_int
     elif name == "serve_enqueue":
@@ -193,7 +196,8 @@ def _outputs(record, dev, lanes: int, active: bool):
 
 
 def _launch_transition(fn, prm, flows_in, due, sendable, src, eff_nic,
-                       act_idx, index, flows_out, outs, ptrs_cls, msg_cls):
+                       live, act_idx, index, flows_out, outs, ptrs_cls,
+                       msg_cls):
     """One launch of a transition entry point (``fn``) on PyTorch's current
     stream."""
     tx, ptx, probe_valid, sel, can_tx, done = outs
@@ -202,21 +206,38 @@ def _launch_transition(fn, prm, flows_in, due, sendable, src, eff_nic,
                  can_tx=_p(can_tx), done_lane=_p(done))
     _launch(fn, ctypes.byref(prm), ctypes.byref(_struct(ptrs_cls, flows_in)),
             ctypes.byref(_struct(msg_cls, due)), _p(sendable), _p(eff_nic),
-            _p(act_idx), _p(index.by_src), _p(index.src_sorted),
+            _p(live), _p(act_idx), _p(index.by_src), _p(index.src_sorted),
             _p(index.blocks), ctypes.byref(_struct(ptrs_cls, flows_out)),
             ctypes.byref(o), _stream(src))
 
 
+def _entry_args(n: int, entry, dev) -> tuple:
+    """``(FE, live)`` of a transition launch: one program's (``entry``
+    None: FE = N, no mask), or a batch's ``(flows an entry, live bool[B]
+    or None)`` over its flattened record of N = B FE flows."""
+    if entry is None:
+        return n, None
+    fe, live = entry
+    if fe <= 0 or n % fe:
+        raise ValueError(f"transition: {n} flows are not whole entries of "
+                         f"{fe}")
+    if live is not None:
+        _check("live", live, torch.bool, (n // fe,), dev)
+    return fe, live
+
+
 def transition(lib, flows: FlowState, due: SackMsg, sendable, src, t: int,
-               d, eff_nic=None, index=None, act_idx=None):
+               d, eff_nic=None, index=None, act_idx=None, entry=None):
     """Launch ``strack_transition`` (one launch); same contract as
     ``fabric_kernels.flow_transition_plain``, or under the active set
     (``act_idx``, ``sendable`` None) as
     ``fabric_kernels.flow_transition_active_plain``: the flow record is
     then updated in place and ``done_lane`` returned last.  ``index`` is
-    the program's ``SrcIndex``."""
+    the program's ``SrcIndex``; ``entry`` a batch's ``(flows an entry,
+    live)`` (``fabric_kernels.flow_transition_batch``)."""
     p = d.p
     n, dev = _lane_args(sendable, src, act_idx)
+    fe, live = _entry_args(n, entry, dev)
     P, B, W = p.max_paths, p.sack_bitmap_bits, REORDER_WINDOW
     f32t, i32, bt, i8 = torch.float32, torch.int32, torch.bool, torch.int8
     want = dict(bitmap=(i8, (n, P)), rr=(i32, (n,)),
@@ -255,7 +276,7 @@ def transition(lib, flows: FlowState, due: SackMsg, sendable, src, t: int,
     prm = TransParams(
         t=t, timer_tick=int(t % d.timer_every == 0), N=n, L=lanes,
         NB=index.blocks.shape[0] - 1,
-        NR=d.n_real, P=P, B=B, now=float(now),
+        NR=d.n_real, P=P, B=B, FE=fe, now=float(now),
         probe_at=now_plus(now, p.probe_rtts * p.base_rtt_us),
         rto_at=now_plus(now, p.rto_us), mtu=f32(p.mtu_bytes),
         tq=f32(p.target_qdelay_us), th=f32(p.target_qhigh_us),
@@ -268,8 +289,8 @@ def transition(lib, flows: FlowState, due: SackMsg, sendable, src, t: int,
         reset_after=f32(p.bitmap_reset_rtts * p.base_rtt_us),
         min_ooo=float(p.min_ooo_threshold), eps=f32(1e-9))
     _launch_transition(lib.strack_transition, prm, flat, due, sendable, src,
-                       eff_nic, act_idx, index, out_leaves, outs, FlowPtrs,
-                       SackPtrs)
+                       eff_nic, live, act_idx, index, out_leaves, outs,
+                       FlowPtrs, SackPtrs)
     res = (out, *outs[:5])
     return res + (outs[5],) if active else res
 
@@ -279,13 +300,16 @@ _ROCE_INT = ("snd_una", "psn_next", "total_pkts", "t_stage", "b_stage",
 
 
 def transition_roce(lib, flows: RoceFlow, due: RoceMsg, sendable, src,
-                    t: int, d, eff_nic=None, index=None, act_idx=None):
+                    t: int, d, eff_nic=None, index=None, act_idx=None,
+                    entry=None):
     """Launch ``roce_transition`` (one launch); same contract as
     ``fabric_kernels.flow_transition_plain`` under the RoCEv2 record, or,
-    with ``act_idx``, as ``flow_transition_active_plain`` (in place)."""
+    with ``act_idx``, as ``flow_transition_active_plain`` (in place);
+    ``entry`` as :func:`transition`'s."""
     p = d.p
     dc = p.dcqcn
     n, dev = _lane_args(sendable, src, act_idx)
+    fe, live = _entry_args(n, entry, dev)
     f32t, i32, bt = torch.float32, torch.int32, torch.bool
     for name, t_ in zip(RoceFlow._fields, flows):
         _check(f"flows.{name}", t_, i32 if name in _ROCE_INT else f32t,
@@ -302,7 +326,7 @@ def transition_roce(lib, flows: RoceFlow, due: RoceMsg, sendable, src,
     prm = RoceParams(
         t=t, timer_tick=int(t % d.timer_every == 0), N=n, L=lanes,
         NB=index.blocks.shape[0] - 1,
-        NR=d.n_real, F=dc.f_fast_recovery, now=float(now),
+        NR=d.n_real, F=dc.f_fast_recovery, FE=fe, now=float(now),
         pace_at=now_plus(now, 0.5 * p.tick_us), rto_at=now_plus(now, p.rto_us),
         rto_rearm=f32(float(now) + f32(p.rto_us)), window=f32(p.window_pkts), mtu=f32(p.mtu_bytes),
         byte_counter=f32(dc.byte_counter), hai=f32(dc.hai_mbps),
@@ -311,7 +335,7 @@ def transition_roce(lib, flows: RoceFlow, due: RoceMsg, sendable, src,
         alpha_timer=f32(dc.alpha_timer_us), rate_timer=f32(dc.rate_timer_us),
         eps=f32(1e-9))
     _launch_transition(lib.roce_transition, prm, flows, due, sendable, src,
-                       eff_nic, act_idx, index, out, outs, RoceFlowPtrs,
+                       eff_nic, live, act_idx, index, out, outs, RoceFlowPtrs,
                        RoceMsgPtrs)
     res = (out, *outs[:5])
     return res + (outs[5],) if active else res
@@ -344,40 +368,51 @@ def serve_enqueue(lib, q, qhead, qsize, dst, dst_tor, total_pkts, tail_b,
                   tx_psn, probe_psn, ent_d, ent_p, spine, spine_p, sel,
                   probe_valid, inj_q, inj_qp, t: int, d, paused_row=None,
                   row_down=None, row_duty=None, row_cor_p=None, fseed=None,
-                  lane_flow=None):
+                  lane_flow=None, live=None, batch=None):
     """Launch ``se_serve_enqueue`` (one launch); same contract as
-    ``fabric_kernels.serve_enqueue_plain`` (ring updated in place)."""
+    ``fabric_kernels.serve_enqueue_plain`` (ring updated in place), or,
+    with ``batch`` = B, as ``serve_enqueue_batch_plain``: every input but
+    the fault rows with a leading axis B, ``live`` (bool[B] or None) the
+    entries that step."""
     T, S, NH, N, cap = d.n_tor, d.n_spine, d.n_hosts, d.n_flows, d.cap
     TS = T * S
     Q = 2 * TS + NH
-    L = N if lane_flow is None else lane_flow.shape[0]
+    lead = () if batch is None else (batch,)
+    nb = 1 if batch is None else batch
+    if not 1 <= nb <= MAX_BATCH:
+        raise ValueError(f"serve_enqueue: a batch of 1 to {MAX_BATCH} "
+                         f"entries, got {nb}")
+    L = N if lane_flow is None else lane_flow.shape[-1]
     M = 2 * TS + 2 * L
     dev = qhead.device
     i32, f32t, bt = torch.int32, torch.float32, torch.bool
     ring_dt = (i32, i32, f32t, bt, bt, i32, i32, i32)
     for name, f, dt in zip(_RING_FIELDS, q, ring_dt):
-        _check(f"q.{name}", f, dt, (Q + 1, cap), dev)
-    _check("qhead", qhead, i32, (Q + 1,), dev)
-    _check("qsize", qsize, i32, (Q + 1,), dev)
+        _check(f"q.{name}", f, dt, lead + (Q + 1, cap), dev)
+    _check("qhead", qhead, i32, lead + (Q + 1,), dev)
+    _check("qsize", qsize, i32, lead + (Q + 1,), dev)
     for name, t_, dt in (("dst", dst, i32), ("dst_tor", dst_tor, i32),
                          ("total_pkts", total_pkts, i32),
                          ("tail_b", tail_b, f32t)):
-        _check(name, t_, dt, (N,), dev)
+        _check(name, t_, dt, lead + (N,), dev)
     for name, t_, dt in (("tx_psn", tx_psn, i32),
                          ("probe_psn", probe_psn, i32), ("ent_d", ent_d, i32),
                          ("ent_p", ent_p, i32), ("spine", spine, i32),
                          ("spine_p", spine_p, i32), ("sel", sel, bt),
                          ("probe_valid", probe_valid, bt),
                          ("inj_q", inj_q, i32), ("inj_qp", inj_qp, i32)):
-        _check(name, t_, dt, (L,), dev)
+        _check(name, t_, dt, lead + (L,), dev)
     if lane_flow is not None:
-        _check("lane_flow", lane_flow, i32, (L,), dev)
-    for name, t_, dt in (("paused_row", paused_row, bt),
-                         ("row_down", row_down, bt),
+        _check("lane_flow", lane_flow, i32, lead + (L,), dev)
+    if paused_row is not None:
+        _check("paused_row", paused_row, bt, lead + (Q,), dev)
+    for name, t_, dt in (("row_down", row_down, bt),
                          ("row_duty", row_duty, bt),
                          ("row_cor_p", row_cor_p, f32t)):
-        if t_ is not None:
+        if t_ is not None:   # one schedule for a batch
             _check(name, t_, dt, (Q,), dev)
+    if live is not None:
+        _check("live", live, bt, (nb,), dev)
     if row_cor_p is not None and not (
             isinstance(fseed, int) and 0 <= fseed < 2 ** 31):
         raise ValueError(f"fseed: expected the draw's 31-bit seed with "
@@ -387,17 +422,19 @@ def serve_enqueue(lib, q, qhead, qsize, dst, dst_tor, total_pkts, tail_b,
     (pflow, ppsn, pent, pready, pspine, qhead_o, qsize_o, cand_qid, counts,
      pts, pop_bytes, cand_bytes, cnt, fixed, over, stage, pprobe, pecn, has,
      ecn_out, accept, surv) = _carve(
-        dev, [(i32, (Q,))] * 5 + [(i32, (Q + 1,))] * 2
-        + [(i32, (M,)), (i32, (3,)), (f32t, (Q,)), (f32t, (Q,)),
-           (f32t, (M,)), (i32, (Q + 3,)), (i32, ((Q + 1) * BUCKET,)),
-           (i32, (M,)), (i32, (2 * M,))]
-        + [(bt, (Q,))] * 4 + [(bt, (M,)), (bt, (Q if faulted else 0,))])
+        dev, [(i32, lead + (Q,))] * 5 + [(i32, lead + (Q + 1,))] * 2
+        + [(i32, lead + (M,)), (i32, lead + (3,)), (f32t, lead + (Q,)),
+           (f32t, lead + (Q,)), (f32t, lead + (M,)), (i32, (nb * (Q + 3),)),
+           (i32, (nb * (Q + 1) * BUCKET,)), (i32, (nb * M,)),
+           (i32, (nb * 2 * M,))]
+        + [(bt, lead + (Q,))] * 4
+        + [(bt, lead + (M,)), (bt, lead + (Q if faulted else 0,))])
     pop = PktQ(pflow, ppsn, pts, pprobe, pecn, pent, pready, pspine)
     kmin, kmax = d.kmin_p, d.kmax_p
     prm = ServeParams(
         t=t, Q=Q, TS=TS, T=T, S=S, N=N, L=L, M=M, cap=cap, K=d.K,
         data_drop=d.data_drop_pkts, hard=d.hard_pkts,
-        fseed=fseed if row_cor_p is not None else 0,
+        fseed=fseed if row_cor_p is not None else 0, B=nb,
         now=float(Now(t, d.tick_us)), kmin=f32(kmin),
         krecip=recip32(max(kmax - kmin, 1e-9)),
         t_dither=f32(f32(t) * f32(12.9898)), mtu=f32(d.mtu_bytes),
@@ -408,7 +445,7 @@ def serve_enqueue(lib, q, qhead, qsize, dst, dst_tor, total_pkts, tail_b,
                 qhead, qsize, dst, dst_tor, total_pkts, tail_b, tx_psn,
                 probe_psn, ent_d, ent_p, spine, spine_p, sel, probe_valid,
                 inj_q, inj_qp, paused_row, row_down, row_duty, row_cor_p,
-                lane_flow))),
+                lane_flow, live))),
             ctypes.byref(ServeOut(
                 _struct(Ring, pop), *[_p(x) for x in (
                     has, ecn_out, pop_bytes, qhead_o, qsize_o,
@@ -416,9 +453,11 @@ def serve_enqueue(lib, q, qhead, qsize, dst, dst_tor, total_pkts, tail_b,
                     counts)])),
             ctypes.byref(_struct(ServeScratch, (cnt, fixed, over, stage))),
             _stream(qhead))
-    bh_add, cor_add = (counts[1], counts[2]) if faulted else (None, None)
+    bh_add, cor_add = ((counts[..., 1], counts[..., 2]) if faulted
+                       else (None, None))
     return (qhead_o, qsize_o, pop, has, ecn_out, pop_bytes, cand_qid, accept,
-            counts[0], cand_bytes, surv if faulted else has, bh_add, cor_add)
+            counts[..., 0], cand_bytes, surv if faulted else has, bh_add,
+            cor_add)
 
 
 def fault_draw(lib, seed: int, row, t, psn):
@@ -447,16 +486,20 @@ def launch_floor(lib, device, blocks: int = 0, n_sync: int = 0) -> None:
 
 def pfc_account(lib, st: PfcState, has, pop, pop_bytes, cand_qid,
                 cand_bytes, accept, q, qhead, qsize0, qsize, t: int, fl, d,
-                lanes=None):
+                lanes=None, live=None, batch=None):
     """Launch ``se_pfc`` (one launch); same contract as
-    ``fabric_kernels.pfc_account_plain``."""
+    ``fabric_kernels.pfc_account_plain``, or, with ``batch`` = B, as
+    ``pfc_account_batch_plain`` (every input with a leading axis B, ``fl``
+    from ``pfc_flows_batch``, ``live`` the entries that step)."""
     T, S, NH, HPT = d.n_tor, d.n_spine, d.n_hosts, d.hosts_per_tor
     TS = T * S
     Q = 2 * TS + NH
-    N = fl.src.shape[0]
+    lead = () if batch is None else (batch,)
+    nb = 1 if batch is None else batch
+    N = fl.src.shape[-1]
     L = N if lanes is None else lanes.shape[0]
-    M = cand_qid.shape[0]
-    cap = q.flow.shape[1]
+    M = cand_qid.shape[-1]
+    cap = q.flow.shape[-1]
     dev = has.device
     i32, f32t, bt = torch.int32, torch.float32, torch.bool
     shapes = dict(qbytes=(f32t, (Q + 1,)), ing_host=(f32t, (NH,)),
@@ -466,7 +509,8 @@ def pfc_account(lib, st: PfcState, has, pop, pop_bytes, cand_qid,
                   pfc_line=(bt, (max(d.PD, 1), NH + 2 * TS)),
                   pauses=(i32, ()))
     for name, t_ in zip(PfcState._fields, st):
-        _check(f"pfc.{name}", t_, *shapes[name], dev)
+        dt, shape = shapes[name]
+        _check(f"pfc.{name}", t_, dt, lead + shape, dev)
     for name, t_, dt, shape in (
             ("has", has, bt, (Q,)), ("pop.flow", pop.flow, i32, (Q,)),
             ("pop_bytes", pop_bytes, f32t, (Q,)),
@@ -483,9 +527,13 @@ def pfc_account(lib, st: PfcState, has, pop, pop_bytes, cand_qid,
             ("total_pkts", fl.total_pkts, i32, (N,)),
             ("tail_b", fl.tail_b, f32t, (N,)), ("by_src", fl.by_src, i32, (N,)),
             ("src_start", fl.src_start, i32, (NH + 1,))):
-        _check(name, t_, dt, shape, dev)
+        _check(name, t_, dt, lead + shape, dev)
     if lanes is not None:
+        if batch is not None:
+            raise ValueError("pfc_account: a batch has no active-set lanes")
         _check("lanes", lanes, i32, (L,), dev)
+    if live is not None:
+        _check("live", live, bt, (nb,), dev)
     if M != 2 * TS + 2 * L:
         raise ValueError(f"cand_qid: expected {2 * TS + 2 * L} candidates, "
                          f"got {M}")
@@ -497,14 +545,14 @@ def pfc_account(lib, st: PfcState, has, pop, pop_bytes, cand_qid,
     prm = PfcParams(Q=Q, TS=TS, T=T, S=S, NH=NH, HPT=HPT, N=N, L=L, cap=cap,
                     PD=d.PD, line_row=t % d.PD if d.PD > 0 else 0,
                     cS=row_chunk(S), cHPT=row_chunk(HPT), cT=row_chunk(T),
-                    buf=f32(d.buffer_bytes), alpha=f32(d.alpha),
+                    B=nb, buf=f32(d.buffer_bytes), alpha=f32(d.alpha),
                     inv=recip32(1 + d.alpha), xon=f32(d.xon_frac),
                     mtu=f32(d.mtu_bytes), ack_bytes=f32(64))
     pin = PfcIn(*[_p(x) for x in (
         has, pop.flow, pop_bytes, pop.spine, accept, cand_bytes, q.flow,
         q.psn, q.probe, qhead, qsize0, qsize, fl.src, fl.src_tor,
         fl.same_tor, fl.total_pkts, fl.tail_b, fl.by_src, fl.src_start,
-        lanes)])
+        lanes, live)])
     _launch(lib.se_pfc, ctypes.byref(prm), ctypes.byref(pin),
             ctypes.byref(_struct(PfcPtrs, st)),
             ctypes.byref(_struct(PfcPtrs, out)), _stream(has))

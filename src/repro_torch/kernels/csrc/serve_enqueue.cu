@@ -61,6 +61,15 @@
 // advances (surv); the two counts are integer atomics, exact in any
 // order.
 //
+// A batch of B entries (sim/fabric.py BatchProgram) is one launch of each
+// kernel: every input and output but the fault rows (one schedule for the
+// batch) has a leading axis B, the grid-stride loops run over B x (Q + 1)
+// rows, B x M candidates and B x (T + S) switches through the same
+// barriers, and each item works on its entry's views of the pointers
+// (view_of, pfc_view): an entry's buckets, staging area and counts are
+// its own.  An entry that live[e] marks frozen serves no row, enqueues no
+// candidate and keeps its PFC state, so its rows are left as they were.
+//
 // The PFC stage (se_pfc) is the reference tick's inline stage 6b
 // (repro/sim/fabric.py:1741-1841), which has no Pallas kernel; bound:
 // bytes, O(ports x (S + HPT) + Q) reads a tick.  One cooperative launch,
@@ -93,6 +102,7 @@ struct ServeParams {
   int t, Q, TS, T, S, N, L, M, cap, K;
   int data_drop, hard;
   int fseed;  // the corruption draw's seed (31 bits)
+  int B;      // entries of a batch (1 on one program)
   float now, kmin, krecip, t_dither, mtu, ack_bytes;
 };
 
@@ -129,6 +139,7 @@ struct ServeIn {
   const bool* row_duty;    // [Q], null without degraded links
   const float* row_cor_p;  // [Q], null without corrupting links
   const int* lane_flow;   // [L], null when lane l is flow l (L = N)
+  const bool* live;        // [B] a batch's stepping entries, null: all
 };
 
 struct ServeOut {
@@ -142,7 +153,7 @@ struct ServeOut {
   int* cand_qid;      // [M]
   bool* accept;       // [M]
   float* cand_bytes;  // [M] wire bytes
-  int* counts;        // [3] drops, blackholed, corrupted
+  int* counts;        // [3 B] drops, blackholed, corrupted of each entry
 };
 
 struct ServeScratch {  // one int32 allocation
@@ -209,12 +220,77 @@ __device__ __forceinline__ float fault_u01(int seed, int row, int t,
   return (float)(unsigned int)(s >> 40) * 0x1p-24f;
 }
 
-// Phase 1 for row i (i < Q): pop the head, mark, apply the fault rows;
-// the row's fabric advance is candidate i (i < 2 TS).  qsize holds qsize1
-// (after service) until the walk adds the accepted.
-__device__ void serve_row(int i, const ServeParams& p, const Ring& ring,
-                          const ServeIn& in, const ServeOut& out,
-                          int* s_cnt) {
+// Entry e's pointers of a batch, its block's counters and whether it steps.
+struct View {
+  Ring ring;
+  ServeIn in;
+  ServeOut out;
+  ServeScratch sc;
+  int* cnt;  // the block's drops, blackholed, corrupted of entry e
+  bool on;
+};
+
+__device__ __forceinline__ Ring ring_at(const Ring& r, size_t o) {
+  return Ring{r.flow + o, r.psn + o, r.ts + o,    r.probe + o,
+              r.ecn + o,  r.ent + o, r.ready + o, r.spine + o};
+}
+
+__device__ __forceinline__ View view_of(int e, const ServeParams& p,
+                                        const Ring& ring, const ServeIn& in,
+                                        const ServeOut& out,
+                                        const ServeScratch& sc, int* s_cnt) {
+  const size_t rq = (size_t)e * (p.Q + 1), q = (size_t)e * p.Q;
+  const size_t n = (size_t)e * p.N, l = (size_t)e * p.L, m = (size_t)e * p.M;
+  View v;
+  v.ring = ring_at(ring, rq * p.cap);
+  v.in = in;
+  v.in.qhead += rq;
+  v.in.qsize += rq;
+  v.in.dst += n;
+  v.in.dst_tor += n;
+  v.in.total_pkts += n;
+  v.in.tail_b += n;
+  v.in.tx_psn += l;
+  v.in.probe_psn += l;
+  v.in.ent_d += l;
+  v.in.ent_p += l;
+  v.in.spine_d += l;
+  v.in.spine_p += l;
+  v.in.sel += l;
+  v.in.probe_valid += l;
+  v.in.inj_q += l;
+  v.in.inj_qp += l;
+  if (in.paused_row != nullptr) v.in.paused_row += q;
+  if (in.lane_flow != nullptr) v.in.lane_flow += l;
+  v.out = out;
+  v.out.pop = ring_at(out.pop, q);
+  v.out.has += q;
+  v.out.ecn_out += q;
+  v.out.pop_bytes += q;
+  v.out.qhead += rq;
+  v.out.qsize += rq;
+  if (out.surv != nullptr) v.out.surv += q;
+  v.out.cand_qid += m;
+  v.out.accept += m;
+  v.out.cand_bytes += m;
+  v.out.counts += 3 * e;
+  v.sc.cnt = sc.cnt + (size_t)e * (p.Q + 3);
+  v.sc.fixed = sc.fixed + rq * kBucket;
+  v.sc.over = sc.over + m;
+  v.sc.stage = sc.stage + 2 * m;
+  v.cnt = s_cnt + 3 * e;
+  v.on = in.live == nullptr || in.live[e];
+  return v;
+}
+
+// Phase 1 for row i (i < Q) of an entry: pop the head, mark, apply the
+// fault rows; the row's fabric advance is candidate i (i < 2 TS).  qsize
+// holds qsize1 (after service) until the walk adds the accepted.
+__device__ void serve_row(int i, const ServeParams& p, const View& v) {
+  const Ring& ring = v.ring;
+  const ServeIn& in = v.in;
+  const ServeOut& out = v.out;
+  int* s_cnt = v.cnt;
   int qs = in.qsize[i];
   int h = floor_mod(in.qhead[i], p.cap);
   size_t slot = (size_t)i * p.cap + h;
@@ -223,7 +299,7 @@ __device__ void serve_row(int i, const ServeParams& p, const Ring& ring,
   bool probe = ring.probe[slot], ecn = ring.ecn[slot];
   int ent = ring.ent[slot], ready = ring.ready[slot];
   int spine = ring.spine[slot];
-  bool has = (qs > 0) && (ready <= p.t) &&
+  bool has = v.on && (qs > 0) && (ready <= p.t) &&
              !(in.paused_row != nullptr && in.paused_row[i]) &&
              (in.row_duty == nullptr || in.row_duty[i]);
   float residual = (float)(qs - 1 > 0 ? qs - 1 : 0);
@@ -270,15 +346,16 @@ __device__ void serve_row(int i, const ServeParams& p, const Ring& ring,
 
 // Phase 1 for NIC injection candidate i (2 TS <= i < M): data lanes, then
 // probes.
-__device__ void inject(int i, const ServeParams& p, const ServeIn& in,
-                       const ServeOut& out) {
+__device__ void inject(int i, const ServeParams& p, const View& v) {
+  const ServeIn& in = v.in;
+  const ServeOut& out = v.out;
   int l = i - 2 * p.TS;
   bool is_probe = l >= p.L;
   if (is_probe) l -= p.L;
   int flow = in.lane_flow != nullptr ? in.lane_flow[l] : l;
   int psn = is_probe ? in.probe_psn[l] : in.tx_psn[l];
   out.cand_qid[i] = is_probe ? in.inj_qp[l] : in.inj_q[l];
-  out.accept[i] = is_probe ? in.probe_valid[l] : in.sel[l];
+  out.accept[i] = v.on && (is_probe ? in.probe_valid[l] : in.sel[l]);
   out.cand_bytes[i] = wire_bytes(flow, psn, is_probe, in, p);
 }
 
@@ -334,9 +411,10 @@ __device__ __forceinline__ void place(const Fields& c, int q, int pos,
 // every candidate's fields loaded at once, then the decisions and the
 // ring writes in candidate order.  Returns the accepted count.
 __device__ int walk_small(int q, const int* fx, int k, int qs1, int qh1,
-                          const ServeParams& p, const Ring& ring,
-                          const ServeIn& in, const ServeOut& out,
-                          int* s_cnt) {
+                          const ServeParams& p, const View& v) {
+  const Ring& ring = v.ring;
+  const ServeIn& in = v.in;
+  const ServeOut& out = v.out;
   int e[kSmall];
 #pragma unroll
   for (int u = 0; u < kSmall; ++u) e[u] = u < k ? ld_i(fx + u) : 0x7fffffff;
@@ -368,7 +446,7 @@ __device__ int walk_small(int q, const int* fx, int k, int qs1, int qh1,
       }
     }
   }
-  if (drops) atomicAdd(&s_cnt[0], drops);
+  if (drops) atomicAdd(&v.cnt[0], drops);
   return n_acc;
 }
 
@@ -377,9 +455,11 @@ __device__ int walk_small(int q, const int* fx, int k, int qs1, int qh1,
 // list), sorted by index into the next k entries, then walked 32 at a
 // time in that order.  Returns the accepted count (on every lane).
 __device__ int walk_bucket(int q, int k, int qs1, int qh1,
-                           const ServeParams& p, const Ring& ring,
-                           const ServeIn& in, const ServeOut& out,
-                           const ServeScratch& sc, int* s_cnt) {
+                           const ServeParams& p, const View& v) {
+  const Ring& ring = v.ring;
+  const ServeIn& in = v.in;
+  const ServeOut& out = v.out;
+  const ServeScratch& sc = v.sc;
   const int lane = threadIdx.x & 31;
   int base = lane == 0 ? atomicAdd(&sc.cnt[p.Q + 2], 2 * k) : 0;
   base = __shfl_sync(FULL_MASK, base, 0);
@@ -433,76 +513,84 @@ __device__ int walk_bucket(int q, int k, int qs1, int qh1,
     drops += dropped;
     n_acc += __popc(bal);
   }
-  if (drops) atomicAdd(&s_cnt[0], drops);
+  if (drops) atomicAdd(&v.cnt[0], drops);
   return n_acc;
 }
 
 __global__ void __launch_bounds__(kThreads)
     serve_enqueue_kernel(ServeParams p, Ring ring, ServeIn in, ServeOut out,
                          ServeScratch sc) {
-  __shared__ int s_cnt[3];  // drops, blackholed, corrupted
+  extern __shared__ int s_cnt[];  // [3 B] drops, blackholed, corrupted
   const int tid = threadIdx.x, lane = tid & 31;
   const int gtid = blockIdx.x * blockDim.x + tid;
   const int stride = gridDim.x * blockDim.x;
   const int nq = p.Q + 1;
-  if (tid < 3) s_cnt[tid] = 0;
-  if (gtid < 3) out.counts[gtid] = 0;
+  for (int i = tid; i < 3 * p.B; i += blockDim.x) s_cnt[i] = 0;
+  for (int i = gtid; i < 3 * p.B; i += stride) out.counts[i] = 0;
   __syncthreads();
 
   // 1. serve, build the candidates, zero the counts
   const int n1 = nq + 2 > p.M ? nq + 2 : p.M;
-  for (int i = gtid; i < n1; i += stride) {
-    if (i < nq + 2) sc.cnt[i] = 0;
+  for (int g = gtid; g < p.B * n1; g += stride) {
+    const int e = g / n1, i = g - e * n1;
+    const View v = view_of(e, p, ring, in, out, sc, s_cnt);
+    if (i < nq + 2) v.sc.cnt[i] = 0;
     if (i < p.Q) {
-      serve_row(i, p, ring, in, out, s_cnt);
+      serve_row(i, p, v);
     } else if (i == p.Q) {  // the trash row
-      out.qhead[p.Q] = 0;
-      out.qsize[p.Q] = 0;
+      v.out.qhead[p.Q] = 0;
+      v.out.qsize[p.Q] = 0;
     }
-    if (i >= 2 * p.TS && i < p.M) inject(i, p, in, out);
+    if (i >= 2 * p.TS && i < p.M) inject(i, p, v);
   }
   grid_sync();
 
   // 2. each valid candidate into its queue's bucket: a fixed slot, or the
   // overflow list
-  for (int i = gtid; i < p.M; i += stride) {
-    if (!out.accept[i]) continue;
-    const int q = out.cand_qid[i];
-    const int s = atomicAdd(&sc.cnt[q], 1);
+  for (int g = gtid; g < p.B * p.M; g += stride) {
+    const int e = g / p.M, i = g - e * p.M;
+    const View v = view_of(e, p, ring, in, out, sc, s_cnt);
+    if (!v.out.accept[i]) continue;
+    const int q = v.out.cand_qid[i];
+    const int s = atomicAdd(&v.sc.cnt[q], 1);
     if (s < kBucket)
-      sc.fixed[(size_t)q * kBucket + s] = i;
+      v.sc.fixed[(size_t)q * kBucket + s] = i;
     else
-      sc.over[atomicAdd(&sc.cnt[p.Q + 1], 1)] = i;
+      v.sc.over[atomicAdd(&v.sc.cnt[p.Q + 1], 1)] = i;
   }
   grid_sync();
 
   // 3. the walk: one thread a queue, a warp for a bucket past kSmall
-  for (int q0 = gtid - lane; q0 < nq; q0 += stride) {
-    const int q = q0 + lane;
-    const bool act = q < nq;
-    const int k = act ? ld_i(sc.cnt + q) : 0;
+  const int n3 = p.B * nq;
+  for (int g0 = gtid - lane; g0 < n3; g0 += stride) {
+    const int g = g0 + lane;
+    const bool act = g < n3;
+    const int e = act ? g / nq : 0, q = act ? g - e * nq : 0;
+    const View v = view_of(e, p, ring, in, out, sc, s_cnt);
+    const int k = act ? ld_i(v.sc.cnt + q) : 0;
     const bool real = act && q < p.Q;
-    const int qs1 = real ? out.qsize[q] : 0;  // this thread's own write
-    const int qh1 = real ? out.qhead[q] : 0;
+    const int qs1 = real ? v.out.qsize[q] : 0;  // this thread's own write
+    const int qh1 = real ? v.out.qhead[q] : 0;
     int n_acc = 0;
     if (k >= 1 && k <= kSmall)
-      n_acc = walk_small(q, sc.fixed + (size_t)q * kBucket, k, qs1, qh1, p,
-                         ring, in, out, s_cnt);
+      n_acc = walk_small(q, v.sc.fixed + (size_t)q * kBucket, k, qs1, qh1, p,
+                         v);
     unsigned big = __ballot_sync(FULL_MASK, k > kSmall);
     while (big) {
       const int src = __ffs(big) - 1;
       big &= big - 1;
-      int r = walk_bucket(__shfl_sync(FULL_MASK, q, src),
-                          __shfl_sync(FULL_MASK, k, src),
+      const int gs = __shfl_sync(FULL_MASK, g, src), es = gs / nq;
+      const View vs = view_of(es, p, ring, in, out, sc, s_cnt);
+      int r = walk_bucket(gs - es * nq, __shfl_sync(FULL_MASK, k, src),
                           __shfl_sync(FULL_MASK, qs1, src),
-                          __shfl_sync(FULL_MASK, qh1, src), p, ring, in, out,
-                          sc, s_cnt);
+                          __shfl_sync(FULL_MASK, qh1, src), p, vs);
       if (lane == src) n_acc = r;
     }
-    if (real) out.qsize[q] = qs1 + n_acc;
+    if (real) v.out.qsize[q] = qs1 + n_acc;
   }
   __syncthreads();
-  if (tid < 3 && s_cnt[tid] != 0) atomicAdd(&out.counts[tid], s_cnt[tid]);
+  for (int i = tid; i < 3 * p.B; i += blockDim.x)
+    if (s_cnt[i] != 0) atomicAdd(&out.counts[i], s_cnt[i]);
 }
 
 // No work but n_sync grid-wide barriers: the launch floor of the
@@ -567,12 +655,18 @@ int launch_cooperative(int want, size_t smem, cudaStream_t stream,
 
 }  // namespace
 
+// A batch: B entries of every pointer but the fault rows (see above); at
+// most kMaxBatch, whose counters a block holds in shared memory.
+constexpr int kMaxBatch = 1024;
+
 extern "C" int se_serve_enqueue(const ServeParams* p, const Ring* ring,
                                 const ServeIn* in, const ServeOut* out,
                                 const ServeScratch* sc, cudaStream_t stream) {
-  int n = (p->Q + 3 > p->M ? p->Q + 3 : p->M);
+  if (p->B < 1 || p->B > kMaxBatch) return (int)cudaErrorInvalidValue;
+  const long n = (long)p->B * (p->Q + 3 > p->M ? p->Q + 3 : p->M);
   return launch_cooperative<serve_enqueue_kernel>(
-      (n + kThreads - 1) / kThreads, 0, stream, *p, *ring, *in, *out, *sc);
+      (int)((n + kThreads - 1) / kThreads), sizeof(int) * 3 * p->B, stream,
+      *p, *ring, *in, *out, *sc);
 }
 
 // The launch floor: an empty kernel of one warp (blocks 0), or the
@@ -600,6 +694,7 @@ extern "C" int se_draw(int seed, const int* row, const int* t, const int* psn,
 struct PfcParams {
   int Q, TS, T, S, NH, HPT, N, L, cap, PD, line_row;
   int cS, cHPT, cT;  // the chunks the occupancy rows are summed in
+  int B;             // entries of a batch (1 on one program)
   float buf, alpha, inv, xon, mtu, ack_bytes;
 };
 
@@ -625,6 +720,7 @@ struct PfcIn {
   const int* src_start;    // [NH + 1]
   const int* lanes;        // [L]: the active set's slate, ascending, padded
                            // with N; null when lane l is flow l (L = N)
+  const bool* live;        // [B] a batch's stepping entries, null: all
 };
 
 struct PfcState {
@@ -640,6 +736,63 @@ struct PfcState {
 };
 
 namespace {
+
+// Entry e's pointers of a batch (each with a leading axis B) and whether
+// it steps.
+struct PfcView {
+  PfcIn in;
+  PfcState st, out;
+  bool on;
+};
+
+__device__ __forceinline__ PfcState state_at(const PfcState& a,
+                                             const PfcParams& p, int e) {
+  const size_t ts = (size_t)e * p.TS, nh = (size_t)e * p.NH;
+  const size_t line = (size_t)e * (p.PD > 0 ? p.PD : 1) * (p.NH + 2 * p.TS);
+  return PfcState{a.qbytes + (size_t)e * (p.Q + 1),
+                  a.ing_host + nh,
+                  a.ing_sd + ts,
+                  a.ing_up + ts,
+                  a.paused_nic + nh,
+                  a.paused_sd + ts,
+                  a.paused_up + ts,
+                  a.pfc_line + line,
+                  a.pauses + e};
+}
+
+__device__ __forceinline__ PfcView pfc_view(int e, const PfcParams& p,
+                                            const PfcIn& in,
+                                            const PfcState& st,
+                                            const PfcState& out) {
+  const size_t q = (size_t)e * p.Q, rq = (size_t)e * (p.Q + 1);
+  const size_t n = (size_t)e * p.N, m = (size_t)e * (2 * p.TS + 2 * p.L);
+  const size_t rs = rq * p.cap;
+  PfcView v;
+  v.in = in;
+  v.in.has += q;
+  v.in.pop_flow += q;
+  v.in.pop_bytes += q;
+  v.in.pop_spine += q;
+  v.in.accept += m;
+  v.in.cand_bytes += m;
+  v.in.ring_flow += rs;
+  v.in.ring_psn += rs;
+  v.in.ring_probe += rs;
+  v.in.qhead += rq;
+  v.in.qsize0 += rq;
+  v.in.qsize += rq;
+  v.in.src += n;
+  v.in.src_tor += n;
+  v.in.same_tor += n;
+  v.in.total_pkts += n;
+  v.in.tail_b += n;
+  v.in.by_src += n;
+  v.in.src_start += (size_t)e * (p.NH + 1);
+  v.st = state_at(st, p, e);
+  v.out = state_at(out, p, e);
+  v.on = in.live == nullptr || in.live[e];
+  return v;
+}
 
 constexpr int kSlateSmem = 8192;  // the largest slate held in shared memory
 
@@ -701,7 +854,7 @@ __device__ __forceinline__ float slot_bytes(const PfcIn& in,
 // and bytes.
 __device__ void tor_ingress(int t, const PfcParams& p, const PfcIn& in,
                             const PfcState& st, const PfcState& out,
-                            const int* slate) {
+                            const int* slate, bool on) {
   const int lane = threadIdx.x & 31;
   const int HPT = p.HPT, S = p.S, T = p.T, TS = p.TS, M0 = 2 * TS;
   const int h0 = t * HPT, n = S + HPT;
@@ -714,7 +867,7 @@ __device__ void tor_ingress(int t, const PfcParams& p, const PfcIn& in,
     acc[r] = x < HPT ? st.ing_host[h0 + x]
                      : (x < n ? st.ing_sd[(x - HPT) * T + t] : 0.0f);
     const int row = x < S ? t * S + x : M0 + h0 + (x - S);
-    const bool has = x < n && in.has[row];
+    const bool has = on && x < n && in.has[row];
     const int f = clampi(x < n ? in.pop_flow[row] : 0, 0, p.N - 1);
     const int spn = x >= S && x < n ? in.pop_spine[row] : -1;
     v[r] = x < n ? -in.pop_bytes[row] : 0.0f;
@@ -740,7 +893,7 @@ __device__ void tor_ingress(int t, const PfcParams& p, const PfcIn& in,
         const int k = c + 32 * u + lane;
         const int f = k < f1 ? in.by_src[k] : -1;
         const int host = f >= 0 ? in.src[f] - h0 : -1;
-        const int l = f >= 0 ? lane_of(slate, p.L, f) : -1;
+        const int l = on && f >= 0 ? lane_of(slate, p.L, f) : -1;
         const int cd = M0 + pass * p.L + l;
         td[u] = l >= 0 && in.accept[cd] ? host : -1;
         wd[u] = l >= 0 ? in.cand_bytes[cd] : 0.0f;
@@ -763,8 +916,9 @@ __device__ void tor_ingress(int t, const PfcParams& p, const PfcIn& in,
       out.ing_host[h0 + x] = acc[r];
     } else if (x < n) {
       const int i = (x - HPT) * T + t;
-      out.ing_sd[i] = in.accept[TS + i] ? acc[r] + in.cand_bytes[TS + i]
-                                        : acc[r];
+      out.ing_sd[i] = on && in.accept[TS + i]
+                          ? acc[r] + in.cand_bytes[TS + i]
+                          : acc[r];
     }
   }
 }
@@ -772,7 +926,8 @@ __device__ void tor_ingress(int t, const PfcParams& p, const PfcIn& in,
 // Spine s: its downlink rows' dequeues into the uplinks of their source
 // ToRs (counter t), then each uplink's accepted advance.
 __device__ void spine_ingress(int s, const PfcParams& p, const PfcIn& in,
-                              const PfcState& st, const PfcState& out) {
+                              const PfcState& st, const PfcState& out,
+                              bool on) {
   const int lane = threadIdx.x & 31;
   const int S = p.S, T = p.T;
   float acc[kRows], v[kRows];
@@ -782,7 +937,7 @@ __device__ void spine_ingress(int s, const PfcParams& p, const PfcIn& in,
     const int t = lane + 32 * r;
     acc[r] = t < T ? st.ing_up[t * S + s] : 0.0f;
     const int row = p.TS + s * T + t;
-    const bool has = t < T && in.has[row];
+    const bool has = on && t < T && in.has[row];
     const int f = clampi(t < T ? in.pop_flow[row] : 0, 0, p.N - 1);
     v[r] = t < T ? -in.pop_bytes[row] : 0.0f;
     const int tt = has ? in.src_tor[f] : -1;
@@ -793,8 +948,9 @@ __device__ void spine_ingress(int s, const PfcParams& p, const PfcIn& in,
   for (int r = 0; r < kRows; ++r) {
     const int t = lane + 32 * r;
     if (t < T)
-      out.ing_up[t * S + s] =
-          in.accept[t * S + s] ? acc[r] + in.cand_bytes[t * S + s] : acc[r];
+      out.ing_up[t * S + s] = on && in.accept[t * S + s]
+                                  ? acc[r] + in.cand_bytes[t * S + s]
+                                  : acc[r];
   }
 }
 
@@ -802,17 +958,18 @@ __device__ void spine_ingress(int s, const PfcParams& p, const PfcIn& in,
 // bytes in, in candidate order (the ring slots they were placed in); a
 // queue that took two or more is summed by the whole warp.
 __device__ void queue_bytes(int q0, const PfcParams& p, const PfcIn& in,
-                            const PfcState& st, const PfcState& out) {
+                            const PfcState& st, const PfcState& out,
+                            bool on) {
   const int lane = threadIdx.x & 31;
   const int q = q0 + lane;
   int added = 0, base = 0;
   float v = 0.0f;
   if (q < p.Q) {
-    bool has = in.has[q];
+    bool has = on && in.has[q];
     v = st.qbytes[q];
     if (has) v = v + (-in.pop_bytes[q]);
     int qs1 = in.qsize0[q] - (int)has;
-    added = in.qsize[q] - qs1;
+    added = on ? in.qsize[q] - qs1 : 0;
     base = in.qhead[q] + qs1;
     if (added == 1)
       v = v + slot_bytes(in, p, (size_t)q * p.cap + floor_mod(base, p.cap));
@@ -870,14 +1027,15 @@ __device__ __forceinline__ float xoff_of(const PfcParams& p, float occ) {
 }
 
 // One hysteresis step of port `port` (NIC h, then spine_down [s][t], then
-// tor_up [t][s]) against its switch's xoff; returns 1 on a new pause.
+// tor_up [t][s]) against its switch's xoff; returns 1 on a new pause.  A
+// frozen entry's port keeps its state (its delay line is copied whole).
 __device__ __forceinline__ int gate(const PfcParams& p, float ing, float xoff,
                                     bool old, bool* paused, int port,
-                                    const PfcState& out) {
+                                    const PfcState& out, bool on) {
   bool pause = ing > xoff, resume = ing < p.xon * xoff;
-  bool now = pause || (old && !resume);
+  bool now = on ? pause || (old && !resume) : old;
   *paused = now;
-  if (p.PD > 0)
+  if (p.PD > 0 && on)
     out.pfc_line[(size_t)p.line_row * (p.NH + 2 * p.TS) + port] = now;
   return now && !old;
 }
@@ -885,7 +1043,7 @@ __device__ __forceinline__ int gate(const PfcParams& p, float ing, float xoff,
 // ToR t's occupancy (its uplink rows, then its host-down rows) and its
 // ports' gates: its NICs (counter j) and its spine downlinks (HPT + s).
 __device__ int tor_gates(int t, const PfcParams& p, const PfcState& st,
-                         const PfcState& out) {
+                         const PfcState& out, bool on) {
   const int lane = threadIdx.x & 31;
   const int HPT = p.HPT, S = p.S, T = p.T, TS = p.TS, n = HPT + S;
   float xa[kRows], xb[kRows], ing[kRows];
@@ -913,11 +1071,11 @@ __device__ int tor_gates(int t, const PfcParams& p, const PfcState& st,
     const int x = lane + 32 * r;
     if (x < HPT) {
       const int h = t * HPT + x;
-      fresh += gate(p, ing[r], xoff, old[r], out.paused_nic + h, h, out);
+      fresh += gate(p, ing[r], xoff, old[r], out.paused_nic + h, h, out, on);
     } else if (x < n) {
       const int k = (x - HPT) * T + t;
       fresh += gate(p, ing[r], xoff, old[r], out.paused_sd + k, p.NH + k,
-                    out);
+                    out, on);
     }
   }
   return fresh;
@@ -926,7 +1084,7 @@ __device__ int tor_gates(int t, const PfcParams& p, const PfcState& st,
 // Spine s's occupancy (its downlink rows) and the gates of the ToR
 // uplinks into it (counter t).
 __device__ int spine_gates(int s, const PfcParams& p, const PfcState& st,
-                           const PfcState& out) {
+                           const PfcState& out, bool on) {
   const int lane = threadIdx.x & 31;
   const int S = p.S, T = p.T, TS = p.TS;
   float xs[kRows], ing[kRows];
@@ -946,7 +1104,7 @@ __device__ int spine_gates(int s, const PfcParams& p, const PfcState& st,
     if (t < T) {
       const int k = t * S + s;
       fresh += gate(p, ing[r], xoff, old[r], out.paused_up + k,
-                    p.NH + TS + k, out);
+                    p.NH + TS + k, out, on);
     }
   }
   return fresh;
@@ -955,7 +1113,6 @@ __device__ int spine_gates(int s, const PfcParams& p, const PfcState& st,
 __global__ void __launch_bounds__(kThreads)
     pfc_kernel(PfcParams p, PfcIn in, PfcState st, PfcState out) {
   extern __shared__ int s_slate[];  // [L] under the active set
-  __shared__ int s_pauses;
   const int tid = threadIdx.x;
   const int gtid = blockIdx.x * blockDim.x + tid;
   const int stride = gridDim.x * blockDim.x;
@@ -963,7 +1120,7 @@ __global__ void __launch_bounds__(kThreads)
   const int T = p.T, S = p.S;
   const int ports = p.NH + 2 * p.TS;
   const int* slate = nullptr;
-  if (in.lanes != nullptr) {
+  if (in.lanes != nullptr) {  // one program (B = 1)
     if (p.L <= kSlateSmem) {
       for (int i = tid; i < p.L; i += blockDim.x) s_slate[i] = in.lanes[i];
       slate = s_slate;
@@ -971,45 +1128,53 @@ __global__ void __launch_bounds__(kThreads)
       slate = in.lanes;
     }
   }
-  if (tid == 0) s_pauses = 0;
-  if (gtid == 0) *out.pauses = *st.pauses;
+  for (int e = gtid; e < p.B; e += stride) out.pauses[e] = st.pauses[e];
   __syncthreads();
 
-  // 1. the ingress counters and queue bytes; the delay line's other rows
-  const int rows = p.PD > 0 ? p.PD : 1;
-  for (int i = gtid; i < rows * ports; i += stride)
-    if (p.PD == 0 || i / ports != p.line_row) out.pfc_line[i] = st.pfc_line[i];
-  const int nqw = (p.Q + 1 + 31) / 32;
-  for (int w = gwarp; w < T + S + nqw; w += nwarps) {
-    if (w < T)
-      tor_ingress(w, p, in, st, out, slate);
-    else if (w < T + S)
-      spine_ingress(w - T, p, in, st, out);
+  // 1. the ingress counters and queue bytes; the delay lines' other rows
+  // (a frozen entry's every row)
+  const int rows = p.PD > 0 ? p.PD : 1, line = rows * ports;
+  for (int i = gtid; i < p.B * line; i += stride) {
+    const int e = i / line;
+    const bool on = in.live == nullptr || in.live[e];
+    if (p.PD == 0 || (i - e * line) / ports != p.line_row || !on)
+      out.pfc_line[i] = st.pfc_line[i];
+  }
+  const int nqw = (p.Q + 1 + 31) / 32, per = T + S + nqw;
+  for (int w = gwarp; w < p.B * per; w += nwarps) {
+    const int e = w / per, x = w - e * per;
+    const PfcView v = pfc_view(e, p, in, st, out);
+    if (x < T)
+      tor_ingress(x, p, v.in, v.st, v.out, slate, v.on);
+    else if (x < T + S)
+      spine_ingress(x - T, p, v.in, v.st, v.out, v.on);
     else
-      queue_bytes((w - T - S) * 32, p, in, st, out);
+      queue_bytes((x - T - S) * 32, p, v.in, v.st, v.out, v.on);
   }
   grid_sync();
 
   // 2. each switch's occupancy once, then its ports' gates
-  int fresh = 0;
-  for (int w = gwarp; w < T + S; w += nwarps)
-    fresh += w < T ? tor_gates(w, p, st, out) : spine_gates(w - T, p, st, out);
-  if (fresh) atomicAdd(&s_pauses, fresh);
-  __syncthreads();
-  if (tid == 0 && s_pauses != 0) atomicAdd(out.pauses, s_pauses);
+  for (int w = gwarp; w < p.B * (T + S); w += nwarps) {
+    const int e = w / (T + S), x = w - e * (T + S);
+    const PfcView v = pfc_view(e, p, in, st, out);
+    const int fresh = x < T ? tor_gates(x, p, v.st, v.out, v.on)
+                            : spine_gates(x - T, p, v.st, v.out, v.on);
+    if (fresh) atomicAdd(v.out.pauses, fresh);
+  }
 }
 
 }  // namespace
 
 extern "C" int se_pfc(const PfcParams* p, const PfcIn* in, const PfcState* st,
                       const PfcState* out, cudaStream_t stream) {
-  if (p->HPT + p->S > 32 * kRows || p->T > 32 * kRows)
+  if (p->HPT + p->S > 32 * kRows || p->T > 32 * kRows || p->B < 1 ||
+      (p->B > 1 && in->lanes != nullptr))
     return (int)cudaErrorInvalidValue;
   size_t smem = 0;
   if (in->lanes != nullptr && p->L <= kSlateSmem)
     smem = sizeof(int) * (size_t)p->L;
-  int warps = p->T + p->S + (p->Q + 1 + 31) / 32;
+  const long warps = (long)p->B * (p->T + p->S + (p->Q + 1 + 31) / 32);
   return launch_cooperative<pfc_kernel>(
-      (warps + kThreads / 32 - 1) / (kThreads / 32), smem, stream, *p, *in,
-      *st, *out);
+      (int)((warps + kThreads / 32 - 1) / (kThreads / 32)), smem, stream, *p,
+      *in, *st, *out);
 }

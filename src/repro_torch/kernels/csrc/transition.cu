@@ -21,6 +21,14 @@
 // offers, no row, and is never selected.  The per-lane outputs are indexed
 // by lane; done_lane[l] is the lane's flow done after the step.
 //
+// A batch of B entries (sim/fabric.py BatchProgram) is one launch: the
+// record is [B FE] flows (entry e's flow f at row e FE + f), the source
+// index's block table spans the entries (entry e's hosts numbered
+// e NH + h, so a NIC's flows never leave one entry), the round-robin score
+// reads the flow's index in its entry, and an entry that live[e] marks
+// frozen takes no due message and sends nothing, so its rows are written
+// back as they were read.
+//
 // Bound on the H100: bytes.  At perm1024 (N = 1024 flows) each flow's
 // state is read and written once: two 512-entry bool ledgers (1 KB), a
 // 256-entry int8 spray bitmap, ~30 scalars and the due SACK (64 bools + 9
@@ -66,6 +74,7 @@ constexpr int kSlateSmem = 8192;  // the largest slate held in shared memory
 
 struct TransParams {
   int t, timer_tick, N, L, NB, NR, P, B;
+  int FE;  // flows an entry: N on one program, N / B of a batch's
   float now, probe_at, rto_at;
   float mtu, tq, th, ewma_keep, ewma, beta, alpha, gamma, eta;
   float max_cwnd, min_cwnd, max_cwnd_div8, mtu_recip, two_base_rtt;
@@ -531,8 +540,8 @@ struct Step {
 
 __device__ __forceinline__ void step_flow(
     Step& s, const TransParams& p, const Slots& tb, const FlowPtrs& in,
-    const SackPtrs& due, const bool* sendable, const bool* eff_nic, int f,
-    int h, int lane) {
+    const SackPtrs& due, const bool* sendable, const bool* eff_nic,
+    const bool* live, int f, int h, int lane) {
   // every load of the flow first (a warp issues in order: a vote or a
   // shuffle on a load's value waits for it), then the votes and shuffles.
   // The 4-byte scalars: one load a lane, shuffled out to every lane.
@@ -550,11 +559,13 @@ __device__ __forceinline__ void step_flow(
   const bool* brow = due.sack_bits + (size_t)f * p.B;
   const bool b_lo = lane < p.B && brow[lane];
   const bool b_hi = lane + 32 < p.B && brow[lane + 32];
-  const bool in_rec = in.in_recovery[f], valid = due.valid[f];
+  // a frozen entry of a batch neither takes its due message nor sends
+  const bool on = live == nullptr || live[f / p.FE];
+  const bool in_rec = in.in_recovery[f], valid = due.valid[f] && on;
   const bool ecn = due.ecn[f], probe_reply = due.probe_reply[f];
   s.paused = eff_nic != nullptr ? eff_nic[h] : false;
   // the active set's lanes are released by construction
-  const bool send_ok = sendable != nullptr ? sendable[f] : true;
+  const bool send_ok = (sendable != nullptr ? sendable[f] : true) && on;
 
   auto sh = [&](int k) { return __shfl_sync(FULL_MASK, v, k); };
   auto shf = [&](int k) { return __uint_as_float(sh(k)); };
@@ -638,7 +649,7 @@ __device__ __forceinline__ void step_flow(
   s.sn = sp;
   s.entropy = choose_path(s.sn, cc.cwnd, p, lane);
   s.can_tx = s.valid && send_ok;
-  s.score = s.can_tx ? floor_mod(f - p.t, p.NR) : p.NR;
+  s.score = s.can_tx ? floor_mod(f % p.FE - p.t, p.NR) : p.NR;
 }
 
 // The fields the send leaves as they are, and the lane's outputs but sel:
@@ -773,6 +784,7 @@ struct Args {
   SackPtrs due;
   const bool* sendable;  // [N] on the dense program, else null
   const bool* eff_nic;   // [NH] under PFC, else null
+  const bool* live;      // [N / FE] a batch's stepping entries, or null
   const int* act;        // [L] the slate, or null
   const int *by_src, *src_sorted, *blocks;  // the source index
   FlowPtrs out;
@@ -870,7 +882,8 @@ __global__ void __launch_bounds__(kThreads, 2)
     }
     Step s;
     if (l >= 0) {  // warp-uniform
-      step_flow(s, p, tb, in, due, sa.sendable, sa.eff_nic, f, h, lane);
+      step_flow(s, p, tb, in, due, sa.sendable, sa.eff_nic, sa.live, f, h,
+                lane);
       if (pass == 0 || !loop) {
         if (lane == 0) atomicMin(&s_min[slot], s.score);
       }
@@ -888,15 +901,18 @@ __global__ void __launch_bounds__(kThreads, 2)
 // sendable: [N] on the dense program (act null, L = N); null under the
 // active set, whose lanes are released by construction (act: [L]).
 // by_src [N], src_sorted [N] and blocks [NB + 1]: the program's source
-// index.
+// index.  A batch of B entries is one record of N = B FE flows (entry e's
+// flow f at e FE + f, its hosts numbered e NH + h in the index) and live
+// [B] (null: every entry steps).
 extern "C" int strack_transition(const TransParams* p, const FlowPtrs* in,
                                  const SackPtrs* due, const bool* sendable,
-                                 const bool* eff_nic,
+                                 const bool* eff_nic, const bool* live,
                                  const int* act, const int* by_src,
                                  const int* src_sorted, const int* blocks,
                                  const FlowPtrs* out,
                                  const TransOut* o, cudaStream_t stream) {
-  if (p->P > MAXP || p->B > 64 || p->NR <= 0)
+  if (p->P > MAXP || p->B > 64 || p->NR <= 0 || p->FE <= 0 ||
+      p->N % p->FE != 0)
     return (int)cudaErrorInvalidValue;
   if ((act == nullptr) != (sendable != nullptr) ||
       (act == nullptr && p->L != p->N) ||
@@ -905,8 +921,8 @@ extern "C" int strack_transition(const TransParams* p, const FlowPtrs* in,
   if (p->L <= 0) return 0;
   size_t smem = act != nullptr && p->L <= kSlateSmem ? sizeof(int) * p->L : 0;
   int grid = p->NB > 0 ? p->NB : 1;
-  Args a{*p,     *in,        *due,   sendable, eff_nic, act,
-         by_src, src_sorted, blocks, *out,     *o,      {}};
+  Args a{*p,   *in,    *due,       sendable, eff_nic, live,
+         act,  by_src, src_sorted, blocks,   *out,    *o, {}};
   for (int k = 0; k < kLoads; ++k)
     a.sl.ld[k] = static_cast<const uint32_t*>(load_ptr(*in, *due, k));
   for (int k = 0; k < kPre; ++k) a.sl.pre[k] = pre_ptr(*out, *o, k);

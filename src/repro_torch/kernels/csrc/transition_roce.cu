@@ -17,6 +17,11 @@
 // the score (act[l] - t) % NR minimised over the flow's source NIC and the
 // PFC gate read at that NIC; a padded lane (act[l] == N) is inert.
 //
+// A batch of B entries is one launch, as in transition.cu: a record of
+// B FE flows, one block table over every entry, each flow's score by its
+// index in its entry, and no due message or send in an entry live[e]
+// marks frozen.
+//
 // Bound on the H100: bytes.  A flow's state is 19 scalars (76 B) and its
 // due message 6 (14 B); the launch reads them, sendable and src, and writes
 // the state and the two TxPacket rows (~110 B): ~200 B per flow, ~0.2 MB
@@ -44,6 +49,7 @@
 
 struct RoceParams {
   int t, timer_tick, N, L, NB, NR, F;
+  int FE;  // flows an entry: N on one program, N / B of a batch's
   float now, pace_at, rto_at, rto_rearm, window, mtu, byte_counter, hai, rai,
       max_rate, min_rate, keep, g, alpha_timer, rate_timer, eps;
 };
@@ -126,7 +132,8 @@ __device__ __forceinline__ void step_flow(Step& st, const RoceParams& p,
                                           const RoceFlowPtrs& in,
                                           const RoceMsgPtrs& due,
                                           const bool* sendable,
-                                          const bool* eff_nic, int f, int h) {
+                                          const bool* eff_nic,
+                                          const bool* live, int f, int h) {
   Flow& s = st.s;
   s = Flow{in.snd_una[f],       in.psn_next[f],      in.total_pkts[f],
            in.t_stage[f],       in.b_stage[f],       in.entropy[f],
@@ -136,9 +143,11 @@ __device__ __forceinline__ void step_flow(Step& st, const RoceParams& p,
            in.last_alpha_ts[f], in.next_send_ts[f],  in.rto_deadline[f],
            in.tail_bytes[f]};
   st.paused = eff_nic != nullptr && eff_nic[h];
+  // a frozen entry of a batch neither takes its due message nor sends
+  const bool on = live == nullptr || live[f / p.FE];
 
   // ---- 1. the due message (roce_on_ack; no-op where invalid) ----
-  if (due.valid[f]) {
+  if (due.valid[f] && on) {
     if (due.cnp[f]) {
       float old_rate = s.rate;
       s.rate = fmaxf(s.rate * (1.0f - s.alpha * 0.5f), p.min_rate);
@@ -165,7 +174,8 @@ __device__ __forceinline__ void step_flow(Step& st, const RoceParams& p,
   }
 
   // ---- 2. DCQCN timers and the RTO on timer ticks (released flows) ----
-  bool send_ok = sendable == nullptr || sendable[f];  // lanes: released
+  // lanes: released
+  bool send_ok = (sendable == nullptr || sendable[f]) && on;
   if (p.timer_tick && send_ok) {
     bool active = s.snd_una < s.total;
     if (active && p.now - s.last_alpha >= p.alpha_timer) {
@@ -202,7 +212,7 @@ __device__ __forceinline__ void step_flow(Step& st, const RoceParams& p,
   st.n_bytes_ctr = b_hit ? 0.0f : bctr;
   st.n_next_send = p.now + size / fmaxf(st.n_rate, p.eps);
   st.can_tx = st.can && send_ok;
-  st.score = st.can_tx ? floor_mod(f - p.t, p.NR) : p.NR;
+  st.score = st.can_tx ? floor_mod(f % p.FE - p.t, p.NR) : p.NR;
 }
 
 // The flow's state, once: with the send committed where sel.
@@ -261,6 +271,7 @@ __global__ void __launch_bounds__(kThreads)
     roce_kernel(RoceParams p, RoceFlowPtrs in, RoceMsgPtrs due,
                 const bool* __restrict__ sendable,
                 const bool* __restrict__ eff_nic,
+                const bool* __restrict__ live,
                 const int* __restrict__ act, const int* __restrict__ by_src,
                 const int* __restrict__ src_sorted,
                 const int* __restrict__ blocks, RoceFlowPtrs out, RoceOut o) {
@@ -323,7 +334,7 @@ __global__ void __launch_bounds__(kThreads)
     }
     Step st;
     if (l >= 0) {
-      step_flow(st, p, in, due, sendable, eff_nic, f, h);
+      step_flow(st, p, in, due, sendable, eff_nic, live, f, h);
       if (pass == 0 || !loop) atomicMin(&s_min[slot], st.score);
     }
     if (!loop || r == per_pass - 1) __syncthreads();
@@ -338,15 +349,17 @@ __global__ void __launch_bounds__(kThreads)
 // sendable: [N] on the dense program (act null, L = N); null under the
 // active set, whose lanes are released by construction (act: [L]).
 // by_src [N], src_sorted [N] and blocks [NB + 1]: the program's source
-// index.
+// index.  A batch of B entries is one record of N = B FE flows, as in
+// transition.cu, with live [B] (null: every entry steps).
 extern "C" int roce_transition(const RoceParams* p, const RoceFlowPtrs* in,
                                const RoceMsgPtrs* due, const bool* sendable,
-                               const bool* eff_nic,
+                               const bool* eff_nic, const bool* live,
                                const int* act, const int* by_src,
                                const int* src_sorted, const int* blocks,
                                const RoceFlowPtrs* out,
                                const RoceOut* o, cudaStream_t stream) {
-  if (p->NR <= 0) return (int)cudaErrorInvalidValue;
+  if (p->NR <= 0 || p->FE <= 0 || p->N % p->FE != 0)
+    return (int)cudaErrorInvalidValue;
   if ((act == nullptr) != (sendable != nullptr) ||
       (act == nullptr && p->L != p->N) ||
       (act != nullptr && o->done_lane == nullptr))
@@ -355,7 +368,7 @@ extern "C" int roce_transition(const RoceParams* p, const RoceFlowPtrs* in,
   size_t smem = act != nullptr && p->L <= kSlateSmem ? sizeof(int) * p->L : 0;
   int grid = p->NB > 0 ? p->NB : 1;
   roce_kernel<<<grid, kThreads, smem, stream>>>(
-      *p, *in, *due, sendable, eff_nic, act, by_src, src_sorted, blocks,
+      *p, *in, *due, sendable, eff_nic, live, act, by_src, src_sorted, blocks,
       *out, *o);
   return (int)cudaGetLastError();
 }

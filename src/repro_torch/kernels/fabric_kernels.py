@@ -40,6 +40,14 @@ those rows of the [N] flow record in place, serve reads each injection
 lane's flow through ``lane_flow``, and :func:`pfc_account` sums each
 host's injections over the lanes of ``lanes``.  A padded lane is inert.
 
+A batch of B entries of one program shape (``sim.fabric.BatchProgram``)
+calls :func:`flow_transition_batch`, :func:`serve_enqueue_batch` and
+:func:`pfc_account_batch`: every input with a leading axis B, one launch
+of the same kernels for the whole batch (the transitions' block table
+spans the entries, :func:`src_index_batch`; serve and the PFC stage loop
+over B entries' rows), and a ``live`` mask of the entries that step: a
+frozen entry's rows come out as they went in.
+
 Dispatch is by the device of the tensors: a wrapper runs the plain version
 for CPU tensors and launches its kernel for CUDA tensors, or raises; there
 is no fallback and no switch.  Every launch adds one to
@@ -64,7 +72,9 @@ from ._build import check as _check, launch as _launch, load, \
 #: Launches of each wrapper's kernel since the last :func:`reset_launches`.
 launches = {"flow_transition": 0, "flow_transition_roce": 0,
             "flow_transition_active": 0, "flow_transition_roce_active": 0,
-            "serve_enqueue": 0, "rank_in_queue": 0, "pfc_account": 0}
+            "serve_enqueue": 0, "rank_in_queue": 0, "pfc_account": 0,
+            "flow_transition_batch": 0, "flow_transition_roce_batch": 0,
+            "serve_enqueue_batch": 0, "pfc_account_batch": 0}
 
 #: Block width of the chunked ranker.
 RANK_CHUNK = 256
@@ -238,6 +248,16 @@ def src_index(src: torch.Tensor, n_hosts: int) -> SrcIndex:
                       for x in (by_src, start, blocks, src_sorted)])
 
 
+def src_index_batch(src: torch.Tensor, n_hosts: int) -> SrcIndex:
+    """The :class:`SrcIndex` of a batch ``src`` (i32[B, N]): entry b's
+    flows and hosts numbered ``b N + f`` and ``b n_hosts + h``, so one
+    block table spans the entries (a block may end one entry's sources
+    and begin the next's; a source never spans two blocks)."""
+    b, n = src.shape
+    off = torch.arange(b, dtype=torch.int32, device=src.device)[:, None]
+    return src_index((src + off * n_hosts).reshape(-1), b * n_hosts)
+
+
 # --------------------------------------------------------------------------- #
 # Kernel 1 of the reference: per-flow transport transitions
 # --------------------------------------------------------------------------- #
@@ -338,6 +358,103 @@ def _tree_leaves(tree) -> list:
     if isinstance(tree, tuple):
         return [x for v in tree for x in _tree_leaves(v)]
     return [tree]
+
+
+# --------------------------------------------------------------------------- #
+# The batch: B entries of one program shape along a leading axis
+# --------------------------------------------------------------------------- #
+
+def _rebuild(like: tuple, items: list) -> tuple:
+    return type(like)(*items) if hasattr(like, "_fields") else tuple(items)
+
+
+def tree_map(fn, tree):
+    """``fn`` on every tensor of a tree of (named) tuples; ``None`` stays."""
+    if tree is None:
+        return None
+    if isinstance(tree, tuple):
+        return _rebuild(tree, [tree_map(fn, v) for v in tree])
+    return fn(tree)
+
+
+def _stack(trees: list):
+    """Entries' trees stacked along a new leading axis."""
+    first = trees[0]
+    if first is None:
+        return None
+    if isinstance(first, tuple):
+        return _rebuild(first, [_stack([t[i] for t in trees])
+                                for i in range(len(first))])
+    return torch.stack(trees)
+
+
+def _entry(tree, b: int):
+    return tree_map(lambda x: x[b], tree)
+
+
+def flat_entries(tree):
+    """A batch's leaves [B, n, ...] as [B n, ...] (views)."""
+    return tree_map(lambda x: x.reshape((-1,) + tuple(x.shape[2:])), tree)
+
+
+def _check_batch(name, t, dtype, shape, dev) -> None:
+    if t is not None:
+        _check(name, t, dtype, shape, dev)
+
+
+def flow_transition_batch_plain(flows, due, sendable, src, t: int,
+                                d: TransDims, eff_nic=None, index=None,
+                                live=None):
+    """:func:`flow_transition_plain` on each entry of a batch (every input
+    with a leading axis B; ``index`` is not read).  A frozen entry
+    (``live[b]`` False; ``live`` None: every entry steps) applies no due
+    message and is not sendable, so its flow rows come out as they went
+    in and it offers and commits nothing."""
+    outs = []
+    for b in range(sendable.shape[0]):
+        ok, due_b = sendable[b], _entry(due, b)
+        if live is not None:
+            ok = ok & live[b]
+            due_b = due_b._replace(valid=due_b.valid & live[b])
+        outs.append(flow_transition_plain(
+            _entry(flows, b), due_b, ok, src[b], t, d,
+            None if eff_nic is None else eff_nic[b]))
+    return _stack(outs)
+
+
+def flow_transition_batch(flows, due, sendable: torch.Tensor,
+                          src: torch.Tensor, t: int, d: TransDims,
+                          eff_nic=None, index=None, live=None):
+    """The transition stage on a batch of B entries at one tick ``t``:
+    the plain version on CPU tensors; on CUDA tensors one launch of
+    ``csrc/transition.cu`` (STrack) or ``csrc/transition_roce.cu``
+    (RoCEv2) for the whole batch, its blocks taken from ``index``
+    (:func:`src_index_batch`), whose table spans the entries.  Every
+    input has a leading axis B (``sendable``, ``src`` [B, N], ``eff_nic``
+    [B, NH]); ``live`` (bool[B] or None) marks the entries that step."""
+    bsz, n = sendable.shape
+    dev = sendable.device
+    _check("sendable", sendable, torch.bool, (bsz, n))
+    _check("src", src, torch.int32, (bsz, n), dev)
+    _check_batch("eff_nic", eff_nic, torch.bool, (bsz, d.n_hosts), dev)
+    _check_batch("live", live, torch.bool, (bsz,), dev)
+    if _route(sendable) == "plain":
+        return flow_transition_batch_plain(flows, due, sendable, src, t, d,
+                                           eff_nic, index, live)
+    _check_index(index, bsz * n, dev)
+    from . import _cuda_bind
+    args = (flat_entries(flows), flat_entries(due), sendable.reshape(-1),
+            src.reshape(-1), t, d,
+            None if eff_nic is None else eff_nic.reshape(-1), index)
+    if d.proto.name == "rocev2":
+        out = _cuda_bind.transition_roce(_lib("transition_roce"), *args,
+                                         entry=(n, live))
+        launches["flow_transition_roce_batch"] += 1
+    else:
+        out = _cuda_bind.transition(_lib("transition"), *args,
+                                    entry=(n, live))
+        launches["flow_transition_batch"] += 1
+    return tree_map(lambda x: x.view((bsz, n) + tuple(x.shape[1:])), out)
 
 
 def _gather_rows(tree, idx: torch.Tensor, n: int):
@@ -586,6 +703,61 @@ def serve_enqueue(q: PktQ, qhead, qsize, dst, dst_tor, total_pkts, tail_b,
     return out
 
 
+def serve_enqueue_batch_plain(q: PktQ, qhead, qsize, dst, dst_tor,
+                              total_pkts, tail_b, tx_psn, probe_psn, ent_d,
+                              ent_p, spine, spine_p, sel, probe_valid, inj_q,
+                              inj_qp, t: int, d: ServeDims, paused_row=None,
+                              row_down=None, row_duty=None, row_cor_p=None,
+                              fseed=None, live=None):
+    """:func:`serve_enqueue_plain` on each entry of a batch: every input
+    but the fault rows (one schedule for the whole batch) with a leading
+    axis B.  A frozen entry (``live[b]`` False) serves no row and
+    enqueues no injection: its ring, heads and sizes stay as they are.
+    The drop and fault counts come out per entry ([B])."""
+    Q = 2 * d.n_tor * d.n_spine + d.n_hosts
+    outs = []
+    for b in range(qhead.shape[0]):
+        pr = None if paused_row is None else paused_row[b]
+        s, pv = sel[b], probe_valid[b]
+        if live is not None:
+            gone = ~live[b]
+            pr = gone.expand(Q) if pr is None else pr | gone
+            s, pv = s & live[b], pv & live[b]
+        outs.append(serve_enqueue_plain(
+            _entry(q, b), qhead[b], qsize[b], dst[b], dst_tor[b],
+            total_pkts[b], tail_b[b], tx_psn[b], probe_psn[b], ent_d[b],
+            ent_p[b], spine[b], spine_p[b], s, pv, inj_q[b], inj_qp[b], t, d,
+            pr, row_down, row_duty, row_cor_p, fseed))
+    return _stack(outs)
+
+
+def serve_enqueue_batch(q: PktQ, qhead, qsize, dst, dst_tor, total_pkts,
+                        tail_b, tx_psn, probe_psn, ent_d, ent_p, spine,
+                        spine_p, sel, probe_valid, inj_q, inj_qp, t: int,
+                        d: ServeDims, paused_row=None, row_down=None,
+                        row_duty=None, row_cor_p=None, fseed=None,
+                        live=None):
+    """The serve/enqueue stage on a batch of B entries at one tick:
+    plain version on CPU tensors; on CUDA tensors one launch of
+    ``csrc/serve_enqueue.cu``'s persistent kernel whose grid-stride
+    loops cover B x (Q + 1) rows and B x M candidates through the same
+    two grid-wide barriers.  Inputs and outputs as
+    :func:`serve_enqueue_batch_plain`'s; the ring ``q`` ([B, Q + 1, cap])
+    is updated in place either way."""
+    args = (q, qhead, qsize, dst, dst_tor, total_pkts, tail_b, tx_psn,
+            probe_psn, ent_d, ent_p, spine, spine_p, sel, probe_valid,
+            inj_q, inj_qp, t, d, paused_row, row_down, row_duty, row_cor_p,
+            fseed)
+    _check_batch("live", live, torch.bool, (qhead.shape[0],), qhead.device)
+    if _route(qhead) == "plain":
+        return serve_enqueue_batch_plain(*args, live=live)
+    from . import _cuda_bind
+    out = _cuda_bind.serve_enqueue(_lib("serve_enqueue"), *args, live=live,
+                                   batch=qhead.shape[0])
+    launches["serve_enqueue_batch"] += 1
+    return out
+
+
 # --------------------------------------------------------------------------- #
 # The tick's PFC stage: ingress byte accounting and the pause gates
 # --------------------------------------------------------------------------- #
@@ -793,6 +965,65 @@ def pfc_account(st: PfcState, has, pop: PktQ, pop_bytes, cand_qid,
     from . import _cuda_bind
     out = _cuda_bind.pfc_account(_lib("serve_enqueue"), *args)
     launches["pfc_account"] += 1
+    return out
+
+
+def pfc_flows_batch(src, src_tor, same_tor, total_pkts, tail_b,
+                    index: SrcIndex) -> PfcFlows:
+    """The :class:`PfcFlows` of a batch ([B, N] inputs, ``index`` its
+    :func:`src_index_batch`): each entry's lane lists in its own flow
+    and host numbering (``by_src`` [B, N], ``src_start`` [B, NH + 1])."""
+    b, n = src.shape
+    nh = (index.src_start.shape[0] - 1) // b
+    dev = src.device
+    ent = torch.arange(b, dtype=torch.int32, device=dev)[:, None]
+    by_src = index.by_src.view(b, n) - ent * n
+    at = ent * nh + torch.arange(nh + 1, dtype=torch.int32, device=dev)
+    src_start = index.src_start[at.long()] - ent * n
+    return PfcFlows(src, src_tor, same_tor, total_pkts, tail_b, by_src,
+                    src_start)
+
+
+def pfc_account_batch_plain(st: PfcState, has, pop: PktQ, pop_bytes,
+                            cand_qid, cand_bytes, accept, q: PktQ, qhead,
+                            qsize0, qsize, t: int, fl: PfcFlows, d: PfcDims,
+                            live=None) -> PfcState:
+    """:func:`pfc_account_plain` on each entry of a batch (every input
+    with a leading axis B, ``fl`` from :func:`pfc_flows_batch`); a frozen
+    entry (``live[b]`` False) keeps its state."""
+    outs = []
+    for b in range(has.shape[0]):
+        st_b = _entry(st, b)
+        new = pfc_account_plain(
+            st_b, has[b], _entry(pop, b), pop_bytes[b], cand_qid[b],
+            cand_bytes[b], accept[b], _entry(q, b), qhead[b], qsize0[b],
+            qsize[b], t, _entry(fl, b), d)
+        if live is not None:
+            new = PfcState(*[torch.where(live[b], x, y)
+                             for x, y in zip(new, st_b)])
+        outs.append(new)
+    return _stack(outs)
+
+
+def pfc_account_batch(st: PfcState, has, pop: PktQ, pop_bytes, cand_qid,
+                      cand_bytes, accept, q: PktQ, qhead, qsize0, qsize,
+                      t: int, fl: PfcFlows, d: PfcDims,
+                      live=None) -> PfcState:
+    """The PFC stage on a batch of B entries at one tick: plain version
+    on CPU tensors; on CUDA tensors one launch of ``csrc/serve_enqueue.cu``
+    whose warps take B x (T + S) switches and B x (Q + 1) queues, each
+    entry's switches summing only its own rows, through the same one
+    grid-wide barrier.  Returns the new state; the input state is left as
+    it was."""
+    args = (st, has, pop, pop_bytes, cand_qid, cand_bytes, accept, q, qhead,
+            qsize0, qsize, t, fl, d)
+    _check_batch("live", live, torch.bool, (has.shape[0],), has.device)
+    if _route(has) == "plain":
+        return pfc_account_batch_plain(*args, live=live)
+    from . import _cuda_bind
+    out = _cuda_bind.pfc_account(_lib("serve_enqueue"), *args, live=live,
+                                 batch=has.shape[0])
+    launches["pfc_account_batch"] += 1
     return out
 
 

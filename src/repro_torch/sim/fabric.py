@@ -47,9 +47,17 @@ dense program.
 
 Messages are striped over ``subflows`` equal sub-flows and carry
 dependency edges (:func:`expand_messages`), as in the reference: the
-collectives of ``repro_torch.collective`` run on the same program.
-Everything the reference supports beyond this — sharding and the per-tick
-trace — raises ``NotImplementedError`` naming its ROADMAP item.
+collectives of ``repro_torch.collective`` run on the same program.  With
+``trace_every = k`` (dense ticking) a trace row samples the state at the
+end of every block of k ticks (:meth:`FabricProgram.snapshot`).
+
+:func:`run_fabric_trace_batch` runs B traces of one program shape as one
+:class:`BatchProgram`: every state leaf and bound input has a leading
+axis B and each stage is one kernel call for the whole batch.  A trip
+ticks the entries whose next tick is the earliest; the others are frozen,
+so each entry steps exactly the ticks it steps alone.  Sharding raises
+``NotImplementedError`` naming ROADMAP A11, the active set in a batch
+ROADMAP A14.
 """
 from __future__ import annotations
 
@@ -68,9 +76,14 @@ from ..core.params import (NetworkSpec, RoCEParams, STrackParams,
                            make_roce_params, make_strack_params)
 from ..core.reliability import SackMsg
 from ..kernels.fabric_kernels import (PfcDims, PfcState, PktQ, ServeDims,
-                                      TransDims, flow_transition,
-                                      flow_transition_active, pfc_account,
-                                      pfc_flows, serve_enqueue, src_index)
+                                      TransDims, flat_entries,
+                                      flow_transition,
+                                      flow_transition_active,
+                                      flow_transition_batch, pfc_account,
+                                      pfc_account_batch, pfc_flows,
+                                      pfc_flows_batch, serve_enqueue,
+                                      serve_enqueue_batch, src_index,
+                                      src_index_batch, tree_map)
 from ..numerics import Now, f32, recip32
 from . import dcqcn_fab as dq
 from .faults import FaultData, FaultSpec, build_fault_data, duty_open, \
@@ -332,6 +345,12 @@ def expand_messages(messages, subflows: int = 1, device="cpu"):
         group_ids=group_ids)
 
 
+def _to_device(dep: DepSpec, device) -> DepSpec:
+    return dep._replace(**{k: getattr(dep, k).to(device) for k in (
+        "msg_of_flow", "group_of_msg", "init_pending", "edge_parent",
+        "edge_child")})
+
+
 def _trivial_dep(n: int, device="cpu") -> DepSpec:
     """Deps-free 1:1 flow<->message mapping (the plain-flow case)."""
     iota = torch.arange(n, dtype=torch.int32, device=device)
@@ -418,7 +437,8 @@ class FabricConfig:
 
 
 def check_slice(cfg: FabricConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port does not run yet,
+    """Check ``cfg`` as the reference does, and raise
+    ``NotImplementedError`` for what the port does not run yet (sharding),
     naming the ROADMAP item that brings it."""
     trace_every = 0 if cfg.time_warp else cfg.trace_every
     A = int(cfg.active_cap) if cfg.active_cap else 0
@@ -436,14 +456,9 @@ def check_slice(cfg: FabricConfig) -> None:
     if cfg.faults is not None and not isinstance(cfg.faults, FaultSpec):
         raise TypeError(f"faults must be a FaultSpec, got "
                         f"{type(cfg.faults).__name__}")
-    todo = [
-        (int(cfg.shard) > 1, "shard > 1", "A11"),
-        (trace_every > 0, "trace_every > 0 (per-tick trace)", "A5"),
-    ]
-    for bad, what, item in todo:
-        if bad:
-            raise NotImplementedError(
-                f"repro_torch does not port {what} yet (ROADMAP {item})")
+    if int(cfg.shard) > 1:
+        raise NotImplementedError(
+            "repro_torch does not port shard > 1 yet (ROADMAP A11)")
     if cfg.lb_mode not in LB_MODES:
         raise ValueError(f"unknown lb_mode {cfg.lb_mode!r}; "
                          f"expected one of {LB_MODES}")
@@ -545,9 +560,7 @@ def _set_rows(vec: torch.Tensor, idx: torch.Tensor, val: torch.Tensor,
 
 
 def _clone_tree(tree):
-    if isinstance(tree, tuple):
-        return type(tree)(*[_clone_tree(v) for v in tree])
-    return tree.clone()
+    return tree_map(torch.clone, tree)
 
 
 def _scatter_rows(tree_all, tree_rows, idx: torch.Tensor, n: int):
@@ -1112,14 +1125,59 @@ class FabricProgram:
                 torch.where(edges > t, edges, n_ticks).min(), t + 1))
         return torch.clamp_max(tgt, n_ticks).to(torch.int32)
 
+    # ---- the per-tick trace ----------------------------------------------
+    def snapshot(self, st: FabricState) -> dict:
+        """One trace row, derived from the state alone (so dense and
+        decimated traces sample the same quantities): the queue sizes,
+        drops, done flows, the mean congestion window, the delivered
+        bytes, pauses and paused ports."""
+        return {
+            "qsize": st.qsize[:self.Q],
+            "drops_trace": st.drops,
+            "done": self.proto.done(st.flows).sum(dtype=torch.int32),
+            "cwnd_mean": self.proto.cong_pkts(st.flows).mean(),
+            "delivered": st.delivered,
+            "pauses_trace": st.pauses,
+            "paused_ports": (st.paused_nic.sum(dtype=torch.int32)
+                             + st.paused_sd.sum(dtype=torch.int32)
+                             + st.paused_up.sum(dtype=torch.int32)),
+        }
+
     def run(self):
         """Run to ``n_ticks``: (final_state, {"warp_trips", "end_tick"} for
-        the warp loop, {} for dense ticking)."""
+        the warp loop, the trace's rows under ``trace_every``, {} for
+        plain dense ticking)."""
         st = self.init_state()
-        if not self.cfg.time_warp:
+        return self.run_warp(st) if self.cfg.time_warp else self.run_dense(st)
+
+    def run_dense(self, st):
+        """Dense ticks to ``n_ticks`` from ``st``; under ``trace_every =
+        k`` a trace row at the end of every block of k ticks (the
+        ``n_ticks % k`` ticks past the last block run after it,
+        unsampled), the rows kept on the device and stacked once at the
+        end -> (final_state, {key: [rows, ...]}, or {})."""
+        k = self.cfg.trace_every
+        if not k:
             for t in range(self.n_ticks):
                 st, _, _ = self.tick(st, t)
             return st, {}
+        n_blocks, rem = divmod(self.n_ticks, k)
+        rows = []
+        for b in range(n_blocks):
+            for i in range(k):
+                st, _, _ = self.tick(st, b * k + i)
+            rows.append(self.snapshot(st))
+        for t in range(n_blocks * k, n_blocks * k + rem):
+            st, _, _ = self.tick(st, t)
+        if not rows:  # the trace has no row: its keys, with none
+            return st, {key: v[None][:0]
+                        for key, v in self.snapshot(st).items()}
+        return st, {key: torch.stack([r[key] for r in rows])
+                    for key in rows[0]}
+
+    def run_warp(self, st):
+        """The event-horizon loop from ``st`` to ``n_ticks`` ->
+        (final_state, {"warp_trips", "end_tick"})."""
         t, trips = 0, 0
         while t < self.n_ticks:
             st, can_any, sendable_msg = self.tick(st, t)
@@ -1137,6 +1195,428 @@ class FabricProgram:
             trips += 1
             t = int(t_next)   # one host read per trip
         return st, {"warp_trips": trips, "end_tick": t}
+
+
+def _unflat(tree, b: int):
+    """Leaves [B n, ...] as [B, n, ...] (a view)."""
+    return tree_map(lambda x: x.view((b, -1) + tuple(x.shape[1:])), tree)
+
+
+class BatchProgram(FabricProgram):
+    """B entries of one fabric program (same topology, flow count,
+    dependency structure, horizon and static config), stepped together:
+    every state leaf and bound input has a leading axis B (the return
+    pipe is kept [H, B, N], so that a tick's slot is one contiguous
+    [B, N] block; :meth:`stacked` puts B first), and each stage is one
+    kernel call for the batch (``kernels.flow_transition_batch``,
+    ``serve_enqueue_batch``, ``pfc_account_batch``).  The fault schedule
+    is shared by the batch; ``lb_mode`` and the pinned entropy are per
+    entry.
+
+    The warp loop keeps each entry's next tick: a trip ticks at the
+    earliest, the entries due then step (``live``) and the others are
+    frozen (the kernels leave their rows as they are and the tick's
+    selects keep the rest), so each entry steps exactly the ticks, and
+    counts exactly the trips, it does alone."""
+
+    def __init__(self, topo: FatTree, n_flows: int, n_ticks: int,
+                 cfg: FabricConfig, device, dep: Optional[DepSpec],
+                 n_entries: int):
+        super().__init__(topo, n_flows, n_ticks, cfg, device, dep)
+        if self.A:
+            raise NotImplementedError(
+                "repro_torch does not run active_cap in a batch yet (ROADMAP "
+                "A14); loop run_fabric_trace")
+        self.B = int(n_entries)
+
+    def bind(self, src, dst, total_pkts, tail_b, arrival, lb_modes,
+             ent0):
+        """Per-entry inputs, each with a leading axis B (``arrival``
+        [B, n_msgs]); ``lb_modes`` one mode per entry."""
+        dev, N, HPT, B = self.device, self.N, self.HPT, self.B
+        self.src = src.to(dev, torch.int32)
+        self.dst = dst.to(dev, torch.int32)
+        self.total_pkts = total_pkts.to(dev, torch.int32)
+        self.tail_b = tail_b.to(dev, torch.float32)
+        self.arrival = arrival.to(dev, torch.int32)
+        self.ent0 = ent0.to(dev, torch.int32)
+        self.lb_codes = torch.tensor([LB_MODES.index(m) for m in lb_modes],
+                                     dtype=torch.int32, device=dev)[:, None]
+        self.src_tor = torch.div(self.src, HPT, rounding_mode="floor")
+        self.dst_tor = torch.div(self.dst, HPT, rounding_mode="floor")
+        self.same_tor = self.src_tor == self.dst_tor
+        iota = torch.arange(N, dtype=torch.int32, device=dev)
+        self.iota = iota
+        self.fixed_ent = ecmp_mix(self.src, self.dst, iota[None, :]) \
+            % self.cfg.max_paths
+        self.dflow = torch.where(self.same_tor, self.D_same, self.D_cross
+                                 ).to(torch.int32)
+        # entry b's flow f is row b N + f of the flattened batch
+        self.row0 = (torch.arange(B, dtype=torch.int32, device=dev)
+                     * N)[:, None]
+        self.src_index = src_index_batch(self.src, self.NH)
+        self.pfc_flows = (pfc_flows_batch(self.src, self.src_tor,
+                                          self.same_tor, self.total_pkts,
+                                          self.tail_b, self.src_index)
+                          if self.pfc else None)
+
+    def init_state(self) -> FabricState:
+        dev, B, N, Q, cap = self.device, self.B, self.N, self.Q, self.cap
+        T, S, NH, H = self.T, self.S, self.NH, self.H
+        fl0, rcv0 = self.proto.init(self.total_pkts.reshape(-1),
+                                    self.tail_b.reshape(-1),
+                                    self.ent0.reshape(-1))
+        zi = lambda *s: torch.zeros(s, dtype=torch.int32, device=dev)
+        zf = lambda *s: torch.zeros(s, dtype=torch.float32, device=dev)
+        zb = lambda *s: torch.zeros(s, dtype=torch.bool, device=dev)
+        neg = lambda n: torch.full((B, n), -1, dtype=torch.int32, device=dev)
+        ring = lambda: zi(B, Q + 1, cap)
+        q0 = PktQ(flow=torch.full((B, Q + 1, cap), -1, dtype=torch.int32,
+                                  device=dev),
+                  psn=ring(), ts=zf(B, Q + 1, cap), probe=zb(B, Q + 1, cap),
+                  ecn=zb(B, Q + 1, cap), ent=ring(), ready=ring(),
+                  spine=ring())
+        dep = self.dep
+        return FabricState(
+            flows=_unflat(fl0, B), rcv=_unflat(rcv0, B), q=q0,
+            qhead=zi(B, Q + 1), qsize=zi(B, Q + 1),
+            pipe=tree_map(lambda x: x.view((H, B, N) + tuple(x.shape[2:])),
+                          self.proto.empty_msgs(H, B * N, dev)),
+            obl_rr=(self.iota % self.cfg.max_paths).repeat(B, 1),
+            drops=zi(B), delivered=zf(B, N), done_tick=neg(N),
+            qbytes=zf(B, Q + 1), ing_host=zf(B, NH), ing_sd=zf(B, S, T),
+            ing_up=zf(B, T, S), paused_nic=zb(B, NH), paused_sd=zb(B, S, T),
+            paused_up=zb(B, T, S),
+            pfc_line=zb(B, max(self.PD, 1), NH + 2 * self.TS), pauses=zi(B),
+            pending=dep.init_pending.to(dev).repeat(B, 1),
+            msg_done=zb(B, dep.n_msgs), msg_release_tick=neg(dep.n_msgs),
+            msg_done_tick=neg(dep.n_msgs),
+            group_done_tick=neg(dep.n_groups), act_overflow=zi(B),
+            ecn_marks=zi(B), qdepth_hi=zi(B, Q + 1), blackholed=zi(B),
+            corrupt_drops=zi(B), tx_rows=zi(B, Q + 1),
+            win_retx=zi(B, self.FW))
+
+    def stacked(self, st: FabricState) -> FabricState:
+        """``st`` with the return pipe's axes as every other leaf's: B
+        first ([B, H, N, ...])."""
+        return st._replace(pipe=tree_map(lambda x: x.transpose(0, 1),
+                                         st.pipe))
+
+    def eff_pause(self, st: FabricState, t: int):
+        """Stage 0b for each entry -> ``(eff_nic bool[B, NH], paused_row
+        bool[B, Q])``; ``(None, None)`` on lossy queues."""
+        if not self.pfc:
+            return None, None
+        B, NH, TS = self.B, self.NH, self.TS
+        if self.PD > 0:
+            eff = st.pfc_line[:, t % self.PD]
+            eff_nic = eff[:, :NH].contiguous()
+            eff_sd, eff_up = eff[:, NH:NH + TS], eff[:, NH + TS:]
+        else:
+            eff_nic = st.paused_nic
+            eff_sd = st.paused_sd.reshape(B, TS)
+            eff_up = st.paused_up.reshape(B, TS)
+        paused_row = torch.cat([eff_up, eff_sd, torch.zeros_like(eff_nic)], 1)
+        return eff_nic, paused_row
+
+    def entropies(self, st: FabricState, tx, probe_tx, sel):
+        """Stage 2's path entropies of each entry's data and probes, and
+        the new oblivious round-robin pointers, by the entry's
+        ``lb_mode``."""
+        if not self.proto.uses_spray:  # the flow's pinned entropy
+            return tx.entropy, probe_tx.entropy, st.obl_rr
+        ent_obl = (st.obl_rr + 1) % self.cfg.max_paths
+        c = self.lb_codes   # LB_MODES' index, per entry
+        pick = lambda adaptive: torch.where(
+            c == 1, ent_obl, torch.where(c == 2, self.fixed_ent, adaptive))
+        return (pick(tx.entropy), pick(probe_tx.entropy),
+                torch.where((c == 1) & sel, ent_obl, st.obl_rr))
+
+    def transport_args(self, st: FabricState, t: int,
+                       sendable_msg: torch.Tensor, eff_nic=None,
+                       live=None) -> tuple:
+        """Arguments of ``flow_transition_batch`` at tick ``t`` (stage 1):
+        each entry's due pipe slot and release mask, the entries that step
+        last."""
+        due = type(st.pipe)(*[a[t % self.H] for a in st.pipe])
+        return (st.flows, due, sendable_msg[:, self.dep.msg_of_flow.long()],
+                self.src, t, self.trans_dims, eff_nic, self.src_index, live)
+
+    def serve_args(self, st: FabricState, t: int, tx, probe_tx, sel,
+                   probe_valid, paused_row=None,
+                   fm: Optional[FaultMasks] = None, live=None) -> tuple:
+        """Stage 2 (each entry's injection targets by its ``lb_mode``; a
+        down NIC's data and probes withheld) and the arguments of
+        ``serve_enqueue_batch`` at tick ``t``; also the new oblivious
+        round-robin pointers (moved on a send a down NIC then blackholes)
+        and the data injection rows."""
+        TS, S = self.TS, self.S
+        ent, ent_p, obl_rr = self.entropies(st, tx, probe_tx, sel)
+        live_up = fm.live if fm is not None else None
+        spine = self.at.ecmp_spine(self.src, self.dst, ent, live_up)
+        spine_p = self.at.ecmp_spine(self.src, self.dst, ent_p, live_up)
+        host_q = 2 * TS + self.dst
+        inj_q = torch.where(self.same_tor, host_q,
+                            self.src_tor * S + spine).to(torch.int32)
+        inj_qp = torch.where(self.same_tor, host_q,
+                             self.src_tor * S + spine_p).to(torch.int32)
+        faults = (None,) * 4
+        if fm is not None:
+            if fm.nic_down is not None:
+                lane_down = fm.nic_down[self.src.long()]
+                sel = sel & ~lane_down
+                probe_valid = probe_valid & ~lane_down
+            faults = (fm.row_down, fm.row_duty, fm.row_cor_p, fm.fseed)
+        args = (st.q, st.qhead, st.qsize, self.dst, self.dst_tor,
+                self.total_pkts, self.tail_b, tx.psn, probe_tx.psn,
+                ent.to(torch.int32), ent_p.to(torch.int32), spine, spine_p,
+                sel, probe_valid, inj_q, inj_qp, t, self.serve_dims,
+                paused_row, *faults, live)
+        return args, obl_rr, inj_q
+
+    def tick(self, st: FabricState, t: int, live=None):
+        """One dense tick ``t`` of every entry with ``live[b]`` (bool[B];
+        None: all of them) -> (new_state, can_any bool[B], sendable_msg
+        [B, n_msgs]); a frozen entry's state comes out as it went in."""
+        B, N, Q, TS, H = self.B, self.N, self.Q, self.TS, self.H
+        dep = self.dep
+        mof = dep.msg_of_flow.long()
+        at_live = (lambda m: m) if live is None else (
+            lambda m: m & live.view((B,) + (1,) * (m.dim() - 1)))
+
+        # 0. dependency gate (+ open-loop arrival ticks)
+        sendable_msg = (st.pending <= 0) & (self.arrival <= t)
+        msg_release_tick = torch.where(
+            at_live(sendable_msg & (st.msg_release_tick < 0)), t,
+            st.msg_release_tick).to(torch.int32)
+
+        # 0b. PFC effective-pause masks; 0c. the (shared) fault schedule
+        eff_nic, paused_row = self.eff_pause(st, t)
+        fm = self.fault_masks(t)
+
+        # 1. transport lanes (a frozen entry neither acks nor sends)
+        flows, tx, probe_tx, probe_valid, sel, can_tx = \
+            flow_transition_batch(*self.transport_args(st, t, sendable_msg,
+                                                       eff_nic, live))
+        pipe_valid = st.pipe.valid.clone()
+        pipe_valid[t % H] = (False if live is None
+                             else pipe_valid[t % H] & ~live[:, None])
+        pipe = st.pipe._replace(valid=pipe_valid)
+
+        # chaos counters of the transport stage: the retransmits committed
+        # (before a down NIC blackholes them) and the NIC blackhole
+        blackholed, corrupt_drops = st.blackholed, st.corrupt_drops
+        if self.FW:
+            rtx_n = (sel & tx.is_rtx).sum(1, dtype=torch.int32)
+        if fm is not None and fm.nic_down is not None:
+            lane_down = fm.nic_down[self.src.long()]
+            blackholed = blackholed + (
+                (sel & lane_down).sum(1, dtype=torch.int32)
+                + (probe_valid & lane_down).sum(1, dtype=torch.int32))
+
+        # 2. spray / ECMP injection targets; 3. ring service + enqueue
+        args, obl_rr, inj_q = self.serve_args(st, t, tx, probe_tx, sel,
+                                              probe_valid, paused_row, fm,
+                                              live)
+        (qhead, qsize, pop, has, ecn_out, pop_bytes, cand_qid, accept,
+         drops_add, cand_bytes, surv, bh_add, cor_add) = \
+            serve_enqueue_batch(*args)
+        if bh_add is not None:
+            blackholed = blackholed + bh_add
+            corrupt_drops = corrupt_drops + cor_add
+
+        # 4. deliveries -> receivers -> SACK return pipe, on the flattened
+        # batch (entry b's flow f is row b N + f)
+        del_has = surv[:, 2 * TS:]
+        del_flow = pop.flow[:, 2 * TS:].clamp(0, N - 1)
+        d_probe = pop.probe[:, 2 * TS:]
+        slot_del = (t + self.dflow.gather(1, del_flow.long())) % H
+        g_flow = (del_flow + self.row0).reshape(-1)
+        has_f = del_has.reshape(-1)
+        rcv_all = flat_entries(st.rcv)
+        rrows = type(st.rcv)(*[a[g_flow.long()] for a in rcv_all])
+        rnew, sack = self.proto.on_data(
+            rrows, *[x[:, 2 * TS:].reshape(-1) for x in (
+                pop.psn, pop_bytes, ecn_out, pop.ent, pop.ts)],
+            d_probe.reshape(-1), Now(t, self.tick_us))
+        rnew = tp.tree_where(has_f, rnew, rrows)
+        rcv = _unflat(_scatter_rows(rcv_all, rnew,
+                                    torch.where(has_f, g_flow, B * N),
+                                    B * N), B)
+        didx = torch.where(has_f & ~d_probe.reshape(-1), g_flow, B * N)
+        delivered = torch.cat([st.delivered.reshape(-1),
+                               st.delivered.new_zeros(1)])
+        delivered.index_add_(0, didx.long(),
+                             pop_bytes[:, 2 * TS:].reshape(-1))
+        delivered = delivered[:B * N].view(B, N)
+        ecn_add = (del_has & ecn_out[:, 2 * TS:] & ~d_probe
+                   ).sum(1, dtype=torch.int32)
+        sack_valid = sack.valid & has_f
+        pipe = tree_map(
+            lambda x: x.view((H, B, N) + tuple(x.shape[2:])),
+            _scatter_pipe(tree_map(lambda x: x.view((H, B * N)
+                                                    + tuple(x.shape[3:])),
+                                   pipe),
+                          sack._replace(valid=sack_valid),
+                          slot_del.reshape(-1), g_flow, sack_valid, H,
+                          B * N))
+
+        # 5. PFC: ingress accounting, the gates, the delay line
+        pfc = self.pfc_state(st)
+        if self.pfc:
+            pfc = pfc_account_batch(pfc, has, pop, pop_bytes, cand_qid,
+                                    cand_bytes, accept, st.q, qhead,
+                                    st.qsize, qsize, t, self.pfc_flows,
+                                    self.pfc_dims, live)
+
+        # 6. completion + metrics
+        done = self.proto.done(flat_entries(flows)).view(B, N)
+        done_tick = torch.where(at_live(done & (st.done_tick < 0)), t,
+                                st.done_tick).to(torch.int32)
+        msg_undone = torch.zeros((B, dep.n_msgs), dtype=torch.int32,
+                                 device=self.device)
+        msg_undone.index_add_(1, mof, (~done).to(torch.int32))
+        msg_done = msg_undone == 0
+        newly = msg_done & ~st.msg_done
+        pending = st.pending
+        if self.has_edges:
+            dec = torch.zeros_like(pending)
+            dec.index_add_(1, dep.edge_child.long(),
+                           newly[:, dep.edge_parent.long()].to(torch.int32))
+            pending = pending - dec
+        msg_done_tick = torch.where(newly, t, st.msg_done_tick
+                                    ).to(torch.int32)
+        g_undone = torch.zeros((B, dep.n_groups), dtype=torch.int32,
+                               device=self.device)
+        g_undone.index_add_(1, dep.group_of_msg.long(),
+                            (~msg_done).to(torch.int32))
+        group_done_tick = torch.where(
+            at_live((g_undone == 0) & (st.group_done_tick < 0)), t,
+            st.group_done_tick).to(torch.int32)
+        acc_data = accept[:, 2 * TS:2 * TS + N]
+        rows = (torch.where(acc_data, inj_q, Q)
+                + (torch.arange(B, device=self.device) * (Q + 1))[:, None])
+        tx_rows = st.tx_rows.clone().view(-1)
+        tx_rows.index_add_(0, rows.reshape(-1).long(),
+                           at_live(torch.ones_like(inj_q, dtype=torch.bool)
+                                   ).to(torch.int32).view(-1))
+        win_retx = st.win_retx
+        if self.FW:
+            fd = self.fd
+            in_win = (fd.win_t0 <= t) & (t < fd.win_t1 + 2 * self.rto_ticks)
+            win_retx = win_retx + torch.where(in_win[None, :],
+                                              rtx_n[:, None], 0)
+
+        new_st = st._replace(
+            **pfc._asdict(),
+            flows=flows, rcv=rcv, qhead=qhead, qsize=qsize, pipe=pipe,
+            obl_rr=obl_rr, drops=st.drops + drops_add, delivered=delivered,
+            done_tick=done_tick, pending=pending, msg_done=msg_done,
+            msg_release_tick=msg_release_tick, msg_done_tick=msg_done_tick,
+            group_done_tick=group_done_tick,
+            ecn_marks=st.ecn_marks + ecn_add,
+            qdepth_hi=torch.maximum(st.qdepth_hi, qsize),
+            tx_rows=tx_rows.view(B, Q + 1), blackholed=blackholed,
+            corrupt_drops=corrupt_drops, win_retx=win_retx)
+        return new_st, can_tx.any(1), sendable_msg
+
+    def warp_target(self, st: FabricState, t: int,
+                    sendable_msg: torch.Tensor) -> torch.Tensor:
+        """:meth:`FabricProgram.warp_target` of each entry (i32[B]): every
+        minimum is over the entry's own flows, slots, rows and messages."""
+        n_ticks, H, Q, cap, B = self.n_ticks, self.H, self.Q, self.cap, \
+            self.B
+        dev = self.device
+        timer_ev, send_ev = [x.view(B, self.N) for x in
+                             self.proto.next_event(flat_entries(st.flows))]
+        sendable = sendable_msg[:, self.dep.msg_of_flow.long()]
+        inf = float("inf")
+        timer_ev = torch.where(sendable, timer_ev, inf)
+        send_ev = torch.where(sendable, send_ev, inf)
+
+        def ev_tick(ev, half_early):
+            e = ev.amin(1)
+            ratio = e * recip32(self.tick_us) - f32(half_early)
+            tk = torch.where(
+                torch.isfinite(e),
+                torch.floor(torch.clamp_max(ratio, f32(n_ticks))
+                            ).to(torch.int32),
+                n_ticks)
+            return torch.clamp_min(tk, t + 1)
+
+        every = self.cfg.timer_every
+        t_timer = ev_tick(timer_ev, 0.0)
+        t_timer = torch.div(t_timer + every - 1, every,
+                            rounding_mode="floor") * every
+        t_send = ev_tick(send_ev, 0.5)
+        slots = torch.arange(H, dtype=torch.int32, device=dev)
+        due = (t + 1 + (slots - t - 1) % H)[:, None]
+        t_pipe = torch.where(st.pipe.valid.any(2), due, n_ticks).amin(0)
+        head = (st.qhead[:, :Q] % cap).long()
+        rdy = st.q.ready[:, :Q].gather(2, head[:, :, None])[:, :, 0]
+        pending_q = st.qsize[:, :Q] > 0
+        if self.pfc:
+            dec_row = torch.cat([st.paused_up.reshape(B, -1),
+                                 st.paused_sd.reshape(B, -1),
+                                 torch.zeros_like(st.paused_nic)], 1)
+            pending_q = pending_q & ~dec_row
+        t_queue = torch.clamp_min(
+            torch.where(pending_q, rdy, n_ticks).amin(1), t + 1)
+        t_arr = torch.clamp_min(torch.where(
+            (st.pending <= 0) & (st.msg_release_tick < 0), self.arrival,
+            n_ticks).amin(1), t + 1)
+        tgt = torch.minimum(torch.minimum(t_timer, t_send),
+                            torch.minimum(t_pipe, t_queue))
+        tgt = torch.minimum(tgt, t_arr)
+        if self.has_faults:
+            edges = self.fd.edges
+            tgt = torch.minimum(tgt, torch.clamp_min(
+                torch.where(edges > t, edges, n_ticks).min(), t + 1))
+        return torch.clamp_max(tgt, n_ticks).to(torch.int32)
+
+    def snapshot(self, st: FabricState) -> dict:
+        """:meth:`FabricProgram.snapshot` of each entry (a leading axis B
+        on every key)."""
+        B, N = self.B, self.N
+        flows = flat_entries(st.flows)
+        return {
+            "qsize": st.qsize[:, :self.Q],
+            "drops_trace": st.drops,
+            "done": self.proto.done(flows).view(B, N).sum(
+                1, dtype=torch.int32),
+            "cwnd_mean": self.proto.cong_pkts(flows).view(B, N).mean(1),
+            "delivered": st.delivered,
+            "pauses_trace": st.pauses,
+            "paused_ports": (st.paused_nic.sum(1, dtype=torch.int32)
+                             + st.paused_sd.sum((1, 2), dtype=torch.int32)
+                             + st.paused_up.sum((1, 2), dtype=torch.int32)),
+        }
+
+    def run_warp(self, st):
+        """The event-horizon loop of every entry from ``st`` ->
+        (final_state, {"warp_trips", "end_tick"}, i32[B] each); the trace
+        rows of :meth:`run_dense` come out [rows, B, ...]."""
+        B = self.B
+        self.trips = 0   # the loop's trips (each steps one or more entries)
+        nxt = torch.zeros((B,), dtype=torch.int32, device=self.device)
+        trips = torch.zeros_like(nxt)
+        t = 0
+        while t < self.n_ticks:
+            live = nxt == t
+            st, can_any, sendable_msg = self.tick(st, t, live)
+            idle = ~can_any & ~(sendable_msg
+                                & (st.msg_release_tick < 0)).any(1)
+            if self.pfc and self.PD > 0:
+                dec = torch.cat([st.paused_nic, st.paused_sd.reshape(B, -1),
+                                 st.paused_up.reshape(B, -1)], 1)
+                idle = idle & (st.pfc_line == dec[:, None, :]).all(2).all(1)
+            step = torch.where(idle, self.warp_target(st, t, sendable_msg),
+                               t + 1)
+            nxt = torch.where(live, step, nxt)
+            trips = trips + live.to(torch.int32)
+            t = int(nxt.min())   # one host read per trip
+            self.trips += 1
+        return st, {"warp_trips": trips, "end_tick": nxt}
 
 
 # --------------------------------------------------------------------------- #
@@ -1194,7 +1674,7 @@ def _finish_metrics(metrics: dict, fin: dict, cfg: FabricConfig,
     tick_us = cfg.net.mtu_serialize_us
     target_qdelay_us = _make_protocol(cfg)[4]
     metrics["tick_us"] = tick_us
-    metrics["trace_every"] = 0
+    metrics["trace_every"] = 0 if cfg.time_warp else cfg.trace_every
     metrics["target_qdelay_pkts"] = target_qdelay_us / tick_us
     dt = np.asarray(fin["done_tick"])
     metrics["done_tick"] = dt
@@ -1278,7 +1758,9 @@ def run_fabric_trace(topo: FatTree, messages, n_ticks: int,
     fin["retx"] = prog.proto.stat_retx(final.flows).cpu().numpy()
     fin.update({k: v.cpu().numpy() for k, v in
                 prog.proto.stat_recovery(final.flows).items()})
-    metrics = _finish_metrics(dict(metrics), fin, cfg, prog.dims, prog.dep)
+    metrics = {k: v.cpu().numpy() if isinstance(v, torch.Tensor) else v
+               for k, v in metrics.items()}
+    metrics = _finish_metrics(metrics, fin, cfg, prog.dims, prog.dep)
     return final, metrics
 
 
@@ -1290,6 +1772,120 @@ def run_fabric(topo: FatTree, flows: Sequence[Tuple[int, int, float]],
     msgs = [_FlowMsg(mid=i, src=s, dst=d, size=b)
             for i, (s, d, b) in enumerate(flows)]
     return run_fabric_trace(topo, msgs, n_ticks, cfg, device=device)
+
+
+def batch_program(topo: FatTree, messages_batch, n_ticks: int,
+                  cfg: FabricConfig, lb_modes=None, entropy_seeds=None,
+                  device="cuda") -> BatchProgram:
+    """The bound :class:`BatchProgram` of a batch of message traces on
+    ``device``, after the reference's checks of the batch (see
+    :func:`run_fabric_trace_batch`)."""
+    if not messages_batch:
+        raise ValueError("need at least one message trace")
+    if int(cfg.shard) > 1:
+        raise ValueError(
+            "cfg.shard > 1 builds one shard_map program over the device "
+            "mesh; vmapped batches are unsupported — loop "
+            "run_fabric_trace instead")
+    B = len(messages_batch)
+    if lb_modes is None:
+        lb_modes = [cfg.lb_mode] * B
+    if entropy_seeds is None:
+        entropy_seeds = [cfg.roce_entropy_seed] * B
+    if len(lb_modes) != B or len(entropy_seeds) != B:
+        raise ValueError(
+            f"lb_modes/entropy_seeds must match the batch: got "
+            f"{len(lb_modes)}/{len(entropy_seeds)} for {B} traces")
+    for m in lb_modes:
+        if m not in LB_MODES:
+            raise ValueError(f"unknown lb_mode {m!r}; "
+                             f"expected one of {LB_MODES}")
+    dev = resolve_device(device)
+    check_slice(cfg)
+    expanded = [expand_messages(ms, cfg.subflows) for ms in messages_batch]
+    dep = expanded[0][1]
+    for i, (_, d) in enumerate(expanded[1:], start=1):
+        if int(d.msg_of_flow.shape[0]) != int(dep.msg_of_flow.shape[0]):
+            raise ValueError(
+                f"batch entry {i} has {int(d.msg_of_flow.shape[0])} "
+                f"sub-flows, entry 0 has {int(dep.msg_of_flow.shape[0])}")
+        same_deps = (
+            d.edge_parent.shape == dep.edge_parent.shape
+            and bool(torch.equal(d.edge_parent, dep.edge_parent))
+            and bool(torch.equal(d.edge_child, dep.edge_child))
+            and bool(torch.equal(d.group_of_msg, dep.group_of_msg)))
+        if not same_deps:
+            raise ValueError(
+                f"batch entry {i} has a different dependency/group "
+                f"structure than entry 0 — the whole batch runs under "
+                f"entry 0's static DepSpec, so structures must match")
+    if cfg.faults is not None:
+        validate_faults(cfg.faults, topo)
+    arrs = []
+    for (flows, _), seed in zip(expanded, entropy_seeds):
+        _check_flows(flows, topo.n_hosts)
+        arrs.append(_flow_arrays(
+            flows, dataclasses.replace(cfg, roce_entropy_seed=seed)))
+    prog = BatchProgram(topo, len(expanded[0][0]), n_ticks, cfg, dev,
+                        _to_device(dep, dev), B)
+    prog.bind(*[torch.stack([a[k] for a in arrs]) for k in range(4)],
+              torch.stack([_arrival_array(m) for m in messages_batch]),
+              lb_modes, torch.stack([a[4] for a in arrs]))
+    return prog
+
+
+def run_fabric_trace_batch(topo: FatTree, messages_batch, n_ticks: int,
+                           cfg: FabricConfig = FabricConfig(),
+                           lb_modes: Optional[Sequence[str]] = None,
+                           entropy_seeds: Optional[Sequence] = None,
+                           device="cuda"):
+    """Run a batch of same-structure message traces as one
+    :class:`BatchProgram` -> (stacked_final_state, [metrics per entry]).
+
+    The entries share the topology and the dependency structure (message
+    count, deps, groups, sub-flow fan-out); their src/dst/size patterns,
+    ``lb_modes`` (per-entry spray mode) and ``entropy_seeds`` (per-entry
+    QP-entropy seed, RoCEv2) may differ, and the fault schedule is shared.
+    Each entry's final state, trace rows and warp trips are those it gives
+    alone through :func:`run_fabric_trace`.  Every leaf of the returned
+    state has a leading axis B."""
+    prog = batch_program(topo, messages_batch, n_ticks, cfg, lb_modes,
+                         entropy_seeds, device)
+    B = prog.B
+    final, stacked = prog.run()
+    final = prog.stacked(final)
+    flows_all = flat_entries(final.flows)
+    fin_all = {k: getattr(final, k).cpu().numpy() for k in _FINAL_KEYS}
+    fin_all["retx"] = prog.proto.stat_retx(flows_all).view(B, -1
+                                                           ).cpu().numpy()
+    fin_all.update({k: v.view(B, -1).cpu().numpy() for k, v in
+                    prog.proto.stat_recovery(flows_all).items()})
+    # [B] counters, or [rows, B, ...] trace rows: entry i of each
+    stacked = {k: v.cpu().numpy() for k, v in stacked.items()}
+    per_entry = []
+    for i in range(B):
+        m = {k: (v[i] if k in ("warp_trips", "end_tick") else v[:, i])
+             for k, v in stacked.items()}
+        fin_i = {k: v[i] for k, v in fin_all.items()}
+        per_entry.append(_finish_metrics(m, fin_i, cfg, prog.dims,
+                                         prog.dep))
+    return final, per_entry
+
+
+def run_fabric_batch(topo: FatTree,
+                     flows_batch: Sequence[Sequence[Tuple[int, int, float]]],
+                     n_ticks: int, cfg: FabricConfig = FabricConfig(),
+                     device="cuda"):
+    """Run a batch of same-shape flow lists (e.g. seeds of one workload)
+    as one :class:`BatchProgram` (the deps-free special case of
+    :func:`run_fabric_trace_batch`)."""
+    sizes = {len(fl) for fl in flows_batch}
+    if len(sizes) != 1:
+        raise ValueError(f"flow lists must be same-shape, got sizes {sizes}")
+    msgs_batch = [[_FlowMsg(mid=i, src=s, dst=d, size=b)
+                   for i, (s, d, b) in enumerate(fl)] for fl in flows_batch]
+    return run_fabric_trace_batch(topo, msgs_batch, n_ticks, cfg,
+                                  device=device)
 
 
 def summarize(metrics: dict) -> dict:

@@ -1,25 +1,28 @@
-"""The experiment front door of the port: Scenario + RunConfig + run().
+"""The experiment front door of the port: Scenario + RunConfig + run() +
+sweep().
 
 The port of ``repro.sim.workloads`` for the fabric backend: the same
 :class:`Message` / :class:`Scenario` records (messages with dependency
 edges, striped over ``RunConfig.subflows``) and builders, the collectives
-of :func:`collective_scenario` among them, a
-:class:`RunConfig` with the fields this slice honours, and :func:`run`,
-which returns the reference's summary dict.  ``run`` takes ``device``
-("cuda" by default; it raises without a GPU).
+of :func:`collective_scenario` among them, a :class:`RunConfig` with the
+fields the port honours (the per-tick trace and the queue-settling time
+among them), :func:`run`, which returns the reference's summary dict, and
+:func:`sweep`, which runs same-structure scenarios and configs as one
+batched program per program shape.  Both take ``device`` ("cuda" by
+default; they raise without a GPU).
 """
 from __future__ import annotations
 
 import math
 import random
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
 from ..core.params import NetworkSpec
 from .fabric import (ACK_PATHS, LB_MODES, PROTOCOLS, FabricConfig, _rto_us,
-                     run_fabric_trace, summarize)
+                     run_fabric_trace, run_fabric_trace_batch, summarize)
 from .faults import FaultSpec
 from .topology import FatTree, full_bisection, with_link_failures
 
@@ -195,10 +198,14 @@ def collective_scenario(topo: FatTree, algo: str, n_jobs: int,
 class RunConfig:
     """How a scenario runs: the reference's fields that the port honours,
     checked as the reference checks them when the config is made.
-    Unported settings raise ``NotImplementedError`` naming their ROADMAP
-    item when the run starts.  ``faults`` (a ``FaultSpec``) overrides the
-    scenario's; without ``n_ticks`` the horizon then reaches past the
-    schedule's last edge."""
+    Unported settings (``backend="events"``, ``shard > 1``) raise
+    ``NotImplementedError`` naming their ROADMAP item when the run starts.
+    ``faults`` (a ``FaultSpec``) overrides the scenario's; without
+    ``n_ticks`` the horizon then reaches past the schedule's last edge.
+    ``trace_every = k`` samples a trace row every k ticks and
+    ``trace_queues`` adds ``queue_settle_us`` to the summary (a trace row
+    every tick unless ``trace_every`` says otherwise); either runs dense
+    ticks."""
 
     backend: str = "fabric"
     protocol: str = "strack"         # strack | rocev2
@@ -216,6 +223,8 @@ class RunConfig:
     pfc_delay_ticks: Optional[int] = None
     time_warp: bool = True
     trace_every: int = 0
+    trace_queues: bool = False       # per-tick queue-depth settling time
+    qdelay_threshold_us: float = 8.0
     active_cap: Optional[int] = None
     shard: int = 0
     faults: Optional[FaultSpec] = None
@@ -241,9 +250,11 @@ class RunConfig:
                 f"active_cap must be positive, got {self.active_cap}")
         if self.shard < 0:
             raise ValueError(f"shard must be >= 0, got {self.shard}")
-        if (self.active_cap or self.shard > 1) and self.trace_every:
-            raise ValueError("active_cap/shard need the no-trace path "
-                             "(trace_every=0)")
+        if (self.active_cap or self.shard > 1) and (
+                self.trace_every or self.trace_queues):
+            raise ValueError(
+                "active_cap/shard need the no-trace path "
+                "(trace_every=0, trace_queues=False)")
         if self.faults is not None and not isinstance(self.faults,
                                                       FaultSpec):
             raise TypeError(f"faults must be a FaultSpec, got "
@@ -275,13 +286,18 @@ def _fabric_cfg(sc: Scenario, cfg: RunConfig) -> FabricConfig:
         raise NotImplementedError(
             f"repro_torch does not port backend={cfg.backend!r} "
             f"(the event oracle, ROADMAP A10)")
-    time_warp = cfg.time_warp and not cfg.trace_every
+    time_warp, trace_every = cfg.time_warp, cfg.trace_every
+    if cfg.trace_queues:
+        trace_every = trace_every or 1
+    if trace_every:
+        # a per-tick trace stacks one row a block: dense ticking
+        time_warp = False
     kw = dict(
         net=sc.net, max_paths=cfg.max_paths, lb_mode=cfg.lb_mode,
         protocol=cfg.protocol, pfc=cfg.pfc, subflows=cfg.subflows,
         roce_entropy_seed=cfg.roce_entropy_seed, ack_path=cfg.ack_path,
         hop_prop_us=cfg.hop_prop_us, pfc_delay_ticks=cfg.pfc_delay_ticks,
-        time_warp=time_warp, trace_every=cfg.trace_every,
+        time_warp=time_warp, trace_every=trace_every,
         active_cap=cfg.active_cap, shard=cfg.shard,
         faults=_effective_faults(sc, cfg))
     if cfg.switch_buffer_bytes is not None:
@@ -289,24 +305,125 @@ def _fabric_cfg(sc: Scenario, cfg: RunConfig) -> FabricConfig:
     return FabricConfig(**kw)
 
 
-def run(sc: Scenario, cfg: RunConfig = RunConfig(), device="cuda") -> dict:
-    """Run one scenario under one config on ``device``; the reference's
-    summary dict (``pauses``, ``gbn_rewinds`` and ``rto_fires`` among its
-    counters; plus ``warp_trips`` / ``end_tick`` under time warp)."""
-    fcfg = _fabric_cfg(sc, cfg)
-    _, metrics = run_fabric_trace(sc.topo, sc.messages,
-                                  _scenario_ticks(sc, cfg), fcfg,
-                                  device=device)
+def _queue_settle_us(metrics: dict, threshold_us: float) -> float:
+    """Last simulated time any fabric queue's delay (depth x tick) exceeded
+    ``threshold_us`` (the paper's Fig. 8 settling time).  With a decimated
+    trace (``trace_every = k``) rows sample block ends, so the settling
+    time is quantised to k ticks."""
+    q = np.asarray(metrics["qsize"], dtype=float)      # [rows, Q]
+    tick = metrics["tick_us"]
+    k = max(1, metrics.get("trace_every", 1))
+    over = np.nonzero((q * tick > threshold_us).any(axis=1))[0]
+    return float((over[-1] + 1) * k * tick) if len(over) else 0.0
+
+
+def _fabric_summary(sc: Scenario, cfg: RunConfig, metrics: dict) -> dict:
+    """The reference's summary dict of one run: ``warp_trips`` and
+    ``end_tick`` under time warp, ``queue_settle_us`` with
+    ``trace_queues``."""
     out = summarize(metrics)
     out.update(backend="fabric", name=sc.name, protocol=cfg.protocol,
                lb_mode=cfg.lb_mode, subflows=cfg.subflows)
     if "warp_trips" in metrics:
         out["warp_trips"] = int(np.asarray(metrics["warp_trips"]))
         out["end_tick"] = int(np.asarray(metrics["end_tick"]))
+    if cfg.trace_queues:
+        out["queue_settle_us"] = _queue_settle_us(metrics,
+                                                  cfg.qdelay_threshold_us)
     return out
 
 
-def sweep(scenarios, cfg=RunConfig(), device="cuda"):
-    """The reference's batched sweep is not ported yet."""
-    raise NotImplementedError(
-        "repro_torch does not port sweep() yet (ROADMAP A5); loop run()")
+def run(sc: Scenario, cfg: RunConfig = RunConfig(), device="cuda") -> dict:
+    """Run one scenario under one config on ``device``; the reference's
+    summary dict (``pauses``, ``gbn_rewinds`` and ``rto_fires`` among its
+    counters)."""
+    fcfg = _fabric_cfg(sc, cfg)
+    _, metrics = run_fabric_trace(sc.topo, sc.messages,
+                                  _scenario_ticks(sc, cfg), fcfg,
+                                  device=device)
+    return _fabric_summary(sc, cfg, metrics)
+
+
+def sweep(scenarios: Sequence[Scenario], cfg=RunConfig(),
+          device="cuda") -> list:
+    """Run a batch of same-structure scenarios under one config, or under
+    a matching list of configs (a multi-axis sweep), on ``device``.
+
+    ``cfg`` is a :class:`RunConfig` or a sequence of them.  Lengths must
+    match, or either side may be of length 1 and is broadcast: so
+    ``sweep([sc], [cfg_a, cfg_b])`` sweeps config axes over one scenario
+    and ``sweep(seeds, cfg)`` sweeps seeds under one config.  Everything
+    that is data to the fabric program runs as one batched program
+    (``fabric.run_fabric_trace_batch``) per program shape: message
+    src/dst/sizes, ``lb_mode`` and ``roce_entropy_seed``; axes that change
+    the program (protocol, pfc, ``subflows``, ``n_ticks``, buffer sizes,
+    ``time_warp``, the trace) split the sweep into one batch per group.
+    All scenarios must share a topology, a network and a message /
+    dependency structure.  Returns one summary dict per (scenario,
+    config) pair, in input order; each equals :func:`run`'s."""
+    if not scenarios:
+        raise ValueError("sweep() needs at least one scenario")
+    scenarios = list(scenarios)
+    cfgs = list(cfg) if isinstance(cfg, (list, tuple)) else [cfg]
+    if not cfgs:
+        raise ValueError("sweep() needs at least one config")
+    if len(scenarios) == 1 and len(cfgs) > 1:
+        scenarios = scenarios * len(cfgs)
+    if len(cfgs) == 1 and len(scenarios) > 1:
+        cfgs = cfgs * len(scenarios)
+    if len(cfgs) != len(scenarios):
+        raise ValueError(
+            f"sweep() got {len(scenarios)} scenarios and {len(cfgs)} "
+            f"configs; lengths must match, or either side must be 1")
+    fabric_ix = [i for i, rc in enumerate(cfgs) if rc.backend == "fabric"]
+    sc0 = scenarios[fabric_ix[0]] if fabric_ix else None
+    for i in fabric_ix[1:]:
+        sc = scenarios[i]
+        if sc.topo != sc0.topo:
+            raise ValueError(
+                f"sweep() scenarios must share a topology: field 'topo' of "
+                f"{sc.name!r} is {sc.topo}, of {sc0.name!r} is {sc0.topo}")
+        if sc.net != sc0.net:
+            raise ValueError(
+                f"sweep() scenarios must share a network: field 'net' of "
+                f"{sc.name!r} is {sc.net}, of {sc0.name!r} is {sc0.net}")
+        if len(sc.messages) != len(sc0.messages):
+            raise ValueError(
+                f"sweep() scenarios must share the message structure: "
+                f"field 'messages' of {sc.name!r} has {len(sc.messages)} "
+                f"entries, of {sc0.name!r} has {len(sc0.messages)}")
+        structure = [(m.deps, m.group) for m in sc.messages]
+        structure0 = [(m.deps, m.group) for m in sc0.messages]
+        if structure != structure0:
+            bad = next(i for i, (a, b) in
+                       enumerate(zip(structure, structure0)) if a != b)
+            raise ValueError(
+                f"sweep() scenarios must share the dependency structure: "
+                f"field 'messages[{bad}].deps/group' of {sc.name!r} is "
+                f"{structure[bad]}, of {sc0.name!r} is {structure0[bad]}")
+    out: list = [None] * len(cfgs)
+    # group the pairs by everything static to the program; lb_mode and the
+    # entropy seed are data within a group
+    groups: dict = {}
+    for i, (sc, rc) in enumerate(zip(scenarios, cfgs)):
+        if rc.backend != "fabric":
+            out[i] = run(sc, rc, device)   # raises: the event oracle (A10)
+            continue
+        fcfg = _fabric_cfg(sc, rc)
+        key = (replace(fcfg, lb_mode="adaptive", roce_entropy_seed=None),
+               rc.n_ticks, rc.trace_queues)
+        groups.setdefault(key, []).append(i)
+    for idxs in groups.values():
+        rc0 = cfgs[idxs[0]]
+        fcfg0 = _fabric_cfg(scenarios[idxs[0]], rc0)
+        ticks = rc0.n_ticks or max(_scenario_ticks(scenarios[i], cfgs[i])
+                                   for i in idxs)
+        _, per_entry = run_fabric_trace_batch(
+            scenarios[idxs[0]].topo,
+            [scenarios[i].messages for i in idxs], ticks, fcfg0,
+            lb_modes=[cfgs[i].lb_mode for i in idxs],
+            entropy_seeds=[cfgs[i].roce_entropy_seed for i in idxs],
+            device=device)
+        for i, metrics in zip(idxs, per_entry):
+            out[i] = _fabric_summary(scenarios[i], cfgs[i], metrics)
+    return out

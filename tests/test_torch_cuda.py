@@ -908,3 +908,66 @@ def test_ssm_smoke_serve_on_the_card_matches_the_jax_reference(cuda, arch):
     gen = greedy_generate(params, cfg, toks, ref["new"],
                           ref["steps"] + ref["new"])
     assert gen.tolist() == ref["greedy_tokens"]
+
+
+@pytest.mark.parametrize("protocol", ["strack", "rocev2"])
+def test_sweep_on_the_card_equals_the_cpu(cuda, protocol):
+    """A batch of three permutation seeds (RoCEv2: with PFC and entropy
+    seeds 0-2) on the card: only the batched kernels launch, and every
+    entry's summary, done ticks and warp trips equal the CPU's batch."""
+    from repro_torch.sim.workloads import RunConfig, _fabric_cfg, sweep
+    scs = [permutation_scenario(full_bisection(4, 4), 64 * 2 ** 10,
+                                net=NetworkSpec(link_gbps=400.0), seed=s)
+           for s in range(3)]
+    cfgs = [RunConfig(protocol=protocol, n_ticks=2000, roce_entropy_seed=s
+                      if protocol == "rocev2" else None) for s in range(3)]
+    fk.reset_launches()
+    gpu = sweep(scs, cfgs, device=cuda)
+    want = {"flow_transition_batch" if protocol == "strack"
+            else "flow_transition_roce_batch", "serve_enqueue_batch"}
+    if protocol == "rocev2":
+        want.add("pfc_account_batch")
+    assert {k for k, n in fk.launches.items() if n} == want, fk.launches
+    assert gpu == sweep(scs, cfgs, device="cpu")
+    fcfg = _fabric_cfg(scs[0], cfgs[0])
+    _, per = TF.run_fabric_trace_batch(
+        scs[0].topo, [sc.messages for sc in scs], 2000, fcfg,
+        entropy_seeds=[c.roce_entropy_seed for c in cfgs], device=cuda)
+    for sc, c, m in zip(scs, cfgs, per):
+        _, solo = TF.run_fabric_trace(sc.topo, sc.messages, 2000,
+                                      _fabric_cfg(sc, c), device=cuda)
+        np.testing.assert_array_equal(m["done_tick"], solo["done_tick"])
+        assert int(m["warp_trips"]) == int(solo["warp_trips"])
+
+
+def test_batched_kernels_match_plain_on_the_card(cuda):
+    """The batched transition and serve/enqueue against their batched
+    plain versions on the card at dense ticks of a batch of three seeds,
+    every entry stepping and the middle one frozen."""
+    from repro_torch.sim.fabric import _clone_tree
+    from repro_torch.sim.workloads import RunConfig, _fabric_cfg
+    scs = [permutation_scenario(full_bisection(4, 4), 64 * 2 ** 10,
+                                net=NetworkSpec(link_gbps=400.0), seed=s)
+           for s in range(3)]
+    prog = TF.batch_program(scs[0].topo, [sc.messages for sc in scs], 200,
+                            _fabric_cfg(scs[0], RunConfig()), device=cuda)
+    st = prog.init_state()
+    for t in range(41):
+        if t in (3, 16, 40):
+            for live in (None, torch.tensor([True, False, True],
+                                            device=cuda)):
+                sm = (st.pending <= 0) & (prog.arrival <= t)
+                targs = prog.transport_args(st, t, sm, None, live)
+                out = fk.flow_transition_batch(*targs)
+                plain = fk.flow_transition_batch_plain(*targs)
+                for a, b in zip(fk._tree_leaves(out), fk._tree_leaves(plain)):
+                    assert torch.equal(a, b)
+                sargs, _, _ = prog.serve_args(st, t, out[1], out[2], out[4],
+                                              out[3], None, None, live)
+                rings = [_clone_tree(st.q) for _ in range(2)]
+                res_k = fk.serve_enqueue_batch(rings[0], *sargs[1:])
+                res_p = fk.serve_enqueue_batch_plain(rings[1], *sargs[1:])
+                for a, b in zip(fk._tree_leaves(res_k[:11]),
+                                fk._tree_leaves(res_p[:11])):
+                    assert torch.equal(a, b)
+        st, _, _ = prog.tick(st, t)

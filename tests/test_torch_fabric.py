@@ -105,14 +105,16 @@ def test_port_matches_perm1024_reference_on_cpu():
 
 
 @pytest.mark.parametrize("kw,item", [
-    # sub-flow striping runs (A6); what it is combined with still raises
+    # sub-flow striping (A6) and the trace (A5) run; what they are
+    # combined with still raises
     (dict(protocol="rocev2", subflows=2, shard=2), "A11"),
-    (dict(pfc=True, subflows=4, trace_every=1), "A5"),
+    (dict(pfc=True, subflows=4, trace_every=1, backend="events"), "A10"),
     (dict(active_cap=8, backend="events"), "A10"),
     (dict(shard=2), "A11"),
     (dict(subflows=4, backend="events"), "A10"),
-    (dict(faults=link_flap(0, 0, 10, 60), trace_every=1), "A5"),
-    (dict(trace_every=1), "A5"),
+    (dict(faults=link_flap(0, 0, 10, 60), trace_queues=True, shard=1,
+          backend="events"), "A10"),
+    (dict(lb_mode="oblivious", subflows=2, shard=4), "A11"),
     (dict(backend="events"), "A10"),
 ])
 def test_unported_settings_raise_naming_their_roadmap_item(kw, item):
@@ -123,8 +125,8 @@ def test_unported_settings_raise_naming_their_roadmap_item(kw, item):
 
 def test_dependency_edges_and_sweep_raise():
     """Dependency edges run (A6): the child starts after its parent is
-    done, and the run reports the collective keys; ``sweep`` still raises
-    naming A5."""
+    done, and the run reports the collective keys; ``sweep`` runs too
+    (A5): a batch of one, whose row is ``run``'s."""
     topo = full_bisection(2, 2)
     sc = Scenario(name="chain", topo=topo, net=NET400, messages=(
         Message(mid=0, src=0, dst=1, size=8192.0),
@@ -137,5 +139,6 @@ def test_dependency_edges_and_sweep_raise():
     s = TF.summarize(m)
     assert s["unfinished"] == 0 and s["finished_groups"] == 1
     assert s["max_collective_time"] == release[1] + fct[1]
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        sweep([sc], RunConfig(), device="cpu")
+    rows = sweep([sc], RunConfig(n_ticks=400), device="cpu")
+    assert rows == [run(sc, RunConfig(n_ticks=400), device="cpu")]
+    assert rows[0]["finished_groups"] == 1

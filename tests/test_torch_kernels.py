@@ -97,7 +97,9 @@ def test_wrappers_dispatch_by_device_without_counting_cpu_calls():
                            "flow_transition_active": 0,
                            "flow_transition_roce_active": 0,
                            "serve_enqueue": 0, "rank_in_queue": 0,
-                           "pfc_account": 0}
+                           "pfc_account": 0, "flow_transition_batch": 0,
+                           "flow_transition_roce_batch": 0,
+                           "serve_enqueue_batch": 0, "pfc_account_batch": 0}
     with pytest.raises(ValueError, match="no kernel"):
         fk.rank_in_queue(qid.to("meta"), torch.ones(4, dtype=torch.bool,
                                                     device="meta"), 2)

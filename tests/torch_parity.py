@@ -8,9 +8,11 @@ as t=0 uplink flaps; infer1024 under the active set at ``active_cap=512``
 with STrack (its uncapped run and its cap-320 overflow count beside it)
 and with RoCEv2; the collectives hd1024 under STrack and under RoCEv2 +
 PFC striped over four sub-flows, a2a1024 under STrack, and allreduce8k's
-spot trace at ``active_cap=48``; the llama3-8b, mamba2-2.7b and
-zamba2-2.7b SMOKE serve references) from the JAX package, all of them or
-those whose file stems are given:
+spot trace at ``active_cap=48``; the batched sweeps of perm1024 seeds 0-7
+under STrack and of perm1024 under RoCEv2 + PFC with entropy seeds 0-3,
+and perm1024's per-tick trace every 4 ticks; the llama3-8b, mamba2-2.7b
+and zamba2-2.7b SMOKE serve references) from the JAX package, all of them
+or those whose file stems are given:
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/torch_parity.py [STEM ...]
 """
@@ -112,6 +114,39 @@ COLLECTIVE_REF_PATHS = {name: REF_DIR / f"{name}_ref.json"
                         for name in COLLECTIVE_REFS}
 
 
+#: The batched sweeps (``run_fabric_trace_batch``, JAX's vmapped program):
+#: file stem -> (RunConfig fields, the batch's axis: perm1024's seeds, or
+#: ``roce_entropy_seed``s of perm1024 seed 0), and the summary keys each
+#: entry pins.
+SWEEP_REFS = {
+    "perm1024_sweep8_strack": (dict(), ("seed", tuple(range(8)))),
+    "perm1024_sweep4_rocev2": (dict(protocol="rocev2"),
+                               ("roce_entropy_seed", tuple(range(4)))),
+}
+SWEEP_REF_PATHS = {name: REF_DIR / f"{name}_ref.json" for name in SWEEP_REFS}
+#: perm1024 seed 0 under STrack with the queue trace every 4 ticks.
+TRACE_REF = dict(n_ticks=512, trace_queues=True, trace_every=4)
+TRACE_REF_PATH = REF_DIR / "perm1024_trace4_strack_ref.json"
+#: Lower delay thresholds (us) at which the trace's settling time is kept
+#: too: perm1024's queues stay under the default 8 us (98 packets).
+TRACE_SETTLE_US = (0.5, 1.0)
+#: The trace rows held exactly: each as the sha256 of its int32 (or
+#: float32) bytes with its row count; ``cwnd_mean``, a mean of the flows'
+#: windows whose summation order is XLA's on one side, is kept as floats.
+TRACE_EXACT_KEYS = ("qsize", "drops_trace", "done", "delivered",
+                    "pauses_trace", "paused_ports")
+
+
+def row_digest(rows) -> dict:
+    """A trace key's rows as their count and the sha256 of their bytes
+    (int32, or float32 bit patterns)."""
+    import hashlib
+    a = np.ascontiguousarray(np.asarray(rows))
+    a = a.astype(np.float32 if a.dtype.kind == "f" else np.int32)
+    return {"rows": int(a.shape[0]), "sha256": hashlib.sha256(
+        a.tobytes()).hexdigest()}
+
+
 def _bits(a: np.ndarray) -> np.ndarray:
     if a.dtype.kind == "f":
         return a.view(np.int32 if a.dtype.itemsize == 4 else np.int64)
@@ -137,6 +172,66 @@ def diff_leaves(ref_tree, port_tree, ring_rows=None) -> list:
             first = np.argwhere(_bits(a) != _bits(b))[0]
             bad.append((name, tuple(int(i) for i in first)))
     return bad
+
+
+def small_scenario(pkg: str, kind: str, seed: int):
+    """A small scenario of either package (``pkg`` "jax" or "port") on a
+    4x4 fabric at 400 Gbps: a 64 KiB permutation (``kind`` "perm"), an
+    8-to-1 incast of 64 KiB (``"incast"``) or a ring allreduce of 4 ranks
+    and 128 KiB in 32 KiB chunks (``"ring"``), placed by ``seed``."""
+    if pkg == "jax":
+        from repro.core.params import NetworkSpec as Net
+        from repro.sim import workloads as W
+        from repro.sim.topology import full_bisection
+    else:
+        from repro_torch.core.params import NetworkSpec as Net
+        from repro_torch.sim import workloads as W
+        from repro_torch.sim.topology import full_bisection
+    topo, net = full_bisection(4, 4), Net(link_gbps=400.0)
+    if kind == "perm":
+        return W.permutation_scenario(topo, 64 * 2 ** 10, net=net, seed=seed)
+    if kind == "incast":
+        return W.incast_scenario(topo, 8, 64 * 2 ** 10, net=net, seed=seed)
+    return W.collective_scenario(topo, "ring", 1, 4, 128 * 2 ** 10, net=net,
+                                 seed=seed, chunk=32 * 2 ** 10)
+
+
+def state_leaves(tree, prefix="") -> dict:
+    """The leaves of a tree of (named) tuples of either package as numpy
+    arrays, keyed by their dotted path (``None`` leaves left out)."""
+    if tree is None:
+        return {}
+    if isinstance(tree, tuple):
+        names = getattr(tree, "_fields", range(len(tree)))
+        out = {}
+        for name, v in zip(names, tree):
+            out.update(state_leaves(v, f"{prefix}{name}."))
+        return out
+    return {prefix.rstrip("."): np.asarray(tree)}
+
+
+def entry_leaves(tree, i: int) -> dict:
+    """:func:`state_leaves` of entry ``i`` of a batch's tree."""
+    return {k: v[i] for k, v in state_leaves(tree).items()}
+
+
+def differing_leaves(a: dict, b: dict, q_rows: int) -> dict:
+    """Leaves of two flattened states that differ (floats by their bits),
+    each with its largest difference in float32 ulps (None for
+    non-floats); the ring's (``q.*``) trash row is left out."""
+    assert a.keys() == b.keys(), sorted(set(a) ^ set(b))
+    out = {}
+    for k in a:
+        x, y = a[k], b[k]
+        if k.startswith("q."):
+            x, y = x[:q_rows], y[:q_rows]
+        assert x.shape == y.shape and x.dtype == y.dtype, (k, x.shape,
+                                                            y.shape)
+        if not np.array_equal(_bits(x), _bits(y)):
+            out[k] = (int(np.abs(_bits(x).astype(np.int64)
+                                 - _bits(y).astype(np.int64)).max())
+                      if x.dtype.kind == "f" else None)
+    return out
 
 
 def _jax_scenario(name: str):
@@ -444,6 +539,66 @@ def _reference(sc, kw=None, keys=REF_SUMMARY_KEYS, msg_ticks=False) -> dict:
     return out
 
 
+def _entry_reference(m: dict, keys) -> dict:
+    """One entry of a JAX batch as ``_reference`` records a run."""
+    from repro.sim.fabric import summarize
+    s = summarize(m)
+    out = json.loads(json.dumps({k: s[k] for k in keys}))
+    out.update(warp_trips=int(m["warp_trips"]), end_tick=int(m["end_tick"]),
+               done_tick=[int(v) for v in np.asarray(m["done_tick"])])
+    return out
+
+
+def sweep_reference(name: str) -> dict:
+    """The JAX package's batched run of one ``SWEEP_REFS`` entry (one
+    vmapped program): each entry's summary keys, warp trips, end tick and
+    done ticks, in batch order."""
+    from repro.sim import fabric as F
+    from repro.sim.workloads import (RunConfig, _fabric_cfg, _scenario_ticks,
+                                     permutation_scenario)
+    kw, (axis, values) = SWEEP_REFS[name]
+    base = _jax_scenario("perm1024")
+    cfg = RunConfig(**kw)
+    if axis == "seed":
+        scs = [permutation_scenario(base.topo, 64 * 2 ** 10, net=base.net,
+                                    seed=s) for s in values]
+        seeds = None
+    else:
+        scs, seeds = [base] * len(values), list(values)
+    n_ticks = _scenario_ticks(scs[0], cfg)
+    _, per = F.run_fabric_trace_batch(
+        base.topo, [sc.messages for sc in scs], n_ticks,
+        _fabric_cfg(scs[0], cfg), entropy_seeds=seeds)
+    keys = PFC_SUMMARY_KEYS if cfg.protocol == "rocev2" else REF_SUMMARY_KEYS
+    return {"axis": axis, "values": list(values), "n_ticks": int(n_ticks),
+            "entries": [_entry_reference(m, keys) for m in per]}
+
+
+def trace_reference() -> dict:
+    """The JAX package's perm1024 seed 0 under STrack with ``TRACE_REF``:
+    the summary keys, ``queue_settle_us`` (and at ``TRACE_SETTLE_US``),
+    the done ticks and each trace
+    key's rows (``TRACE_EXACT_KEYS`` as digests, ``cwnd_mean`` as
+    floats)."""
+    from repro.sim.fabric import run_fabric_trace
+    from repro.sim.workloads import (RunConfig, _fabric_cfg, _fabric_summary,
+                                     _queue_settle_us, _scenario_ticks)
+    sc = _jax_scenario("perm1024")
+    cfg = RunConfig(**TRACE_REF)
+    _, m = run_fabric_trace(sc.topo, sc.messages, _scenario_ticks(sc, cfg),
+                            _fabric_cfg(sc, cfg))
+    s = _fabric_summary(sc, cfg, m)
+    out = json.loads(json.dumps({k: s[k] for k in REF_SUMMARY_KEYS}))
+    out.update(queue_settle_us=s["queue_settle_us"],
+               queue_settle_us_at={str(th): _queue_settle_us(m, th)
+                                   for th in TRACE_SETTLE_US},
+               trace_every=int(m["trace_every"]),
+               done_tick=[int(v) for v in np.asarray(m["done_tick"])],
+               rows={k: row_digest(m[k]) for k in TRACE_EXACT_KEYS},
+               cwnd_mean=[float(v) for v in np.asarray(m["cwnd_mean"])])
+    return out
+
+
 def jax_lm(arch: str, dtype: str, seed: int, **over):
     """(config, params) of the JAX package: the SMOKE config of ``arch``
     in ``dtype`` with ``over`` replaced, and ``torch_lm_weights`` from
@@ -551,6 +706,9 @@ def write_references() -> None:
                for name, path in INFER_REF_PATHS.items()]
     makers += [(path, lambda n=name: collective_reference(n))
                for name, path in COLLECTIVE_REF_PATHS.items()]
+    makers += [(path, lambda n=name: sweep_reference(n))
+               for name, path in SWEEP_REF_PATHS.items()]
+    makers += [(TRACE_REF_PATH, trace_reference)]
     only = set(sys.argv[1:])
     for path, make in makers:
         if only and path.name.removesuffix("_ref.json") not in only:
