@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Run the PyTorch/CUDA port on one NVIDIA GPU: the STrack fabric (with
-RoCEv2, PFC, chaos, the active set and collectives), then LM serving:
+RoCEv2, PFC, chaos, the active set, collectives, sweeps and the chaos
+soak beside the event oracle), then LM serving:
 llama3-8b at full width through the flash-attention kernel, mamba2-2.7b
 and zamba2-2.7b at full width and depth through the SSD scan kernel (and
 zamba2's shared attention through the flash kernel).
@@ -162,6 +163,26 @@ Phases (any failure exits non-zero; nothing is caught):
      (e) printed, no claim: the sweeps' walls against their solo runs,
          launches and host ms a trip at B = 1 and 8, the batched calls'
          device ms; the `*_batch` kernels entries;
+  6g. the observatory's chaos soak and the event oracle (SOAK_FLEET, the
+     64-host default fleet of benchmarks/soak.py, seed 0; also alone with
+     `--phase 6g`):
+     (a) soak() over a clean epoch (the inert schedule) and a CHAOS1024
+         epoch on one program, held exactly against the JAX-made
+         soak64_chaos2_strack_ref.json: the return dict, each epoch's run()
+         summary, the .prom text byte for byte; one program build; each
+         epoch launching exactly the transition and serve/enqueue, one of
+         each a trip, the fault rows acting in the chaos epoch only;
+     (b) the transition and serve/enqueue against their plain versions at
+         SOAK_TICKS of the chaos epoch (down rows popping, messages and
+         collective children released, corrupted packets), exact; device
+         launches a dense tick of each epoch from torch.profiler;
+     (c) the event oracle on the host (the fleet's epoch 0 clean and under
+         CHAOS1024; SPOT_FLEET under STrack and RoCEv2) against the
+         JAX-made events64_ref.json, every summary key;
+     (d) the tenant spot check: SPOT_FLEET's fabric run on the card against
+         (c)'s oracle, p50 and p99 of each tenant inside SPOT_BAND;
+     (e) printed: per-epoch wall, warp trips, trips/s, launches; the
+         `soak_*` fields of the transition's and serve/enqueue's entries;
   7. serve: llama3-8b, bf16, attn_impl="pallas", random weights from a
      CUDA generator (seed 0; 16 GB):
      (a) the flash-attention kernel against its plain version on the card
@@ -235,7 +256,8 @@ Phases (any failure exits non-zero; nothing is caught):
      `fault_*` fields of serve_enqueue from phase 6c; the active set's
      flow_transition_active and flow_transition_roce_active, and the
      `active_*` fields of serve_enqueue, rank_in_queue and pfc_account,
-     from phase 6d; the `collective_*` fields from phase 6e; for flash
+     from phase 6d; the `collective_*` fields from phase 6e; the `soak_*`
+     fields from phase 6g; for flash
      attention SDPA's time as `library_ms`, and
      under `routes` each route's device and wall ms, launches, bound,
      plain and SDPA times and factor to SDPA: tc at prefill-1000,
@@ -321,6 +343,43 @@ OWN_KERNELS = {
     "ssd_scan": ("ssd_cb_kernel", "ssd_state_kernel", "ssd_pass_kernel",
                  "ssd_out_kernel"),
 }
+
+
+#: The soak's default fleet, copied from benchmarks/soak.py:45-63
+#: (``default_fleet``; that module imports the JAX package): 64 hosts
+#: (full_bisection(8, 8)) at 400 Gbps, a ring and an HD allreduce job of 16
+#: ranks (two chained steps each, the HD job from tick 64) and a 128-flow
+#: burst tenant into 4 frontends.
+SOAK_FLEET = dict(
+    shape=(8, 8), link_gbps=400.0,
+    jobs=(dict(name="train_ring", algo="ring", ranks=16,
+               collective_bytes=256 * 2 ** 10, steps=2,
+               algo_kw=(("chunk", 64 * 2 ** 10),)),
+          dict(name="train_hd", algo="hd", ranks=16,
+               collective_bytes=256 * 2 ** 10, steps=2, start_tick=64)),
+    tenants=(dict(name="inference", n_flows=128, mean_interarrival_ticks=4.0,
+                  size_bytes=16 * 2 ** 10, size_jitter=0.5, n_targets=4),))
+#: The oracle spot check's fleet, benchmarks/soak.py:66-84 (``spot_fleet``):
+#: 16 hosts, two 4-rank jobs and a 24-flow burst tenant.
+SPOT_FLEET = dict(
+    shape=(4, 4), link_gbps=400.0,
+    jobs=(dict(name="train_ring", algo="ring", ranks=4,
+               collective_bytes=128 * 2 ** 10),
+          dict(name="train_hd", algo="hd", ranks=4,
+               collective_bytes=128 * 2 ** 10, start_tick=32)),
+    tenants=(dict(name="inference", n_flows=24, mean_interarrival_ticks=6.0,
+                  size_bytes=16 * 2 ** 10, n_targets=2),))
+#: The fabric-vs-oracle band of the per-tenant FCT spot check
+#: (benchmarks/soak.py:42, the differential-fuzz band).
+SPOT_BAND = (0.7, 1.4)
+#: The oracle's runs held against events64_ref.json (epoch 0 of the
+#: fleet's mix at seed 0, ``until`` in us): name -> (fleet, RunConfig
+#: fields, "CHAOS1024" for that schedule).
+EVENTS_RUNS = {"default_clean": ("default", {}),
+               "default_chaos": ("default", {"faults": "CHAOS1024"}),
+               "spot_strack": ("spot", {}),
+               "spot_rocev2": ("spot", {"protocol": "rocev2"})}
+EVENTS_UNTIL_US = 2e7
 
 
 def log(msg: str) -> None:
@@ -3322,6 +3381,294 @@ def sweeps(dev, ms: dict) -> list:
     return entries
 
 
+def fleet_records(fleet: dict) -> tuple:
+    """``(topo, net, jobs, tenants)`` of the port for ``SOAK_FLEET`` or
+    ``SPOT_FLEET``."""
+    from repro_torch.core.params import NetworkSpec
+    from repro_torch.sim.topology import full_bisection
+    from repro_torch.sim.traffic import InferenceTenant, TrainingJob
+    return (full_bisection(*fleet["shape"]),
+            NetworkSpec(link_gbps=fleet["link_gbps"]),
+            [TrainingJob(**j) for j in fleet["jobs"]],
+            [InferenceTenant(**t) for t in fleet["tenants"]])
+
+
+def canon(obj) -> str:
+    """``obj`` in JSON's own form (tuples as lists, keys as strings,
+    sorted), for exact comparison with a JAX-made file."""
+    return json.dumps(json.loads(json.dumps(obj)), sort_keys=True)
+
+
+def schedule_active(fs, t: int) -> bool:
+    """Whether any window of the fault schedule ``fs`` covers tick ``t``
+    (a corruption window only with a probability above 0)."""
+    spans = ([w[2:4] for w in fs.link_flaps + fs.uplink_flaps]
+             + [w[1:3] for w in fs.host_flaps]
+             + [w[2:4] for w in fs.link_degrade]
+             + [w[2:4] for w in fs.link_corrupt if w[4] > 0]
+             + [w[1:3] for w in fs.host_corrupt if w[3] > 0])
+    return any(t0 <= t < t1 for t0, t1 in spans)
+
+
+def tenant_fct_of(sc, msg_fct: dict) -> dict:
+    """Per-group FCT percentiles from an oracle run's ``msg_fct``, as
+    benchmarks/soak.py:85-100 (``_events_tenant_fct``) computes them."""
+    import numpy as np
+    by_g: dict = {}
+    for m in sc.messages:
+        by_g.setdefault(m.group, []).append(msg_fct.get(m.mid))
+    rows = {}
+    for g, fs in by_g.items():
+        done = [f for f in fs if f is not None]
+        rows[g] = {"count": len(fs), "unfinished": len(fs) - len(done),
+                   "p50": float(np.percentile(done, 50)) if done
+                   else float("nan"),
+                   "p99": float(np.percentile(done, 99)) if done
+                   else float("nan")}
+    return rows
+
+
+#: Ticks of the soak's chaos epoch (epoch 1 of SOAK_FLEET at seed 0 under
+#: CHAOS1024) where the kernels are held against their plain versions:
+#: the link flap's down rows pop into the blackhole at 13, 39 and 45 (39
+#: and 45 also release burst messages); the HD job's first messages
+#: release at 64 and a corrupting row drops at 65; collective children
+#: release at 221, 229 and 232 (the ring's first completions come after
+#: the flap: at 229 and 232 beside corrupted packets).  Found by stepping
+#: the plain version on the CPU.
+SOAK_TICKS = (13, 39, 45, 64, 65, 221, 229, 232)
+
+
+def soak_phase(dev) -> dict:
+    """Phase 6g: the observatory's chaos soak and the event oracle.
+    Returns the ``soak_*`` fields of the transition's and serve/enqueue's
+    ``kernels`` entries."""
+    import tempfile
+    import torch
+    from repro_torch.kernels import fabric_kernels as fk
+    from repro_torch.obs.metrics import (MetricsRegistry, parse_prometheus,
+                                         render_prometheus)
+    from repro_torch.profile import CHAOS1024
+    from repro_torch.sim import fabric as F
+    from repro_torch.sim.traffic import (inert_faults_like, mixed_scenario,
+                                         soak)
+    from repro_torch.sim.workloads import RunConfig, _fabric_summary, run
+
+    t_phase = time.time()
+    want = json.loads((TESTDATA / "soak64_chaos2_strack_ref.json")
+                      .read_text())
+    assert want["chaos"] == [None, json.loads(json.dumps(
+        dataclasses.asdict(CHAOS1024)))], want["chaos"]
+    topo, net, jobs, tenants = fleet_records(SOAK_FLEET)
+    chaos = [None, CHAOS1024]
+    max_err = {"flow_transition": 0.0, "serve_enqueue": 0.0}
+
+    # (a) the soak: two epochs on one program, each epoch's fabric run
+    # recorded (wall, trips, kernel launches, the ticks serve/enqueue got
+    # fault rows at)
+    epochs, fault_ticks = [], []
+    real_run, real_serve = F.run_program, F.serve_enqueue
+
+    def serve_recorded(*args):
+        if any(a is not None for a in args[20:23]):   # the fault rows
+            fault_ticks.append(args[17])
+        return real_serve(*args)
+
+    def run_recorded(prog):
+        fault_ticks.clear()
+        torch.cuda.synchronize()
+        before, t0 = dict(fk.launches), time.time()
+        final, metrics = real_run(prog)
+        torch.cuda.synchronize()
+        epochs.append(dict(
+            wall_s=time.time() - t0, trips=int(metrics["warp_trips"]),
+            launches={k: c - before[k] for k, c in fk.launches.items()},
+            fault_ticks=list(fault_ticks), faults=prog.cfg.faults,
+            metrics=metrics, prog=id(prog)))
+        return final, metrics
+
+    reg = MetricsRegistry()
+    F.run_program, F.serve_enqueue = run_recorded, serve_recorded
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            out_path = Path(d) / "soak.prom"
+            torch.cuda.synchronize()
+            fk.reset_launches()
+            t0 = time.time()
+            res = soak(topo, jobs, tenants, epochs=want["epochs"], net=net,
+                       seed=want["seed"], registry=reg,
+                       out_path=str(out_path), chaos=chaos, device=dev)
+            torch.cuda.synchronize()
+            soak_wall = time.time() - t0
+            soak_launches = dict(fk.launches)
+            prom = out_path.read_text()
+    finally:
+        F.run_program, F.serve_enqueue = real_run, real_serve
+    assert res["program_builds"] == 1, res["program_builds"]
+    assert len({e["prog"] for e in epochs}) == 1
+    assert canon(res) == canon(want["soak"]), "soak return dict"
+    assert prom == render_prometheus(reg) == want["prom"], ".prom text"
+    assert parse_prometheus(prom)[("strack_epochs_total", ())] == 2.0
+    inert = inert_faults_like(CHAOS1024)
+    for e, ep in enumerate(epochs):
+        sc, _ = mixed_scenario(topo, jobs, tenants, net=net,
+                               seed=want["seed"], epoch=e)
+        ecfg = RunConfig(n_ticks=res["n_ticks"], faults=chaos[e] or inert)
+        assert ep["faults"] == ecfg.faults, e
+        summary = _fabric_summary(sc, ecfg, ep["metrics"])
+        assert canon(summary) == canon(want["epoch_runs"][e]), \
+            f"epoch {e} run() summary"
+        # exactly the path's kernels, one of each a trip; serve/enqueue
+        # takes the fault rows every tick, and they act in epoch 1 only
+        fired = {k for k, c in ep["launches"].items() if c}
+        assert fired == set(STRACK_KERNELS), (e, ep["launches"])
+        assert ep["launches"]["flow_transition"] == ep["trips"] == \
+            ep["launches"]["serve_enqueue"], (e, ep["launches"], ep["trips"])
+        assert len(ep["fault_ticks"]) == ep["trips"], e
+        ep["fault_active"] = sum(schedule_active(ep["faults"], t)
+                                 for t in ep["fault_ticks"])
+        assert (ep["fault_active"] > 0) == (e == 1), (e, ep["fault_active"])
+        assert (summary["blackholed_pkts"] > 0) == (e == 1), summary
+        ep["summary"] = summary
+    assert soak_launches == {k: sum(ep["launches"][k] for ep in epochs)
+                             for k in soak_launches}
+    t_a = time.time() - t_phase
+    for e, ep in enumerate(epochs):
+        kind = "CHAOS1024" if e else "clean, inert schedule"
+        log(f"[soak] epoch {e} ({kind}): wall {ep['wall_s']:.3f}s, "
+            f"warp trips {ep['trips']}, {ep['trips'] / ep['wall_s']:.1f} "
+            f"trips/s, kernel launches a trip 2 ({ep['launches']}), fault "
+            f"rows active at {ep['fault_active']} of its serve/enqueue "
+            f"calls; max_fct {ep['summary']['max_fct']} us, blackholed "
+            f"{ep['summary']['blackholed_pkts']}, corrupted "
+            f"{ep['summary']['corrupt_drops']}, retransmits "
+            f"{ep['summary']['retransmits']}")
+    log(f"[soak] default fleet (64 hosts, {res['totals']['messages']} "
+        f"messages over 2 epochs of {res['n_ticks']} ticks): soak() equals "
+        f"soak64_chaos2_strack_ref.json (return dict, each epoch's run() "
+        f"summary, the .prom text byte for byte), 1 program build; wall "
+        f"{soak_wall:.3f}s; degradation_p99 "
+        f"{ {k: v['degradation_p99'] for k, v in res['per_tenant'].items()} }")
+
+    # (b) the kernels against their plain versions at ticks of the chaos
+    # epoch (dense, a program of its own)
+    sc1, _ = mixed_scenario(topo, jobs, tenants, net=net, seed=want["seed"],
+                            epoch=1)
+    prog = fabric_program(sc1, RunConfig(n_ticks=res["n_ticks"],
+                                         faults=CHAOS1024), dev)
+    has_deps = torch.tensor([bool(m.deps) for m in sc1.messages],
+                            device=dev)
+    seen = dict.fromkeys(("down_pops", "released", "children",
+                          "down_and_released", "blackholed", "corrupted"),
+                         0)
+    st = prog.init_state()
+    for t in range(max(SOAK_TICKS) + 1):
+        if t in SOAK_TICKS:
+            fm = prog.fault_masks(t)
+            sm = prog.sendable_msg(st, t)
+            targs = prog.transport_args(st, t, sm)
+            out_k = fk.flow_transition(*targs)
+            max_err["flow_transition"] = max(
+                max_err["flow_transition"], assert_same(
+                    f"soak t={t} flow_transition", out_k,
+                    fk.flow_transition_plain(*targs)))
+            _, tx, ptx, pv, sel, _ = out_k
+            sargs, _, _ = prog.serve_args(st, t, tx, ptx, sel, pv, None, fm)
+            rings = [type(st.q)(*[f.clone() for f in st.q])
+                     for _ in range(2)]
+            res_k = fk.serve_enqueue(rings[0], *sargs[1:])
+            res_p = fk.serve_enqueue_plain(rings[1], *sargs[1:])
+            max_err["serve_enqueue"] = max(
+                max_err["serve_enqueue"],
+                assert_same(f"soak t={t} serve_enqueue", res_k, res_p),
+                assert_same(f"soak t={t} ring",
+                            [f[:prog.Q] for f in rings[0]],
+                            [f[:prog.Q] for f in rings[1]]))
+            new = sm & (st.msg_release_tick < 0)
+            down = int((res_k[3] & fm.row_down).sum())
+            seen["down_pops"] += down
+            seen["released"] += int(new.sum())
+            seen["children"] += int((new & has_deps).sum())
+            seen["down_and_released"] += int(down > 0 and bool(new.any()))
+            seen["blackholed"] += int(res_k[11])
+            seen["corrupted"] += int(res_k[12])
+        st, _, _ = prog.tick(st, t)
+    torch.cuda.synchronize()
+    assert all(v > 0 for v in seen.values()), seen
+    per_tick = {"chaos": tick_launches(prog, st, max(SOAK_TICKS) + 1, 20)}
+    prog0 = fabric_program(mixed_scenario(
+        topo, jobs, tenants, net=net, seed=want["seed"], epoch=0)[0],
+        RunConfig(n_ticks=res["n_ticks"], faults=inert), dev)
+    st0 = prog0.init_state()
+    for t in range(max(SOAK_TICKS) + 1):
+        st0, _, _ = prog0.tick(st0, t)
+    per_tick["clean"] = tick_launches(prog0, st0, max(SOAK_TICKS) + 1, 20)
+    log(f"[soak] flow_transition and serve_enqueue (with CHAOS1024's fault "
+        f"rows) match their plain versions at chaos-epoch ticks "
+        f"{list(SOAK_TICKS)}: {seen}; device launches a dense tick (profiler,"
+        f" 20 ticks from {max(SOAK_TICKS) + 1}): {per_tick}")
+    t_b = time.time() - t_phase
+
+    # (c) the event oracle on the host, against events64_ref.json
+    ev_want = json.loads((TESTDATA / "events64_ref.json").read_text())
+    fleets = {"default": (topo, net, jobs, tenants),
+              "spot": fleet_records(SPOT_FLEET)}
+    oracle = {}
+    for name, (fleet, kw) in EVENTS_RUNS.items():
+        ftopo, fnet, fjobs, ften = fleets[fleet]
+        sc = mixed_scenario(ftopo, fjobs, ften, net=fnet, seed=0)[0]
+        kw = dict(kw)
+        if kw.get("faults") == "CHAOS1024":
+            kw["faults"] = CHAOS1024
+        t0 = time.time()
+        got = run(sc, RunConfig(backend="events", until=EVENTS_UNTIL_US,
+                                **kw))
+        wall = time.time() - t0
+        assert canon(got) == canon(ev_want[name]), name
+        assert got["unfinished"] == 0 and len(got["msg_fct"]) == len(
+            sc.messages), name
+        oracle[name] = (sc, got)
+        log(f"[oracle] {name}: equals events64_ref.json ({len(sc.messages)} "
+            f"messages, msg_fct and group_fct included; max_fct "
+            f"{got['max_fct']} us, blackholed {got['blackholed_pkts']}, "
+            f"corrupted {got['corrupt_drops']}); host wall {wall:.3f}s")
+    t_c = time.time() - t_phase
+
+    # (d) the tenant spot check (benchmarks/soak.py:103-138): the fabric
+    # on the card against the oracle on the spot fleet
+    sc_spot, ev_spot = oracle["spot_strack"]
+    fb = run(sc_spot, RunConfig(), device=dev)
+    ev_rows = tenant_fct_of(sc_spot, ev_spot["msg_fct"])
+    assert fb["unfinished"] == 0, fb["unfinished"]
+    _, _, s_jobs, s_tenants = fleets["spot"]
+    ratios = {}
+    for g, name in enumerate([j.name for j in s_jobs]
+                             + [t.name for t in s_tenants]):
+        assert ev_rows[g]["unfinished"] == 0, (name, ev_rows[g])
+        for q in ("p50", "p99"):
+            ratios[f"{name} {q}"] = r = fb["tenant_fct"][g][q] / ev_rows[g][q]
+            assert SPOT_BAND[0] < r < SPOT_BAND[1], (name, q, r)
+    log(f"[soak] tenant spot check: fabric (card) over oracle per tenant "
+        f"{ratios}, all inside {SPOT_BAND}")
+    wall = time.time() - t_phase
+    log(f"[soak] phase 6g wall {wall:.1f}s (after (a) {t_a:.1f}s, (b) "
+        f"{t_b:.1f}s, (c) {t_c:.1f}s)")
+    by_epoch = [ep["launches"] for ep in epochs]
+    return {
+        "flow_transition": {
+            "soak_launches": soak_launches["flow_transition"],
+            "soak_launches_by_epoch": [e["flow_transition"]
+                                       for e in by_epoch],
+            "soak_max_abs_err": max_err["flow_transition"],
+            "soak_phase_6g_s": wall},
+        "serve_enqueue": {
+            "soak_launches": soak_launches["serve_enqueue"],
+            "soak_launches_by_epoch": [e["serve_enqueue"] for e in by_epoch],
+            "soak_fault_active_by_epoch": [ep["fault_active"]
+                                           for ep in epochs],
+            "soak_max_abs_err": max_err["serve_enqueue"]}}
+
+
 def _clone(tree):
     from repro_torch.sim.fabric import _clone_tree
     return _clone_tree(tree)
@@ -3364,6 +3711,9 @@ def main() -> int:
     if sys.argv[1:] == ["--phase", "6f"]:   # phase 6f alone, after the build
         print(json.dumps({"kernels": sweeps(dev, batch_one_launch(dev))}),
               flush=True)
+        return finish(kind)
+    if sys.argv[1:] == ["--phase", "6g"]:   # phase 6g alone, after the build
+        print(json.dumps(soak_phase(dev)), flush=True)
         return finish(kind)
 
     # ---- 2. kernels vs plain versions on the card -------------------------
@@ -3655,6 +4005,14 @@ def main() -> int:
 
     # ---- 6f. the batched sweep and the per-tick trace ---------------------
     kernels.extend(sweeps(dev, batch_ms))
+    torch.cuda.empty_cache()
+
+    # ---- 6g. the chaos soak, the observatory and the event oracle ---------
+    soaked = soak_phase(dev)
+    for entry in kernels:
+        entry.update(soaked.get(entry["name"], {}))
+        entry["max_abs_err"] = max(entry["max_abs_err"], entry.get(
+            "soak_max_abs_err", 0.0))
     torch.cuda.empty_cache()
 
     # ---- 7. serve: llama3-8b through the flash-attention kernel -----------

@@ -592,13 +592,20 @@ def _scatter_pipe(pipe, rows, slot, fidx, valid, h, n):
     return type(pipe)(*[one(a, b) for a, b in zip(pipe, rows)])
 
 
+#: Programs built in this process (``FabricProgram`` and ``BatchProgram``
+#: instances): the soak's one-program check reads its growth.
+program_builds = 0
+
+
 class FabricProgram:
     """One fabric program for fixed (topology, flows, ticks, config):
     the initial state, ``tick``, ``warp_target`` and the two loops."""
 
     def __init__(self, topo: FatTree, n_flows: int, n_ticks: int,
                  cfg: FabricConfig, device, dep: Optional[DepSpec] = None):
+        global program_builds
         check_slice(cfg)
+        program_builds += 1
         if n_flows <= 0:
             raise ValueError("fabric program needs at least one flow")
         self.cfg, self.n_ticks, self.device = cfg, int(n_ticks), device
@@ -670,6 +677,37 @@ class FabricProgram:
             else None)
 
     # ---- set-up ---------------------------------------------------------
+    def rebind(self, n_flows: int, n_ticks: int, cfg: FabricConfig,
+               dep: DepSpec) -> None:
+        """Take ``cfg``'s fault schedule as this program's data, for a
+        trace of ``n_flows`` flows with dependency structure ``dep`` over
+        ``n_ticks`` ticks; raises unless all of that, and ``cfg`` but for
+        its data (``lb_mode``, ``roce_entropy_seed``, the fault values),
+        are this program's.  :meth:`bind` then takes the trace."""
+        check_slice(cfg)
+        data = lambda c: dataclasses.replace(c, lb_mode="adaptive",
+                                             roce_entropy_seed=None,
+                                             faults=None)
+        shape = lambda fs: (fs or FaultSpec()).shape_key
+        mine, theirs = self.dep, dep
+        same_dep = (mine.msg_ids == theirs.msg_ids
+                    and mine.group_ids == theirs.group_ids
+                    and all(torch.equal(getattr(mine, k).cpu(),
+                                        getattr(theirs, k).cpu())
+                            for k in ("msg_of_flow", "group_of_msg",
+                                      "init_pending", "edge_parent",
+                                      "edge_child")))
+        if (n_flows != self.N or int(n_ticks) != self.n_ticks
+                or data(cfg) != data(self.cfg) or not same_dep
+                or shape(cfg.faults) != shape(self.cfg.faults)):
+            raise ValueError(
+                "rebind needs the program's flow count, horizon, dependency "
+                "structure, fault shape and static config")
+        self.cfg = cfg
+        if self.has_faults:
+            self.fd = build_fault_data(cfg.faults, self.T, self.S, self.HPT,
+                                       self.device)
+
     def bind(self, src, dst, total_pkts, tail_b, arrival, lb_mode: str,
              ent0):
         """Per-run inputs (tensors on the program's device); ``ent0`` is
@@ -1726,19 +1764,43 @@ _FINAL_KEYS = ("done_tick", "msg_done_tick", "msg_release_tick",
 
 
 def trace_program(topo: FatTree, messages, n_ticks: int, cfg: FabricConfig,
-                  device) -> FabricProgram:
+                  device, prog: Optional[FabricProgram] = None
+                  ) -> FabricProgram:
     """The bound :class:`FabricProgram` of a message trace on ``device``:
     each message striped over ``cfg.subflows`` sub-flows, its dependency
-    edges and open-loop arrival kept."""
+    edges and open-loop arrival kept.
+
+    With ``prog``, that program is re-bound to this trace instead of a new
+    one built (the soak's one program): the trace must have its flow
+    count and dependency structure, and ``cfg`` its config but for what is
+    data to it (``lb_mode``, ``roce_entropy_seed`` and the fault schedule's
+    values at its ``shape_key``); ``n_ticks`` must be its horizon."""
     flows, dep = expand_messages(messages, cfg.subflows, device)
     _check_flows(flows, topo.n_hosts)
     if cfg.faults is not None:
         validate_faults(cfg.faults, topo)
     src, dst, total_pkts, tails, ent0 = _flow_arrays(flows, cfg)
-    prog = FabricProgram(topo, len(flows), n_ticks, cfg, device, dep)
+    if prog is None:
+        prog = FabricProgram(topo, len(flows), n_ticks, cfg, device, dep)
+    else:
+        prog.rebind(len(flows), n_ticks, cfg, dep)
     prog.bind(src, dst, total_pkts, tails, _arrival_array(messages),
               cfg.lb_mode, ent0)
     return prog
+
+
+def run_program(prog: FabricProgram):
+    """Run a bound :class:`FabricProgram` -> (final_state, metrics), the
+    host metrics of :func:`run_fabric_trace`."""
+    final, metrics = prog.run()
+    fin = {k: getattr(final, k).cpu().numpy() for k in _FINAL_KEYS}
+    fin["retx"] = prog.proto.stat_retx(final.flows).cpu().numpy()
+    fin.update({k: v.cpu().numpy() for k, v in
+                prog.proto.stat_recovery(final.flows).items()})
+    metrics = {k: v.cpu().numpy() if isinstance(v, torch.Tensor) else v
+               for k, v in metrics.items()}
+    metrics = _finish_metrics(metrics, fin, prog.cfg, prog.dims, prog.dep)
+    return final, metrics
 
 
 def run_fabric_trace(topo: FatTree, messages, n_ticks: int,
@@ -1752,16 +1814,7 @@ def run_fabric_trace(topo: FatTree, messages, n_ticks: int,
     default; raises without a GPU)."""
     dev = resolve_device(device)
     check_slice(cfg)
-    prog = trace_program(topo, messages, n_ticks, cfg, dev)
-    final, metrics = prog.run()
-    fin = {k: getattr(final, k).cpu().numpy() for k in _FINAL_KEYS}
-    fin["retx"] = prog.proto.stat_retx(final.flows).cpu().numpy()
-    fin.update({k: v.cpu().numpy() for k, v in
-                prog.proto.stat_recovery(final.flows).items()})
-    metrics = {k: v.cpu().numpy() if isinstance(v, torch.Tensor) else v
-               for k, v in metrics.items()}
-    metrics = _finish_metrics(metrics, fin, cfg, prog.dims, prog.dep)
-    return final, metrics
+    return run_program(trace_program(topo, messages, n_ticks, cfg, dev))
 
 
 def run_fabric(topo: FatTree, flows: Sequence[Tuple[int, int, float]],

@@ -1,15 +1,22 @@
 """The experiment front door of the port: Scenario + RunConfig + run() +
 sweep().
 
-The port of ``repro.sim.workloads`` for the fabric backend: the same
-:class:`Message` / :class:`Scenario` records (messages with dependency
-edges, striped over ``RunConfig.subflows``) and builders, the collectives
-of :func:`collective_scenario` among them, a :class:`RunConfig` with the
+The port of ``repro.sim.workloads``: the same :class:`Message` /
+:class:`Scenario` records (messages with dependency edges, striped over
+``RunConfig.subflows``) and builders, the collectives of
+:func:`collective_scenario` among them, a :class:`RunConfig` with the
 fields the port honours (the per-tick trace and the queue-settling time
 among them), :func:`run`, which returns the reference's summary dict, and
 :func:`sweep`, which runs same-structure scenarios and configs as one
 batched program per program shape.  Both take ``device`` ("cuda" by
-default; they raise without a GPU).
+default; a fabric run raises without a GPU).
+
+``RunConfig.backend`` picks the backend: ``"fabric"``, the tick-stepped
+fat-tree of ``fabric.py`` on ``device``, or ``"events"``, the
+discrete-event oracle of ``events.py``, a host model in plain Python that
+ignores ``device``.  :class:`TraceRunner` is the oracle's dependency
+scheduler and :func:`run_scenario_on_sim` runs a scenario on a prebuilt
+``NetSim`` (queue logs, custom parameters).
 """
 from __future__ import annotations
 
@@ -20,11 +27,13 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
-from ..core.params import NetworkSpec
+from ..core.params import NetworkSpec, make_roce_params
+from .events import NetSim
 from .fabric import (ACK_PATHS, LB_MODES, PROTOCOLS, FabricConfig, _rto_us,
                      run_fabric_trace, run_fabric_trace_batch, summarize)
 from .faults import FaultSpec
-from .topology import FatTree, full_bisection, with_link_failures
+from .topology import (FatTree, full_bisection, oversubscribed,
+                       with_link_failures)
 
 BACKENDS = ("fabric", "events")
 
@@ -78,6 +87,21 @@ class Scenario:
     def flows(self) -> Tuple[Tuple[int, int, float], ...]:
         return tuple((m.src, m.dst, m.size) for m in self.messages)
 
+    @property
+    def has_deps(self) -> bool:
+        return any(m.deps for m in self.messages)
+
+    @property
+    def n_groups(self) -> int:
+        return len({m.group for m in self.messages})
+
+    @property
+    def is_trace(self) -> bool:
+        """True when the scenario carries trace structure (dependency
+        edges or several groups) and so reports the group keys on both
+        backends (the oracle schedules it through :class:`TraceRunner`)."""
+        return self.has_deps or self.n_groups > 1
+
     def default_ticks(self) -> int:
         """Tick budget: the larger of the worst per-destination
         serialisation and the dependency critical path, with convergence
@@ -126,6 +150,17 @@ def permutation_scenario(topo: FatTree, msg_bytes: float,
     return Scenario.from_flows(
         f"permutation_{topo.n_hosts}", topo, net,
         [(s, d, float(msg_bytes)) for s, d in pairs])
+
+
+def oversub_scenario(n_tor: int, hosts_per_tor: int, ratio: int,
+                     msg_bytes: float, net: Optional[NetworkSpec] = None,
+                     seed: int = 0) -> Scenario:
+    """Permutation over an oversubscribed fat-tree (``ratio``:1 at the
+    ToR uplinks)."""
+    topo = oversubscribed(n_tor, hosts_per_tor, ratio)
+    sc = permutation_scenario(topo, msg_bytes, net, seed)
+    return Scenario(name=f"oversub_{ratio}:1", topo=topo, net=sc.net,
+                    messages=sc.messages)
 
 
 def linkdown_scenario(topo_kw: dict, frac_links_down: float,
@@ -198,8 +233,9 @@ def collective_scenario(topo: FatTree, algo: str, n_jobs: int,
 class RunConfig:
     """How a scenario runs: the reference's fields that the port honours,
     checked as the reference checks them when the config is made.
-    Unported settings (``backend="events"``, ``shard > 1``) raise
-    ``NotImplementedError`` naming their ROADMAP item when the run starts.
+    ``shard > 1`` raises ``NotImplementedError`` naming its ROADMAP item
+    when a fabric run starts.  ``seed`` (the oracle's rng) and ``until``
+    (its horizon in us) are read by the events backend only.
     ``faults`` (a ``FaultSpec``) overrides the scenario's; without
     ``n_ticks`` the horizon then reaches past the schedule's last edge.
     ``trace_every = k`` samples a trace row every k ticks and
@@ -228,6 +264,8 @@ class RunConfig:
     active_cap: Optional[int] = None
     shard: int = 0
     faults: Optional[FaultSpec] = None
+    seed: int = 1234                 # events-backend rng seed
+    until: float = 1e9               # events-backend horizon (us)
 
     def __post_init__(self):
         if self.backend not in BACKENDS:
@@ -282,10 +320,6 @@ def _scenario_ticks(sc: Scenario, cfg: RunConfig) -> int:
 
 
 def _fabric_cfg(sc: Scenario, cfg: RunConfig) -> FabricConfig:
-    if cfg.backend != "fabric":
-        raise NotImplementedError(
-            f"repro_torch does not port backend={cfg.backend!r} "
-            f"(the event oracle, ROADMAP A10)")
     time_warp, trace_every = cfg.time_warp, cfg.trace_every
     if cfg.trace_queues:
         trace_every = trace_every or 1
@@ -334,9 +368,13 @@ def _fabric_summary(sc: Scenario, cfg: RunConfig, metrics: dict) -> dict:
 
 
 def run(sc: Scenario, cfg: RunConfig = RunConfig(), device="cuda") -> dict:
-    """Run one scenario under one config on ``device``; the reference's
-    summary dict (``pauses``, ``gbn_rewinds`` and ``rto_fires`` among its
-    counters)."""
+    """Run one scenario under one config; the reference's summary dict
+    (``pauses``, ``gbn_rewinds`` and ``rto_fires`` among its counters).
+    Dispatches on ``cfg.backend``: the fabric runs on ``device``; the
+    event oracle runs on the host (``device`` unused), through
+    :class:`TraceRunner` when the scenario is a trace."""
+    if cfg.backend != "fabric":
+        return _run_events_backend(sc, cfg)
     fcfg = _fabric_cfg(sc, cfg)
     _, metrics = run_fabric_trace(sc.topo, sc.messages,
                                   _scenario_ticks(sc, cfg), fcfg,
@@ -358,8 +396,8 @@ def sweep(scenarios: Sequence[Scenario], cfg=RunConfig(),
     src/dst/sizes, ``lb_mode`` and ``roce_entropy_seed``; axes that change
     the program (protocol, pfc, ``subflows``, ``n_ticks``, buffer sizes,
     ``time_warp``, the trace) split the sweep into one batch per group.
-    All scenarios must share a topology, a network and a message /
-    dependency structure.  Returns one summary dict per (scenario,
+    The fabric entries must share a topology, a network and a message /
+    dependency structure; events entries loop :func:`run`.  Returns one summary dict per (scenario,
     config) pair, in input order; each equals :func:`run`'s."""
     if not scenarios:
         raise ValueError("sweep() needs at least one scenario")
@@ -407,7 +445,7 @@ def sweep(scenarios: Sequence[Scenario], cfg=RunConfig(),
     groups: dict = {}
     for i, (sc, rc) in enumerate(zip(scenarios, cfgs)):
         if rc.backend != "fabric":
-            out[i] = run(sc, rc, device)   # raises: the event oracle (A10)
+            out[i] = run(sc, rc, device)
             continue
         fcfg = _fabric_cfg(sc, rc)
         key = (replace(fcfg, lb_mode="adaptive", roce_entropy_seed=None),
@@ -426,4 +464,143 @@ def sweep(scenarios: Sequence[Scenario], cfg=RunConfig(),
             device=device)
         for i, metrics in zip(idxs, per_entry):
             out[i] = _fabric_summary(scenarios[i], cfgs[i], metrics)
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# The event oracle (events.py): NetSim wiring, TraceRunner
+# --------------------------------------------------------------------------- #
+
+def _events_sim(sc: Scenario, cfg: RunConfig, **netsim_kw) -> NetSim:
+    if cfg.hop_prop_us is not None:
+        # the oracle reads its per-link propagation from the NetworkSpec;
+        # a RunConfig override rides in on a replaced spec
+        sc = replace(sc, net=replace(sc.net, hop_prop_us=cfg.hop_prop_us))
+    kw = dict(seed=cfg.seed)
+    if cfg.switch_buffer_bytes is not None:
+        kw["switch_buffer_bytes"] = cfg.switch_buffer_bytes
+    fs = _effective_faults(sc, cfg)
+    if fs is not None:
+        kw["faults"] = fs
+    kw.update(netsim_kw)
+    if cfg.protocol == "strack":
+        if cfg.lb_mode == "fixed":
+            raise ValueError("lb_mode='fixed' (single-path pinning) only "
+                             "exists on the fabric backend")
+        # a caller-provided kwarg wins over lb_mode
+        obl = kw.pop("oblivious_spray", cfg.lb_mode == "oblivious")
+        return NetSim(sc.topo, sc.net, transport="strack",
+                      oblivious_spray=obl, **kw)
+    rp = kw.pop("roce_params",
+                make_roce_params(sc.net, qps_per_conn=cfg.subflows))
+    return NetSim(sc.topo, sc.net, transport="roce", roce_params=rp, **kw)
+
+
+def _run_events_backend(sc: Scenario, cfg: RunConfig) -> dict:
+    return run_scenario_on_sim(_events_sim(sc, cfg), sc, until=cfg.until)
+
+
+def _summarize_sim(sim: NetSim) -> dict:
+    """The oracle's summary, keyed as the fabric's ``summarize``; the
+    per-protocol recovery counters live inside the engines and read 0."""
+    fcts = [fl.fct for fl in sim.flows.values() if fl.fct is not None]
+    return {
+        "max_fct": max(fcts) if fcts else float("nan"),
+        "avg_fct": sum(fcts) / len(fcts) if fcts else float("nan"),
+        "unfinished": sum(1 for fl in sim.flows.values() if fl.fct is None),
+        "drops": sim.total_drops,
+        "pauses": len(sim.pause_log),
+        "retransmits": 0,
+        "rto_fires": 0,
+        "sack_recoveries": 0,
+        "gbn_rewinds": 0,
+        "blackholed_pkts": getattr(sim, "blackholed_pkts", 0),
+        "corrupt_drops": getattr(sim, "corrupt_drops", 0),
+    }
+
+
+class TraceRunner:
+    """Replays dependency traces on a NetSim: a message launches when all
+    its dependencies have completed (paper Section 4.3 trace semantics).
+
+    ``placement`` maps message src/dst ids to hosts (identity when the
+    messages already carry host ids, as ``Scenario.messages`` do)."""
+
+    def __init__(self, sim: NetSim, messages: list,
+                 placement: dict[int, int]):
+        self.sim = sim
+        self.msgs = {m.mid: m for m in messages}
+        self.placement = placement  # rank -> host
+        self.children: dict[int, list[int]] = {m.mid: [] for m in messages}
+        self.pending_deps = {m.mid: len(m.deps) for m in messages}
+        for m in messages:
+            for d in m.deps:
+                self.children[d].append(m.mid)
+        self.flow_to_msg: dict[int, int] = {}
+        self.done: set[int] = set()
+        self.group_done_ts: dict[int, float] = {}
+        self.group_msgs: dict[int, int] = {}
+        for m in messages:
+            self.group_msgs[m.group] = self.group_msgs.get(m.group, 0) + 1
+        sim.on_flow_done = self._on_flow_done
+
+    def _launch(self, m: Message, now: float):
+        # honour the open-loop arrival tick: one fabric tick = one MTU
+        # serialisation slot, so arrival converts via mtu_serialize_us
+        start = max(now, m.arrival * self.sim.net.mtu_serialize_us)
+        fl = self.sim.add_flow(self.placement[m.src], self.placement[m.dst],
+                               m.size, start_ts=start, meta=m.mid)
+        self.flow_to_msg[fl.id] = m.mid
+
+    def _on_flow_done(self, fl, now: float):
+        mid = self.flow_to_msg.get(fl.id)
+        if mid is None:
+            return
+        m = self.msgs[mid]
+        self.done.add(mid)
+        self.group_msgs[m.group] -= 1
+        if self.group_msgs[m.group] == 0:
+            self.group_done_ts[m.group] = now
+        for c in self.children[mid]:
+            self.pending_deps[c] -= 1
+            if self.pending_deps[c] == 0:
+                self._launch(self.msgs[c], now)
+
+    def run(self, until: float = 1e9) -> dict:
+        for m in self.msgs.values():
+            if self.pending_deps[m.mid] == 0:
+                self._launch(m, 0.0)
+        self.sim.run(until=until)
+        finished = len(self.group_done_ts)
+        msg_fct = {mid: fl.fct for fl in self.sim.flows.values()
+                   if (mid := self.flow_to_msg.get(fl.id)) is not None
+                   and fl.fct is not None}
+        return {
+            "group_fct": dict(self.group_done_ts),
+            "max_collective_time": (max(self.group_done_ts.values())
+                                    if self.group_done_ts else float("nan")),
+            "finished_groups": finished,
+            "total_groups": len(self.group_msgs) if self.group_msgs else 0,
+            "drops": self.sim.total_drops,
+            "pauses": len(self.sim.pause_log),
+            "msg_fct": msg_fct,
+        }
+
+
+def run_scenario_on_sim(sim: NetSim, sc: Scenario,
+                        until: float = 1e9) -> dict:
+    """Run a scenario on a prebuilt NetSim (custom params / queue
+    logging), honouring dependency edges via :class:`TraceRunner`."""
+    if sc.is_trace:
+        placement = {h: h for m in sc.messages for h in (m.src, m.dst)}
+        res = TraceRunner(sim, list(sc.messages), placement).run(until=until)
+        out = {**_summarize_sim(sim), **res}
+    else:
+        for m in sc.messages:
+            sim.add_flow(m.src, m.dst, m.size,
+                         start_ts=m.arrival * sim.net.mtu_serialize_us)
+        sim.run(until=until)
+        out = _summarize_sim(sim)
+    out["backend"] = "events"
+    out["name"] = sc.name
     return out

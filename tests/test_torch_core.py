@@ -99,7 +99,10 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     assert len(files) > 10
     for f in files:
         assert not pat.search(f.read_text()), f
-    code = ("import sys, repro_torch.sim.workloads, repro_torch.convert; "
+    code = ("import sys, repro_torch.sim.workloads, repro_torch.convert, "
+            "repro_torch.sim.traffic, repro_torch.sim.events, "
+            "repro_torch.sim.jaxsim, repro_torch.core.ref, "
+            "repro_torch.obs.exporter, repro_torch.obs.trend; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120,

@@ -6,8 +6,9 @@ Goldens ``perm16_strack`` / ``incast8_strack`` through the port's
 reference file rebuilt from the JAX package and matched by the port; the
 committed incast1024 reference file rebuilt from the JAX package (the
 port is held against it on the card by ``chip_smoke.py``: 1824 warp trips
-at 1024 hosts are too many for this suite); and the loud refusal of
-everything outside this slice.  (Whole-state parity
+at 1024 hosts are too many for this suite); the loud refusal of
+everything outside this slice; and the events backend run with fabric
+options beside it, equal to JAX's.  (Whole-state parity
 under other fabric options and the ECN dither grid:
 ``tests/test_torch_fabric_state.py``.)
 """
@@ -106,21 +107,45 @@ def test_port_matches_perm1024_reference_on_cpu():
 
 @pytest.mark.parametrize("kw,item", [
     # sub-flow striping (A6) and the trace (A5) run; what they are
-    # combined with still raises
-    (dict(protocol="rocev2", subflows=2, shard=2), "A11"),
-    (dict(pfc=True, subflows=4, trace_every=1, backend="events"), "A10"),
-    (dict(active_cap=8, backend="events"), "A10"),
-    (dict(shard=2), "A11"),
-    (dict(subflows=4, backend="events"), "A10"),
-    (dict(faults=link_flap(0, 0, 10, 60), trace_queues=True, shard=1,
-          backend="events"), "A10"),
-    (dict(lb_mode="oblivious", subflows=2, shard=4), "A11"),
-    (dict(backend="events"), "A10"),
+    # combined with still raises (the ids are those the rows had beside
+    # the event oracle's, which now run)
+    pytest.param(dict(protocol="rocev2", subflows=2, shard=2), "A11",
+                 id="kw0-A11"),
+    pytest.param(dict(shard=2), "A11", id="kw3-A11"),
+    pytest.param(dict(lb_mode="oblivious", subflows=2, shard=4), "A11",
+                 id="kw6-A11"),
 ])
 def test_unported_settings_raise_naming_their_roadmap_item(kw, item):
     sc = permutation_scenario(full_bisection(2, 2), 8192, net=NET400)
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         run(sc, RunConfig(**kw), device="cpu")
+
+
+@pytest.mark.parametrize("kw", [
+    # the event oracle runs on the host whatever fabric options ride along
+    dict(pfc=True, subflows=4, trace_every=1, backend="events"),
+    dict(active_cap=8, backend="events"),
+    dict(subflows=4, backend="events"),
+    dict(faults="flap", trace_queues=True, shard=1, backend="events"),
+    dict(backend="events"),
+])
+def test_events_backend_settings_run_equal_to_jax(kw):
+    from repro.core.params import NetworkSpec as JNet
+    from repro.sim.faults import link_flap as j_link_flap
+    from repro.sim.topology import full_bisection as j_full_bisection
+    from repro.sim.workloads import RunConfig as JRunConfig
+    from repro.sim.workloads import permutation_scenario as j_permutation
+    from repro.sim.workloads import run as j_run
+    from torch_parity import canon
+    flap = kw.get("faults") == "flap"
+    t_kw = dict(kw, faults=link_flap(0, 0, 10, 60)) if flap else kw
+    j_kw = dict(kw, faults=j_link_flap(0, 0, 10, 60)) if flap else kw
+    got = run(permutation_scenario(full_bisection(2, 2), 8192, net=NET400),
+              RunConfig(**t_kw), device="cpu")
+    want = j_run(j_permutation(j_full_bisection(2, 2), 8192,
+                               net=JNet(link_gbps=400.0)), JRunConfig(**j_kw))
+    assert canon(got) == canon(want)
+    assert got["backend"] == "events" and got["unfinished"] == 0
 
 
 def test_dependency_edges_and_sweep_raise():

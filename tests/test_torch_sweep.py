@@ -7,8 +7,8 @@ package on the CPU.
 list of configs it puts the three ``lb_mode``s in one batch and splits
 protocol and ``subflows`` (static to the program) into groups, rows in
 input order.  Both entry points raise the reference's errors with its
-text; the active set in a batch raises naming ROADMAP A14 and the event
-oracle A10.  The batched kernels' plain versions equal the unbatched ones
+text; the active set in a batch raises naming ROADMAP A14, and an event
+oracle entry runs as ``run()`` runs it.  The batched kernels' plain versions equal the unbatched ones
 entry by entry, a frozen entry coming out as it went in; the batch's
 fields of the kernels' C structs stand where their ctypes mirrors put
 them.  The final states are held leaf for leaf in
@@ -169,8 +169,9 @@ def test_batch_errors_are_the_references(what):
 
 def test_batch_deferred_paths_raise():
     """The active set in a batch raises naming ROADMAP A14 (a cap at or
-    above the flow count is the dense program and runs); the event oracle
-    raises naming A10, as ``run()`` does."""
+    above the flow count is the dense program and runs); an event oracle
+    entry beside a fabric entry runs as ``run()`` runs it, equal to JAX's
+    ``sweep()``."""
     sc = small_scenario("port", "perm", 0)
     with pytest.raises(NotImplementedError, match="A14"):
         TW.sweep([sc, sc], TW.RunConfig(active_cap=8), device="cpu")
@@ -178,8 +179,13 @@ def test_batch_deferred_paths_raise():
                     device="cpu")
     assert rows[0] == TW.run(sc, TW.RunConfig(active_cap=16, n_ticks=400),
                              device="cpu")
-    with pytest.raises(NotImplementedError, match="A10"):
-        TW.sweep([sc], TW.RunConfig(backend="events"), device="cpu")
+    from torch_parity import canon
+    cfgs = [TW.RunConfig(backend="events"), TW.RunConfig(n_ticks=400)]
+    rows = TW.sweep([sc], cfgs, device="cpu")
+    assert rows == [TW.run(sc, c, device="cpu") for c in cfgs]
+    j_sc = small_scenario("jax", "perm", 0)
+    want = JW.sweep([j_sc], [JW.RunConfig(backend="events")])
+    assert canon(rows[0]) == canon(want[0])
 
 
 def _tick_args(prog, st, t, live):

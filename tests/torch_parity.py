@@ -10,14 +10,17 @@ and with RoCEv2; the collectives hd1024 under STrack and under RoCEv2 +
 PFC striped over four sub-flows, a2a1024 under STrack, and allreduce8k's
 spot trace at ``active_cap=48``; the batched sweeps of perm1024 seeds 0-7
 under STrack and of perm1024 under RoCEv2 + PFC with entropy seeds 0-3,
-and perm1024's per-tick trace every 4 ticks; the llama3-8b, mamba2-2.7b
-and zamba2-2.7b SMOKE serve references) from the JAX package, all of them
-or those whose file stems are given:
+and perm1024's per-tick trace every 4 ticks; the soak of the 64-host
+default fleet over a clean and a ``CHAOS1024`` epoch and the event
+oracle's runs of that fleet and of the spot fleet; the llama3-8b,
+mamba2-2.7b and zamba2-2.7b SMOKE serve references) from the JAX package,
+all of them or those whose file stems are given:
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/torch_parity.py [STEM ...]
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import sys
@@ -135,6 +138,112 @@ TRACE_SETTLE_US = (0.5, 1.0)
 #: windows whose summation order is XLA's on one side, is kept as floats.
 TRACE_EXACT_KEYS = ("qsize", "drops_trace", "done", "delivered",
                     "pauses_trace", "paused_ports")
+
+
+#: The soak of ``benchmarks/soak.py``'s default fleet (64 hosts, two
+#: 16-rank training jobs and a 128-flow burst tenant), seed 0, a clean
+#: epoch then a ``CHAOS1024`` epoch; the file holds the soak's return
+#: dict, each epoch's ``run()`` summary and the rendered ``.prom`` text.
+SOAK_REF = dict(seed=0, epochs=2, chaos=(None, "CHAOS1024"))
+SOAK_REF_PATH = REF_DIR / "soak64_chaos2_strack_ref.json"
+#: The event oracle's runs (``backend="events"``, epoch 0 of
+#: ``mixed_scenario`` at seed 0, ``until`` as the soak benchmark's spot
+#: check): name -> (fleet of ``benchmarks/soak.py``, RunConfig fields, with
+#: "CHAOS1024" for that schedule).
+EVENTS_REFS = {
+    "default_clean": ("default", {}),
+    "default_chaos": ("default", {"faults": "CHAOS1024"}),
+    "spot_strack": ("spot", {}),
+    "spot_rocev2": ("spot", {"protocol": "rocev2"}),
+}
+EVENTS_UNTIL_US = 2e7
+EVENTS_REF_PATH = REF_DIR / "events64_ref.json"
+
+
+def canon(obj) -> str:
+    """``obj`` in JSON's own form (tuples as lists, keys as strings,
+    sorted), for exact comparison of nested summaries with NaNs."""
+    return json.dumps(json.loads(json.dumps(obj)), sort_keys=True)
+
+
+def jax_fleet(name: str) -> tuple:
+    """``(topo, net, jobs, tenants)`` of ``benchmarks/soak.py``'s
+    ``default_fleet`` or ``spot_fleet`` (the JAX package's records)."""
+    from benchmarks.soak import default_fleet, spot_fleet
+    return {"default": default_fleet, "spot": spot_fleet}[name]()
+
+
+def port_fleet(name: str) -> tuple:
+    """The port's records of :func:`jax_fleet` ``(name)``, field for
+    field."""
+    from repro_torch.core.params import NetworkSpec
+    from repro_torch.sim.topology import FatTree
+    from repro_torch.sim.traffic import InferenceTenant, TrainingJob
+    asdict = dataclasses.asdict
+    topo, net, jobs, tenants = jax_fleet(name)
+    return (FatTree(**asdict(topo)), NetworkSpec(**asdict(net)),
+            [TrainingJob(**asdict(j)) for j in jobs],
+            [InferenceTenant(**asdict(t)) for t in tenants])
+
+
+@contextlib.contextmanager
+def recording_runs(module):
+    """``module.run`` replaced by a wrapper that appends each summary it
+    returns to the list this yields."""
+    runs, real = [], module.run
+
+    def run(*a, **kw):
+        runs.append(real(*a, **kw))
+        return runs[-1]
+    module.run = run
+    try:
+        yield runs
+    finally:
+        module.run = real
+
+
+def soak_reference() -> dict:
+    """The JAX package's soak of ``SOAK_REF`` (its program cache cleared
+    first, so that it reports its one build): the return dict, each
+    epoch's ``run()`` summary and the ``.prom`` text it wrote."""
+    import tempfile
+    from repro.obs.metrics import MetricsRegistry
+    from repro.sim import fabric as F
+    from repro.sim import traffic
+    from repro.sim.faults import FaultSpec
+    topo, net, jobs, tenants = jax_fleet("default")
+    chaos = [None if c is None else FaultSpec(**CHAOS1024)
+             for c in SOAK_REF["chaos"]]
+    F.clear_program_cache()
+    with tempfile.TemporaryDirectory() as d, \
+            recording_runs(traffic) as runs:
+        out = Path(d) / "soak.prom"
+        res = traffic.soak(topo, jobs, tenants, epochs=SOAK_REF["epochs"],
+                           net=net, seed=SOAK_REF["seed"],
+                           registry=MetricsRegistry(), out_path=str(out),
+                           chaos=chaos)
+        prom = out.read_text()
+    return json.loads(canon(dict(SOAK_REF, chaos=[
+        None if c is None else CHAOS1024 for c in SOAK_REF["chaos"]],
+        soak=res, epoch_runs=runs, prom=prom)))
+
+
+def events_reference() -> dict:
+    """The JAX package's oracle runs of ``EVENTS_REFS``: each summary,
+    ``msg_fct`` and ``group_fct`` among its keys."""
+    from repro.sim.faults import FaultSpec
+    from repro.sim.traffic import mixed_scenario
+    from repro.sim.workloads import RunConfig, run
+    out = {}
+    for name, (fleet, kw) in EVENTS_REFS.items():
+        topo, net, jobs, tenants = jax_fleet(fleet)
+        sc = mixed_scenario(topo, jobs, tenants, net=net, seed=0)[0]
+        kw = dict(kw)
+        if kw.get("faults") == "CHAOS1024":
+            kw["faults"] = FaultSpec(**CHAOS1024)
+        out[name] = run(sc, RunConfig(backend="events",
+                                      until=EVENTS_UNTIL_US, **kw))
+    return json.loads(canon(out))
 
 
 def row_digest(rows) -> dict:
@@ -708,7 +817,9 @@ def write_references() -> None:
                for name, path in COLLECTIVE_REF_PATHS.items()]
     makers += [(path, lambda n=name: sweep_reference(n))
                for name, path in SWEEP_REF_PATHS.items()]
-    makers += [(TRACE_REF_PATH, trace_reference)]
+    makers += [(TRACE_REF_PATH, trace_reference),
+               (SOAK_REF_PATH, soak_reference),
+               (EVENTS_REF_PATH, events_reference)]
     only = set(sys.argv[1:])
     for path, make in makers:
         if only and path.name.removesuffix("_ref.json") not in only:
@@ -718,4 +829,5 @@ def write_references() -> None:
 
 
 if __name__ == "__main__":
+    sys.path.insert(0, str(ROOT))   # benchmarks.soak's fleets
     write_references()
