@@ -3,8 +3,10 @@
 RoCEv2, PFC, chaos, the active set, collectives, sweeps and the chaos
 soak beside the event oracle), then LM serving:
 llama3-8b at full width through the flash-attention kernel, mamba2-2.7b
-and zamba2-2.7b at full width and depth through the SSD scan kernel (and
-zamba2's shared attention through the flash kernel).
+(16 of its 64 layers) and zamba2-2.7b at full width through the SSD scan
+kernel (and zamba2's shared attention through the flash kernel), and the
+MoE models mixtral-8x22b (its window and decode ring) and grok-1-314b at
+full width, depth cut, through the flash kernel.
 
     python3 chip_smoke.py
 
@@ -211,8 +213,9 @@ Phases (any failure exits non-zero; nothing is caught):
      prefills on tc, every decode step on decode, fma never; fma runs only
      in the f32 checks and the SMOKE prefill): prefill tokens/s, decode ms
      per step, peak memory;
-  8. serve, Mamba2 (the llama3 weights freed first): mamba2-2.7b (64
-     layers, ~5.4 GB) and zamba2-2.7b (54 layers and the shared block,
+  8. serve, Mamba2 (the llama3 weights freed first): mamba2-2.7b (16 of
+     its 64 layers, MAMBA2_LAYERS, ~1.8 GB) and zamba2-2.7b (54 layers
+     and the shared block,
      attn_impl="pallas"), bf16, random weights (seed 0):
      (b) mamba2 prefill 4 x 1024 and 1 x 4096 through the SSD kernel:
          finite, within SERVE_REL_L2 of the same model with the plain SSD
@@ -242,7 +245,45 @@ Phases (any failure exits non-zero; nothing is caught):
          (SSM_SMOKE_TOL; greedy tokens exact);
      each serve path runs once more with the launch counts reset before
      and read after: prefill tokens/s, decode ms per step, peak memory;
-  9. a `kernels` JSON line (launches on the main paths; each kernel's
+  9. serve, MoE (phase 8's weights freed first; `python3 chip_smoke.py
+     --phase 9` runs the build and this phase alone, ~1.5 minutes of
+     chip time): mixtral-8x22b (4 of 56 layers, ~21 GB) and grok-1-314b (2 of
+     64, ~23 GB) at full width (MOE_MODELS), bf16, attn_impl="pallas",
+     random weights from a CUDA generator (seed 0):
+     (b) prefills, mixtral 4 x 1024 and 1 x 8192 (16 MoE groups; the tc
+         route masks keys more than 4096 back), grok 4 x 1024: finite,
+         and against the same model with attention through the plain
+         version (in blocks of PLAIN_ROWS query rows) row by row
+         (routed_alike): a row routed to the same experts in every layer
+         within SERVE_REL_L2, any other row on a router near tie (a gate
+         gap of at most TIE_GAP at its first differing layer; bf16 router
+         logits tie often), at least half the rows alike; the tokens
+         routed otherwise logged by layer;
+     (c) generate, mixtral 4 x (512 + 32) with cache_len 512 (a ring of
+         512 slots that wraps at position 512), grok 4 x (64 + 16): the
+         decode logits at the last prompt position (mixtral: 511, where
+         the ring of 512 has not wrapped and attends what a cache of 544
+         would) against a prefill at capacity factor E / k = 4, which
+         must drop no (token, slot) pair, row by row as in (b);
+         greedy_generate's tokens equal to a step-by-step decode's;
+     (a) the flash kernel against its plain version at FA_TOL on the
+         captured q/k/v of the first and last layer of every prefill
+         (tc, mixtral's with its window) and of mixtral's decode at
+         positions 0, 511, 512 and 542 (the decode route on the ring:
+         slots never written, full, wrapped), and on one random call on
+         a ring of 4096 at position 4159 (B 4, H 48, K 8, hd 128);
+     (d) both f32 SMOKE configs against the JAX-made
+         src/repro_torch/testdata/{mixtral,grok}_smoke_serve_ref.json:
+         prefill, decode of every prompt position through mixtral's ring
+         (SMOKE_TOL), greedy tokens exact;
+     (e) the kernel's times at mixtral's prefill-8192 (tc with the
+         window) and on the rings of 512 and 4096 (decode), SDPA's with a
+         boolean mask on the first backend that takes it;
+     each serve path runs once more with the launch counts reset before
+     and read after (every bf16 prefill call on tc, every decode call on
+     decode, fma never): prefill tokens/s, decode ms per step, peak
+     memory;
+  10. a `kernels` JSON line (launches on the main paths; each kernel's
      device time per call from torch.profiler, and the wrapper's wall time
      per call; the plain version's device and wall time; the bound; for
      the transitions, serve_enqueue and pfc_account and each of their path
@@ -261,8 +302,10 @@ Phases (any failure exits non-zero; nothing is caught):
      attention SDPA's time as `library_ms`, and
      under `routes` each route's device and wall ms, launches, bound,
      plain and SDPA times and factor to SDPA: tc at prefill-1000,
-     prefill-4096 and zamba2's prefill-1024 (hd 80), decode at decode-544,
-     fma at prefill-1000's shapes in f32; for the SSD scan at mamba2's
+     prefill-4096, zamba2's prefill-1024 (hd 80) and mixtral's
+     prefill-8192 with the window (phase 9), decode at decode-544 and on
+     mixtral's rings of 512 and 4096, fma at prefill-1000's shapes in f32;
+     the MoE paths' launches by route (`launches_moe`); for the SSD scan at mamba2's
      prefill 4 x 1024 and 1 x 4096 inputs and zamba2's 4 x 1024), the
      card's name and power
      limit, and the final `{"ok": true, ...}` line.
@@ -322,6 +365,10 @@ SSM_SMOKE_TOL = 2e-3
 #: logs and holds.  A wrong state, conv window, position or skip term
 #: gives O(1).
 SSM_REL_L2 = 0.15
+#: mamba2-2.7b's depth in phase 8, cut from 64: its host-bound decode
+#: (543 steps, twice) took the most time of the serve phases, and the
+#: whole script took 1135 s on a slow host with all 64.
+MAMBA2_LAYERS = 16
 
 #: Each wrapper's own CUDA kernels (csrc/*.cu); a wrapper call launches
 #: these and memsets, nothing else.
@@ -1501,11 +1548,23 @@ def rel_l2(a, b) -> float:
     return float((a - b).norm() / b.norm())
 
 
+#: Query rows the plain attention takes at a time on the card: each row
+#: is independent, and at mixtral's prefill of 8192 the f32 scores of all
+#: rows would take 13 GB a copy.
+PLAIN_ROWS = 4096
+
+
 def model_layout_ref(q, k, v, **kw):
-    """The kernel's plain version on model-layout (B, T, H, hd) tensors."""
+    """The kernel's plain version on model-layout (B, T, H, hd) tensors,
+    in blocks of at most PLAIN_ROWS query rows (a ring's rows, at most
+    four, in one)."""
+    import torch
     from repro_torch.kernels.ref import flash_attention_ref
-    return flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
-                               v.transpose(1, 2), **kw).transpose(1, 2)
+    kh, vh = k.transpose(1, 2), v.transpose(1, 2)
+    off, T = kw.pop("q_offset", 0), q.shape[1]
+    return torch.cat([flash_attention_ref(
+        q[:, i:i + PLAIN_ROWS].transpose(1, 2), kh, vh, q_offset=off + i,
+        **kw).transpose(1, 2) for i in range(0, T, PLAIN_ROWS)], dim=1)
 
 
 def plain_ssd(x, dt, A, B_, C_, chunk=128, *, final_state=False):
@@ -1540,39 +1599,73 @@ def routed(name, fn, capture=None, store=None):
         setattr(kops, name, kernel)
 
 
+def sdpa_backend(call):
+    """The first of SDPA's backends (flash, memory-efficient, cuDNN, math)
+    that takes ``call`` (a boolean mask with GQA); SDPA's own choice among
+    them is not exposed."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    for backend in (SDPBackend.FLASH_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel(backend):
+                call()
+            return backend
+        except RuntimeError:    # "No available kernel" for this backend
+            continue
+    raise RuntimeError("no SDPA backend takes the call")
+
+
 def flash_timing(q, k, v, kw) -> dict:
     """The flash-attention kernel, its plain version and SDPA on one call's
     model-layout inputs: device and wall ms, the route the call takes, the
-    bound (the causal live part of the products at the bf16 tensor-core
-    rate, or at the CUDA cores' f32 rate for f32 inputs; or the bytes), and
-    the kernel's device time over SDPA's."""
+    bound (the live (query, key) pairs' products at the bf16 tensor-core
+    rate, or at the CUDA cores' f32 rate for f32 inputs; or the bytes: q
+    read, the output written, the live keys' K and V rows read once), and
+    the kernel's device time over SDPA's.  SDPA takes a causal call as
+    ``is_causal`` or, at an offset, the live pairs as a boolean mask; with
+    a window or on a ring, on the first backend that takes it
+    (``library_backend``)."""
     import torch
     import torch.nn.functional as F
+    from torch.nn.attention import sdpa_kernel
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.ref import live_mask
     B, Tq, H, hd = q.shape
     Tk, K = k.shape[1], k.shape[2]
     off = kw.get("q_offset", 0)
-    live = sum(min(Tk, max(0, i + off + 1)) for i in range(Tq))
-    flops = 4 * hd * live * B * H
-    moved = 2 * q.numel() * q.element_size() + 2 * k.numel() * \
-        k.element_size()
+    live = live_mask(Tq, Tk, **kw, device=q.device)
+    flops = 4 * hd * int(live.sum()) * B * H
+    moved = 2 * q.numel() * q.element_size() + 2 * B * K * hd * \
+        k.element_size() * int(live.any(0).sum())
     bnd, by = bound_ms(moved, flops, BF16_OPS_PER_S
                        if q.dtype == torch.bfloat16 else FP32_OPS_PER_S)
-    kind = fa._route(Tq, hd, q.dtype, k.dtype, H, K)
-    mask = None if off == 0 else (
-        torch.arange(Tk, device=q.device)[None, :]
-        <= torch.arange(Tq, device=q.device)[:, None] + off)
+    kind = fa._route(Tq, hd, q.dtype, k.dtype, H, K, ring=kw.get("ring"))
+    named = bool(kw.get("ring")) or kw.get("window") is not None
+    mask = None if off == 0 and not named else live
     qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     run = lambda: kops.flash_attention(q, k, v, **kw)
     plain = lambda: model_layout_ref(q, k, v, **kw)
-    library = lambda: F.scaled_dot_product_attention(
+    sdpa = lambda: F.scaled_dot_product_attention(
         qh, kh, vh, attn_mask=mask, is_causal=mask is None,
         enable_gqa=K != H)
+    backend = sdpa_backend(sdpa) if named else None
+
+    def library():
+        if backend is None:
+            return sdpa()
+        with sdpa_kernel(backend):
+            return sdpa()
+
     ms, lib_ms = own_device_ms(f"flash_attention {kind}", run), \
         device_ms(library)[0]
+    extra = {} if backend is None else {
+        "library_backend": f"{backend.name} (boolean mask)"}
     return {"shape": f"q {tuple(q.shape)}, k/v {tuple(k.shape)} (B,T,H,hd)"
-                     f", {str(q.dtype).split('.')[-1]}, q_offset {off}",
+                     f", {str(q.dtype).split('.')[-1]}, q_offset {off}"
+                     + "".join(f", {n} {kw[n]}" for n in ("window", "ring")
+                               if kw.get(n)), **extra,
             "fa_route": kind, "ms": ms,
             "plain_ms": device_ms(plain, reps=10)[0],
             "bound_ms": bnd, "bound_by": by, "library_ms": lib_ms,
@@ -1827,30 +1920,38 @@ def serve(dev) -> dict:
 
 
 def stepwise(label, cfg, params, prompt, new, limit, capture=None,
-             store=None):
-    """Decode step by step through make_decode_step: the prompt
+             store=None, cache_len=None, pre=None, on_last=None,
+             last_ctx=None):
+    """Decode step by step through make_decode_step from a cache of
+    ``cache_len`` (default: prompt and new tokens): the prompt
     teacher-forced, then ``new`` greedy tokens.  The logits at the last
-    prompt position are held within ``limit`` (relative L2) of
-    make_prefill_step's; ``capture(t)`` names the flash-attention calls of
-    step t whose inputs are kept in ``store``.  Returns the greedy tokens
-    (B, new)."""
+    prompt position are held within ``limit`` (relative L2) of ``pre``
+    (default: make_prefill_step's), or handed with ``pre`` to ``on_last``
+    (the step itself run inside ``last_ctx``, where given); ``capture(t)``
+    names the flash-attention calls of step t whose inputs are kept in
+    ``store``.  Returns the greedy tokens (B, new)."""
     import torch
     from repro_torch.kernels import ops as kops
     from repro_torch.models import lm
     from repro_torch.runtime.serve import make_decode_step, make_prefill_step
     decode = make_decode_step(cfg)
     B, T = prompt.shape
-    pre = make_prefill_step(cfg)(params, {"tokens": prompt})
-    cache = lm.init_cache(cfg, B, T + new)
+    if pre is None:
+        pre = make_prefill_step(cfg)(params, {"tokens": prompt})
+    cache = lm.init_cache(cfg, B, cache_len or T + new)
     toks, out = [], None
     for t in range(T + new):
         if t >= T:
             toks.append(out.argmax(-1)[:, None].to(torch.int32))
+        ctx = last_ctx if last_ctx and t == T - 1 else \
+            contextlib.nullcontext()
         with routed("flash_attention", kops.flash_attention,
-                    capture(t) if capture else None, store):
+                    capture(t) if capture else None, store), ctx:
             out, cache = decode(params, cache, toks[-1] if t >= T
                                 else prompt[:, t:t + 1], t)
-        if t == T - 1:
+        if t == T - 1 and on_last:
+            on_last(out, pre)
+        elif t == T - 1:
             err = rel_l2(out, pre)
             assert err <= limit, (label, "decode vs prefill", err)
             log(f"{label} decode at the last prompt position ({T - 1}) vs "
@@ -1860,11 +1961,13 @@ def stepwise(label, cfg, params, prompt, new, limit, capture=None,
     return torch.cat(toks, dim=1)
 
 
-def serve_path(arch, cfg, params, prefills, prompt, new) -> tuple:
+def serve_path(arch, cfg, params, prefills, prompt, new,
+               cache_len=None) -> tuple:
     """The serve path with every kernel's launch count set to 0 just
     before and read just after: the prefills ``{name: (tokens, the checked
     run's logits)}``, which must give those logits again, then
-    greedy_generate of ``new`` tokens after ``prompt``.  Logs prefill
+    greedy_generate of ``new`` tokens after ``prompt`` with a cache of
+    ``cache_len`` (default: prompt and new tokens).  Logs prefill
     tokens/s, decode ms per step and peak memory.  Returns (generated
     tokens, launches by kernel, flash-attention launches by route)."""
     import torch
@@ -1887,7 +1990,7 @@ def serve_path(arch, cfg, params, prefills, prompt, new) -> tuple:
                      f"({toks.numel() / wall:.1f} tokens/s)")
     B, T = prompt.shape
     t0 = time.time()
-    gen = greedy_generate(params, cfg, prompt, new, T + new)
+    gen = greedy_generate(params, cfg, prompt, new, cache_len or T + new)
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = {"flash_attention": fa.launches["flash_attention"],
@@ -2033,7 +2136,7 @@ def serve_ssm(dev) -> tuple:
         return got
 
     # ---- mamba2-2.7b: (b) prefills and decode, the serve path -------------
-    cfg, params = model("mamba2-2.7b")
+    cfg, params = model("mamba2-2.7b", n_layers=MAMBA2_LAYERS)
     last = cfg.n_layers - 1
     p1024, p4096, p512 = (tokens(cfg, 4, 1024), tokens(cfg, 1, 4096),
                           tokens(cfg, 4, 512))
@@ -2176,6 +2279,350 @@ def serve_ssm(dev) -> tuple:
                    "routes_zamba2": fa_routes,
                    "max_abs_err_hd80": max(fa_errs.values()),
                    "zamba2_prefill_1024_hd80": fa_t}
+
+
+#: The MoE cells' depth cut: (architecture, layers kept of the published
+#: 56 and 64) -- at full width ~5.0 and ~9.8 GB of bf16 weights a layer.
+MOE_MODELS = (("mixtral-8x22b", 4), ("grok-1-314b", 2))
+
+
+#: A router near tie: a token's k-th and (k+1)-th gates within this of each
+#: other.  Two evaluations that round differently (kernel or plain
+#: attention; decode or prefill) move a gate gap by up to ~5e-3 on an H100
+#: (mixtral-8x22b's last prompt position, decode against prefill), so a
+#: token whose experts differ between them must sit this close to a tie
+#: in one of the two at the first layer where they differ.
+TIE_GAP = 1e-2
+
+
+@contextlib.contextmanager
+def moe_spy(store, drops=None):
+    """For every MoE call of the models (``apply_moe`` in a prefill,
+    ``apply_moe_dense`` in decode) keep in ``store`` each token's top-k
+    experts, sorted, (B, T, k) and the gap between its k-th and (k+1)-th
+    gate (B, T); with ``drops``, also the (token, slot) pairs each
+    ``apply_moe`` call dropped."""
+    import torch
+    from repro_torch.models import layers
+    apply_moe, apply_dense = layers.apply_moe, layers.apply_moe_dense
+
+    def record(p, x, cfg):
+        gates, _, topi = layers.moe_gates(p, x.to(layers.dtype_of(cfg)), cfg)
+        k = cfg.experts_per_tok
+        top = torch.topk(gates, k + 1, dim=-1).values
+        store.append((topi.sort(-1).values, top[..., k - 1] - top[..., k]))
+
+    def moe(p, x, cfg, group=None):
+        record(p, x, cfg)
+        if drops is not None:
+            drops.append(int(layers.moe_dropped(p, x, cfg, group)))
+        return apply_moe(p, x, cfg, group)
+
+    def dense(p, x, cfg):
+        record(p, x, cfg)
+        return apply_dense(p, x, cfg)
+
+    layers.apply_moe, layers.apply_moe_dense = moe, dense
+    try:
+        yield
+    finally:
+        layers.apply_moe, layers.apply_moe_dense = apply_moe, apply_dense
+
+
+def routed_alike(label, got, want, got_routes, want_routes, limit) -> int:
+    """Logits (B, V) of two evaluations of a MoE model, row by row, with
+    each evaluation's ``moe_spy`` records (the last position's taken): a
+    row routed to the same experts in every layer must be within
+    ``limit`` (relative L2); a row routed otherwise must sit on a near tie
+    (a gate gap of at most TIE_GAP in one of the two) at the first layer
+    where the experts differ, since a different expert makes it another
+    function.  Returns the rows routed alike (the caller holds at least
+    half of its rows to that)."""
+    B = got.shape[0]
+    rel = ((got - want).float().norm(dim=-1) / want.float().norm(dim=-1))
+    rows = []
+    for b in range(B):
+        differs = [i for i, ((gt, _), (wt, _)) in
+                   enumerate(zip(got_routes, want_routes))
+                   if not bool((gt[b, -1] == wt[b, -1]).all())]
+        if not differs:
+            assert float(rel[b]) <= limit, (label, b, float(rel[b]))
+            rows.append(f"row {b}: same experts, rel L2 {float(rel[b]):.3e}")
+            continue
+        i = differs[0]
+        gap = min(float(got_routes[i][1][b, -1]),
+                  float(want_routes[i][1][b, -1]))
+        assert gap <= TIE_GAP, (label, b, "experts differ at layer", i,
+                                "gate gap", gap)
+        rows.append(f"row {b}: other experts from layer {i} (a near tie: "
+                    f"gate gap {gap:.2e}), rel L2 {float(rel[b]):.3e}")
+    log(f"{label}: rel L2 over all rows {rel_l2(got, want):.3e} (limit "
+        f"{limit} for rows routed alike); " + "; ".join(rows))
+    return sum("same" in r for r in rows)
+
+
+def serve_moe(dev) -> dict:
+    """Phase 9: mixtral-8x22b (its sliding window of 4096 and decode ring)
+    and grok-1-314b at full width, depth cut (MOE_MODELS), served through
+    the flash-attention kernel.  Returns what the phase adds to flash
+    attention's entry of the ``kernels`` line."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.convert import lm_params_from_jax
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.ref import flash_attention_ref
+    from repro_torch.models import lm
+    from repro_torch.runtime.serve import make_decode_step, make_prefill_step
+    from torch_lm_weights import MOE_SERVE_REF, lm_weights
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.time()
+    tok_gen = torch.Generator(device=dev).manual_seed(1)
+    captured, errs, launches, routes = {}, {}, {}, {}
+    checked = {"tc": 0, "decode": 0, "fma": 0}
+
+    def tokens(cfg, b, t):
+        return torch.randint(0, cfg.vocab, (b, t), generator=tok_gen,
+                             device=dev, dtype=torch.int32)
+
+    def model(arch, n_layers):
+        cfg = dataclasses.replace(get_config(arch), n_layers=n_layers,
+                                  attn_impl="pallas")
+        assert cfg.dtype == "bfloat16" and cfg.kind == "moe"
+        t0 = time.time()
+        params = lm.init_params(torch.Generator(device=dev).manual_seed(0),
+                                cfg)
+        torch.cuda.synchronize()
+        log(f"[moe] {arch} ({n_layers} of {get_config(arch).n_layers} "
+            f"layers, d {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, "
+            f"hd {cfg.hd}, {cfg.n_experts} experts top-{cfg.experts_per_tok} "
+            f"of ff {cfg.d_ff}, capacity factor {cfg.capacity_factor}, "
+            f"groups of {cfg.moe_group}, window {cfg.window}, vocab "
+            f"{cfg.vocab}), bf16, attn_impl=pallas: "
+            f"{nbytes(params) / 1e9:.3f} GB of random weights in "
+            f"{time.time() - t0:.1f}s")
+        return cfg, params
+
+    def layers_of(n_layers, name):
+        return {0: f"{name} layer 0",
+                n_layers - 1: f"{name} layer {n_layers - 1}"}
+
+    def prefill_vs_plain(arch, cfg, params, name, toks):
+        """Finite, and row by row within SERVE_REL_L2 of the same model
+        with attention through the plain version where routed alike
+        (``routed_alike``); the q/k/v of the first and last layer kept.
+        Logs how many tokens each layer routes otherwise in the two runs.
+        Returns the logits and the rows routed alike."""
+        prefill = make_prefill_step(cfg)
+        k_top, p_top = [], []
+        with routed("flash_attention", kops.flash_attention,
+                    layers_of(cfg.n_layers, f"{arch} {name}"), captured), \
+                moe_spy(k_top):
+            got = prefill(params, {"tokens": toks})
+        with routed("flash_attention", model_layout_ref), moe_spy(p_top):
+            want = prefill(params, {"tokens": toks})
+        assert got.shape == (toks.shape[0], cfg.vocab)
+        assert bool(torch.isfinite(got).all()), (arch, name)
+        flips = [int((a != b).any(-1).sum())
+                 for (a, _), (b, _) in zip(k_top, p_top)]
+        log(f"[moe] {arch} {name}: logits finite, |max| "
+            f"{float(got.abs().max()):.4f}; max abs "
+            f"{float((got - want).abs().max()):.4e} from the plain "
+            f"attention's; argmax agrees in "
+            f"{int((got.argmax(-1) == want.argmax(-1)).sum())}/"
+            f"{toks.shape[0]} rows; tokens routed to other experts than in "
+            f"the plain run, by layer: {flips} of {toks.numel()}")
+        alike = routed_alike(f"[moe] {arch} {name}, kernel vs plain "
+                             f"attention", got, want, k_top, p_top,
+                             SERVE_REL_L2)
+        return got, alike
+
+    def no_drop_prefill(arch, cfg, params, toks):
+        """The prefill at capacity factor E / k (the function decode
+        computes): no (token, slot) pair may be dropped.  Returns the
+        logits and the routing (``moe_spy``'s records)."""
+        c = dataclasses.replace(cfg, capacity_factor=cfg.n_experts
+                                / cfg.experts_per_tok)
+        top, drops = [], []
+        with moe_spy(top, drops):
+            pre = make_prefill_step(c)(params, {"tokens": toks})
+        assert drops == [0] * cfg.n_layers, (arch, drops)
+        log(f"[moe] {arch} prefill of the generate prompt at capacity factor "
+            f"{c.capacity_factor}: dropped (token, slot) pairs by layer "
+            f"{drops}")
+        return pre, top
+
+    def serve_cell(arch, n_layers, prefills, prompt, new, cache_len, cap):
+        cfg, params = model(arch, n_layers)
+        logits, alike = {}, []
+        for name, toks in prefills.items():
+            logits[name], n_alike = prefill_vs_plain(arch, cfg, params, name,
+                                                     toks)
+            alike.append((n_alike, toks.shape[0]))
+        # at least half of the prefills' rows routed alike, and of decode's
+        assert 2 * sum(a for a, _ in alike) >= sum(n for _, n in alike), \
+            (arch, alike)
+        pre, pre_routes = no_drop_prefill(arch, cfg, params, prompt)
+        dec_routes = []
+
+        def decode_vs_prefill(out, pre):
+            n_alike = routed_alike(
+                f"[moe] {arch} decode at the last prompt position "
+                f"({prompt.shape[1] - 1}) vs the drop-free prefill", out, pre,
+                dec_routes, pre_routes, SERVE_REL_L2)
+            assert 2 * n_alike >= out.shape[0], (arch, n_alike)
+
+        steps = stepwise(
+            f"[moe] {arch}", cfg, params, prompt, new, SERVE_REL_L2, cap,
+            captured, cache_len=cache_len, pre=pre,
+            last_ctx=moe_spy(dec_routes), on_last=decode_vs_prefill)
+        gen, n, by_route = serve_path(
+            arch, cfg, params, {k: (v, logits[k]) for k, v in
+                                prefills.items()}, prompt, new, cache_len)
+        assert torch.equal(gen, steps), (arch, gen, steps)
+        T = prompt.shape[1]
+        assert n == {"flash_attention": cfg.n_layers * (len(prefills) + T
+                                                        + new - 1),
+                     "ssd_scan": 0}, (arch, n)
+        # every bf16 prefill on tc, every decode step on decode, fma never
+        assert by_route == {"tc": cfg.n_layers * len(prefills),
+                            "decode": cfg.n_layers * (T + new - 1),
+                            "fma": 0}, (arch, by_route)
+        launches[arch], routes[arch] = n["flash_attention"], by_route
+        log(f"[moe] {arch} greedy_generate's tokens (cache "
+            f"{cache_len or T + new}) equal the step-by-step decode's")
+        del params
+
+    # ---- mixtral-8x22b: window 4096, a decode ring of 512 -----------------
+    arch, n_layers = MOE_MODELS[0]
+    get = get_config(arch)
+    p1024, p8192, p512 = (tokens(get, 4, 1024), tokens(get, 1, 8192),
+                          tokens(get, 4, 512))
+    # decode at 0 (511 slots never written), 511 (the ring full), 512 and
+    # 542 (wrapped); position 511 of the ring of 512 attends what a cache
+    # of 544 would, so its logits are held against the prefill
+    serve_cell(arch, n_layers, {"prefill-1024": p1024, "prefill-8192": p8192},
+               p512, 32, 512,
+               lambda t: layers_of(n_layers, f"{arch} decode q_offset={t}")
+               if t in (0, 511, 512, 542) else None)
+    torch.cuda.empty_cache()
+
+    # ---- grok-1-314b: no window ------------------------------------------
+    arch, n_layers = MOE_MODELS[1]
+    get = get_config(arch)
+    serve_cell(arch, n_layers, {"prefill-1024": tokens(get, 4, 1024)},
+               tokens(get, 4, 64), 16, None, None)
+    torch.cuda.empty_cache()
+    t_paths = time.time() - t_phase
+
+    # ---- (a) the kernel against its plain version -------------------------
+    def check(what, fn, ref, q, k, v, layout, **kw):
+        before = dict(fa.route_launches)
+        got, want = fn(q, k, v, **kw), ref(q, k, v, **kw)
+        qh, kh = (q, k) if layout == "bhtd" else (q.transpose(1, 2),
+                                                  k.transpose(1, 2))
+        kind = fa._route(qh.shape[2], qh.shape[3], q.dtype, k.dtype,
+                         qh.shape[1], kh.shape[1], ring=kw.get("ring"))
+        assert fa.route_launches[kind] == before[kind] + 1, (what, kind)
+        checked[kind] += 1
+        tol = FA_TOL[str(q.dtype).split(".")[-1]]
+        assert got.dtype == want.dtype == q.dtype and got.shape == want.shape
+        d = (got.float() - want.float()).abs()
+        assert not bool((d > tol + tol * want.float().abs()).any()), (
+            what, float(d.max()))
+        errs[what] = float(d.max())
+
+    for name in sorted(captured):
+        (q, k, v), kw = captured[name]
+        check(name, kops.flash_attention, model_layout_ref, q, k, v, "bthd",
+              **kw)
+        assert kw.get("ring") == ("decode" in name and "mixtral" in name)
+        assert kw.get("window") == (4096 if "mixtral" in name else None)
+    g = torch.Generator(device=dev).manual_seed(4)
+    bf16 = torch.bfloat16
+    ring4096 = (torch.randn((4, 48, 1, 128), generator=g, device=dev).to(bf16),
+                *(torch.randn((4, 8, 4096, 128), generator=g,
+                              device=dev).to(bf16) for _ in range(2)))
+    check("random ring S=4096 q_offset=4159", fa.flash_attention,
+          flash_attention_ref, *ring4096, "bhtd", window=4096, q_offset=4159,
+          ring=True)
+    torch.cuda.synchronize()
+    assert checked["tc"] and checked["decode"] and not checked["fma"], checked
+    log("[moe] (a) flash_attention matches its plain version (max abs "
+        "error): " + "; ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f"; checks by route {checked}")
+
+    # ---- (d) the f32 SMOKE configs against the JAX-made references --------
+    for arch, _ in MOE_MODELS:
+        path = TESTDATA / f"{arch.split('-')[0]}_smoke_serve_ref.json"
+        ref = json.loads(path.read_text())
+        assert {k: ref[k] for k in MOE_SERVE_REF[arch]} == MOE_SERVE_REF[arch]
+        scfg = dataclasses.replace(get_config(arch, smoke=True),
+                                   dtype="float32", attn_impl="pallas")
+        sp = lm_params_from_jax(lm_weights(scfg, ref["seed"]), scfg)
+        stoks = torch.tensor(ref["prompt"], dtype=torch.int32, device=dev)
+        got = make_prefill_step(scfg)(sp, {"tokens": stoks})
+        smoke = {"prefill": (got, "prefill_last_logits")}
+        steps, new = ref["steps"], ref["new"]
+        step = make_decode_step(scfg)
+        cache = lm.init_cache(scfg, ref["batch"], steps + new,
+                              dtype=torch.float32)
+        out, tok, gen = [], stoks[:, :1], []
+        for t in range(steps + new - 1):
+            lg, cache = step(sp, cache, tok, t)
+            if t < steps:
+                out.append(lg)
+            if t + 1 < steps:
+                tok = stoks[:, t + 1:t + 2]
+            else:
+                tok = lg.argmax(-1)[:, None].to(torch.int32)
+                gen.append(tok)
+        smoke["decode, f32 cache"] = (torch.stack(out), "position_logits")
+        held = {}
+        for what, (got, key) in smoke.items():
+            want = torch.tensor(ref[key], device=dev).reshape(got.shape)
+            d = (got - want).abs()
+            assert not bool((d > SMOKE_TOL + SMOKE_TOL * want.abs()).any()), (
+                arch, what, float(d.max()))
+            held[what] = float(d.max())
+        assert torch.cat(gen, 1).tolist() == ref["greedy_tokens"], arch
+        log(f"[moe] (d) {arch} SMOKE, f32, on the card vs the JAX reference "
+            f"(max abs error, limit {SMOKE_TOL}): {held}; greedy tokens "
+            f"equal")
+
+    # ---- (e) times ---------------------------------------------------------
+    def timing(name):
+        (q, k, v), kw = captured[name]
+        return flash_timing(q, k, v, kw)
+
+    tc_w = timing("mixtral-8x22b prefill-8192 layer 0")
+    ring512 = timing("mixtral-8x22b decode q_offset=542 layer 0")
+    # the same keys as one run of 512 slots from 0: the ring's walk (two
+    # runs, positions 31 .. 542) against a plain cache's at equal work
+    (q, k, v), kw = captured["mixtral-8x22b decode q_offset=542 layer 0"]
+    ring512["flat_512"] = flash_timing(q, k, v, dict(window=4096,
+                                                     q_offset=511))
+    q, k, v = (t.transpose(1, 2) for t in ring4096)
+    ring_4096 = flash_timing(q, k, v, dict(window=4096, q_offset=4159,
+                                           ring=True))
+    assert (tc_w["fa_route"], ring512["fa_route"], ring_4096["fa_route"]) \
+        == ("tc", "decode", "decode")
+    log(f"[moe] flash_attention at mixtral prefill-8192 (window 4096): "
+        f"{tc_w}; on the ring of 512: {ring512}; on a ring of 4096: "
+        f"{ring_4096}; phase 9 wall {time.time() - t_phase:.1f}s (the serve "
+        f"paths {t_paths:.1f}s)")
+    return {"routes": {
+        "tc": {"mixtral_prefill_8192_w4096": dict(
+            tc_w, launches=routes["mixtral-8x22b"]["tc"])},
+        "decode": {"mixtral_ring_512": dict(
+            ring512, launches=routes["mixtral-8x22b"]["decode"]),
+            "mixtral_ring_4096": dict(
+                ring_4096, launches=0, note="one random call: B 4, S 4096, "
+                                            "position 4159 (wrapped)")}},
+        "launches_moe": launches, "routes_moe": routes,
+        "max_abs_err_moe": max(errs.values())}
 
 
 def active_lanes(prog, st, t):
@@ -3715,6 +4162,9 @@ def main() -> int:
     if sys.argv[1:] == ["--phase", "6g"]:   # phase 6g alone, after the build
         print(json.dumps(soak_phase(dev)), flush=True)
         return finish(kind)
+    if sys.argv[1:] == ["--phase", "9"]:    # phase 9 alone, after the build
+        print(json.dumps(serve_moe(dev)), flush=True)
+        return finish(kind)
 
     # ---- 2. kernels vs plain versions on the card -------------------------
     def program(sc, cfg):
@@ -4020,15 +4470,27 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 8. serve: mamba2-2.7b and zamba2-2.7b through the SSD kernel -----
+    fa_entry = kernels[-1]
     ssd_entry, fa_zamba2 = serve_ssm(dev)
-    kernels[-1].update(fa_zamba2)
-    for fa_route, by_route in kernels[-1]["routes"].items():
+    fa_entry.update(fa_zamba2)
+    for fa_route, by_route in fa_entry["routes"].items():
         by_route["launches_zamba2"] = fa_zamba2["routes_zamba2"][fa_route]
-    kernels[-1]["routes"]["tc"]["zamba2_prefill_1024_hd80"] = \
+    fa_entry["routes"]["tc"]["zamba2_prefill_1024_hd80"] = \
         fa_zamba2["zamba2_prefill_1024_hd80"]
-    kernels[-1]["max_abs_err"] = max(kernels[-1]["max_abs_err"],
-                                     fa_zamba2["max_abs_err_hd80"])
+    fa_entry["max_abs_err"] = max(fa_entry["max_abs_err"],
+                                  fa_zamba2["max_abs_err_hd80"])
     kernels.append(ssd_entry)
+    torch.cuda.empty_cache()
+
+    # ---- 9. serve, MoE: mixtral-8x22b and grok-1-314b through flash -------
+    moe = serve_moe(dev)
+    for fa_route, by_route in fa_entry["routes"].items():
+        by_route.update(moe["routes"].get(fa_route, {}))
+        by_route["launches_moe"] = {arch: n[fa_route] for arch, n in
+                                    moe["routes_moe"].items()}
+    fa_entry["launches_moe"] = moe["launches_moe"]
+    fa_entry["max_abs_err"] = max(fa_entry["max_abs_err"],
+                                  moe["max_abs_err_moe"])
     print(json.dumps({"kernels": kernels, **floors}), flush=True)
     return finish(kind)
 

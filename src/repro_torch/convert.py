@@ -86,12 +86,14 @@ _NORMS = ("final_norm", "ln1", "ln2", "q_norm", "k_norm")
 def lm_params_from_jax(np_params, cfg: ModelConfig, device="cuda") -> dict:
     """The reference's LM params (``repro.models.lm.init_params``'s tree
     with array-like leaves: f32 masters, layers stacked on a leading axis,
-    e.g. ``layers/attn/wq`` of shape (n_layers, d, H*hd) or
-    ``layers/ssm/w_x`` of shape (n_layers, d, d_in); the hybrid's
+    e.g. ``layers/attn/wq`` of shape (n_layers, d, H*hd),
+    ``layers/moe/router`` (n_layers, d, E) and ``layers/moe/wg`` (n_layers,
+    E, d, ff) or ``layers/ssm/w_x`` of shape (n_layers, d, d_in); the
+    hybrid's
     ``shared_attn``, one unstacked dense block) -> the port's params dict
     on ``device``, one dict per layer.  The reference casts the same f32
-    masters at every use; the port casts once: dense matrices to
-    ``cfg.dtype``, the Mamba2 projections to bf16 (``ssm.py`` casts them
+    masters at every use; the port casts once: dense and MoE matrices
+    (router and experts) to ``cfg.dtype``, the Mamba2 projections to bf16 (``ssm.py`` casts them
     to bf16 whatever ``cfg.dtype`` is); norm weights and the Mamba2
     block's other leaves (conv kernels and biases, ``A_log``, ``D``,
     ``dt_bias``, ``norm_w``) stay f32."""

@@ -58,6 +58,14 @@
 //   than it saves): the split blocks form a thread-block cluster, and the
 //   first reads the others' merged (acc, m, l) out of their shared memory.
 //   All arithmetic is f32 FMAs, expf as the plain version.
+//   A ring (a sliding-window decode cache: position p in slot p % Tk) is
+//   walked by position, not by slot: the live positions [k_lo, k_hi) run
+//   from the last query's position P back over at most Tk positions, no
+//   further than the window and not below 0 (a slot never written holds
+//   no position), and a key's row is its slot, p - base, or p - base + Tk
+//   below base = P - P % Tk: at most two runs of slots (k_lo % Tk up to
+//   Tk - 1, then 0 up to P % Tk), and no dead slot is read.  Without a
+//   ring base is 0 and the row is the position.
 //
 // fma (Tq > 4 with f32 or mixed types: the f32 models and checks).  The
 //   first kernel of this port: one block per (b*h, 64-row q tile), f32 FMAs
@@ -109,6 +117,7 @@ struct FaArgs {
   int causal, window, q_offset;   // window <= 0: no window
   float scale;
   int splits;  // decode: the keys of a group split over this many blocks
+  int ring;    // decode: k/v are a ring of Tk slots, position p in p % Tk
 };
 
 namespace {
@@ -906,25 +915,33 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                : "memory");
 }
 
-// A chunk's loads (keys j0 .. j0 + 31, k_hi the end of the live range):
-// its V rows stream into the warp's shared memory (rows past k_hi as
-// zeros) and this lane's K row, in 16-byte pieces, into ``raw`` (its first
-// 256 bytes: all of it in bf16 up to hd 128).
+// The cache row of key position p: its ring slot (base = P - P % Tk), or
+// p itself without a ring (base 0)
+__device__ __forceinline__ int slot(int p, int base, int Tk) {
+  const int j = p - base;
+  return j < 0 ? j + Tk : j;
+}
+
+// A chunk's loads (key positions j0 .. j0 + 31, k_hi the end of the live
+// range): its V rows stream into the warp's shared memory (rows past k_hi
+// as zeros) and this lane's K row, in 16-byte pieces, into ``raw`` (its
+// first 256 bytes: all of it in bf16 up to hd 128).
 template <typename TKV>
 __device__ __forceinline__ void issue(const FaArgs& a, const TKV* k,
                                       const TKV* v, TKV* vw, uint4 (&raw)[16],
-                                      int j0, int k_hi, int lane) {
+                                      int j0, int k_hi, int base, int lane) {
   constexpr int VE = 16 / sizeof(TKV);
   const int nv = min(CH, k_hi - j0), nvec = a.hd / VE;
   for (int e = lane; e < CH * nvec; e += 32) {
     const int r = e / nvec, x = e - r * nvec;
     cp_async16(smem_u32(vw + r * a.hd + x * VE),
-               v + (long long)(j0 + min(r, nv - 1)) * a.sv[2] + x * VE,
+               v + (long long)slot(j0 + min(r, nv - 1), base, a.Tk) * a.sv[2] +
+                   x * VE,
                r < nv ? 16 : 0);
   }
   asm volatile("cp.async.commit_group;\n" ::: "memory");
   if (lane < nv) {
-    const TKV* kr = k + (long long)(j0 + lane) * a.sk[2];
+    const TKV* kr = k + (long long)slot(j0 + lane, base, a.Tk) * a.sk[2];
 #pragma unroll
     for (int i = 0; i < 16; ++i)
       if (i < nvec) raw[i] = *reinterpret_cast<const uint4*>(kr + i * VE);
@@ -957,9 +974,18 @@ __global__ void __launch_bounds__(NT) dec_kernel(const FaArgs a) {
   const TKV* k = static_cast<const TKV*>(a.k) + b * a.sk[0] + kh * a.sk[1];
   const TKV* v = static_cast<const TKV*>(a.v) + b * a.sv[0] + kh * a.sv[1];
 
-  int k_lo = 0, k_hi = a.Tk;
-  if (a.causal) k_hi = min(k_hi, a.q_offset + a.Tq);
-  if (a.window > 0) k_lo = max(0, a.q_offset - a.window + 1);
+  // live key positions [k_lo, k_hi); a ring holds positions P - Tk + 1 ..
+  // P of the last query's P, the older ones overwritten
+  const int P = a.q_offset + a.Tq - 1;
+  int k_lo = 0, k_hi = a.Tk, base = 0;
+  if (a.ring) {
+    k_hi = P + 1;
+    k_lo = max(0, k_hi - a.Tk);
+    base = P >= 0 ? P - P % a.Tk : 0;
+  } else if (a.causal) {
+    k_hi = min(k_hi, a.q_offset + a.Tq);
+  }
+  if (a.window > 0) k_lo = max(k_lo, a.q_offset - a.window + 1);
   const int n_ch = k_hi > k_lo ? (k_hi - k_lo + CH - 1) / CH : 0;
   // this block's share of the chunks: split blockIdx.z of gridDim.z
   const int per = (n_ch + gridDim.z - 1) / gridDim.z;
@@ -969,7 +995,7 @@ __global__ void __launch_bounds__(NT) dec_kernel(const FaArgs a) {
   uint4 raw[16];
   // the first chunk's loads fly while the queries are staged
   if (c_lo + warp < c_hi)
-    issue(a, k, v, vw, raw, k_lo + (c_lo + warp) * CH, k_hi, lane);
+    issue(a, k, v, vw, raw, k_lo + (c_lo + warp) * CH, k_hi, base, lane);
   for (int e = tid; e < RC * hd; e += NT) {
     const int r = e / hd, d = e - r * hd, gr = r0 + r;
     float x = 0.f;
@@ -997,7 +1023,7 @@ __global__ void __launch_bounds__(NT) dec_kernel(const FaArgs a) {
 #pragma unroll
     for (int r = 0; r < RC; ++r) s[r] = 0.f;
     if (lane < nv) {
-      const TKV* kr = k + (long long)j * a.sk[2];
+      const TKV* kr = k + (long long)slot(j, base, a.Tk) * a.sk[2];
       for (int d0 = 0; d0 < hd; d0 += 16 * VE) {
         if (d0 > 0)  // f32 past 64 columns: the next 256 bytes
 #pragma unroll
@@ -1029,8 +1055,11 @@ __global__ void __launch_bounds__(NT) dec_kernel(const FaArgs a) {
     // lane's share
 #pragma unroll
     for (int r = 0; r < RC; ++r) {
+      // j in [k_lo, k_hi): inside the cache (or the ring's positions) and
+      // the window's bound of the last row; each row's own bounds here
       const int qp = a.q_offset + (r0 + r) % a.Tq;
-      const bool lv = lane < nv && r < n_rows && live(a, qp, j);
+      const bool lv = lane < nv && r < n_rows && (!a.causal || j <= qp) &&
+                      (a.window <= 0 || j > qp - a.window);
       const float x = lv ? s[r] * a.scale : NEG_INF;
       const float mn = fmaxf(m[r], warp_max(x));
       const float pr = lv ? expf(x - mn) : 0.f;
@@ -1071,7 +1100,7 @@ __global__ void __launch_bounds__(NT) dec_kernel(const FaArgs a) {
     }
     __syncwarp();  // P and the V chunk consumed before the next chunk
     if (ch + NW < c_hi)
-      issue(a, k, v, vw, raw, k_lo + (ch + NW) * CH, k_hi, lane);
+      issue(a, k, v, vw, raw, k_lo + (ch + NW) * CH, k_hi, base, lane);
   }
 
   // merge the warps' (m, l, acc): m the largest, l and acc rescaled to it
@@ -1202,7 +1231,7 @@ int launch(const FaArgs& a, cudaStream_t stream) {
 extern "C" int flash_attention(const FaArgs* a, int route, int q_bf16,
                                int kv_bf16, cudaStream_t stream) {
   if (a->hd < 1 || a->hd > MAX_HD || a->Tq < 1 || a->Tk < 1 || a->K < 1 ||
-      a->H % a->K != 0)
+      a->H % a->K != 0 || (a->ring && route != 2))
     return (int)cudaErrorInvalidValue;
   if (route == 0) {
     if ((q_bf16 && kv_bf16) || (a->Tq + BQ - 1) / BQ > 65535)

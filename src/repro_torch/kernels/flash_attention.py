@@ -15,7 +15,10 @@ kernels from the shapes and types alone:
   p is rounded to bf16 before ``p @ v``;
 - ``decode``: at most :data:`DECODE_MAX_TQ` query rows, any types: one pass
   over the cache per (batch, kv head) for all the query heads of its group,
-  the keys split over blocks when there are fewer groups than SMs;
+  the keys split over blocks when there are fewer groups than SMs; the only
+  route that takes a ``ring`` (a sliding-window decode cache, whose slots
+  are not positions: it walks the live positions and maps each to its
+  slot);
 - ``fma``: more rows with float32 or mixed types: float32 FMAs on the CUDA
   cores.
 
@@ -68,7 +71,7 @@ class FaArgs(Structure):
                 + [(n, c_longlong * 3) for n in ("sq", "sk", "sv", "so")]
                 + [(n, c_int) for n in ("B", "H", "K", "Tq", "Tk", "hd",
                                         "causal", "window", "q_offset")]
-                + [("scale", c_float), ("splits", c_int)])
+                + [("scale", c_float), ("splits", c_int), ("ring", c_int)])
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -78,8 +81,9 @@ def _declare(lib: ctypes.CDLL) -> None:
 
 
 def _route(Tq: int, hd: int, q_dtype, kv_dtype, H: int, K: int,
-           strides=None, addrs=None) -> str:
+           strides=None, addrs=None, ring: bool = False) -> str:
     """The kernel a CUDA call goes to: ``"tc"``, ``"decode"`` or ``"fma"``.
+    A ``ring`` cache goes to ``decode`` or raises: a prefill has no cache.
 
     ``strides`` (element strides of q, k and v, four each) and ``addrs``
     (their data pointers), where given, are held to what the route reads
@@ -95,6 +99,10 @@ def _route(Tq: int, hd: int, q_dtype, kv_dtype, H: int, K: int,
     bf16 = torch.bfloat16
     if Tq <= DECODE_MAX_TQ:
         name, held = "decode", (1, 2)
+    elif ring:
+        raise ValueError(f"flash_attention: a ring cache reaches only the "
+                         f"decode route (at most {DECODE_MAX_TQ} query rows),"
+                         f" not {Tq}")
     elif q_dtype == bf16 and kv_dtype == bf16:
         name, held = "tc", (0, 1, 2)
     else:
@@ -137,13 +145,17 @@ def _decode_grid(B: int, H: int, K: int, Tq: int, Tk: int,
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window=None,
-                    q_offset: int = 0) -> torch.Tensor:
+                    q_offset: int = 0, ring: bool = False) -> torch.Tensor:
     """q: (B, H, Tq, hd); k, v: (B, K, Tk, hd) with H % K == 0.  Returns
     (B, H, Tq, hd) in ``q.dtype``, laid out in memory as q is (a model-layout
     q, (B, Tq, H, hd) transposed, gives a model-layout output).
 
     Query row ``i`` sits at absolute position ``q_offset + i`` (decode and
-    chunked prefill); key ``j`` at position ``j``.  GQA: q head ``h``
+    chunked prefill); key ``j`` at position ``j``, or with ``ring`` (a
+    sliding-window cache of Tk slots, position p in slot p % Tk) at the
+    position :func:`.ref.ring_positions` gives it once the last query's
+    position is written, a negative one (never written) masked.  GQA: q
+    head ``h``
     reads kv head ``h // (H // K)``.  q and k/v are float32 or bfloat16
     and may differ (an f32 model against a bf16 KV cache)."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
@@ -164,7 +176,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"got {window}")
     if route(q) == "plain":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
-                                   q_offset=q_offset)
+                                   q_offset=q_offset, ring=ring)
     if Tq < 1 or Tk < 1:
         raise ValueError(f"flash_attention kernel: Tq {Tq}, Tk {Tk}")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -173,7 +185,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                              f"dimension must be contiguous")
     kind = _route(Tq, hd, q.dtype, k.dtype, H, K,
                   strides=(q.stride(), k.stride(), v.stride()),
-                  addrs=(q.data_ptr(), k.data_ptr(), v.data_ptr()))
+                  addrs=(q.data_ptr(), k.data_ptr(), v.data_ptr()),
+                  ring=ring)
     if q.stride(2) > q.stride(1):  # model layout: write the output so
         out = torch.empty((B, Tq, H, hd), dtype=q.dtype,
                           device=q.device).transpose(1, 2)
@@ -189,7 +202,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         (c_longlong * 3)(*v.stride()[:3]),
         (c_longlong * 3)(*out.stride()[:3]), B, H, K, Tq, Tk, hd,
         int(bool(causal)), 0 if window is None else int(window),
-        int(q_offset), 1.0 / math.sqrt(hd), splits)
+        int(q_offset), 1.0 / math.sqrt(hd), splits, int(bool(ring)))
     lib = load("flash_attention", _declare)
     launch(lib.flash_attention, ctypes.byref(args), ROUTES.index(kind),
            int(q.dtype == torch.bfloat16), int(k.dtype == torch.bfloat16),

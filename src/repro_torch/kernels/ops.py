@@ -14,14 +14,16 @@ from . import flash_attention as _fa
 from . import ssd_scan as _ssd
 
 
-def flash_attention(q, k, v, *, causal=True, window=None, q_offset=0):
+def flash_attention(q, k, v, *, causal=True, window=None, q_offset=0,
+                    ring=False):
     """q: (B,T,H,hd), k/v: (B,S,K,hd) — model layout.  Returns the same
     layout.  Query ``t`` sits at absolute position ``q_offset + t`` and key
     ``s`` at position ``s``: decode against a cache passes the position of
-    its first query."""
+    its first query.  ``ring``: the keys are a sliding-window cache of S
+    slots, position p in slot p % S."""
     out = _fa.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                               v.transpose(1, 2), causal=causal, window=window,
-                              q_offset=q_offset)
+                              q_offset=q_offset, ring=ring)
     return out.transpose(1, 2)
 
 

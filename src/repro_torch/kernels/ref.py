@@ -4,7 +4,9 @@
 (``repro/kernels/flash_attention.py::_fa_kernel``) computes, materialised:
 scores, softmax and ``p @ v`` in float32 whatever the input types (q may
 be float32 against bfloat16 k/v), a row with no live key gives 0, and
-the output is in ``q.dtype``.
+the output is in ``q.dtype``.  With ``ring`` the keys are a sliding-window
+decode cache of ``Tk`` slots written at ``position % Tk`` (see
+:func:`ring_positions`).
 
 :func:`ssd_chunked_ref` is the Mamba2 SSD chunked scan of the reference
 model (``repro/models/ssm.py::ssd_chunked``), which is what the Pallas
@@ -21,9 +23,40 @@ import math
 import torch
 
 
-def flash_attention_ref(q, k, v, *, causal=True, window=None, q_offset=0):
+def ring_positions(Tk: int, last: int, device=None) -> torch.Tensor:
+    """int64 (Tk,): the position each slot of a ring of ``Tk`` slots holds
+    once position ``last`` is written (position p in slot p % Tk): slot
+    ``j`` holds ``base + j`` with ``base = last - last % Tk``, less ``Tk``
+    where that passes ``last``.  A negative position is a slot never
+    written."""
+    base = last - last % Tk
+    pos = torch.arange(Tk, device=device) + base
+    return torch.where(pos > last, pos - Tk, pos)
+
+
+def live_mask(Tq: int, Tk: int, *, causal=True, window=None, q_offset=0,
+              ring=False, device=None) -> torch.Tensor:
+    """bool (Tq, Tk): query row i (at position ``q_offset + i``) attends key
+    j (at position j, or with ``ring`` at ``ring_positions(Tk, q_offset +
+    Tq - 1)[j]``, a negative one never)."""
+    q_pos = torch.arange(Tq, device=device)[:, None] + q_offset
+    if ring:
+        k_pos = ring_positions(Tk, q_offset + Tq - 1, device)[None, :]
+    else:
+        k_pos = torch.arange(Tk, device=device)[None, :]
+    live = (k_pos >= 0).expand(Tq, Tk)
+    if causal:
+        live = live & (k_pos <= q_pos)
+    if window is not None:
+        live = live & (k_pos > q_pos - window)
+    return live
+
+
+def flash_attention_ref(q, k, v, *, causal=True, window=None, q_offset=0,
+                        ring=False):
     """q: (B,H,Tq,hd); k, v: (B,K,Tk,hd), H % K == 0 (q head h reads kv
-    head h // (H // K)).  Returns (B,H,Tq,hd) in ``q.dtype``."""
+    head h // (H // K)).  Returns (B,H,Tq,hd) in ``q.dtype``.  The keys
+    each query row attends: :func:`live_mask`."""
     B, H, Tq, hd = q.shape
     K, Tk = k.shape[1], k.shape[2]
     G = H // K
@@ -31,13 +64,8 @@ def flash_attention_ref(q, k, v, *, causal=True, window=None, q_offset=0):
     qg = q.to(f32).reshape(B, K, G, Tq, hd)
     s = torch.einsum("bkgqd,bksd->bkgqs", qg, k.to(f32)) \
         * (1.0 / math.sqrt(hd))
-    q_pos = torch.arange(Tq, device=q.device)[:, None] + q_offset
-    k_pos = torch.arange(Tk, device=q.device)[None, :]
-    live = torch.ones((Tq, Tk), dtype=torch.bool, device=q.device)
-    if causal:
-        live = live & (k_pos <= q_pos)
-    if window is not None:
-        live = live & (k_pos > q_pos - window)
+    live = live_mask(Tq, Tk, causal=causal, window=window, q_offset=q_offset,
+                     ring=ring, device=q.device)
     s = s.masked_fill(~live, float("-inf"))
     p = torch.softmax(s, dim=-1).nan_to_num(nan=0.0)   # no live key -> 0
     out = torch.einsum("bkgqs,bksd->bkgqd", p, v.to(f32))

@@ -14,11 +14,18 @@ Attention implementations, as in the reference:
   * ``pallas``  — the hand-written flash-attention kernel
     (:func:`repro_torch.kernels.ops.flash_attention`).
 
-Two faults of the reference are not carried over (ROADMAP C6, C7): its
-``pallas`` branch passes no ``q_offset`` in decode, so the query sits at
-position 0 and reads cache slot 0 only; and its chunked path pads a
+Three faults of the reference are not carried over (ROADMAP C6, C7,
+C18): its ``pallas`` branch passes no ``q_offset`` in decode, so the query
+sits at position 0 and reads cache slot 0 only; its chunked path pads a
 ragged last chunk with keys at position ``-10**9``, which a causal mask
-lets through.  MoE layers are not ported yet (ROADMAP A13).
+lets through; and its sliding-window decode ring gives the slots not yet
+written negative positions, which the causal and window masks let
+through.
+
+The MoE layers (``init_moe``, ``apply_moe``, ``apply_moe_dense``) are the
+reference's: top-k routing with a per-group capacity, the dispatch and
+combine as one-hot einsums, and in decode every expert computed and
+weighted by the renormalised top-k gates.
 """
 from __future__ import annotations
 
@@ -54,6 +61,10 @@ def init_linear(gen: torch.Generator, d_in: int, d_out: int,
     w = torch.randn((d_in, d_out), generator=gen, dtype=F32,
                     device=gen.device)
     return w.mul_(scale).to(dtype)
+
+
+def _silu(x):
+    return x * torch.sigmoid(x)
 
 
 def rms_norm(x, w, eps, f32=True):
@@ -195,11 +206,6 @@ def apply_attention(p, x, cfg: ModelConfig, *, positions, cache=None,
         # decode: write this step's k/v at the cache position (ring for SWA)
         S = cache["k"].shape[1]
         pos = int(cache["pos"])
-        if window is not None and cfg.attn_impl == "pallas":
-            raise NotImplementedError(
-                "repro_torch: the pallas kernel against a sliding-window "
-                "ring cache (slots are not positions) is not ported yet "
-                "(ROADMAP A13: MoE with mixtral's SWA decode ring)")
         slot = pos % S if window is not None else pos
         if slot + T > S:
             raise ValueError(f"decode: positions {pos}..{pos + T - 1} do not "
@@ -211,6 +217,8 @@ def apply_attention(p, x, cfg: ModelConfig, *, positions, cache=None,
             base = pos - (pos % S)
             k_pos = idx + base
             k_pos = torch.where(k_pos > pos, k_pos - S, k_pos)
+            # a slot not yet written has a negative position (C18)
+            k_pos = torch.where(k_pos < 0, 10 ** 9, k_pos)
         else:
             k_pos = torch.where(idx <= pos, idx, 10 ** 9)  # mask unwritten
         k_pos = k_pos.expand(B, S)
@@ -224,7 +232,9 @@ def apply_attention(p, x, cfg: ModelConfig, *, positions, cache=None,
     impl = cfg.attn_impl
     if impl == "pallas":
         out = kops.flash_attention(q, k, v, causal=causal, window=window,
-                                   q_offset=q_offset)
+                                   q_offset=q_offset,
+                                   ring=cache is not None
+                                   and window is not None)
     elif impl == "chunked" and k.shape[1] > cfg.attn_chunk and T > 1:
         out = _sdpa_chunked(q, k, v, q_pos, k_pos, causal, window,
                             cfg.attn_chunk, f32=cfg.attn_f32)
@@ -248,7 +258,127 @@ def init_mlp(gen: torch.Generator, d: int, ff: int,
 def apply_mlp(p, x, cfg: ModelConfig):
     dt = dtype_of(cfg)
     x = x.to(dt)
-    g = _mm(x, p["wg"])
-    g = g * torch.sigmoid(g)  # silu, as x * sigmoid(x) like the reference
+    g = _silu(_mm(x, p["wg"]))  # x * sigmoid(x), as the reference's silu
     u = _mm(x, p["wu"])
     return _mm(g * u, p["wd"])
+
+
+# --------------------------------------------------------------------------- #
+# Mixture of Experts (top-k, group-wise capacity dispatch)
+# --------------------------------------------------------------------------- #
+
+def init_moe(gen: torch.Generator, cfg: ModelConfig,
+             dtype: torch.dtype) -> dict:
+    """Router (d, E); experts ``wg``/``wu`` (E, d, ff) and ``wd`` (E, ff,
+    d), each N(0, 1) / sqrt(d_in) as in the reference."""
+    d, ff, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+
+    def experts(d_in, d_out):
+        w = torch.randn((E, d_in, d_out), generator=gen, dtype=F32,
+                        device=gen.device)
+        return w.mul_(1.0 / math.sqrt(d_in)).to(dtype)
+
+    return {"router": init_linear(gen, d, E, dtype), "wg": experts(d, ff),
+            "wu": experts(d, ff), "wd": experts(ff, d)}
+
+
+def top_k(x: torch.Tensor, k: int) -> tuple:
+    """(values, indices) of the ``k`` largest along the last axis, ties to
+    the lower index as ``lax.top_k`` breaks them (a stable sort;
+    ``torch.topk`` leaves the order of ties unspecified)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _one_hot(i: torch.Tensor, n: int, dtype) -> torch.Tensor:
+    """``jax.nn.one_hot``: an index outside [0, n), -1 included, gives a
+    row of zeros."""
+    return (i[..., None] == torch.arange(n, device=i.device)).to(dtype)
+
+
+def moe_gates(p, x, cfg: ModelConfig) -> tuple:
+    """Router softmax (f32, over the last axis) and the renormalised top-k
+    gates and their experts, for x (..., d)."""
+    logits = _mm(x, p["router"]).to(F32)
+    gates = torch.softmax(logits, dim=-1)
+    topw, topi = top_k(gates, cfg.experts_per_tok)
+    return gates, topw / topw.sum(-1, keepdim=True).clamp_min(1e-9), topi
+
+
+def moe_routing(p, x, cfg: ModelConfig, group: int = None) -> dict:
+    """The routing of :func:`apply_moe` on x (B, T, d): ``T`` in groups of
+    ``g = min(group or cfg.moe_group, T)`` tokens (S = B T / g of them), each
+    expert taking at most ``C = max(1, int(capacity_factor * g * k / E))``
+    of a group's (token, slot) pairs in token-major, slot-minor order, the
+    rest dropped.
+    Returns ``xg`` (S, g, d) in ``cfg.dtype``, ``gates`` (S, g, E) f32,
+    ``topw`` and ``topi`` (S, g, k), ``onehot`` (S, g, k, E) f32, ``pos``
+    (S, g, k, E) f32 (the queue position, -1 off the chosen expert) and
+    ``keep`` (S, g, k, E) bool."""
+    B, T, d = x.shape
+    E, k = cfg.n_experts, cfg.experts_per_tok
+    g = min(group or cfg.moe_group, T)
+    xg = x.reshape(B * (T // g), g, d).to(dtype_of(cfg))
+    S = xg.shape[0]
+    gates, topw, topi = moe_gates(p, xg, cfg)
+    C = max(1, int(cfg.capacity_factor * g * k / E))
+    onehot = _one_hot(topi, E, F32)
+    # position of each (token, slot) within its expert queue, in f32
+    pos = torch.cumsum(onehot.reshape(S, g * k, E), dim=1).reshape(
+        S, g, k, E) * onehot - 1.0
+    keep = (pos < C) & (onehot > 0)
+    return dict(xg=xg, gates=gates, topw=topw, topi=topi, onehot=onehot,
+                pos=pos, keep=keep, C=C)
+
+
+def moe_dropped(p, x, cfg: ModelConfig, group: int = None) -> torch.Tensor:
+    """(token, slot) pairs :func:`apply_moe` drops on x for want of
+    capacity: an int64 scalar tensor."""
+    r = moe_routing(p, x, cfg, group)
+    return (r["onehot"] > 0).sum() - r["keep"].sum()
+
+
+def apply_moe(p, x, cfg: ModelConfig, group: int = None) -> tuple:
+    """Top-k routing with per-group expert capacity, overflow dropped
+    (:func:`moe_routing`); the dense one-hot dispatch and combine einsums
+    of the reference (``torch.einsum``, as the reference leaves them to
+    XLA).  Returns (y (B, T, d) in ``cfg.dtype``, aux loss f32 scalar, the
+    Switch-style load-balancing loss)."""
+    dt = dtype_of(cfg)
+    B, T, d = x.shape
+    E = cfg.n_experts
+    r = moe_routing(p, x, cfg, group)
+    xg, onehot, keep = r["xg"], r["onehot"], r["keep"]
+    cap_oh = _one_hot(r["pos"].to(torch.int64), r["C"], dt) \
+        * keep[..., None].to(dt)                               # (S,g,k,E,C)
+    disp = cap_oh.sum(2)                                       # (S,g,E,C)
+    xe = torch.einsum("sgec,sgd->secd", disp, xg)              # (S,E,C,d)
+    h = _silu(torch.einsum("secd,edf->secf", xe, p["wg"].to(dt))) \
+        * torch.einsum("secd,edf->secf", xe, p["wu"].to(dt))
+    ye = torch.einsum("secf,efd->secd", h, p["wd"].to(dt))     # (S,E,C,d)
+    comb = torch.einsum("sgkec,sgk->sgec", cap_oh, r["topw"].to(dt))
+    y = torch.einsum("sgec,secd->sgd", comb, ye)
+    me = r["gates"].mean(dim=(0, 1))
+    ce = onehot.sum(2).mean(dim=(0, 1))
+    aux = E * torch.sum(me * ce)
+    return y.reshape(B, T, d), aux
+
+
+def apply_moe_dense(p, x, cfg: ModelConfig) -> tuple:
+    """Every expert computed (decode, small T) and weighted by the
+    renormalised top-k gates, as the reference does: no capacity, nothing
+    dropped.  The expert products are batched over the experts with the
+    tokens broadcast (``torch.einsum`` of "btd,edf->btef" would first copy
+    the (E, d, ff) weights into a (d, E, ff) layout).  Returns (y (B, T,
+    d), 0)."""
+    dt = dtype_of(cfg)
+    B, T, d = x.shape
+    xg = x.to(dt)
+    gates, topw, topi = moe_gates(p, xg, cfg)
+    w = torch.zeros_like(gates).scatter(-1, topi, topw)        # (B,T,E)
+    xe = xg.reshape(1, B * T, d)
+    h = _silu(torch.matmul(xe, p["wg"].to(dt))) \
+        * torch.matmul(xe, p["wu"].to(dt))                    # (E,BT,ff)
+    ye = torch.matmul(h, p["wd"].to(dt)).reshape(-1, B, T, d)  # (E,B,T,d)
+    y = torch.einsum("bte,ebtd->btd", w.to(dt), ye)
+    return y, torch.zeros((), dtype=F32, device=x.device)

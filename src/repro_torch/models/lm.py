@@ -3,6 +3,10 @@ the kinds the port serves:
 
   dense   pre-norm GQA transformer blocks with a SwiGLU MLP (llama3,
           qwen3 with qk_norm and tied embeddings, deepseek, command-r);
+  moe     the same blocks with a top-k mixture of SwiGLU experts in place
+          of the MLP (mixtral with its sliding window, grok-1): routed
+          with a per-group capacity in a prefill, every expert computed
+          and weighted by the top-k gates in decode, as in the reference;
   ssm     a stack of Mamba2 SSD blocks (mamba2);
   hybrid  a Mamba2 backbone with one *shared* attention+MLP block applied
           after every ``hybrid_attn_every`` SSM layers (zamba2: its
@@ -12,8 +16,9 @@ the kinds the port serves:
 Parameters are a plain dict: ``embed`` (V, d), ``final_norm`` (d,),
 ``lm_head`` (d, V) unless tied, ``layers``, a list with one dict per layer
 where the reference stacks the layers on a leading axis and scans (dense:
-``ln1``, ``attn``, ``ln2``, ``mlp``; ssm: ``ln1``, ``ssm``), and for the
-hybrid ``shared_attn``, one dense block.  Matrix weights are in
+``ln1``, ``attn``, ``ln2``, ``mlp``; moe: ``moe`` in place of ``mlp``;
+ssm: ``ln1``, ``ssm``), and for the hybrid ``shared_attn``, one dense
+block.  Matrix weights are in
 ``cfg.dtype`` except the Mamba2 projections (bf16, see ``models/ssm.py``);
 norm weights and the Mamba2 block's other leaves are f32.  The other kinds
 raise ``NotImplementedError`` naming their ROADMAP item.
@@ -28,11 +33,10 @@ from . import ssm as S
 from .config import ModelConfig
 
 _NOT_PORTED = {
-    "moe": "ROADMAP A13: MoE, with mixtral's SWA decode ring",
     "encdec": "ROADMAP A13: encdec and vlm",
     "vlm": "ROADMAP A13: encdec and vlm",
 }
-PORTED_KINDS = ("dense", "ssm", "hybrid")
+PORTED_KINDS = ("dense", "moe", "ssm", "hybrid")
 
 
 def require_ported(cfg: ModelConfig) -> None:
@@ -47,13 +51,17 @@ def require_ported(cfg: ModelConfig) -> None:
 # --------------------------------------------------------------------------- #
 
 def _init_block(gen: torch.Generator, cfg: ModelConfig, kind: str) -> dict:
-    """One layer's params. kind: dense | ssm."""
+    """One layer's params. kind: dense | moe | ssm."""
     dt = L.dtype_of(cfg)
     ones = lambda: torch.ones((cfg.d_model,), dtype=L.F32, device=gen.device)
     if kind == "ssm":
         return {"ln1": ones(), "ssm": S.init_mamba2(gen, cfg)}
-    return {"ln1": ones(), "attn": L.init_attention(gen, cfg, dt),
-            "ln2": ones(), "mlp": L.init_mlp(gen, cfg.d_model, cfg.d_ff, dt)}
+    p = {"ln1": ones(), "attn": L.init_attention(gen, cfg, dt), "ln2": ones()}
+    if kind == "moe":
+        p["moe"] = L.init_moe(gen, cfg, dt)
+    else:
+        p["mlp"] = L.init_mlp(gen, cfg.d_model, cfg.d_ff, dt)
+    return p
 
 
 def init_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
@@ -69,7 +77,7 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
                                   device=gen.device)}
     if not cfg.tie_embeddings:
         p["lm_head"] = L.init_linear(gen, cfg.d_model, cfg.vocab, dt)
-    kind = "dense" if cfg.kind == "dense" else "ssm"
+    kind = "ssm" if cfg.kind == "hybrid" else cfg.kind
     p["layers"] = [_init_block(gen, cfg, kind) for _ in range(cfg.n_layers)]
     if cfg.kind == "hybrid":
         p["shared_attn"] = _init_block(gen, cfg, "dense")
@@ -82,12 +90,19 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
 
 def _dense_block(lp, x, cfg: ModelConfig, positions, *, cache=None,
                  causal=True, window=None):
+    """Attention, then the MLP or, in a MoE block, the experts: routed with
+    capacity in a prefill, all of them weighted by the gates in decode
+    (with a cache).  Returns (x, cache, aux loss)."""
     h, cache = L.apply_attention(
         lp["attn"], L.rms_norm(x, lp["ln1"], cfg.norm_eps, cfg.norm_f32),
         cfg, positions=positions, cache=cache, causal=causal, window=window)
     x = x + h
     xn = L.rms_norm(x, lp["ln2"], cfg.norm_eps, cfg.norm_f32)
-    return x + L.apply_mlp(lp["mlp"], xn, cfg), cache
+    if "moe" not in lp:
+        return x + L.apply_mlp(lp["mlp"], xn, cfg), cache, None
+    h, aux = (L.apply_moe if cache is None else L.apply_moe_dense)(
+        lp["moe"], xn, cfg)
+    return x + h, cache, aux
 
 
 def _ssm_block(lp, x, cfg: ModelConfig, cache=None):
@@ -109,14 +124,18 @@ def _groups(cfg: ModelConfig):
 
 def forward_hidden(params, embeds, positions, cfg: ModelConfig):
     """embeds: (B,T,d) -> (final hidden (B,T,d), aux loss).  A loop over
-    the layers; the aux loss (MoE routing) is 0 for the kinds ported."""
+    the layers; the aux loss is the MoE blocks' routing losses summed (0
+    for the other kinds)."""
     require_ported(cfg)
     x = embeds
+    aux = torch.zeros((), dtype=L.F32, device=x.device)
     layers = params["layers"]
-    if cfg.kind == "dense":
+    if cfg.kind in ("dense", "moe"):
         for lp in layers:
-            x, _ = _dense_block(lp, x, cfg, positions, causal=True,
-                                window=cfg.window)
+            x, _, a = _dense_block(lp, x, cfg, positions, causal=True,
+                                   window=cfg.window)
+            if a is not None:
+                aux = aux + a
     elif cfg.kind == "ssm":
         for lp in layers:
             x, _ = _ssm_block(lp, x, cfg)
@@ -124,10 +143,10 @@ def forward_hidden(params, embeds, positions, cfg: ModelConfig):
         for grp in _groups(cfg):
             for i in grp:
                 x, _ = _ssm_block(layers[i], x, cfg)
-            x, _ = _dense_block(params["shared_attn"], x, cfg, positions,
-                                causal=True)
+            x, _, _ = _dense_block(params["shared_attn"], x, cfg, positions,
+                                   causal=True)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps, cfg.norm_f32)
-    return x, torch.zeros((), dtype=L.F32, device=x.device)
+    return x, aux
 
 
 def embed_tokens(params, tokens, cfg: ModelConfig):
@@ -145,9 +164,10 @@ def lm_head_weight(params, cfg: ModelConfig):
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                dtype=torch.bfloat16, device="cuda") -> dict:
-    """Decode cache.  dense: ``{"layers": [{"k", "v", "pos"}]}`` with k/v
-    (batch, S, n_kv_heads, hd) zeros in ``dtype`` (bf16 whatever
-    ``cfg.dtype`` is, as in the reference) and ``pos`` 0.  ssm:
+    """Decode cache.  dense and moe: ``{"layers": [{"k", "v", "pos"}]}``
+    with k/v (batch, S, n_kv_heads, hd) zeros in ``dtype`` (bf16 whatever
+    ``cfg.dtype`` is, as in the reference) and ``pos`` 0; with a window S
+    is ``min(max_seq, window)``, a ring (position p in slot p % S).  ssm:
     ``{"layers": [Mamba2 cache]}`` (f32 state and conv windows,
     :func:`repro_torch.models.ssm.init_ssm_cache`).  hybrid: those, and
     ``"shared"``, one KV cache per application of the shared block."""
@@ -160,7 +180,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
         return {"k": torch.zeros(shape, dtype=dtype, device=dev),
                 "v": torch.zeros(shape, dtype=dtype, device=dev), "pos": 0}
 
-    if cfg.kind == "dense":
+    if cfg.kind in ("dense", "moe"):
         return {"layers": [kv() for _ in range(cfg.n_layers)]}
     cache = {"layers": [S.init_ssm_cache(cfg, batch, device=dev)
                         for _ in range(cfg.n_layers)]}
@@ -183,10 +203,10 @@ def decode_step(params, cache, tokens, pos: int, cfg: ModelConfig):
     x = embed_tokens(params, tokens, cfg)
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
     layers, caches = params["layers"], cache["layers"]
-    if cfg.kind == "dense":
+    if cfg.kind in ("dense", "moe"):
         for lp, lc in zip(layers, caches):
-            x, _ = _dense_block(lp, x, cfg, positions, cache=lc, causal=True,
-                                window=cfg.window)
+            x, _, _ = _dense_block(lp, x, cfg, positions, cache=lc,
+                                   causal=True, window=cfg.window)
     elif cfg.kind == "ssm":
         for lp, lc in zip(layers, caches):
             x, _ = _ssm_block(lp, x, cfg, cache=lc)
@@ -194,8 +214,8 @@ def decode_step(params, cache, tokens, pos: int, cfg: ModelConfig):
         for grp, sc in zip(_groups(cfg), cache["shared"]):
             for i in grp:
                 x, _ = _ssm_block(layers[i], x, cfg, cache=caches[i])
-            x, _ = _dense_block(params["shared_attn"], x, cfg, positions,
-                                cache=sc, causal=True)
+            x, _, _ = _dense_block(params["shared_attn"], x, cfg, positions,
+                                   cache=sc, causal=True)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps, cfg.norm_f32)
     logits = x[:, 0] @ lm_head_weight(params, cfg).to(x.dtype)
     return logits.to(L.F32), cache

@@ -4,8 +4,8 @@ Skips without a CUDA device (and imports no JAX, so it also runs on the
 card's machine): ``PYTHONPATH=src python -m pytest -m cuda
 tests/test_torch_cuda.py``.  ``chip_smoke.py`` runs the same checks at the
 full perm1024 / incast1024 / perm8k shapes (STrack, RoCEv2, PFC, faults),
-at infer1024's under the active set, and at llama3-8b's, mamba2-2.7b's
-and zamba2-2.7b's.
+at infer1024's under the active set, and at llama3-8b's, mamba2-2.7b's,
+zamba2-2.7b's, mixtral-8x22b's and grok-1-314b's.
 """
 import dataclasses
 import json
@@ -31,7 +31,8 @@ from repro_torch.sim.topology import full_bisection
 from repro_torch.sim.workloads import incast_scenario, permutation_scenario
 
 from torch_lm_weights import lm_weights
-from torch_parity import SERVE_REF_PATH, SSM_SERVE_REF_PATHS
+from torch_parity import (MOE_SERVE_REF_PATHS, SERVE_REF_PATH,
+                          SSM_SERVE_REF_PATHS)
 from torch_states import (random_cc, random_rel, random_roce_flow,
                           random_roce_msg, random_sack, random_spray)
 
@@ -823,6 +824,75 @@ def test_llama3_smoke_serve_on_the_card_matches_the_jax_reference(cuda):
     torch.testing.assert_close(torch.stack(out).ravel(), want, rtol=1e-4,
                                atol=1e-4)
     assert fa.launches["flash_attention"] == cfg.n_layers * (1 + ref["steps"])
+
+
+@pytest.mark.parametrize("B,H,K,Tq,S,hd,window,q_offset", [
+    (2, 8, 2, 1, 16, 64, 16, 0),         # one written slot, 15 never
+    (2, 8, 2, 1, 16, 64, 16, 15),        # the ring full
+    (2, 8, 2, 1, 16, 64, 16, 16),        # wrapped: slot 0 holds 16
+    (2, 8, 2, 1, 16, 64, 5, 37),         # a window shorter than the ring
+    (1, 48, 8, 1, 512, 128, 4096, 542),  # mixtral's generate cell
+    (1, 48, 8, 1, 4096, 128, 4096, 4159),
+    (2, 8, 2, 4, 64, 128, 64, 130),      # 4 rows, keys split over blocks
+    (1, 4, 1, 3, 8, 16, 8, 1),           # rows before the first write
+])
+@pytest.mark.parametrize("dtypes", [("bfloat16", "bfloat16"),
+                                    ("float32", "bfloat16")])
+def test_flash_attention_decode_reads_a_ring(cuda, B, H, K, Tq, S, hd,
+                                             window, q_offset, dtypes):
+    """The decode route on a ring cache (position p in slot p % S) against
+    its plain version: slots never written, a full ring, wrapped rings
+    (one or two runs of live slots), 2e-5 in f32, 2e-2 in bf16."""
+    g = torch.Generator(device=cuda).manual_seed(S + q_offset)
+    qdt, kvdt = (getattr(torch, d) for d in dtypes)
+    q = torch.randn((B, H, Tq, hd), generator=g, device=cuda).to(qdt)
+    k = torch.randn((B, K, S, hd), generator=g, device=cuda).to(kvdt)
+    v = torch.randn((B, K, S, hd), generator=g, device=cuda).to(kvdt)
+    kw = dict(window=window, q_offset=q_offset, ring=True)
+    fa.reset_launches()
+    got = fa.flash_attention(q, k, v, **kw)
+    assert fa.route_launches["decode"] == 1
+    want = flash_attention_ref(q, k, v, **kw)
+    tol = 2e-5 if qdt == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    with pytest.raises(ValueError, match="ring"):
+        fa.flash_attention(q.new_zeros((B, H, 5, hd)), k, v, **kw)
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "grok-1-314b"])
+def test_moe_smoke_serve_on_the_card_matches_the_jax_reference(cuda, arch):
+    """The f32 SMOKE model on the card: pallas prefill at the config's
+    capacity factor, pallas decode of every prompt position from an f32
+    cache (mixtral's ring of 32 wraps at 32) and greedy tokens against the
+    JAX-made reference (tests/test_torch_moe.py), 1e-4."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ref = json.loads(MOE_SERVE_REF_PATHS[arch].read_text())
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32",
+                              attn_impl="pallas")
+    params = lm_params_from_jax(lm_weights(cfg, ref["seed"]), cfg)
+    toks = torch.tensor(ref["prompt"], dtype=torch.int32, device=cuda)
+    got = make_prefill_step(cfg)(params, {"tokens": toks})
+    want = torch.tensor(ref["prefill_last_logits"], device=cuda)
+    torch.testing.assert_close(got.ravel(), want, rtol=1e-4, atol=1e-4)
+    steps, new = ref["steps"], ref["new"]
+    cache = lm.init_cache(cfg, ref["batch"], steps + new, dtype=torch.float32)
+    step = make_decode_step(cfg)
+    fa.reset_launches()
+    out, tok, gen = [], toks[:, :1], []
+    for t in range(steps + new - 1):
+        logits, cache = step(params, cache, tok, t)
+        if t < steps:
+            out.append(logits)
+        if t + 1 < steps:
+            tok = toks[:, t + 1:t + 2]
+        else:
+            tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+            gen.append(tok)
+    want = torch.tensor(ref["position_logits"], device=cuda)
+    torch.testing.assert_close(torch.stack(out).ravel(), want, rtol=1e-4,
+                               atol=1e-4)
+    assert torch.cat(gen, 1).tolist() == ref["greedy_tokens"]
+    assert fa.route_launches["decode"] == cfg.n_layers * (steps + new - 1)
 
 
 @pytest.mark.parametrize("B,T,H,P,N,chunk", [

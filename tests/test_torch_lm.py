@@ -400,17 +400,18 @@ def test_serve_entry_points_default_to_cuda_and_never_fall_back(monkeypatch):
 
 def test_unported_kinds_and_paths_raise_naming_their_roadmap_item():
     gen = torch.Generator().manual_seed(0)
-    for arch in ("mixtral-8x22b", "grok-1-314b", "whisper-small",
-                 "internvl2-26b"):
+    for arch in ("whisper-small", "internvl2-26b"):
         cfg = get_config(arch, smoke=True)
         for call in (lambda: TL.init_params(gen, cfg),
                      lambda: TS.make_prefill_step(cfg, device="cpu"),
                      lambda: TL.init_cache(cfg, 1, 8, device="cpu")):
             with pytest.raises(NotImplementedError, match="ROADMAP A13"):
                 call()
-    # mamba2 and zamba2 (ssm, hybrid) and the SSD scan (B6) are ported
-    # (tests/test_torch_ssm.py, tests/test_torch_ssd.py)
-    for arch in ("mamba2-2.7b", "zamba2-2.7b"):
+    # mamba2 and zamba2 (ssm, hybrid), the SSD scan (B6), mixtral and grok
+    # (moe) are ported (tests/test_torch_ssm.py, tests/test_torch_ssd.py,
+    # tests/test_torch_moe.py)
+    for arch in ("mamba2-2.7b", "zamba2-2.7b", "mixtral-8x22b",
+                 "grok-1-314b"):
         cfg = get_config(arch, smoke=True)
         TL.init_params(gen, cfg)
         TS.make_prefill_step(cfg, device="cpu")
@@ -419,14 +420,16 @@ def test_unported_kinds_and_paths_raise_naming_their_roadmap_item():
     y = tops.ssd_scan(x, torch.ones((1, 16, 2)), -torch.ones(2),
                       torch.ones((1, 16, 3)), torch.ones((1, 16, 3)), 8)
     assert y.shape == x.shape and bool(torch.isfinite(y).all())
-    # the pallas kernel against a sliding-window ring cache
+    # the pallas kernel against a sliding-window ring cache decodes: a ring
+    # of 4 slots wrapping twice, as the naive path decodes it
     tcfg = dataclasses.replace(get_config("llama3-8b", smoke=True),
                                dtype="float32", attn_impl="pallas", window=4)
     _, tp = _params("llama3-8b", "float32")
-    cache = TL.init_cache(tcfg, B, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="mixtral"):
-        TL.decode_step(tp, cache, torch.zeros((B, 1), dtype=torch.int32), 0,
-                       tcfg)
+    toks = _tokens("llama3-8b", 10)
+    got = _port_decode(tcfg, tp, toks, torch.float32)
+    assert got.shape == (10, B, tcfg.vocab) and np.isfinite(got).all()
+    _close(got, _port_decode(dataclasses.replace(tcfg, attn_impl="naive"),
+                             tp, toks, torch.float32), F32_TOL)
     with pytest.raises(ValueError, match="position"):
         TL.decode_step(tp, TL.init_cache(tcfg, B, 8, device="cpu"),
                        torch.zeros((B, 1), dtype=torch.int32), 3,

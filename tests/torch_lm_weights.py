@@ -4,8 +4,9 @@ machine has no JAX).
 
 :func:`lm_weights` returns the tree ``repro.models.lm.init_params`` builds
 (f32 masters, layers stacked on a leading axis) with the same
-distributions for the matrices; norm weights are drawn near 1 rather than
-set to 1, so that a norm applied to the wrong axis or not at all shows.
+distributions for the matrices (MoE: the router and the experts); norm
+weights are drawn near 1 rather than set to 1, so that a norm applied to
+the wrong axis or not at all shows.
 For the Mamba2 kinds (ssm, hybrid) the ``ssm`` leaves the reference
 initialises to constants are drawn too: conv biases, ``D``, ``dt_bias``
 and ``norm_w`` away from 0 / 1 / log(e - 1), ``A_log`` = log of U(1, 16)
@@ -24,6 +25,14 @@ import numpy as np
 #: llama3_smoke_serve_ref.json): llama3-8b SMOKE in f32, weights from
 #: ``lm_weights(cfg, SERVE_REF["seed"])``, prompt from ``prompt(...)``.
 SERVE_REF = dict(arch="llama3-8b", seed=0, batch=2, steps=8)
+#: The committed MoE serve references (src/repro_torch/testdata/
+#: {mixtral,grok}_smoke_serve_ref.json): the SMOKE configs in f32, a prompt
+#: of ``steps`` tokens (past mixtral SMOKE's window of 32: its decode ring
+#: wraps), ``new`` greedy tokens; decode is held against prefills at
+#: ``capacity_factor`` E / k or more, where no token is dropped.
+MOE_SERVE_REF = {arch: dict(arch=arch, seed=0, batch=2, steps=40, new=4,
+                            capacity_factor=4.0)
+                 for arch in ("mixtral-8x22b", "grok-1-314b")}
 #: The committed Mamba2 serve references (src/repro_torch/testdata/
 #: {mamba2,zamba2}_smoke_serve_ref.json): the SMOKE configs in f32, a
 #: prompt of ``steps`` tokens (two chunks of 16), ``new`` greedy tokens.
@@ -52,11 +61,21 @@ def lm_weights(cfg, seed: int) -> dict:
     if cfg.qk_norm:
         attn["q_norm"] = norm((L, hd))
         attn["k_norm"] = norm((L, hd))
-    p = {"embed": normal((V, d), 0.02), "final_norm": norm((d,)),
-         "layers": {"ln1": norm((L, d)), "attn": attn, "ln2": norm((L, d)),
-                    "mlp": {"wg": normal((L, d, ff), d ** -0.5),
-                            "wu": normal((L, d, ff), d ** -0.5),
-                            "wd": normal((L, ff, d), ff ** -0.5)}}}
+    # the draws in the order the dense tree has always taken them
+    embed, final_norm = normal((V, d), 0.02), norm((d,))
+    ln1, ln2 = norm((L, d)), norm((L, d))
+    if cfg.kind == "moe":
+        E = cfg.n_experts
+        ffn = {"moe": {"router": normal((L, d, E), d ** -0.5),
+                       "wg": normal((L, E, d, ff), d ** -0.5),
+                       "wu": normal((L, E, d, ff), d ** -0.5),
+                       "wd": normal((L, E, ff, d), ff ** -0.5)}}
+    else:
+        ffn = {"mlp": {"wg": normal((L, d, ff), d ** -0.5),
+                       "wu": normal((L, d, ff), d ** -0.5),
+                       "wd": normal((L, ff, d), ff ** -0.5)}}
+    p = {"embed": embed, "final_norm": final_norm,
+         "layers": {"ln1": ln1, "attn": attn, "ln2": ln2, **ffn}}
     if not cfg.tie_embeddings:
         p["lm_head"] = normal((d, V), d ** -0.5)
     return p

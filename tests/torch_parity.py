@@ -13,7 +13,8 @@ under STrack and of perm1024 under RoCEv2 + PFC with entropy seeds 0-3,
 and perm1024's per-tick trace every 4 ticks; the soak of the 64-host
 default fleet over a clean and a ``CHAOS1024`` epoch and the event
 oracle's runs of that fleet and of the spot fleet; the llama3-8b,
-mamba2-2.7b and zamba2-2.7b SMOKE serve references) from the JAX package,
+mamba2-2.7b, zamba2-2.7b, mixtral-8x22b and grok-1-314b SMOKE serve
+references) from the JAX package,
 all of them or those whose file stems are given:
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/torch_parity.py [STEM ...]
@@ -44,6 +45,9 @@ REF_DIR = ROOT / "src" / "repro_torch" / "testdata"
 REF_PATH = REF_DIR / "perm1024_strack_ref.json"
 INCAST_REF_PATH = REF_DIR / "incast1024_strack_ref.json"
 SERVE_REF_PATH = REF_DIR / "llama3_smoke_serve_ref.json"
+MOE_SERVE_REF_PATHS = {
+    "mixtral-8x22b": REF_DIR / "mixtral_smoke_serve_ref.json",
+    "grok-1-314b": REF_DIR / "grok_smoke_serve_ref.json"}
 SSM_SERVE_REF_PATHS = {"mamba2-2.7b": REF_DIR / "mamba2_smoke_serve_ref.json",
                        "zamba2-2.7b": REF_DIR / "zamba2_smoke_serve_ref.json"}
 
@@ -800,6 +804,72 @@ def ssm_smoke_serve_reference(arch: str) -> dict:
                 greedy_tokens=np.asarray(greedy).tolist())
 
 
+def jax_position_logits(cfg, params, tokens) -> np.ndarray:
+    """The JAX package's logits (T, B, vocab) at every position of
+    ``tokens`` (B, T), from one ``forward_hidden`` over the whole sequence:
+    position t's are the last logits of a prefill of ``tokens[:, :t + 1]``
+    where nothing depends on later tokens (causal attention; for MoE a
+    ``capacity_factor`` at which no token is dropped)."""
+    import jax.numpy as jnp
+    from repro.models import lm
+    B, T = tokens.shape
+    pos = jnp.broadcast_to(jnp.arange(T, dtype=jnp.int32)[None], (B, T))
+    x = lm.embed_tokens(params, jnp.asarray(tokens), cfg)
+    hidden, _ = lm.forward_hidden(params, x, pos, cfg)
+    logits = hidden @ lm.lm_head_weight(params, cfg).astype(hidden.dtype)
+    return np.asarray(logits, np.float32).transpose(1, 0, 2)
+
+
+def jax_greedy_by_prefill(cfg, params, tokens, new: int) -> np.ndarray:
+    """``new`` greedy tokens (B, new) after ``tokens``, each the argmax of
+    a JAX prefill of everything so far (the reference's own decode ring is
+    ROADMAP C18)."""
+    import jax
+    import jax.numpy as jnp
+    from repro.runtime.serve import make_prefill_step
+    prefill = jax.jit(make_prefill_step(cfg))
+    seq, out = np.asarray(tokens, np.int32), []
+    for _ in range(new):
+        logits = prefill(params, {"tokens": jnp.asarray(seq)})
+        nxt = np.asarray(jnp.argmax(logits, -1), np.int32)[:, None]
+        out.append(nxt)
+        seq = np.concatenate([seq, nxt], axis=1)
+    return np.concatenate(out, axis=1)
+
+
+def moe_smoke_serve_reference(arch: str) -> dict:
+    """The JAX package serving the SMOKE config of ``arch`` (mixtral-8x22b
+    or grok-1-314b) in f32, weights and prompt from ``torch_lm_weights``
+    (numpy seed ``MOE_SERVE_REF[arch]``): the prefill's last-position
+    logits with ``attn_impl="pallas"`` (interpret mode) at the config's
+    capacity factor (1.25: tokens are dropped); at ``capacity_factor``
+    E / k (nothing dropped; the function a decode computes) with
+    ``attn_impl="naive"``, the logits at every prompt position (what a
+    teacher-forced decode gives, across mixtral's ring wrap at 32) and
+    ``new`` greedy tokens, each from a prefill (the reference's own ring
+    decode is ROADMAP C18)."""
+    import dataclasses
+    import jax
+    import jax.numpy as jnp
+    from repro.runtime.serve import make_prefill_step
+    from torch_lm_weights import MOE_SERVE_REF, prompt
+    ref = MOE_SERVE_REF[arch]
+    seed, B, T = ref["seed"], ref["batch"], ref["steps"]
+    cfg, params = jax_lm(arch, "float32", seed, attn_impl="pallas")
+    tokens = prompt(cfg, seed, B, T)
+    pre = jax.jit(make_prefill_step(cfg))(params,
+                                          {"tokens": jnp.asarray(tokens)})
+    drop_free = dataclasses.replace(cfg, attn_impl="naive",
+                                    capacity_factor=ref["capacity_factor"])
+    rnd = lambda a: [float(f"{x:.9g}") for x in np.asarray(a).ravel()]
+    return dict(ref, dtype="float32", prompt=tokens.tolist(),
+                prefill_last_logits=rnd(pre),
+                position_logits=rnd(jax_position_logits(drop_free, params,
+                                                        tokens)),
+                greedy_tokens=jax_greedy_by_prefill(
+                    drop_free, params, tokens, ref["new"]).tolist())
+
+
 def write_references() -> None:
     REF_DIR.mkdir(parents=True, exist_ok=True)
     makers = [(REF_PATH, perm1024_reference),
@@ -807,6 +877,8 @@ def write_references() -> None:
               (SERVE_REF_PATH, llama3_smoke_serve_reference)]
     makers += [(path, lambda a=arch: ssm_smoke_serve_reference(a))
                for arch, path in SSM_SERVE_REF_PATHS.items()]
+    makers += [(path, lambda a=arch: moe_smoke_serve_reference(a))
+               for arch, path in MOE_SERVE_REF_PATHS.items()]
     makers += [(path, lambda n=name: pfc_reference(n))
                for name, path in PFC_REF_PATHS.items()]
     makers += [(path, lambda n=name: chaos_reference(n))
