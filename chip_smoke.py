@@ -4,9 +4,11 @@ RoCEv2, PFC, chaos, the active set, collectives, sweeps and the chaos
 soak beside the event oracle), then LM serving:
 llama3-8b at full width through the flash-attention kernel, mamba2-2.7b
 (16 of its 64 layers) and zamba2-2.7b at full width through the SSD scan
-kernel (and zamba2's shared attention through the flash kernel), and the
+kernel (and zamba2's shared attention through the flash kernel), the
 MoE models mixtral-8x22b (its window and decode ring) and grok-1-314b at
-full width, depth cut, through the flash kernel.
+full width, depth cut, through the flash kernel, and whisper-small (full
+size: its encoder and cross-attention) and internvl2-26b (full width,
+depth cut) through the flash kernel.
 
     python3 chip_smoke.py
 
@@ -283,7 +285,46 @@ Phases (any failure exits non-zero; nothing is caught):
      and read after (every bf16 prefill call on tc, every decode call on
      decode, fma never): prefill tokens/s, decode ms per step, peak
      memory;
-  10. a `kernels` JSON line (launches on the main paths; each kernel's
+  10. serve, encoder-decoder and vision-language (phase 9's weights freed
+     first; `python3 chip_smoke.py --phase 10` runs the build and this
+     phase alone): whisper-small at full size (12 + 12 layers, d 768, 12
+     heads of 64, 1500 frames) and internvl2-26b at full width (8 of 48
+     layers, INTERNVL2_LAYERS, ~8.5 GB; 256 patch embeddings), bf16,
+     attn_impl="pallas", random weights from a CUDA generator (seed 0):
+     (b) prefills, whisper 4 x 448 tokens with 4 x 1500 frames (its
+         encoder tc non-causal at 1500 x 1500, its cross-attention tc at
+         448 x 1500), internvl2 4 x (256 + 768) and 1 x (256 + 3840):
+         finite, within SERVE_REL_L2 of the same model with attention
+         through the plain version, and more than SERVE_REL_L2 away from
+         the same prefill with the frames or patches zeroed;
+     (c) whisper decode of 4 x 64 prompt tokens with cache["enc_out"]
+         assigned from encode: at the last prompt position within
+         SERVE_REL_L2 of the prefill with the frames (the cross decode on
+         the decode route: G 1, one row, 1500 keys, non-causal);
+         greedy_generate (4 x (64 + 32), cache 96, its fresh cache's
+         zero enc_out: ROADMAP C20, logged) equal to a step-by-step
+         decode;
+     (d) internvl2 text-only decode of 4 x 512 against a text-only
+         prefill at position 511; greedy_generate (4 x (512 + 32)) equal
+         to a step-by-step decode;
+     (a) the flash kernel against its plain version at FA_TOL on the
+         captured calls (encoder layers 0 and 11, the prefill's self and
+         cross calls, the decode's at position 63, internvl2's layers 0
+         and 7 in both prefills and at decode position 511) and on random
+         calls: tc non-causal at 1500 x 1500 and 448 x 1500, decode
+         non-causal at 1 x 1500;
+     (e) each serve path once more with the launch counts reset before
+         and read after: every prefill call on tc, every decode call on
+         decode, fma never; prefill tokens/s, decode ms per step, peak
+         memory;
+     (f) both f32 SMOKE configs against the JAX-made
+         src/repro_torch/testdata/{whisper,internvl2}_smoke_serve_ref.json
+         (SMOKE_TOL; whisper's decode with enc_out zero and assigned;
+         greedy tokens exact; the prefills on fma, decode on decode);
+     the kernel's times at the new calls (`4tc-nc`, `4tc-x`, `4dec-x`,
+     `4tc-v`) and one layer's cross K/V, which decode_step recomputes
+     from enc_out at every step;
+  11. a `kernels` JSON line (launches on the main paths; each kernel's
      device time per call from torch.profiler, and the wrapper's wall time
      per call; the plain version's device and wall time; the bound; for
      the transitions, serve_enqueue and pfc_account and each of their path
@@ -303,9 +344,12 @@ Phases (any failure exits non-zero; nothing is caught):
      under `routes` each route's device and wall ms, launches, bound,
      plain and SDPA times and factor to SDPA: tc at prefill-1000,
      prefill-4096, zamba2's prefill-1024 (hd 80) and mixtral's
-     prefill-8192 with the window (phase 9), decode at decode-544 and on
-     mixtral's rings of 512 and 4096, fma at prefill-1000's shapes in f32;
-     the MoE paths' launches by route (`launches_moe`); for the SSD scan at mamba2's
+     prefill-8192 with the window (phase 9), whisper's encoder and cross
+     prefill and internvl2's prefill-1024 (phase 10), decode at
+     decode-544, on mixtral's rings of 512 and 4096 and at whisper's
+     cross decode, fma at prefill-1000's shapes in f32;
+     the MoE paths' launches by route (`launches_moe`) and phase 10's
+     (`launches_mm`); for the SSD scan at mamba2's
      prefill 4 x 1024 and 1 x 4096 inputs and zamba2's 4 x 1024), the
      card's name and power
      limit, and the final `{"ok": true, ...}` line.
@@ -1623,9 +1667,9 @@ def flash_timing(q, k, v, kw) -> dict:
     rate, or at the CUDA cores' f32 rate for f32 inputs; or the bytes: q
     read, the output written, the live keys' K and V rows read once), and
     the kernel's device time over SDPA's.  SDPA takes a causal call as
-    ``is_causal`` or, at an offset, the live pairs as a boolean mask; with
-    a window or on a ring, on the first backend that takes it
-    (``library_backend``)."""
+    ``is_causal``, a non-causal one as it is, or, at an offset, the live
+    pairs as a boolean mask; with a window or on a ring, on the first
+    backend that takes it (``library_backend``)."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import sdpa_kernel
@@ -1647,9 +1691,9 @@ def flash_timing(q, k, v, kw) -> dict:
     qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     run = lambda: kops.flash_attention(q, k, v, **kw)
     plain = lambda: model_layout_ref(q, k, v, **kw)
+    causal = mask is None and kw.get("causal", True)
     sdpa = lambda: F.scaled_dot_product_attention(
-        qh, kh, vh, attn_mask=mask, is_causal=mask is None,
-        enable_gqa=K != H)
+        qh, kh, vh, attn_mask=mask, is_causal=causal, enable_gqa=K != H)
     backend = sdpa_backend(sdpa) if named else None
 
     def library():
@@ -1964,12 +2008,15 @@ def stepwise(label, cfg, params, prompt, new, limit, capture=None,
 def serve_path(arch, cfg, params, prefills, prompt, new,
                cache_len=None) -> tuple:
     """The serve path with every kernel's launch count set to 0 just
-    before and read just after: the prefills ``{name: (tokens, the checked
-    run's logits)}``, which must give those logits again, then
+    before and read just after: the prefills ``{name: (tokens, or the
+    batch dict with a vlm's ``vis_embed`` or an encdec's ``frames``, the
+    checked run's logits)}``, which must give those logits again, then
     greedy_generate of ``new`` tokens after ``prompt`` with a cache of
     ``cache_len`` (default: prompt and new tokens).  Logs prefill
-    tokens/s, decode ms per step and peak memory.  Returns (generated
-    tokens, launches by kernel, flash-attention launches by route)."""
+    tokens/s (a vlm's patch embeddings counted as rows; an encdec's
+    frames logged beside), decode ms per step and peak memory.  Returns
+    (generated tokens, launches by kernel, flash-attention launches by
+    route)."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd_scan as ssd
@@ -1980,14 +2027,23 @@ def serve_path(arch, cfg, params, prefills, prompt, new,
     torch.cuda.reset_peak_memory_stats()
     prefill = make_prefill_step(cfg)
     rates = []
-    for name, (toks, want) in prefills.items():
+    for name, (batch, want) in prefills.items():
+        batch = batch if isinstance(batch, dict) else {"tokens": batch}
+        toks, vis = batch["tokens"], batch.get("vis_embed")
         t0 = time.time()
-        got = prefill(params, {"tokens": toks})
+        got = prefill(params, batch)
         torch.cuda.synchronize()
         wall = time.time() - t0
         assert torch.equal(got, want), (arch, name)
-        rates.append(f"{name} {toks.shape[0]}x{toks.shape[1]} {wall:.4f}s "
-                     f"({toks.numel() / wall:.1f} tokens/s)")
+        rows = toks.numel() + (0 if vis is None else vis.shape[0]
+                               * vis.shape[1])
+        shape = f"{toks.shape[0]}x" + (f"({vis.shape[1]}+{toks.shape[1]})"
+                                       if vis is not None
+                                       else f"{toks.shape[1]}")
+        if "frames" in batch:
+            shape += f" with {batch['frames'].shape[1]} frames a row"
+        rates.append(f"{name} {shape} {wall:.4f}s ({rows / wall:.1f} "
+                     f"tokens/s)")
     B, T = prompt.shape
     t0 = time.time()
     gen = greedy_generate(params, cfg, prompt, new, cache_len or T + new)
@@ -2623,6 +2679,320 @@ def serve_moe(dev) -> dict:
                                             "position 4159 (wrapped)")}},
         "launches_moe": launches, "routes_moe": routes,
         "max_abs_err_moe": max(errs.values())}
+
+
+#: internvl2-26b's depth in phase 10, cut from 48 so that the phase fits
+#: the script's time (~8.5 GB of weights at full width).
+INTERNVL2_LAYERS = 8
+
+
+def serve_mm(dev) -> dict:
+    """Phase 10: whisper-small at full size (its non-causal encoder over
+    1500 frames, cross-attention in the prefill and in decode) and
+    internvl2-26b at full width, depth cut (INTERNVL2_LAYERS; 256 patch
+    embeddings ahead of the tokens), served through the flash-attention
+    kernel.  Returns what the phase adds to flash attention's entry of
+    the ``kernels`` line."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.convert import lm_params_from_jax
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.ref import flash_attention_ref
+    from repro_torch.models import lm
+    from repro_torch.runtime.serve import make_decode_step, make_prefill_step
+    from torch_lm_weights import MM_SERVE_REF, frames, lm_weights, vis_embed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.time()
+    gen = torch.Generator(device=dev).manual_seed(1)
+    bf16 = torch.bfloat16
+    captured, errs, launches, routes = {}, {}, {}, {}
+    checked = {"tc": 0, "decode": 0, "fma": 0}
+
+    def tokens(cfg, b, t):
+        return torch.randint(0, cfg.vocab, (b, t), generator=gen,
+                             device=dev, dtype=torch.int32)
+
+    def embeds(cfg, b, t):
+        return torch.randn((b, t, cfg.d_model), generator=gen, device=dev,
+                           dtype=torch.float32).to(bf16)
+
+    def model(arch, **over):
+        cfg = dataclasses.replace(get_config(arch), attn_impl="pallas",
+                                  **over)
+        assert cfg.dtype == "bfloat16"
+        t0 = time.time()
+        params = lm.init_params(torch.Generator(device=dev).manual_seed(0),
+                                cfg)
+        torch.cuda.synchronize()
+        log(f"[mm] {arch} ({cfg.n_layers} of {get_config(arch).n_layers} "
+            f"layers" + (f" + {cfg.n_enc_layers} encoder layers over "
+                         f"{cfg.enc_seq} frames" if cfg.n_enc_layers else
+                         f", {cfg.n_vis_tokens} patch embeddings")
+            + f", d {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, hd "
+            f"{cfg.hd}, ff {cfg.d_ff}, vocab {cfg.vocab}), bf16, "
+            f"attn_impl=pallas: {nbytes(params) / 1e9:.3f} GB of random "
+            f"weights in {time.time() - t0:.1f}s")
+        return cfg, params
+
+    def prefill_vs_plain(arch, cfg, params, name, batch, capture, stub):
+        """Finite, within SERVE_REL_L2 of the same model with attention
+        through the plain version, and moved by more than SERVE_REL_L2
+        when the ``stub`` input (frames, patch embeddings) is zeros; the
+        flash calls named in ``capture`` kept.  Returns the logits."""
+        prefill = make_prefill_step(cfg)
+        with routed("flash_attention", kops.flash_attention, capture,
+                    captured):
+            got = prefill(params, batch)
+        with routed("flash_attention", model_layout_ref):
+            want = prefill(params, batch)
+        blank = prefill(params, dict(batch, **{stub: torch.zeros_like(
+            batch[stub])}))
+        assert got.shape == (batch["tokens"].shape[0], cfg.vocab)
+        assert bool(torch.isfinite(got).all()), (arch, name)
+        err, moved = rel_l2(got, want), rel_l2(blank, got)
+        assert err <= SERVE_REL_L2, (arch, name, err)
+        assert moved > SERVE_REL_L2, (arch, name, stub, moved)
+        log(f"[mm] (b) {arch} {name}: logits finite, |max| "
+            f"{float(got.abs().max()):.4f}; kernel vs plain attention: rel "
+            f"L2 {err:.3e} (limit {SERVE_REL_L2}), max abs "
+            f"{float((got - want).abs().max()):.4e}, argmax agrees in "
+            f"{int((got.argmax(-1) == want.argmax(-1)).sum())}/"
+            f"{got.shape[0]} rows; {stub} zeroed: rel L2 {moved:.3e} away "
+            f"(not vacuous)")
+        return got
+
+    def counted(arch, cfg, params, prefills, prompt, new, steps, per_step,
+                per_prefill, cache_len=None):
+        """serve_path, its tokens equal to ``steps`` and its launches: every
+        prefill call on tc, every decode call on decode, fma never."""
+        out, n, by_route = serve_path(arch, cfg, params, prefills, prompt,
+                                      new, cache_len)
+        assert torch.equal(out, steps), (arch, out, steps)
+        T = prompt.shape[1]
+        want = {"tc": per_prefill * len(prefills),
+                "decode": per_step * (T + new - 1), "fma": 0}
+        assert by_route == want, (arch, by_route, want)
+        assert n == {"flash_attention": sum(want.values()), "ssd_scan": 0}, \
+            (arch, n)
+        launches[arch], routes[arch] = n["flash_attention"], by_route
+        log(f"[mm] {arch} greedy_generate's tokens (cache "
+            f"{cache_len or T + new}) equal the step-by-step decode's")
+
+    # ---- whisper-small: 12 + 12 layers, 1500 frames ------------------------
+    arch = "whisper-small"
+    cfg, params = model(arch)
+    L, E = cfg.n_layers, cfg.n_enc_layers
+    f4 = embeds(cfg, 4, cfg.enc_seq)
+    p448, p64 = tokens(cfg, 4, 448), tokens(cfg, 4, 64)
+    # a prefill's calls: the encoder's E, then self and cross a decoder
+    # layer; a decode step's: self and cross a layer
+    logits = prefill_vs_plain(
+        arch, cfg, params, "prefill-448", {"tokens": p448, "frames": f4},
+        {0: f"{arch} encoder layer 0", E - 1: f"{arch} encoder layer {E - 1}",
+         E: f"{arch} prefill-448 self layer 0",
+         E + 1: f"{arch} prefill-448 cross layer 0",
+         E + 2 * L - 1: f"{arch} prefill-448 cross layer {L - 1}"}, "frames")
+    pre64 = make_prefill_step(cfg)(params, {"tokens": p64, "frames": f4})
+    # (c) decode with enc_out assigned from encode: the last prompt step
+    # against the prefill with the frames
+    decode = make_decode_step(cfg)
+    cache = lm.init_cache(cfg, 4, 64)
+    cache["enc_out"] = lm.encode(params, f4, cfg)
+    names = {0: "self", 1: "cross", 2 * L - 2: "self", 2 * L - 1: "cross"}
+    for t in range(64):
+        cap = {i: f"{arch} decode q_offset={t} {n} layer {i // 2}"
+               for i, n in names.items()} if t == 63 else None
+        with routed("flash_attention", kops.flash_attention, cap, captured):
+            out, cache = decode(params, cache, p64[:, t:t + 1], t)
+    err = rel_l2(out, pre64)
+    assert err <= SERVE_REL_L2, (arch, "decode with enc_out vs prefill", err)
+    log(f"[mm] (c) {arch} decode with cache['enc_out'] = encode(frames), at "
+        f"the last prompt position (63) vs make_prefill_step with the "
+        f"frames: rel L2 {err:.3e} (limit {SERVE_REL_L2}), argmax agrees in "
+        f"{int((out.argmax(-1) == pre64.argmax(-1)).sum())}/4 rows")
+
+    def zero_enc_out(out, pre):      # ROADMAP C20: greedy_generate's cache
+        gap = rel_l2(out, pre)
+        assert gap > SERVE_REL_L2, (arch, "zero enc_out", gap)
+        log(f"[mm] (c) {arch} decode with the fresh cache's zero enc_out "
+            f"(greedy_generate's, as the reference's: ROADMAP C20) at "
+            f"position 63: rel L2 {gap:.3e} from the prefill with frames")
+
+    steps = stepwise(f"[mm] {arch}", cfg, params, p64, 32, SERVE_REL_L2,
+                     cache_len=96, pre=pre64, on_last=zero_enc_out)
+    counted(arch, cfg, params,
+            {"prefill-448": ({"tokens": p448, "frames": f4}, logits)}, p64,
+            32, steps, 2 * L, E + 2 * L, cache_len=96)
+    del params, cache
+    torch.cuda.empty_cache()
+
+    # ---- internvl2-26b: 256 patch embeddings ahead of the tokens -----------
+    arch = "internvl2-26b"
+    cfg, params = model(arch, n_layers=INTERNVL2_LAYERS)
+    L, V = cfg.n_layers, cfg.n_vis_tokens
+    prefills = {"prefill-1024": {"tokens": tokens(cfg, 4, 768),
+                                 "vis_embed": embeds(cfg, 4, V)},
+                "prefill-4096": {"tokens": tokens(cfg, 1, 3840),
+                                 "vis_embed": embeds(cfg, 1, V)}}
+    logits = {name: prefill_vs_plain(
+        arch, cfg, params, name, batch,
+        {0: f"{arch} {name} layer 0", L - 1: f"{arch} {name} layer {L - 1}"},
+        "vis_embed") for name, batch in prefills.items()}
+    # (d) text-only decode (greedy_generate's fresh cache sees no image)
+    # against a text-only prefill
+    p512 = tokens(cfg, 4, 512)
+    pre512 = make_prefill_step(cfg)(params, {
+        "tokens": p512, "vis_embed": embeds(cfg, 4, 0)})
+    steps = stepwise(f"[mm] {arch} (text only)", cfg, params, p512, 32,
+                     SERVE_REL_L2, lambda t: {
+                         0: f"{arch} decode q_offset={t} layer 0",
+                         L - 1: f"{arch} decode q_offset={t} layer {L - 1}"}
+                     if t == 511 else None, captured, pre=pre512)
+    counted(arch, cfg, params, {k: (v, logits[k]) for k, v in
+                                prefills.items()}, p512, 32, steps, L, L)
+    del params
+    torch.cuda.empty_cache()
+    t_paths = time.time() - t_phase
+
+    # ---- (a) the kernel against its plain version -------------------------
+    def check(what, fn, ref, q, k, v, layout, **kw):
+        before = dict(fa.route_launches)
+        got, want = fn(q, k, v, **kw), ref(q, k, v, **kw)
+        qh, kh = (q, k) if layout == "bhtd" else (q.transpose(1, 2),
+                                                  k.transpose(1, 2))
+        kind = fa._route(qh.shape[2], qh.shape[3], q.dtype, k.dtype,
+                         qh.shape[1], kh.shape[1])
+        assert fa.route_launches[kind] == before[kind] + 1, (what, kind)
+        checked[kind] += 1
+        tol = FA_TOL[str(q.dtype).split(".")[-1]]
+        assert got.dtype == want.dtype == q.dtype and got.shape == want.shape
+        d = (got.float() - want.float()).abs()
+        assert not bool((d > tol + tol * want.float().abs()).any()), (
+            what, float(d.max()))
+        errs[what] = float(d.max())
+        return kind
+
+    for name in sorted(captured):
+        (q, k, v), kw = captured[name]
+        kind = check(name, kops.flash_attention, model_layout_ref, q, k, v,
+                     "bthd", **kw)
+        cross = "encoder" in name or "cross" in name
+        assert kw["causal"] == (not cross), (name, kw)
+        assert kind == ("decode" if "decode" in name else "tc"), (name, kind)
+    g = torch.Generator(device=dev).manual_seed(5)
+    for what, (B, H, K, Tq, Tk, hd) in (
+            ("random tc non-causal Tq=Tk=1500 hd=64 G=1",
+             (4, 12, 12, 1500, 1500, 64)),
+            ("random tc non-causal Tq=448 Tk=1500", (4, 12, 12, 448, 1500, 64)),
+            ("random decode non-causal G=1 Tq=1 Tk=1500",
+             (4, 12, 12, 1, 1500, 64))):
+        q = torch.randn((B, H, Tq, hd), generator=g, device=dev).to(bf16)
+        k = torch.randn((B, K, Tk, hd), generator=g, device=dev).to(bf16)
+        v = torch.randn((B, K, Tk, hd), generator=g, device=dev).to(bf16)
+        check(what, fa.flash_attention, flash_attention_ref, q, k, v, "bhtd",
+              causal=False)
+    torch.cuda.synchronize()
+    assert checked["tc"] and checked["decode"] and not checked["fma"], checked
+    log("[mm] (a) flash_attention matches its plain version (max abs "
+        "error): " + "; ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f"; checks by route {checked}")
+
+    # ---- (f) the f32 SMOKE configs against the JAX-made references --------
+    f32 = torch.float32
+    for arch, want_ref in MM_SERVE_REF.items():
+        path = TESTDATA / f"{arch.split('-')[0]}_smoke_serve_ref.json"
+        ref = json.loads(path.read_text())
+        assert {k: ref[k] for k in want_ref} == want_ref
+        scfg = dataclasses.replace(get_config(arch, smoke=True),
+                                   dtype="float32", attn_impl="pallas")
+        sp = lm_params_from_jax(lm_weights(scfg, ref["seed"]), scfg)
+        stoks = torch.tensor(ref["prompt"], dtype=torch.int32, device=dev)
+        B, steps, new = ref["batch"], ref["steps"], ref["new"]
+        make = frames if scfg.kind == "encdec" else vis_embed
+        stub = {"frames" if scfg.kind == "encdec" else "vis_embed":
+                torch.from_numpy(make(scfg, ref["seed"], B)).to(dev)}
+        fa.reset_launches()
+        smoke = {"prefill": (make_prefill_step(scfg)(
+            sp, {"tokens": stoks, **stub}), "prefill_last_logits")}
+        enc = {"": None}
+        if scfg.kind == "encdec":
+            enc["_enc_out"] = lm.encode(sp, stub["frames"], scfg)
+        n_pre = dict(fa.route_launches)
+        step, held = make_decode_step(scfg), {}
+        for suffix, e in enc.items():
+            cache = lm.init_cache(scfg, B, steps + new, dtype=f32)
+            if e is not None:
+                cache["enc_out"] = e
+            out, tok, toks = [], stoks[:, :1], []
+            for t in range(steps + new - 1):
+                lg, cache = step(sp, cache, tok, t)
+                if t < steps:
+                    out.append(lg)
+                if t + 1 < steps:
+                    tok = stoks[:, t + 1:t + 2]
+                else:
+                    tok = lg.argmax(-1)[:, None].to(torch.int32)
+                    toks.append(tok)
+            smoke[f"decode{suffix}, f32 cache"] = (
+                torch.stack(out), "decode_logits_f32_cache" + suffix)
+            assert torch.cat(toks, 1).tolist() == \
+                ref["greedy_tokens" + suffix], (arch, suffix)
+        for what, (got, key) in smoke.items():
+            want = torch.tensor(ref[key], device=dev).reshape(got.shape)
+            d = (got - want).abs()
+            assert not bool((d > SMOKE_TOL + SMOKE_TOL * want.abs()).any()), (
+                arch, what, float(d.max()))
+            held[what] = float(d.max())
+        # the prefill's calls (the encoder's too) and encode's, all on fma
+        per_step = scfg.n_layers * (2 if scfg.kind == "encdec" else 1)
+        assert n_pre == {"tc": 0, "decode": 0, "fma": per_step
+                         + 2 * scfg.n_enc_layers}, (arch, n_pre)
+        assert fa.route_launches == dict(n_pre, decode=per_step * len(enc)
+                                         * (steps + new - 1)), (
+            arch, fa.route_launches)
+        log(f"[mm] (f) {arch} SMOKE, f32, on the card vs the JAX reference "
+            f"(max abs error, limit {SMOKE_TOL}): {held}; greedy tokens "
+            f"equal; the prefill on fma, the decode on decode")
+
+    # ---- times --------------------------------------------------------------
+    def timing(name):
+        (q, k, v), kw = captured[name]
+        return flash_timing(q, k, v, kw)
+
+    times = {
+        "4tc-nc": timing("whisper-small encoder layer 0"),
+        "4tc-x": timing("whisper-small prefill-448 cross layer 0"),
+        "4dec-x": timing("whisper-small decode q_offset=63 cross layer 0"),
+        "4tc-v": timing("internvl2-26b prefill-1024 layer 0")}
+    assert [t["fa_route"] for t in times.values()] == ["tc", "tc", "decode",
+                                                       "tc"], times
+    # decode_step recomputes every layer's cross K/V from enc_out at every
+    # step, as the reference does: one layer's two products, timed
+    wcfg = get_config("whisper-small")
+    wp = {"xattn": {w: torch.randn((wcfg.d_model, wcfg.d_model),
+                                   generator=g, device=dev).to(bf16)
+                    for w in ("wk", "wv")}}
+    enc_out = embeds(wcfg, 4, wcfg.enc_seq)
+    kv_ms = device_ms(lambda: lm._cross_kv(wp, enc_out, wcfg))[0]
+    log(f"[mm] flash_attention at the new calls: {times}; cross K/V of one "
+        f"decoder layer from 4 x 1500 frames, recomputed every decode step: "
+        f"{kv_ms:.7f} ms (x {wcfg.n_layers} layers a step); phase 10 wall "
+        f"{time.time() - t_phase:.1f}s (the serve paths {t_paths:.1f}s)")
+    return {"routes": {
+        "tc": {"whisper_encoder_1500_noncausal": dict(
+                   times["4tc-nc"], launches=routes["whisper-small"]["tc"]),
+               "whisper_cross_448x1500": times["4tc-x"],
+               "internvl2_prefill_1024_hd128_g6": dict(
+                   times["4tc-v"], launches=routes["internvl2-26b"]["tc"])},
+        "decode": {"whisper_cross_decode_1x1500": dict(
+            times["4dec-x"], launches=routes["whisper-small"]["decode"]),
+            "internvl2_decode": {"launches": routes["internvl2-26b"][
+                "decode"]}}},
+        "launches_mm": launches, "routes_mm": routes,
+        "cross_kv_layer_ms": kv_ms, "max_abs_err_mm": max(errs.values())}
 
 
 def active_lanes(prog, st, t):
@@ -4165,6 +4535,9 @@ def main() -> int:
     if sys.argv[1:] == ["--phase", "9"]:    # phase 9 alone, after the build
         print(json.dumps(serve_moe(dev)), flush=True)
         return finish(kind)
+    if sys.argv[1:] == ["--phase", "10"]:   # phase 10 alone, after the build
+        print(json.dumps(serve_mm(dev)), flush=True)
+        return finish(kind)
 
     # ---- 2. kernels vs plain versions on the card -------------------------
     def program(sc, cfg):
@@ -4491,6 +4864,18 @@ def main() -> int:
     fa_entry["launches_moe"] = moe["launches_moe"]
     fa_entry["max_abs_err"] = max(fa_entry["max_abs_err"],
                                   moe["max_abs_err_moe"])
+    torch.cuda.empty_cache()
+
+    # ---- 10. serve: whisper-small and internvl2-26b through flash --------
+    mm = serve_mm(dev)
+    for fa_route, by_route in fa_entry["routes"].items():
+        by_route.update(mm["routes"].get(fa_route, {}))
+        by_route["launches_mm"] = {arch: n[fa_route] for arch, n in
+                                   mm["routes_mm"].items()}
+    fa_entry["launches_mm"] = mm["launches_mm"]
+    fa_entry["cross_kv_layer_ms"] = mm["cross_kv_layer_ms"]
+    fa_entry["max_abs_err"] = max(fa_entry["max_abs_err"],
+                                  mm["max_abs_err_mm"])
     print(json.dumps({"kernels": kernels, **floors}), flush=True)
     return finish(kind)
 

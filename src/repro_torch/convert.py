@@ -80,7 +80,8 @@ def leaves(tree, prefix: str = "") -> dict:
 
 
 #: Norm weights (kept in f32); every other dense-block leaf is a matrix.
-_NORMS = ("final_norm", "ln1", "ln2", "q_norm", "k_norm")
+_NORMS = ("final_norm", "enc_norm", "ln1", "ln2", "ln_x", "q_norm",
+          "k_norm")
 
 
 def lm_params_from_jax(np_params, cfg: ModelConfig, device="cuda") -> dict:
@@ -90,8 +91,9 @@ def lm_params_from_jax(np_params, cfg: ModelConfig, device="cuda") -> dict:
     ``layers/moe/router`` (n_layers, d, E) and ``layers/moe/wg`` (n_layers,
     E, d, ff) or ``layers/ssm/w_x`` of shape (n_layers, d, d_in); the
     hybrid's
-    ``shared_attn``, one unstacked dense block) -> the port's params dict
-    on ``device``, one dict per layer.  The reference casts the same f32
+    ``shared_attn``, one unstacked dense block; encdec's ``enc_layers``,
+    stacked too, and ``enc_norm``) -> the port's params dict on
+    ``device``, one dict per layer.  The reference casts the same f32
     masters at every use; the port casts once: dense and MoE matrices
     (router and experts) to ``cfg.dtype``, the Mamba2 projections to bf16 (``ssm.py`` casts them
     to bf16 whatever ``cfg.dtype`` is); norm weights and the Mamba2
@@ -113,9 +115,14 @@ def lm_params_from_jax(np_params, cfg: ModelConfig, device="cuda") -> dict:
                 for name, v in tree.items()}
 
     out = {name: leaf(np_params[name], name)
-           for name in ("embed", "final_norm", "lm_head") if name in np_params}
+           for name in ("embed", "final_norm", "lm_head", "enc_norm")
+           if name in np_params}
     out["layers"] = [block(np_params["layers"], lambda a, i=i: a[i])
                      for i in range(cfg.n_layers)]
+    if cfg.kind == "encdec":
+        out["enc_layers"] = [block(np_params["enc_layers"],
+                                   lambda a, i=i: a[i])
+                             for i in range(cfg.n_enc_layers)]
     if cfg.kind == "hybrid":
         out["shared_attn"] = block(np_params["shared_attn"])
     return out

@@ -14,13 +14,14 @@ Attention implementations, as in the reference:
   * ``pallas``  — the hand-written flash-attention kernel
     (:func:`repro_torch.kernels.ops.flash_attention`).
 
-Three faults of the reference are not carried over (ROADMAP C6, C7,
-C18): its ``pallas`` branch passes no ``q_offset`` in decode, so the query
-sits at position 0 and reads cache slot 0 only; its chunked path pads a
-ragged last chunk with keys at position ``-10**9``, which a causal mask
-lets through; and its sliding-window decode ring gives the slots not yet
-written negative positions, which the causal and window masks let
-through.
+Four faults of the reference are not carried over (ROADMAP C6, C7,
+C18, C19): its ``pallas`` branch passes no ``q_offset`` in decode, so the
+query sits at position 0 and reads cache slot 0 only; its chunked path
+pads a ragged last chunk with keys at position ``-10**9``, which a causal
+mask lets through (C7) and a non-causal call, an encoder's or a
+cross-attention's, does not mask at all (C19); and its sliding-window
+decode ring gives the slots not yet written negative positions, which the
+causal and window masks let through.
 
 The MoE layers (``init_moe``, ``apply_moe``, ``apply_moe_dense``) are the
 reference's: top-k routing with a per-group capacity, the dispatch and
@@ -177,14 +178,17 @@ def _sdpa_chunked(q, k, v, q_pos, k_pos, causal, window, chunk, f32=True):
 
 
 def apply_attention(p, x, cfg: ModelConfig, *, positions, cache=None,
-                    causal=True, window=None):
-    """Self-attention.
+                    causal=True, window=None, cross_kv=None):
+    """Self-attention, or cross-attention with ``cross_kv``.
 
     x: (B, T, d).  positions: (B, T) int absolute positions; without a
     cache they are ``arange(T)`` in every row (the ``pallas`` kernel puts
     query ``t`` at ``t`` and key ``s`` at ``s``).  cache: optional dict
     ``k``, ``v`` (B, S, K, hd) and ``pos`` (int) for decode, updated in
-    place (the reference returns a new one) and returned.
+    place (the reference returns a new one) and returned.  cross_kv: an
+    encoder's (k, v), each (B, S, K, hd), taken as given: no RoPE on q or
+    k, no ``k_norm``, key s at position s; the call is then non-causal in
+    the reference's callers, a prefill or a decode step alike (no cache).
     Returns (out, cache).
     """
     dt = dtype_of(cfg)
@@ -192,14 +196,19 @@ def apply_attention(p, x, cfg: ModelConfig, *, positions, cache=None,
     hd = cfg.hd
     xq = x.to(dt)
     q = _mm(xq, p["wq"]).reshape(B, T, cfg.n_heads, hd)
-    k = _mm(xq, p["wk"]).reshape(B, T, cfg.n_kv_heads, hd)
-    v = _mm(xq, p["wv"]).reshape(B, T, cfg.n_kv_heads, hd)
+    if cross_kv is None:
+        k = _mm(xq, p["wk"]).reshape(B, T, cfg.n_kv_heads, hd)
+        v = _mm(xq, p["wv"]).reshape(B, T, cfg.n_kv_heads, hd)
+    else:
+        k, v = cross_kv
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
-        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
-    cos, sin = rope_angles(positions, hd, cfg.rope_theta)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
+        if cross_kv is None:
+            k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    if cross_kv is None:
+        cos, sin = rope_angles(positions, hd, cfg.rope_theta)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
 
     q_offset = 0
     if cache is not None:
@@ -225,8 +234,12 @@ def apply_attention(p, x, cfg: ModelConfig, *, positions, cache=None,
         cache["pos"] = pos + T
         k, v = cache["k"], cache["v"]
         q_offset = pos
-    else:
+    elif cross_kv is None:
         k_pos = positions
+    else:
+        S = k.shape[1]
+        k_pos = torch.arange(S, dtype=torch.int32,
+                             device=x.device)[None, :].expand(B, S)
     q_pos = positions
 
     impl = cfg.attn_impl

@@ -14,6 +14,9 @@
     PYTHONPATH=src python -m repro_torch.profile --scenario \
         mamba2-prefill-1024 mamba2-prefill-4096 mamba2-decode \
         zamba2-prefill-1024 zamba2-decode
+    PYTHONPATH=src python -m repro_torch.profile --scenario \
+        whisper-prefill-448 whisper-decode internvl2-prefill-1024 \
+        internvl2-decode
 
 Runs each scenario on the card twice (the first run warms up: it builds
 the kernels and PyTorch's caches) and profiles the second with
@@ -38,7 +41,12 @@ requests at positions 536-543 of a 544-slot cache); mamba2-2.7b
 ``mamba2-prefill-1024`` (4 x 1024), ``mamba2-prefill-4096`` (1 x 4096) and
 ``mamba2-decode`` (8 steps of 4 requests); zamba2-2.7b
 ``zamba2-prefill-1024`` and ``zamba2-decode`` (8 steps at positions
-536-543).  It needs a GPU.
+536-543); whisper-small ``whisper-prefill-448`` (4 x 448 tokens with 4 x
+1500 frames) and ``whisper-decode`` (8 steps at positions 88-95, the
+cache's ``enc_out`` zero, as ``greedy_generate``'s); internvl2-26b at 8
+of its 48 layers (``SERVE_LAYERS``) ``internvl2-prefill-1024`` (4 x (256
+patch embeddings + 768 tokens)) and ``internvl2-decode`` (8 steps at
+positions 536-543).  It needs a GPU.
 """
 from __future__ import annotations
 
@@ -149,7 +157,13 @@ SERVE = {"prefill-1000": ("llama3-8b", 4, 1000),
          "mamba2-prefill-4096": ("mamba2-2.7b", 1, 4096),
          "mamba2-decode": ("mamba2-2.7b", 4, 544),
          "zamba2-prefill-1024": ("zamba2-2.7b", 4, 1024),
-         "zamba2-decode": ("zamba2-2.7b", 4, 544)}
+         "zamba2-decode": ("zamba2-2.7b", 4, 544),
+         "whisper-prefill-448": ("whisper-small", 4, 448),
+         "whisper-decode": ("whisper-small", 4, 96),
+         "internvl2-prefill-1024": ("internvl2-26b", 4, 768),
+         "internvl2-decode": ("internvl2-26b", 4, 544)}
+#: Serve models profiled at a cut depth: model -> layers.
+SERVE_LAYERS = {"internvl2-26b": 8}
 #: CUDA kernel names of the hand-written kernels (csrc/*.cu).
 OWN_KERNELS = ("strack_kernel", "roce_kernel", "serve_enqueue_kernel",
                "count_kernel", "scan_kernel", "resolve_kernel", "pfc_kernel",
@@ -188,11 +202,16 @@ def _serve_run(name: str, params, cfg):
     _, B, T = SERVE[name]
     g = torch.Generator(device="cuda").manual_seed(1)
     tokens = torch.randint(0, cfg.vocab, (B, T), generator=g, device="cuda")
+    batch = {"tokens": tokens}
+    stub = {"encdec": ("frames", cfg.enc_seq),
+            "vlm": ("vis_embed", cfg.n_vis_tokens)}.get(cfg.kind)
+    if stub:
+        batch[stub[0]] = torch.randn((B, stub[1], cfg.d_model), generator=g,
+                                     device="cuda").to(torch.bfloat16)
     if "prefill" in name:
         prefill = make_prefill_step(cfg)
         return lambda: {"tokens": B * T,
-                        "logits": tuple(prefill(params, {"tokens": tokens})
-                                        .shape)}
+                        "logits": tuple(prefill(params, batch).shape)}
     decode, steps = make_decode_step(cfg), 8
 
     def once():
@@ -258,8 +277,10 @@ def main() -> None:
             from .models import lm
             params = None
             torch.cuda.empty_cache()
-            cfg = dataclasses.replace(get_config(SERVE[name][0]),
-                                      attn_impl="pallas")
+            model = SERVE[name][0]
+            cfg = dataclasses.replace(get_config(model), attn_impl="pallas",
+                                      n_layers=SERVE_LAYERS.get(
+                                          model, get_config(model).n_layers))
             params = lm.init_params(
                 torch.Generator(device="cuda").manual_seed(0), cfg)
         once = (_fabric_run(name) if name in FABRIC

@@ -1,8 +1,11 @@
 """Serving steps: batched prefill and single-token decode with KV and SSM
-caches (the reference's ``repro/runtime/serve.py``; dense, ssm and hybrid
-models).  As in the reference, prefill returns logits and no cache, and
+caches (the reference's ``repro/runtime/serve.py``; every model kind).
+As in the reference, prefill returns logits and no cache, and
 ``greedy_generate`` consumes the prompt one token a step through the
-decode step.
+decode step from a fresh cache: a vlm's decode sees no image, and an
+encdec's cross-attends the cache's ``enc_out``, zeros unless the caller
+assigns :func:`repro_torch.models.lm.encode`'s output there (ROADMAP
+C20).
 
 Each entry point takes ``device`` and defaults to ``"cuda"``: without a
 GPU it raises, and it runs on the CPU only when the caller passes
@@ -36,7 +39,9 @@ def _on(params, dev: torch.device) -> None:
 
 def make_prefill_step(cfg: ModelConfig, device="cuda"):
     """prefill(params, batch) -> last-position logits (B, vocab) f32;
-    ``batch["tokens"]`` is (B, T) int."""
+    ``batch["tokens"]`` is (B, T) int; a vlm's ``batch["vis_embed"]`` (B,
+    n_vis, d) goes ahead of the token embeddings, an encdec's
+    ``batch["frames"]`` (B, enc_seq, d) is encoded first."""
     lm.require_ported(cfg)
     dev = _device(device)
 
@@ -45,8 +50,15 @@ def make_prefill_step(cfg: ModelConfig, device="cuda"):
         tokens = batch["tokens"].to(dev)
         B, T = tokens.shape
         x = lm.embed_tokens(params, tokens, cfg)
-        pos = torch.arange(T, dtype=torch.int32, device=dev)[None].expand(B, T)
-        hidden, _ = lm.forward_hidden(params, x, pos, cfg)
+        enc_out = None
+        if cfg.kind == "vlm":
+            x = torch.cat([batch["vis_embed"].to(dev, x.dtype), x], dim=1)
+        if cfg.kind == "encdec":
+            enc_out = lm.encode(params, batch["frames"].to(dev, x.dtype), cfg)
+        Tt = x.shape[1]
+        pos = torch.arange(Tt, dtype=torch.int32, device=dev)[None].expand(
+            B, Tt)
+        hidden, _ = lm.forward_hidden(params, x, pos, cfg, enc_out=enc_out)
         w = lm.lm_head_weight(params, cfg)
         logits = hidden[:, -1] @ w.to(hidden.dtype)
         return logits.to(torch.float32)

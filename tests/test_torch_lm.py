@@ -400,13 +400,29 @@ def test_serve_entry_points_default_to_cuda_and_never_fall_back(monkeypatch):
 
 def test_unported_kinds_and_paths_raise_naming_their_roadmap_item():
     gen = torch.Generator().manual_seed(0)
-    for arch in ("whisper-small", "internvl2-26b"):
+    # every kind of the reference is ported: whisper (encdec) and internvl2
+    # (vlm) build and serve on the CPU (tests/test_torch_encdec.py,
+    # tests/test_torch_vlm.py); a kind the reference does not know raises
+    for arch, extra in (("whisper-small", "frames"),
+                        ("internvl2-26b", "vis_embed")):
         cfg = get_config(arch, smoke=True)
-        for call in (lambda: TL.init_params(gen, cfg),
-                     lambda: TS.make_prefill_step(cfg, device="cpu"),
-                     lambda: TL.init_cache(cfg, 1, 8, device="cpu")):
-            with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-                call()
+        params = TL.init_params(gen, cfg)
+        n = cfg.enc_seq if extra == "frames" else cfg.n_vis_tokens
+        logits = TS.make_prefill_step(cfg, device="cpu")(params, {
+            "tokens": torch.zeros((1, 4), dtype=torch.int32),
+            extra: torch.randn((1, n, cfg.d_model), generator=gen)})
+        assert logits.shape == (1, cfg.vocab)
+        cache = TL.init_cache(cfg, 1, 8, device="cpu")
+        logits, _ = TS.make_decode_step(cfg, device="cpu")(
+            params, cache, torch.zeros((1, 1), dtype=torch.int32), 0)
+        assert bool(torch.isfinite(logits).all())
+    odd = dataclasses.replace(get_config("llama3-8b", smoke=True),
+                              kind="rnn")
+    for call in (lambda: TL.init_params(gen, odd),
+                 lambda: TS.make_prefill_step(odd, device="cpu"),
+                 lambda: TL.init_cache(odd, 1, 8, device="cpu")):
+        with pytest.raises(NotImplementedError, match="unknown kind"):
+            call()
     # mamba2 and zamba2 (ssm, hybrid), the SSD scan (B6), mixtral and grok
     # (moe) are ported (tests/test_torch_ssm.py, tests/test_torch_ssd.py,
     # tests/test_torch_moe.py)

@@ -7,6 +7,10 @@ machine has no JAX).
 distributions for the matrices (MoE: the router and the experts); norm
 weights are drawn near 1 rather than set to 1, so that a norm applied to
 the wrong axis or not at all shows.
+For encdec the decoder layers add ``ln_x`` and ``xattn`` and the tree
+adds ``enc_layers`` (stacked) and ``enc_norm``; a vlm's tree is the
+dense one.  :func:`frames` and :func:`vis_embed` draw the stub encoder
+and vision inputs.
 For the Mamba2 kinds (ssm, hybrid) the ``ssm`` leaves the reference
 initialises to constants are drawn too: conv biases, ``D``, ``dt_bias``
 and ``norm_w`` away from 0 / 1 / log(e - 1), ``A_log`` = log of U(1, 16)
@@ -38,6 +42,13 @@ MOE_SERVE_REF = {arch: dict(arch=arch, seed=0, batch=2, steps=40, new=4,
 #: prompt of ``steps`` tokens (two chunks of 16), ``new`` greedy tokens.
 SSM_SERVE_REF = {arch: dict(arch=arch, seed=0, batch=2, steps=32, new=4)
                  for arch in ("mamba2-2.7b", "zamba2-2.7b")}
+#: The committed encoder-decoder and vision-language serve references
+#: (src/repro_torch/testdata/{whisper,internvl2}_smoke_serve_ref.json): the
+#: SMOKE configs in f32, a prompt of ``steps`` tokens, ``new`` greedy
+#: tokens; whisper's frames from ``frames(cfg, seed, batch)``, internvl2's
+#: patch embeddings from ``vis_embed(cfg, seed, batch)``.
+MM_SERVE_REF = {arch: dict(arch=arch, seed=0, batch=2, steps=12, new=4)
+                for arch in ("whisper-small", "internvl2-26b")}
 
 
 def lm_weights(cfg, seed: int) -> dict:
@@ -54,13 +65,17 @@ def lm_weights(cfg, seed: int) -> dict:
     def norm(shape):
         return (1.0 + normal(shape, 0.1)).astype(np.float32)
 
-    attn = {"wq": normal((L, d, H * hd), d ** -0.5),
-            "wk": normal((L, d, K * hd), d ** -0.5),
-            "wv": normal((L, d, K * hd), d ** -0.5),
-            "wo": normal((L, H * hd, d), (H * hd) ** -0.5)}
-    if cfg.qk_norm:
-        attn["q_norm"] = norm((L, hd))
-        attn["k_norm"] = norm((L, hd))
+    def attention():
+        a = {"wq": normal((L, d, H * hd), d ** -0.5),
+             "wk": normal((L, d, K * hd), d ** -0.5),
+             "wv": normal((L, d, K * hd), d ** -0.5),
+             "wo": normal((L, H * hd, d), (H * hd) ** -0.5)}
+        if cfg.qk_norm:
+            a["q_norm"] = norm((L, hd))
+            a["k_norm"] = norm((L, hd))
+        return a
+
+    attn = attention()
     # the draws in the order the dense tree has always taken them
     embed, final_norm = normal((V, d), 0.02), norm((d,))
     ln1, ln2 = norm((L, d)), norm((L, d))
@@ -78,6 +93,12 @@ def lm_weights(cfg, seed: int) -> dict:
          "layers": {"ln1": ln1, "attn": attn, "ln2": ln2, **ffn}}
     if not cfg.tie_embeddings:
         p["lm_head"] = normal((d, V), d ** -0.5)
+    if cfg.kind == "encdec":
+        p["layers"].update(ln_x=norm((L, d)), xattn=attention())
+        enc = dataclasses.replace(cfg, kind="dense", n_layers=cfg.n_enc_layers,
+                                  n_enc_layers=0)
+        p["enc_layers"] = lm_weights(enc, seed + 2)["layers"]
+        p["enc_norm"] = norm((d,))
     return p
 
 
@@ -121,6 +142,20 @@ def _ssm_lm_weights(cfg, seed: int) -> dict:
                                 if isinstance(v, dict) else v[0])
                             for k, v in shared.items()}
     return p
+
+
+def frames(cfg, seed: int, batch: int) -> np.ndarray:
+    """f32 (batch, enc_seq, d) stub frame embeddings, N(0, 1)."""
+    rng = np.random.default_rng(seed + 3)
+    return rng.standard_normal((batch, cfg.enc_seq, cfg.d_model),
+                               dtype=np.float32)
+
+
+def vis_embed(cfg, seed: int, batch: int) -> np.ndarray:
+    """f32 (batch, n_vis_tokens, d) stub patch embeddings, N(0, 1)."""
+    rng = np.random.default_rng(seed + 4)
+    return rng.standard_normal((batch, cfg.n_vis_tokens, cfg.d_model),
+                               dtype=np.float32)
 
 
 def prompt(cfg, seed: int, batch: int, length: int) -> np.ndarray:

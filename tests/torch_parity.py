@@ -50,6 +50,9 @@ MOE_SERVE_REF_PATHS = {
     "grok-1-314b": REF_DIR / "grok_smoke_serve_ref.json"}
 SSM_SERVE_REF_PATHS = {"mamba2-2.7b": REF_DIR / "mamba2_smoke_serve_ref.json",
                        "zamba2-2.7b": REF_DIR / "zamba2_smoke_serve_ref.json"}
+MM_SERVE_REF_PATHS = {
+    "whisper-small": REF_DIR / "whisper_smoke_serve_ref.json",
+    "internvl2-26b": REF_DIR / "internvl2_smoke_serve_ref.json"}
 
 #: Summary keys the reference files pin (ints exact, floats to 1e-6).
 REF_SUMMARY_KEYS = ("max_fct", "avg_fct", "unfinished", "drops", "pauses",
@@ -726,9 +729,11 @@ def jax_lm(arch: str, dtype: str, seed: int, **over):
     return cfg, jax.tree.map(jnp.asarray, lm_weights(cfg, seed))
 
 
-def jax_teacher_forced(cfg, params, tokens, cache_dtype) -> np.ndarray:
+def jax_teacher_forced(cfg, params, tokens, cache_dtype,
+                       enc_out=None) -> np.ndarray:
     """The JAX package's decode logits (T, B, vocab) with the prompt fed
-    one token at a time from an empty cache of ``cache_dtype``."""
+    one token at a time from an empty cache of ``cache_dtype``; an encdec
+    cache's ``enc_out`` zeros, or ``enc_out`` where given."""
     import jax
     import jax.numpy as jnp
     from repro.models import lm
@@ -736,6 +741,8 @@ def jax_teacher_forced(cfg, params, tokens, cache_dtype) -> np.ndarray:
     B, T = tokens.shape
     step = jax.jit(make_decode_step(cfg))
     cache = lm.init_cache(cfg, B, T, dtype=cache_dtype)
+    if enc_out is not None:
+        cache["enc_out"] = jnp.asarray(enc_out)
     out = []
     for t in range(T):
         logits, cache = step(params, cache, jnp.asarray(tokens[:, t:t + 1]),
@@ -870,6 +877,106 @@ def moe_smoke_serve_reference(arch: str) -> dict:
                     drop_free, params, tokens, ref["new"]).tolist())
 
 
+def jax_greedy(cfg, params, tokens, new: int, enc_out=None) -> np.ndarray:
+    """``new`` greedy tokens (B, new) after ``tokens`` from the JAX
+    package's decode step, the reference's ``greedy_generate`` loop on an
+    f32 cache (its own takes bf16); an encdec cache's ``enc_out`` zeros,
+    or ``enc_out`` where given."""
+    import jax
+    import jax.numpy as jnp
+    from repro.models import lm
+    from repro.runtime.serve import make_decode_step
+    B, T = tokens.shape
+    step = jax.jit(make_decode_step(cfg))
+    cache = lm.init_cache(cfg, B, T + new, dtype=jnp.float32)
+    if enc_out is not None:
+        cache["enc_out"] = jnp.asarray(enc_out)
+    tok, out = jnp.asarray(tokens[:, :1]), []
+    for t in range(T + new - 1):
+        logits, cache = step(params, cache, tok, jnp.asarray(t, jnp.int32))
+        if t + 1 < T:
+            tok = jnp.asarray(tokens[:, t + 1:t + 2])
+        else:
+            tok = jnp.argmax(logits, -1)[:, None].astype(jnp.int32)
+            out.append(np.asarray(tok))
+    return np.concatenate(out, axis=1)
+
+
+def port_decode(tcfg, params, tokens, cache_len, enc_out=None, new=0,
+                cache_dtype=torch.float32) -> np.ndarray:
+    """The port's decode on the CPU from an empty cache (an encdec
+    cache's ``enc_out`` zeros, or ``enc_out`` where given): the
+    teacher-forced logits (T, B, vocab) of ``tokens``, or with ``new`` the
+    (B, new) greedy tokens after them."""
+    from repro_torch.models import lm
+    from repro_torch.runtime.serve import make_decode_step
+    cache = lm.init_cache(tcfg, tokens.shape[0], cache_len,
+                          dtype=cache_dtype, device="cpu")
+    if enc_out is not None:
+        cache["enc_out"] = enc_out
+    step = make_decode_step(tcfg, device="cpu")
+    T = tokens.shape[1]
+    out, tok = [], torch.from_numpy(tokens[:, :1])
+    for t in range(T + max(new - 1, 0)):
+        logits, cache = step(params, cache, tok, t)
+        if t + 1 < T:
+            tok = torch.from_numpy(tokens[:, t + 1:t + 2])
+        else:
+            tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+        out.append(tok.numpy()[:, 0] if new else logits.numpy())
+    return np.stack(out[T - 1:], axis=1) if new else np.stack(out)
+
+
+def mm_inputs(cfg, seed: int, batch: int) -> dict:
+    """The stub inputs beside the tokens: whisper's ``frames``, a vlm's
+    ``vis_embed`` (numpy f32, from ``torch_lm_weights``)."""
+    from torch_lm_weights import frames, vis_embed
+    if cfg.kind == "encdec":
+        return {"frames": frames(cfg, seed, batch)}
+    return {"vis_embed": vis_embed(cfg, seed, batch)}
+
+
+def mm_smoke_serve_reference(arch: str) -> dict:
+    """The JAX package serving the SMOKE config of ``arch`` (whisper-small
+    or internvl2-26b) in f32, weights, prompt, frames and patch embeddings
+    from ``torch_lm_weights`` (numpy seed ``MM_SERVE_REF[arch]``): the
+    prefill's last-position logits with ``attn_impl="pallas"`` (interpret
+    mode; whisper's frames encoded, internvl2's patches ahead of the
+    tokens); with ``attn_impl="naive"`` (the reference's pallas decode is
+    ROADMAP C6) the teacher-forced decode logits at every prompt step from
+    an f32 cache and ``new`` greedy tokens after the prompt, text alone
+    (internvl2) or cross-attending the cache's zero ``enc_out`` (whisper,
+    ROADMAP C20); for whisper both again with ``enc_out`` assigned from
+    ``encode``."""
+    import dataclasses
+    import jax
+    import jax.numpy as jnp
+    from repro.models import lm
+    from repro.runtime.serve import make_prefill_step
+    from torch_lm_weights import MM_SERVE_REF, prompt
+    ref = MM_SERVE_REF[arch]
+    seed, B, T, new = ref["seed"], ref["batch"], ref["steps"], ref["new"]
+    cfg, params = jax_lm(arch, "float32", seed, attn_impl="pallas")
+    tokens = prompt(cfg, seed, B, T)
+    extra = {k: jnp.asarray(v) for k, v in mm_inputs(cfg, seed, B).items()}
+    pre = jax.jit(make_prefill_step(cfg))(
+        params, {"tokens": jnp.asarray(tokens), **extra})
+    naive = dataclasses.replace(cfg, attn_impl="naive")
+    rnd = lambda a: [float(f"{x:.9g}") for x in np.asarray(a).ravel()]
+    out = dict(ref, dtype="float32", prompt=tokens.tolist(),
+               prefill_last_logits=rnd(pre),
+               decode_logits_f32_cache=rnd(jax_teacher_forced(
+                   naive, params, tokens, jnp.float32)),
+               greedy_tokens=jax_greedy(naive, params, tokens, new).tolist())
+    if cfg.kind == "encdec":
+        enc = lm.encode(params, extra["frames"], naive)
+        out.update(decode_logits_f32_cache_enc_out=rnd(jax_teacher_forced(
+            naive, params, tokens, jnp.float32, enc_out=enc)),
+            greedy_tokens_enc_out=jax_greedy(naive, params, tokens, new,
+                                             enc_out=enc).tolist())
+    return out
+
+
 def write_references() -> None:
     REF_DIR.mkdir(parents=True, exist_ok=True)
     makers = [(REF_PATH, perm1024_reference),
@@ -879,6 +986,8 @@ def write_references() -> None:
                for arch, path in SSM_SERVE_REF_PATHS.items()]
     makers += [(path, lambda a=arch: moe_smoke_serve_reference(a))
                for arch, path in MOE_SERVE_REF_PATHS.items()]
+    makers += [(path, lambda a=arch: mm_smoke_serve_reference(a))
+               for arch, path in MM_SERVE_REF_PATHS.items()]
     makers += [(path, lambda n=name: pfc_reference(n))
                for name, path in PFC_REF_PATHS.items()]
     makers += [(path, lambda n=name: chaos_reference(n))
