@@ -8,7 +8,9 @@ kernel (and zamba2's shared attention through the flash kernel), the
 MoE models mixtral-8x22b (its window and decode ring) and grok-1-314b at
 full width, depth cut, through the flash kernel, and whisper-small (full
 size: its encoder and cross-attention) and internvl2-26b (full width,
-depth cut) through the flash kernel.
+depth cut) through the flash kernel; then training: mamba2-2.7b (16
+layers) through the SSD scan kernel and its backward kernel, and
+llama3-8b (2 layers), at full width through ``make_train_step``.
 
     python3 chip_smoke.py
 
@@ -324,7 +326,39 @@ Phases (any failure exits non-zero; nothing is caught):
      the kernel's times at the new calls (`4tc-nc`, `4tc-x`, `4dec-x`,
      `4tc-v`) and one layer's cross K/V, which decode_step recomputes
      from enc_out at every step;
-  11. a `kernels` JSON line (launches on the main paths; each kernel's
+  11. training (phase 10's weights freed first; `python3 chip_smoke.py
+     --phase 11` runs the build and this phase alone, ~1.5 minutes of
+     chip time): (a) the SSD scan's backward kernel (ssd_scan_bwd: five
+     launches, float32, sums in a fixed order) against its plain twin
+     (autograd through the plain scan) at mamba2-2.7b's layer shape (B 4,
+     T 1024, H 80, P 64, N 128, chunk 128) and zamba2-2.7b's (N 64), each
+     of dx, ddt, dA, dB, dC within SSD_TOL["float32"] of the twin's
+     largest magnitude, two calls equal bits; its device ms, the twin's,
+     the bound; (b) mamba2-2.7b (MAMBA2_LAYERS), bf16 over f32 masters,
+     remat "full", 3 steps of 4 x 1024 synthetic tokens through
+     make_train_step with the launch counts reset before and read after
+     (ssd_scan_bwd once a layer a step, ssd_scan twice: forward and
+     recompute; the flash kernel never), the backward kernel against the
+     twin again at the inputs of the step's first backward call, then
+     the same 3 steps through the plain scan: step 1's losses equal bits,
+     steps 2-3 within TRAIN_TWIN_REL; step 1's gradient through the
+     kernels against the plain scan's, leaf by leaf within TRAIN_GRAD_CTL
+     of the control (the plain scan at chunk 64); ms a step, tokens/s (the last
+     step's: the caching allocator has its blocks by then), peak memory;
+     (c) llama3-8b (TRAIN_LLAMA3_LAYERS) with chunked attention (chunk
+     512), 3 steps of 4 x 1024: step 1's loss within (0.1, 3) ln V, as
+     test_smoke_loss holds it; tokens/s, peak memory; (d) the f32 SMOKE
+     configs of llama3-8b (2 micro-batches), mamba2-2.7b (both SSD
+     kernels), mixtral-8x22b (gradient compression) and whisper-small, 4
+     steps each, tokens, loss, grad_norm and lr against the JAX-made
+     src/repro_torch/testdata/*_smoke_train_ref.json (TRAIN_TOL); (e)
+     TrainSupervisor on mamba2 SMOKE f32 over 6 steps with a failure at
+     step 3: params and optimizer state equal the uninterrupted run's
+     bit for bit, restarted in the same process and, after a failure
+     that ends the run, in a fresh process (`--train-resume`, PyTorch's
+     deterministic mode), which also reruns mixtral SMOKE's compressed
+     steps to (d)'s bits;
+  12. a `kernels` JSON line (launches on the main paths; each kernel's
      device time per call from torch.profiler, and the wrapper's wall time
      per call; the plain version's device and wall time; the bound; for
      the transitions, serve_enqueue and pfc_account and each of their path
@@ -363,6 +397,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -433,6 +468,9 @@ OWN_KERNELS = {
     "flash_attention fma": ("fa_kernel",),
     "ssd_scan": ("ssd_cb_kernel", "ssd_state_kernel", "ssd_pass_kernel",
                  "ssd_out_kernel"),
+    "ssd_scan_bwd": ("ssd_bwd_q_kernel", "ssd_bwd_pass_kernel",
+                     "ssd_bwd_intra_kernel", "ssd_bwd_inter_kernel",
+                     "ssd_bwd_sum_kernel"),
 }
 
 
@@ -2995,6 +3033,437 @@ def serve_mm(dev) -> dict:
         "cross_kv_layer_ms": kv_ms, "max_abs_err_mm": max(errs.values())}
 
 
+#: Phase 11: mamba2-2.7b's depth (as phase 8, MAMBA2_LAYERS) and
+#: llama3-8b's (2 of 32 layers) in the training steps at full width.
+TRAIN_LLAMA3_LAYERS = 2
+#: The f32 SMOKE training runs against their JAX-made files, relative to
+#: the file's value (tests/test_torch_train.py holds the same on the CPU):
+#: attention models 1e-5; Mamba2 models 2e-3 (their projections are bf16
+#: in both packages); a run with int8 gradient compression 2e-3 (an int8
+#: code whose gradient sits 1e-6 from a half step rounds the other way,
+#: moving its dequantised gradient by a whole step, amax / 127).
+TRAIN_TOL = {"attention": 1e-5, "mamba2": 2e-3, "grad_compress": 2e-3}
+#: Steps 2-3 of mamba2's training through the SSD kernels against the same
+#: steps through the plain scan (step 1's losses have equal bits).
+TRAIN_TWIN_REL = 1e-3
+#: Step 1's gradient through the SSD kernels against the plain scan's, leaf
+#: by leaf (relative L2): at most this many times the control, the plain
+#: scan at chunk 64 against chunk 128 (the same function summed in another
+#: order; bf16 projections make it a few percent), taken as the larger of
+#: the leaf's own and the leaves' median.  The kernels' gap is the
+#: backward's summation order alone (the forward has the plain bits).
+TRAIN_GRAD_CTL = 1.0
+
+
+def ssd_bwd_timing(x, dt, A, B_, C_, dy, chunk, scratch) -> dict:
+    """The SSD backward kernel and its plain twin (autograd through the
+    plain scan, its forward included) on one call's inputs, with no final
+    state's gradient: device and wall ms, and the bound.  Operations as
+    the function needs them: per (b, h, chunk) the causal halves of dy .
+    dtx and M^T dy (P each); W B and W^T C once per (b, chunk) after W is
+    summed over the heads (B and C are shared across heads: tri
+    additions a head), N each; B G_c and dtx G_c^T in every chunk but the
+    last (G is 0 there without a final state's gradient), and Q_c and dy
+    S_in^T in every chunk but the first (S_in is 0 there), L N P each;
+    float32 at the CUDA cores' rate.  Bytes: x, dt, A, B, C and dy read,
+    dx, ddt, dA, dB and dC written once."""
+    from repro_torch.kernels import ssd_scan as ssd
+    Bb, T, H, P = x.shape
+    N = B_.shape[-1]
+    L = min(chunk, T)
+    nc = T // L
+    tri = L * (L + 1) // 2
+    fma = (Bb * H * nc * 2 * tri * P + Bb * nc * 2 * tri * N
+           + Bb * H * (nc - 1) * 4 * L * N * P)
+    flops = 2 * fma + Bb * H * nc * tri
+    moved = 2 * sum(t.numel() * 4 for t in (x, dt, A, B_, C_)) + dy.numel() * 4
+    bnd, by = bound_ms(moved, flops)
+    run = lambda: ssd.ssd_scan_bwd(dy, x, dt, A, B_, C_, chunk,
+                                   scratch=scratch)
+    plain = lambda: ssd.ssd_scan_bwd_plain(dy, x, dt, A, B_, C_, chunk)
+    return {"shape": f"x {tuple(x.shape)}, B/C {tuple(B_.shape)}, float32, "
+                     f"chunk {L}",
+            "ms": own_device_ms("ssd_scan_bwd", run),
+            "plain_ms": device_ms(plain, reps=3)[0],
+            "bound_ms": bnd, "bound_by": by, "library_ms": None,
+            "wall_ms": wall_ms(run, reps=10),
+            "plain_wall_ms": wall_ms(plain, reps=3),
+            "gflop": flops / 1e9, "mbytes": moved / 1e6}
+
+
+def supervised(dev, ckpt_dir, fail_at, max_restarts=10, run=True,
+               resume=False, seed=0):
+    """Phase 11 (e): ``TrainSupervisor`` over mamba2 SMOKE in f32 on the
+    card, 6 steps, a checkpoint every 2; params from ``seed``.  Returns
+    (the supervisor, its final state, or None where ``run`` is False)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.runtime.data import DataConfig, SyntheticDataset
+    from repro_torch.runtime.elastic import SupervisorConfig, TrainSupervisor
+    from repro_torch.runtime.optimizer import OptConfig
+    from repro_torch.runtime.train import init_train_state, make_train_step
+    cfg = dataclasses.replace(get_config("mamba2-2.7b", smoke=True),
+                              dtype="float32")
+    opt_cfg = OptConfig(lr=1e-3, warmup_steps=2, total_steps=50)
+    state = init_train_state(torch.Generator(device=dev).manual_seed(seed),
+                             cfg, opt_cfg)
+    data = SyntheticDataset(DataConfig(vocab=cfg.vocab, seq=32,
+                                       global_batch=4, seed=3), device=dev)
+    sup = TrainSupervisor(SupervisorConfig(ckpt_dir=ckpt_dir, ckpt_every=2,
+                                           max_restarts=max_restarts),
+                          state, data, make_train_step(cfg, opt_cfg,
+                                                       device=dev))
+    return sup, (sup.run(6, fail_at=fail_at, resume=resume) if run
+                 else None)
+
+
+def train_resume(ckpt_dir: str) -> int:
+    """The restarted process of phase 11 (e), in PyTorch's deterministic
+    mode: resumes the supervisor's run in ``ckpt_dir`` from its last
+    checkpoint (the params it builds, from another seed, are only the
+    template), then trains mixtral SMOKE as phase 11 (d) does and prints
+    its metrics' bits on a line ``MIXTRAL [...]``."""
+    import torch
+    from torch_lm_weights import port_train_run
+    torch.use_deterministic_algorithms(True)
+    dev = torch.device("cuda")
+    supervised(dev, ckpt_dir, None, resume=True, seed=9)
+    _, got, _ = port_train_run("mixtral-8x22b", "cuda")
+    print("MIXTRAL " + json.dumps({k: [v.hex() for v in got[k]]
+                                   for k in got}), flush=True)
+    return 0
+
+
+def step1_grads_vs_plain(cfg, params, batch) -> dict:
+    """The gradient of ``lm_loss`` at ``params`` and ``batch`` through the
+    SSD kernels against the plain scan's, each leaf within TRAIN_GRAD_CTL
+    of the control (relative L2; the control is the plain scan at chunk
+    64 against chunk 128).  Returns the worst ratio and the leaves'
+    numbers."""
+    import statistics
+    import torch
+    from repro_torch.kernels.ref import ssd_chunked_ref
+    from repro_torch.models import ssm as S
+    from repro_torch.runtime import train as T
+    from repro_torch.runtime.tree import tree_paths
+
+    def grads(c, plain):
+        real = S.ssd_chunked
+        if plain:
+            S.ssd_chunked = lambda x, dt, A, B_, C_, chunk: ssd_chunked_ref(
+                x.float(), dt.float(), A.float(), B_.float(), C_.float(),
+                chunk)
+        try:
+            _, g = T._value_and_grad(c, params, batch)
+        finally:
+            S.ssd_chunked = real
+        torch.cuda.synchronize()
+        return [(".".join(map(str, k)), v) for k, v in tree_paths(g)]
+    kern, plain = grads(cfg, False), grads(cfg, True)
+    c64 = grads(dataclasses.replace(cfg, ssm_chunk=64), True)
+    errs = {n: rel_l2(a, b) for (n, a), (_, b) in zip(kern, plain)}
+    ctls = {n: rel_l2(a, b) for (n, a), (_, b) in zip(c64, plain)}
+    del kern, plain, c64
+    med = statistics.median(ctls.values())
+    ratio = {n: errs[n] / max(ctls[n], med) for n in errs}
+    worst = max(ratio, key=ratio.get)
+    log(f"[train] mamba2 step 1's gradient, kernels vs plain scan, rel L2 "
+        f"by leaf (control: chunk 64 vs 128; limit {TRAIN_GRAD_CTL}x the "
+        f"larger of the leaf's control and the median {med:.3e}): worst "
+        f"{worst} {errs[worst]:.3e} (control {ctls[worst]:.3e}, ratio "
+        f"{ratio[worst]:.3f}); "
+        + ", ".join(f"{n} {errs[n]:.2e}/{ctls[n]:.2e}" for n in errs
+                    if n.startswith("layers.0.") or n == "embed"))
+    assert ratio[worst] <= TRAIN_GRAD_CTL, (worst, errs[worst], ctls[worst])
+    return {"worst_leaf": worst, "worst_ratio": ratio[worst],
+            "max_rel_l2": max(errs.values()),
+            "max_control": max(ctls.values()), "median_control": med}
+
+
+def train_phase(dev) -> dict:
+    """Phase 11: training through ``make_train_step`` on the card, the SSD
+    scan's backward kernel against its plain twin.  Returns the kernel's
+    entry of the ``kernels`` line."""
+    import tempfile
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.kernels.ref import ssd_chunked_ref
+    from repro_torch.models import ssm as S
+    from repro_torch.runtime import checkpoint as ckpt
+    from repro_torch.runtime.data import DataConfig, SyntheticDataset
+    from repro_torch.runtime.optimizer import OptConfig
+    from repro_torch.runtime.train import init_train_state, make_train_step
+    from repro_torch.runtime.tree import tree_leaves
+    from torch_lm_weights import TRAIN_REF, port_train_run
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.time()
+    opt_cfg = OptConfig(lr=1e-3, warmup_steps=2, total_steps=50)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    tol = SSD_TOL["float32"]
+
+    def bwd_check(what, x, dt, A, B_, C_, dy, chunk):
+        """The backward kernel against its twin: each gradient within tol
+        of the twin's largest magnitude; two calls equal bits."""
+        x, dt, A, B_, C_, dy = (t.detach().float().contiguous()
+                                for t in (x, dt, A, B_, C_, dy))
+        _, _, scratch = ssd._forward(x, dt, A, B_, C_, chunk)
+        got = ssd.ssd_scan_bwd(dy, x, dt, A, B_, C_, chunk, scratch=scratch)
+        again = ssd.ssd_scan_bwd(dy, x, dt, A, B_, C_, chunk,
+                                 scratch=scratch)
+        want = ssd.ssd_scan_bwd_plain(dy, x, dt, A, B_, C_, chunk)
+        err = 0.0
+        for name, g, g2, w in zip(("dx", "ddt", "dA", "dB", "dC"), got,
+                                  again, want):
+            assert torch.isfinite(g).all(), (what, name)
+            assert torch.equal(g.view(torch.int32), g2.view(torch.int32)), (
+                what, name, "two calls differ")
+            rel = float((g - w).abs().max() / w.abs().max())
+            assert rel <= tol, (what, name, rel)
+            err = max(err, float((g - w).abs().max()))
+            log(f"[train] {what}: {name} max |d| / max |twin| {rel:.3e}")
+        return err, scratch
+
+    def random_inputs(N, Bb=4, T=1024, H=80, P=64):
+        """Layer-like inputs: silu'd conv outputs for x, B and C, a
+        softplus dt, A = -exp(log(linspace(1, 16, H)))."""
+        r = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+        silu = lambda t: t * torch.sigmoid(t)
+        x, B_, C_ = silu(r(Bb, T, H, P)), silu(r(Bb, T, N)), silu(r(Bb, T, N))
+        dt = torch.nn.functional.softplus(r(Bb, T, H) - 1.0)
+        A = -torch.linspace(1.0, 16.0, H, device=dev)
+        return x, dt, A, B_, C_, r(Bb, T, H, P) * 1e-3
+
+    # ---- (a) the backward kernel against its plain twin ----------------
+    errs, timing = {}, {}
+    for label, N in (("mamba2", 128), ("zamba2", 64)):
+        ins = random_inputs(N)
+        errs[label], scratch = bwd_check(f"{label} layer shape N {N}", *ins,
+                                         128)
+        timing[label] = ssd_bwd_timing(*ins, 128, scratch)
+        log(f"[train] ssd_scan_bwd at {timing[label]['shape']}: "
+            f"{ {k: v for k, v in timing[label].items() if k != 'shape'} }")
+        del ins, scratch
+    torch.cuda.empty_cache()
+
+    # ---- (b) mamba2-2.7b at full width: the kernels vs the plain scan ---
+    cfg = dataclasses.replace(get_config("mamba2-2.7b"),
+                              n_layers=MAMBA2_LAYERS)
+    assert cfg.dtype == "bfloat16" and cfg.remat == "full"
+    t0 = time.time()
+    p0, o0 = init_train_state(torch.Generator(device=dev).manual_seed(0),
+                              cfg, opt_cfg)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(p0))
+    log(f"[train] mamba2-2.7b ({cfg.n_layers} of 64 layers, d "
+        f"{cfg.d_model}, {cfg.ssm_heads} heads x {cfg.ssm_head_dim}, state "
+        f"{cfg.ssm_state}, vocab {cfg.vocab}): {n_params / 1e9:.4f} B f32 "
+        f"master params in {time.time() - t0:.1f}s")
+    data = SyntheticDataset(DataConfig(vocab=cfg.vocab, seq=1024,
+                                       global_batch=4, seed=0), device=dev)
+    batches = [data.batch_at(s) for s in range(3)]
+    step = make_train_step(cfg, opt_cfg, device=dev)
+    captured = {}
+    real_bwd = ssd.ssd_scan_bwd
+
+    def capture_bwd(dy, x, dt, A, B_, C_, chunk, **kw):
+        captured.setdefault("layer", (x, dt, A, B_, C_, dy, chunk))
+        return real_bwd(dy, x, dt, A, B_, C_, chunk, **kw)
+
+    def run3(label):
+        params, opt, losses, walls = p0, o0, [], []
+        torch.cuda.reset_peak_memory_stats()
+        for b in batches:
+            torch.cuda.synchronize()
+            t0 = time.time()
+            params, opt, m = step(params, opt, b)
+            losses.append(float(m["loss"]))
+            walls.append(time.time() - t0)
+            assert math.isfinite(losses[-1]), (label, losses)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"[train] mamba2 {label}: losses {losses}, ms a step "
+            f"{[round(w * 1e3, 1) for w in walls]}, peak {peak:.3f} GiB")
+        return losses, walls, peak
+    ssd.ssd_scan_bwd = capture_bwd
+    ssd.reset_launches()
+    fa.reset_launches()
+    try:
+        k_losses, k_walls, k_peak = run3("through the kernels")
+    finally:
+        ssd.ssd_scan_bwd = real_bwd
+    launches = dict(ssd.launches)
+    assert fa.launches["flash_attention"] == 0, fa.launches
+    assert launches["ssd_scan_bwd"] == 3 * cfg.n_layers, launches
+    assert launches["ssd_scan"] == 2 * 3 * cfg.n_layers, launches  # remat
+    log(f"[train] mamba2 launches a run of 3 steps: {launches}")
+    errs["mamba2 step 1"], _ = bwd_check(
+        "mamba2 step 1, the first backward call's inputs (layer 15)",
+        *captured.pop("layer"))
+    real_chunked = S.ssd_chunked
+    S.ssd_chunked = lambda x, dt, A, B_, C_, chunk: ssd_chunked_ref(
+        x.float(), dt.float(), A.float(), B_.float(), C_.float(), chunk)
+    try:
+        ssd.reset_launches()
+        p_losses, p_walls, p_peak = run3("through the plain scan")
+        assert ssd.launches == {"ssd_scan": 0, "ssd_scan_bwd": 0}, \
+            ssd.launches
+    finally:
+        S.ssd_chunked = real_chunked
+    assert k_losses[0] == p_losses[0], (k_losses, p_losses)
+    for a, b in zip(k_losses[1:], p_losses[1:]):
+        assert abs(a - b) <= TRAIN_TWIN_REL * abs(b), (k_losses, p_losses)
+    grad_ctl = step1_grads_vs_plain(cfg, p0, batches[0])
+    tok_s = 4096 / k_walls[-1]
+    mamba2 = {"tokens_per_s": tok_s, "ms_per_step": k_walls[-1] * 1e3,
+              "ms_by_step": [w * 1e3 for w in k_walls],
+              "peak_gib": k_peak, "losses": k_losses,
+              "plain_losses": p_losses,
+              "plain_ms_per_step": p_walls[-1] * 1e3,
+              "params_b": n_params / 1e9, "step1_grads": grad_ctl}
+    log(f"[train] mamba2-2.7b ({cfg.n_layers} layers) 4 x 1024 tokens a "
+        f"step: {tok_s:.1f} tokens/s, {mamba2['ms_per_step']:.1f} ms at "
+        f"step 3, peak {k_peak:.3f} GiB (plain scan: "
+        f"{mamba2['plain_ms_per_step']:.1f} ms at step 3)")
+    del p0, o0, step, batches, captured
+    torch.cuda.empty_cache()
+
+    # ---- (c) llama3-8b at full width, depth cut, chunked attention -----
+    lcfg = dataclasses.replace(get_config("llama3-8b"),
+                               n_layers=TRAIN_LLAMA3_LAYERS,
+                               attn_impl="chunked", attn_chunk=512)
+    t0 = time.time()
+    lp, lo = init_train_state(torch.Generator(device=dev).manual_seed(0),
+                              lcfg, opt_cfg)
+    n_lparams = sum(t.numel() for t in tree_leaves(lp))
+    log(f"[train] llama3-8b ({lcfg.n_layers} of 32 layers, d "
+        f"{lcfg.d_model}, vocab {lcfg.vocab}): {n_lparams / 1e9:.4f} B f32 "
+        f"master params in {time.time() - t0:.1f}s")
+    ldata = SyntheticDataset(DataConfig(vocab=lcfg.vocab, seq=1024,
+                                        global_batch=4, seed=0), device=dev)
+    lstep = make_train_step(lcfg, opt_cfg, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    l_losses, l_walls = [], []
+    for s in range(3):
+        b = ldata.batch_at(s)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        lp, lo, m = lstep(lp, lo, b)
+        l_losses.append(float(m["loss"]))
+        l_walls.append(time.time() - t0)
+    assert fa.launches["flash_attention"] == 0, fa.launches
+    lnv = math.log(lcfg.vocab)
+    assert 0.1 * lnv < l_losses[0] < 3 * lnv, (l_losses, lnv)
+    assert all(math.isfinite(v) for v in l_losses), l_losses
+    l_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    l_tok = 4096 / l_walls[-1]
+    llama3 = {"tokens_per_s": l_tok, "ms_per_step": l_walls[-1] * 1e3,
+              "ms_by_step": [w * 1e3 for w in l_walls],
+              "peak_gib": l_peak, "losses": l_losses,
+              "params_b": n_lparams / 1e9}
+    log(f"[train] llama3-8b ({lcfg.n_layers} layers, chunked attention) "
+        f"4 x 1024 tokens a step: losses {l_losses} (ln V {lnv:.4f}), "
+        f"{l_tok:.1f} tokens/s, ms a step {llama3['ms_by_step']}, peak "
+        f"{l_peak:.3f} GiB")
+    del lp, lo, lstep
+    torch.cuda.empty_cache()
+
+    # ---- (d) the f32 SMOKE configs against the JAX-made files ----------
+    smoke, smoke_bits = {}, {}
+    for arch, ref in TRAIN_REF.items():
+        stem = arch.split("-")[0]
+        want = json.loads((TESTDATA / f"{stem}_smoke_train_ref.json")
+                          .read_text())
+        ssd.reset_launches()
+        toks, got, _ = port_train_run(arch, "cuda")
+        assert toks.tolist() == want["tokens"], (arch, "tokens")
+        kind = ("grad_compress" if ref["grad_compress"] else
+                "mamba2" if arch.startswith("mamba2") else "attention")
+        worst = 0.0
+        for k in ("loss", "grad_norm", "lr"):
+            for a, b in zip(got[k], want[k]):
+                rel = abs(a - b) / abs(b)
+                assert rel <= TRAIN_TOL[kind], (arch, k, got[k], want[k])
+                worst = max(worst, rel)
+        if arch.startswith("mamba2"):  # the SMOKE config's 2 layers a step
+            assert ssd.launches["ssd_scan_bwd"] == ref["steps"] * 2, \
+                ssd.launches
+        smoke[arch] = worst
+        smoke_bits[arch] = {k: [v.hex() for v in got[k]] for k in got}
+        log(f"[train] {arch} SMOKE f32, {ref['steps']} steps "
+            f"(micro_batches {ref['micro_batches']}, grad_compress "
+            f"{ref['grad_compress']}): loss {got['loss']}, grad_norm "
+            f"{got['grad_norm']}, lr {got['lr']}; worst rel {worst:.3e} "
+            f"(tol {TRAIN_TOL[kind]})")
+
+    # ---- (e) failure recovery on the card, bit for bit -----------------
+    def same_bits(a, b):
+        return all(torch.equal(x, y) for x, y in zip(tree_leaves(a),
+                                                     tree_leaves(b)))
+    with tempfile.TemporaryDirectory() as tmp:
+        _, ref = supervised(dev, os.path.join(tmp, "a"), None)
+        sup, got = supervised(dev, os.path.join(tmp, "b"), {3})
+        assert sup.restarts == 1, sup.restarts
+        assert ckpt.latest_step(os.path.join(tmp, "b")) == 6
+        assert same_bits(ref, got), "restart not bit-exact"
+        log(f"[train] TrainSupervisor, mamba2 SMOKE f32 on the card, 6 "
+            f"steps with a failure at step 3 (restored from step 2 in the "
+            f"same process): params and optimizer state equal the "
+            f"uninterrupted run's bit for bit ({len(tree_leaves(ref[0]))} "
+            f"+ {len(tree_leaves(ref[1]))} leaves)")
+        # The failure ends the process; a fresh one resumes (in PyTorch's
+        # deterministic mode) and reruns mixtral SMOKE's compressed steps.
+        d = os.path.join(tmp, "c")
+        sup, _ = supervised(dev, d, {3}, max_restarts=0, run=False)
+        try:
+            sup.run(6, fail_at={3})
+            raise AssertionError("the injected failure did not end the run")
+        except RuntimeError as e:
+            assert "injected" in str(e), e
+        assert ckpt.latest_step(d) == 2
+        t0 = time.time()
+        child = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), "--train-resume",
+             d], capture_output=True, text=True, timeout=300,
+            env=dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8"))
+        assert child.returncode == 0, child.stderr[-3000:]
+        assert ckpt.latest_step(d) == 6
+        tree, _ = ckpt.restore(d, 6, {"params": ref[0], "opt": ref[1]},
+                               device=dev)
+        assert same_bits(ref, (tree["params"], tree["opt"])), \
+            "a restart in a fresh process is not bit-exact"
+        line = [ln for ln in child.stdout.splitlines()
+                if ln.startswith("MIXTRAL ")]
+        assert line and json.loads(line[0][8:]) == smoke_bits[
+            "mixtral-8x22b"], (line, smoke_bits["mixtral-8x22b"])
+        log(f"[train] a fresh process (deterministic mode) resumed mamba2 "
+            f"SMOKE from step 2 to 6: params and optimizer state equal the "
+            f"uninterrupted run's bit for bit; its mixtral SMOKE run "
+            f"(grad_compress) gave (d)'s loss, grad_norm and lr bits "
+            f"({time.time() - t0:.1f}s)")
+
+    wall = time.time() - t_phase
+    log(f"[train] phase 11: {wall:.1f}s")
+    mam = timing["mamba2"]
+    return {"name": "ssd_scan_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+            "replaces": "none: XLA's gradient of src/repro/models/ssm.py:72 "
+                        "ssd_chunked (the Pallas kernel has no backward)",
+            "launches": launches["ssd_scan_bwd"],
+            "max_abs_err": max(errs.values()),
+            "ms": mam["ms"], "plain_ms": mam["plain_ms"],
+            "bound_ms": mam["bound_ms"], "bound_by": mam["bound_by"],
+            "library_ms": None,
+            "wall_ms": mam["wall_ms"], "plain_wall_ms": mam["plain_wall_ms"],
+            "shape": mam["shape"], "zamba2_n64": timing["zamba2"],
+            "max_abs_err_by_case": errs,
+            "train_mamba2": mamba2, "train_llama3": llama3,
+            "smoke_worst_rel": smoke, "phase_s": wall}
+
+
 def active_lanes(prog, st, t):
     """The active set's lanes at tick ``t`` of ``st``, as the tick builds
     them: the released flows not yet done."""
@@ -4498,6 +4967,8 @@ def main() -> int:
                          "this script runs the port on an NVIDIA GPU")
     sys.path.insert(0, str(ROOT / "src"))
     sys.path.insert(0, str(ROOT / "tests"))
+    if sys.argv[1:2] == ["--train-resume"]:   # phase 11 (e)'s restart
+        return train_resume(sys.argv[2])
     import numpy as np
     from repro_torch.core.cc import CCState
     from repro_torch.core.lb import SprayState
@@ -4537,6 +5008,9 @@ def main() -> int:
         return finish(kind)
     if sys.argv[1:] == ["--phase", "10"]:   # phase 10 alone, after the build
         print(json.dumps(serve_mm(dev)), flush=True)
+        return finish(kind)
+    if sys.argv[1:] == ["--phase", "11"]:   # phase 11 alone, after the build
+        print(json.dumps({"kernels": [train_phase(dev)]}), flush=True)
         return finish(kind)
 
     # ---- 2. kernels vs plain versions on the card -------------------------
@@ -4876,6 +5350,11 @@ def main() -> int:
     fa_entry["cross_kv_layer_ms"] = mm["cross_kv_layer_ms"]
     fa_entry["max_abs_err"] = max(fa_entry["max_abs_err"],
                                   mm["max_abs_err_mm"])
+    del mm
+    torch.cuda.empty_cache()
+
+    # ---- 11. training, the SSD scan's backward kernel ---------------------
+    kernels.append(train_phase(dev))
     print(json.dumps({"kernels": kernels, **floors}), flush=True)
     return finish(kind)
 

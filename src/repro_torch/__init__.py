@@ -11,7 +11,9 @@ multi-queue fat-tree, its front door and the traffic generator),
 (the three fabric kernels, CUDA sources under ``kernels/csrc/``), and the
 serving path of the dense, Mamba2 and hybrid language models:
 ``configs/``, ``models/{config,layers,ssm,lm}.py``, ``runtime/serve.py``,
-``kernels/flash_attention.py`` and ``kernels/ssd_scan.py``.
+``kernels/flash_attention.py`` and ``kernels/ssd_scan.py``, and their
+training: ``runtime/{train,optimizer,data,checkpoint,elastic,tree}.py``
+with the SSD scan's backward kernel.
 
 Entry points take ``device`` and default to ``"cuda"``; without a GPU
 they raise rather than fall back to the CPU.  The tests pass

@@ -57,9 +57,42 @@
 // float4 reads of shared memory, whose tiles come in with cp.async, every
 // copy in flight at once.  Rows past L and columns past P are never
 // stored.
+//
+// Backward (ssd_scan_bwd, five launches; float32 only).  The TPU kernel
+// has none: the reference trains through XLA's gradient of the jnp
+// ssd_chunked.  Per (b, h, chunk c) with G_c the gradient of the state
+// leaving chunk c (G of the last chunk: the final state's, or 0) and S_in
+// the state entering it (the forward's scratch `st`):
+//   Q_c   = sum_l exp(cs_l) C_l (x) dy_l;  G_{c-1} = exp(cs_L) G_c + Q_c
+//   DY[l][m] = dy_l . dtx_m,  D[l][m] = exp(cs_l - cs_m) (m <= l, else 0)
+//   W = DY o D,  M = (C B^T) o D,  E = W o (C B^T)
+//   ddtx_m = sum_l M[l][m] dy_l + w_m B_m G_c   (w_m = exp(cs_L - cs_m))
+//   dC_l   = sum_m W[l][m] B_m + exp(cs_l) S_in dy_l
+//   dB_m   = sum_l W[l][m] C_l + w_m G_c dtx_m
+//   dcs_l  = sum_m E[l][m] - sum_m E[m][l] + C_l . (exp(cs_l) S_in dy_l)
+//            - u_l  (+ exp(cs_L) <G_c, S_in> + sum_m u_m at l = L-1),
+//            u_m = (w_m B_m G_c) . dtx_m
+//   dlam = the in-chunk reverse cumsum of dcs;  ddt = dlam A + ddtx . x;
+//   dx = dt ddtx;  dA = sum over (b, t) of dlam dt.
+//   ssd_bwd_q_kernel      per (b, h, chunk > 0): Q_c.
+//   ssd_bwd_pass_kernel   per (b, h), elementwise over N x P, the chunks
+//                         in reverse: G_c over Q_c in place.
+//   ssd_bwd_intra_kernel  per (b, h, chunk): DY, W and M in shared memory,
+//                         the intra part of dcs, sum_l M dy (into dx),
+//                         W B and W^T C (per-head dC and dB).
+//   ssd_bwd_inter_kernel  per (b, h, chunk): the G_c and S_in terms, dx,
+//                         ddt, and the chunk's part of dA.
+//   ssd_bwd_sum_kernel    dB and dC summed over the heads, dA over the
+//                         batch and the chunks.
+// Every sum runs in a fixed order (no atomics): two calls give the same
+// bits, which a bit-exact restart of training needs.  A thread of a
+// product owns rows ty + 16 i and columns tx + 16 j of its output; the
+// tiles sit in shared memory at odd row strides.  P is at most 64.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -533,7 +566,492 @@ int launch(const SsdArgs& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// ---- backward -------------------------------------------------------------
+
+constexpr int MAX_PB = 64;       // P, at most, in the backward
+constexpr int LDL = MAX_L + 1;   // row stride of (., L) and (., N) tiles
+constexpr int LDQ = MAX_PB + 1;  // row stride of (., P) tiles
+
 }  // namespace
+
+// Mirrored field for field by SsdBwdArgs in kernels/ssd_scan.py.
+struct SsdBwdArgs {
+  const float* x;       // (B,T,H,P)
+  const float* dt;      // (B,T,H)
+  const float* A;       // (H,)
+  const float* Bm;      // (B,T,N)
+  const float* Cm;      // (B,T,N)
+  const float* dy;      // (B,T,H,P)
+  const float* dfinal;  // (B,H,N,P), or null: the final state's gradient
+  const float* cbt;     // the forward's scratch (B, nc, L, L)
+  const float* cs;      // the forward's scratch (B, H, nc, L)
+  const float* st;      // the forward's scratch (B, H, nc, N, P): S_in
+  float* dx;            // (B,T,H,P): sum_l M dy first, then dx
+  float* ddt;           // (B,T,H)
+  float* dA;            // (H,)
+  float* dB;            // (B,T,N)
+  float* dC;            // (B,T,N)
+  float* gs;            // scratch (B, H, nc, N, P): Q_c, then G_c
+  float* dcs;           // scratch (B, H, nc, L): the intra part of dcs
+  float* dBh;           // scratch (B, H, T, N): dB of each head
+  float* dCh;           // scratch (B, H, T, N): dC of each head
+  float* dAp;           // scratch (B, H, nc): dA of each (b, h, chunk)
+  int Bb, T, H, P, N, L;
+};
+
+namespace {
+
+// dst[r*ld + c] = src[r*rs + c] for r < R, c < C; 0 elsewhere up to
+// (Rp, Cp).
+__device__ __forceinline__ void stage(float* dst, int ld, const float* src,
+                                      long long rs, int R, int C, int Rp,
+                                      int Cp) {
+  for (int e = threadIdx.x; e < Rp * Cp; e += NT) {
+    const int r = e / Cp, c = e - r * Cp;
+    dst[r * ld + c] = (r < R && c < C) ? src[r * rs + c] : 0.f;
+  }
+}
+
+// acc[i][j] += sum_{k < K} A[i*16*ar + k*ak] * Bm[k*bk + j*16*bc], in
+// order over k; A and Bm already point at the thread's row ty and column
+// tx.
+template <int RI, int CJ>
+__device__ __forceinline__ void mm(float (&acc)[RI][CJ], const float* A,
+                                   int ar, int ak, const float* Bm, int bk,
+                                   int bc, int K) {
+  for (int k = 0; k < K; ++k) {
+    float av[RI], bv[CJ];
+#pragma unroll
+    for (int i = 0; i < RI; ++i) av[i] = A[i * 16 * ar + k * ak];
+#pragma unroll
+    for (int j = 0; j < CJ; ++j) bv[j] = Bm[k * bk + j * 16 * bc];
+#pragma unroll
+    for (int i = 0; i < RI; ++i)
+#pragma unroll
+      for (int j = 0; j < CJ; ++j)
+        acc[i][j] = __fmaf_rn(av[i], bv[j], acc[i][j]);
+  }
+}
+
+// One block's (b, h, chunk) of the backward: blockIdx (chunk, h, b).
+struct BItem {
+  int b, h, c, nc;
+  long long row0;  // b * T + c * L
+  size_t bc;       // b * nc + c
+  size_t bhc;      // (b * H + h) * nc + c
+};
+
+__device__ __forceinline__ BItem bitem(const SsdBwdArgs& a, int c) {
+  BItem it;
+  it.nc = a.T / a.L;
+  it.b = blockIdx.z;
+  it.h = blockIdx.y;
+  it.c = c;
+  it.row0 = (long long)it.b * a.T + (long long)c * a.L;
+  it.bc = (size_t)it.b * it.nc + c;
+  it.bhc = ((size_t)it.b * a.H + it.h) * it.nc + c;
+  return it;
+}
+
+// ---- b1. Q_c = sum_l exp(cs_l) C_l (x) dy_l, chunks 1.. ------------------
+constexpr size_t BQ_SMEM = sizeof(float) * (MAX_L * LDL + MAX_L * LDQ + MAX_L);
+
+__global__ void __launch_bounds__(NT, 1) ssd_bwd_q_kernel(const SsdBwdArgs a) {
+  extern __shared__ float smem[];
+  float* cm = smem;               // C o exp(cs): cm[l*LDL + n]
+  float* dys = cm + MAX_L * LDL;  // dy: dys[l*LDQ + p]
+  float* css = dys + MAX_L * LDQ;
+  const BItem it = bitem(a, blockIdx.x + 1);
+  const int N = a.N, L = a.L, H = a.H, P = a.P, tid = threadIdx.x;
+  const int tx = tid & 15, ty = tid >> 4;
+  stage(cm, LDL, a.Cm + it.row0 * N, N, L, N, MAX_L, MAX_N);
+  stage(dys, LDQ, a.dy + (it.row0 * H + it.h) * P, (long long)H * P, L, P,
+        MAX_L, MAX_PB);
+  if (tid < MAX_L) css[tid] = tid < L ? a.cs[it.bhc * L + tid] : 0.f;
+  __syncthreads();
+  for (int e = tid; e < L * MAX_N; e += NT) {
+    const int l = e / MAX_N;
+    cm[l * LDL + e - l * MAX_N] *= expf(css[l]);
+  }
+  __syncthreads();
+  float acc[8][4];
+  zero(acc);
+  mm(acc, cm + ty, 1, LDL, dys + tx, LDQ, 1, L);
+  float* q = a.gs + it.bhc * N * P;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = ty + 16 * i, p = tx + 16 * j;
+      if (n < N && p < P) q[n * P + p] = acc[i][j];
+    }
+}
+
+// ---- b2. G_c, the chunks in reverse, per (b, h) --------------------------
+// As ssd_pass_kernel, backwards: a thread's PASS_EL elements step
+// together, each chunk's Q_c read before its slot takes G_c.
+__global__ void __launch_bounds__(PASS_NT) ssd_bwd_pass_kernel(
+    const SsdBwdArgs a) {
+  const int L = a.L, nc = a.T / L;
+  const size_t NP = (size_t)a.N * a.P;
+  const size_t bh = (size_t)blockIdx.z * a.H + blockIdx.y;
+  float* g = a.gs + bh * nc * NP;
+  const float* cs = a.cs + bh * nc * L;
+  const size_t e0 = (size_t)blockIdx.x * PASS_NT * PASS_EL + threadIdx.x;
+  float cur[PASS_EL], q[PASS_EL];
+#pragma unroll
+  for (int j = 0; j < PASS_EL; ++j) {
+    const size_t e = e0 + j * PASS_NT;
+    cur[j] = (e < NP && a.dfinal) ? a.dfinal[bh * NP + e] : 0.f;
+    q[j] = (e < NP && nc > 1) ? g[(nc - 1) * NP + e] : 0.f;
+  }
+  for (int c = nc - 1; c >= 0; --c) {
+    const float eL = expf(cs[(size_t)c * L + L - 1]);
+    float* gc = g + c * NP;
+#pragma unroll
+    for (int j = 0; j < PASS_EL; ++j) {
+      const size_t e = e0 + j * PASS_NT;
+      if (e >= NP) continue;
+      const float nxt = c > 1 ? gc[e - NP] : 0.f;  // Q_{c-1}
+      gc[e] = cur[j];                               // G_c
+      cur[j] = eL * cur[j] + q[j];                  // G_{c-1}
+      q[j] = nxt;
+    }
+  }
+}
+
+// ---- b3. the intra-chunk terms, per (b, h, chunk) ------------------------
+constexpr size_t BI_SMEM =
+    sizeof(float) * (2 * MAX_L * LDL + 2 * MAX_L * LDQ + 2 * MAX_L +
+                     2 * 16 * MAX_L);
+
+__global__ void __launch_bounds__(NT, 1) ssd_bwd_intra_kernel(
+    const SsdBwdArgs a) {
+  extern __shared__ float smem[];
+  float* W = smem;                 // W[l*LDL + m]
+  float* M = W + MAX_L * LDL;      // M[l*LDL + m], then B, then C
+  float* dys = M + MAX_L * LDL;    // dy[l*LDQ + p]
+  float* dtxs = dys + MAX_L * LDQ; // dt*x[l*LDQ + p]
+  float* dts = dtxs + MAX_L * LDQ;
+  float* css = dts + MAX_L;
+  float* rpart = css + MAX_L;      // rpart[tx*MAX_L + l]: E's row sums
+  float* cpart = rpart + 16 * MAX_L;  // cpart[ty*MAX_L + m]: column sums
+  const BItem it = bitem(a, blockIdx.x);
+  const int N = a.N, L = a.L, H = a.H, P = a.P, T = a.T, tid = threadIdx.x;
+  const int tx = tid & 15, ty = tid >> 4;
+  const long long hp = (long long)H * P;
+  stage(dys, LDQ, a.dy + (it.row0 * H + it.h) * P, hp, L, P, MAX_L, MAX_PB);
+  stage(dtxs, LDQ, a.x + (it.row0 * H + it.h) * P, hp, L, P, MAX_L, MAX_PB);
+  if (tid < MAX_L) {
+    dts[tid] = tid < L ? a.dt[(it.row0 + tid) * H + it.h] : 0.f;
+    css[tid] = tid < L ? a.cs[it.bhc * L + tid] : 0.f;
+  }
+  __syncthreads();
+  for (int e = tid; e < MAX_L * MAX_PB; e += NT) {
+    const int l = e / MAX_PB;
+    float* q = dtxs + l * LDQ + e - l * MAX_PB;
+    *q = dts[l] * *q;
+  }
+  __syncthreads();
+
+  // DY[l][m] = dy_l . dtx_m; then W, M and E's row and column sums
+  {
+    float acc[8][8];
+    zero(acc);
+    mm(acc, dys + ty * LDQ, LDQ, 1, dtxs + tx * LDQ, 1, LDQ, P);
+    const float* cbt = a.cbt + it.bc * L * L;
+    float rs[8], cs_[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) rs[i] = cs_[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int l = ty + 16 * i, m = tx + 16 * j;
+        const bool live = l < L && m <= l;
+        const float d = live ? expf(css[l] - css[m]) : 0.f;
+        const float cb = live ? cbt[m * L + l] : 0.f;
+        const float w = acc[i][j] * d;
+        const float e = w * cb;
+        W[l * LDL + m] = w;
+        M[l * LDL + m] = cb * d;
+        rs[i] += e;
+        cs_[j] += e;
+      }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      rpart[tx * MAX_L + ty + 16 * i] = rs[i];
+      cpart[ty * MAX_L + tx + 16 * i] = cs_[i];
+    }
+  }
+  __syncthreads();
+  if (tid < L) {
+    float v = 0.f;
+    for (int t = 0; t < 16; ++t) v += rpart[t * MAX_L + tid];
+    for (int t = 0; t < 16; ++t) v -= cpart[t * MAX_L + tid];
+    a.dcs[it.bhc * L + tid] = v;
+  }
+  // sum_l M[l][m] dy_l into dx (the inter kernel adds the rest)
+  {
+    float acc[8][4];
+    zero(acc);
+    mm(acc, M + ty, 1, LDL, dys + tx, LDQ, 1, L);
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int m = ty + 16 * i, p = tx + 16 * j;
+        if (m < L && p < P) a.dx[(it.row0 + m) * hp + it.h * P + p] = acc[i][j];
+      }
+  }
+  __syncthreads();
+  float* out_h = nullptr;
+  const size_t hrow = ((size_t)it.b * H + it.h) * T + (size_t)it.c * L;
+  for (int pass = 0; pass < 2; ++pass) {
+    // pass 0: dC_l = sum_m W[l][m] B_m;  pass 1: dB_m = sum_l W[l][m] C_l
+    stage(M, LDL, (pass ? a.Cm : a.Bm) + it.row0 * N, N, L, N, MAX_L, MAX_N);
+    __syncthreads();
+    float acc[8][8];
+    zero(acc);
+    if (pass == 0)
+      mm(acc, W + ty * LDL, LDL, 1, M + tx, LDL, 1, L);
+    else
+      mm(acc, W + ty, 1, LDL, M + tx, LDL, 1, L);
+    out_h = (pass ? a.dBh : a.dCh) + hrow * N;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int r = ty + 16 * i, n = tx + 16 * j;
+        if (r < L && n < N) out_h[(size_t)r * N + n] = acc[i][j];
+      }
+    __syncthreads();
+  }
+}
+
+// ---- b4. the carried-state terms, dx, ddt and dA, per (b, h, chunk) ------
+constexpr size_t BX_SMEM =
+    sizeof(float) * (MAX_L * LDL + 4 * MAX_L * LDQ + 5 * MAX_L +
+                     3 * 16 * MAX_L + NT);
+
+__global__ void __launch_bounds__(NT, 1) ssd_bwd_inter_kernel(
+    const SsdBwdArgs a) {
+  static_assert(MAX_N == MAX_L, "the (., N) and (., L) tiles share strides");
+  extern __shared__ float smem[];
+  float* Bs = smem;                  // B[m*LDL + n]
+  float* Gs = Bs + MAX_L * LDL;      // G_c[n*LDQ + p]
+  float* Ss = Gs + MAX_N * LDQ;      // S_in[n*LDQ + p]
+  float* dys = Ss + MAX_N * LDQ;     // dy[l*LDQ + p]
+  float* dtxs = dys + MAX_L * LDQ;   // dt*x[l*LDQ + p]
+  float* dts = dtxs + MAX_L * LDQ;
+  float* css = dts + MAX_L;
+  float* dcs = css + MAX_L;          // dcs, then dlam
+  float* xd = dcs + MAX_L;           // ddtx . x
+  float* uu = xd + MAX_L;            // u
+  float* up = uu + MAX_L;            // up[tx*MAX_L + m]: parts of u
+  float* xp = up + 16 * MAX_L;       // parts of ddtx . x
+  float* cp = xp + 16 * MAX_L;       // parts of C_l . dC2_l
+  float* red = cp + 16 * MAX_L;      // <G_c, S_in> by thread
+  const BItem it = bitem(a, blockIdx.x);
+  const int N = a.N, L = a.L, H = a.H, P = a.P, T = a.T, tid = threadIdx.x;
+  const int tx = tid & 15, ty = tid >> 4;
+  const long long hp = (long long)H * P;
+  const size_t np = (size_t)N * P;
+  stage(Bs, LDL, a.Bm + it.row0 * N, N, L, N, MAX_L, MAX_N);
+  stage(Gs, LDQ, a.gs + it.bhc * np, P, N, P, MAX_N, MAX_PB);
+  stage(Ss, LDQ, a.st + it.bhc * np, P, N, P, MAX_N, MAX_PB);
+  stage(dys, LDQ, a.dy + (it.row0 * H + it.h) * P, hp, L, P, MAX_L, MAX_PB);
+  stage(dtxs, LDQ, a.x + (it.row0 * H + it.h) * P, hp, L, P, MAX_L, MAX_PB);
+  if (tid < MAX_L) {
+    dts[tid] = tid < L ? a.dt[(it.row0 + tid) * H + it.h] : 0.f;
+    css[tid] = tid < L ? a.cs[it.bhc * L + tid] : 0.f;
+  }
+  __syncthreads();
+  for (int e = tid; e < MAX_L * MAX_PB; e += NT) {
+    const int l = e / MAX_PB;
+    float* q = dtxs + l * LDQ + e - l * MAX_PB;
+    *q = dts[l] * *q;
+  }
+  __syncthreads();
+  const float cl = css[L - 1];
+
+  // ddtx = (sum_l M dy, from the intra kernel) + w_m B_m G_c; dx; u; ddtx.x
+  {
+    float acc[8][4];
+    zero(acc);
+    mm(acc, Bs + ty * LDL, LDL, 1, Gs + tx, LDQ, 1, N);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int m = ty + 16 * i;
+      const bool in = m < L;
+      const float w = in ? expf(cl - css[m]) : 0.f;
+      float us = 0.f, xs = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int p = tx + 16 * j;
+        if (!in || p >= P) continue;
+        const float v = acc[i][j] * w;
+        us += v * dtxs[m * LDQ + p];
+        const long long o = (it.row0 + m) * hp + it.h * P + p;
+        const float dd = a.dx[o] + v;
+        xs += dd * a.x[o];
+        a.dx[o] = dts[m] * dd;
+      }
+      up[tx * MAX_L + m] = us;
+      xp[tx * MAX_L + m] = xs;
+    }
+  }
+  const size_t hrow = ((size_t)it.b * H + it.h) * T + (size_t)it.c * L;
+  // dB_m += w_m G_c dtx_m
+  {
+    float acc[8][8];
+    zero(acc);
+    mm(acc, dtxs + ty * LDQ, LDQ, 1, Gs + tx * LDQ, 1, LDQ, P);
+    float* dbh = a.dBh + hrow * N;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int m = ty + 16 * i;
+      if (m >= L) continue;
+      const float w = expf(cl - css[m]);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int n = tx + 16 * j;
+        if (n < N) dbh[(size_t)m * N + n] += acc[i][j] * w;
+      }
+    }
+  }
+  // dC_l += exp(cs_l) S_in dy_l;  C_l . that, for dcs
+  {
+    float acc[8][8];
+    zero(acc);
+    mm(acc, dys + ty * LDQ, LDQ, 1, Ss + tx * LDQ, 1, LDQ, P);
+    float* dch = a.dCh + hrow * N;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int l = ty + 16 * i;
+      float s = 0.f;
+      if (l < L) {
+        const float e = expf(css[l]);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int n = tx + 16 * j;
+          if (n >= N) continue;
+          const float v = acc[i][j] * e;
+          dch[(size_t)l * N + n] += v;
+          s += v * a.Cm[(it.row0 + l) * N + n];
+        }
+      }
+      cp[tx * MAX_L + l] = s;
+    }
+  }
+  // <G_c, S_in>, by thread
+  {
+    float s = 0.f;
+    for (int e = tid; e < N * P; e += NT) {
+      const int n = e / P, p = e - n * P;
+      s += Gs[n * LDQ + p] * Ss[n * LDQ + p];
+    }
+    red[tid] = s;
+  }
+  __syncthreads();
+  if (tid < L) {
+    float u = 0.f, x = 0.f, c = 0.f;
+    for (int t = 0; t < 16; ++t) u += up[t * MAX_L + tid];
+    for (int t = 0; t < 16; ++t) x += xp[t * MAX_L + tid];
+    for (int t = 0; t < 16; ++t) c += cp[t * MAX_L + tid];
+    uu[tid] = u;
+    xd[tid] = x;
+    dcs[tid] = a.dcs[it.bhc * L + tid] + c - u;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    float gs = 0.f, us = 0.f;
+    for (int t = 0; t < NT; ++t) gs += red[t];
+    for (int l = 0; l < L; ++l) us += uu[l];
+    dcs[L - 1] += expf(cl) * gs + us;
+    // dlam: the in-chunk reverse cumsum of dcs; dA's part in order.  In
+    // double: dA sums B x T terms of both signs (the plain twin's float32
+    // sums carry their own rounding, which the tolerance covers)
+    double run = 0.0, da = 0.0;
+    for (int l = L - 1; l >= 0; --l) {
+      run += (double)dcs[l];
+      dcs[l] = (float)run;
+      da += run * (double)dts[l];
+    }
+    a.dAp[it.bhc] = (float)da;
+  }
+  __syncthreads();
+  if (tid < L)
+    a.ddt[(it.row0 + tid) * H + it.h] = dcs[tid] * a.A[it.h] + xd[tid];
+}
+
+// ---- b5. dB and dC over the heads, dA over (b, chunk), in order ----------
+__global__ void __launch_bounds__(NT) ssd_bwd_sum_kernel(const SsdBwdArgs a) {
+  const int H = a.H, nc = a.T / a.L;
+  const size_t TN = (size_t)a.T * a.N, total = (size_t)a.Bb * TN;
+  for (size_t e = (size_t)blockIdx.x * NT + threadIdx.x; e < total;
+       e += (size_t)gridDim.x * NT) {
+    const size_t b = e / TN, r = e - b * TN;
+    float sb = 0.f, sc = 0.f;
+    for (int h = 0; h < H; ++h) {
+      const size_t o = ((size_t)b * H + h) * TN + r;
+      sb += a.dBh[o];
+      sc += a.dCh[o];
+    }
+    a.dB[e] = sb;
+    a.dC[e] = sc;
+  }
+  if (blockIdx.x == 0)
+    for (int h = threadIdx.x; h < H; h += NT) {
+      double s = 0.0;
+      for (int b = 0; b < a.Bb; ++b)
+        for (int c = 0; c < nc; ++c) s += a.dAp[((size_t)b * H + h) * nc + c];
+      a.dA[h] = (float)s;
+    }
+}
+
+int launch_bwd(const SsdBwdArgs& a, cudaStream_t stream) {
+  static int opted = -1;
+  if (opted != 0) {
+    opted = opt_in(ssd_bwd_q_kernel, BQ_SMEM);
+    if (!opted) opted = opt_in(ssd_bwd_intra_kernel, BI_SMEM);
+    if (!opted) opted = opt_in(ssd_bwd_inter_kernel, BX_SMEM);
+    if (opted) return opted;
+  }
+  const int nc = a.T / a.L;
+  const long long np = (long long)a.N * a.P;
+  int err;
+  if (nc > 1) {
+    ssd_bwd_q_kernel<<<dim3(nc - 1, a.H, a.Bb), NT, BQ_SMEM, stream>>>(a);
+    if ((err = (int)cudaGetLastError())) return err;
+  }
+  const int nb = (int)((np + PASS_NT * PASS_EL - 1) / (PASS_NT * PASS_EL));
+  ssd_bwd_pass_kernel<<<dim3(nb, a.H, a.Bb), PASS_NT, 0, stream>>>(a);
+  if ((err = (int)cudaGetLastError())) return err;
+  ssd_bwd_intra_kernel<<<dim3(nc, a.H, a.Bb), NT, BI_SMEM, stream>>>(a);
+  if ((err = (int)cudaGetLastError())) return err;
+  ssd_bwd_inter_kernel<<<dim3(nc, a.H, a.Bb), NT, BX_SMEM, stream>>>(a);
+  if ((err = (int)cudaGetLastError())) return err;
+  const long long total = (long long)a.Bb * a.T * a.N;
+  const int sb = (int)std::min<long long>((total + NT - 1) / NT, 4096);
+  ssd_bwd_sum_kernel<<<sb, NT, 0, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Five launches on `stream` (four when T is one chunk); returns
+// cudaGetLastError() after the first that fails, or after the last
+// (cudaErrorInvalidValue for a shape the kernels do not take, before any
+// launch).
+extern "C" int ssd_scan_bwd(const SsdBwdArgs* a, cudaStream_t stream) {
+  if (a->Bb < 1 || a->Bb > 65535 || a->H < 1 || a->H > 65535 || a->P < 1 ||
+      a->P > MAX_PB || a->N < 1 || a->N > MAX_N || a->L < 1 ||
+      a->L > MAX_L || a->T < 1 || a->T % a->L != 0 ||
+      a->T / a->L > 0x7fffffff)
+    return (int)cudaErrorInvalidValue;
+  return launch_bwd(*a, stream);
+}
 
 // x_bf16 / bc_bf16: 1 for bfloat16 x (and y) / B and C, 0 for float32.
 // Four launches on `stream`; returns cudaGetLastError() after the first

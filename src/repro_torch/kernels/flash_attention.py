@@ -177,6 +177,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if route(q) == "plain":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    q_offset=q_offset, ring=ring)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(
+            "flash_attention kernel: no backward (the reference's Pallas "
+            "kernel has none either); train with attn_impl='chunked'")
     if Tq < 1 or Tk < 1:
         raise ValueError(f"flash_attention kernel: Tq {Tq}, Tk {Tk}")
     for name, t in (("q", q), ("k", k), ("v", v)):

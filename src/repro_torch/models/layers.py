@@ -5,8 +5,10 @@ Weights keep the reference's layout, ``(d_in, d_out)`` with ``x @ w``, so
 carrying weights across is a copy
 (:func:`repro_torch.convert.lm_params_from_jax`).
 The reference keeps f32 masters and casts them to ``cfg.dtype`` at every
-use; the port stores matrix weights in ``cfg.dtype`` once (the same
-numbers) and norm weights in f32.
+use; the port's serve path stores matrix weights in ``cfg.dtype`` once
+(the same numbers) and norm weights in f32, and its training path keeps
+f32 masters and casts them once a step
+(:func:`repro_torch.models.lm.cast_params`).
 
 Attention implementations, as in the reference:
   * ``naive``   — materialise the (T, S) scores;
@@ -33,6 +35,7 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels import ops as kops
 from .config import ModelConfig
@@ -140,9 +143,33 @@ def _sdpa_naive(q, k, v, q_pos, k_pos, causal, window):
     return out.reshape(B, T, H, hd)
 
 
-def _sdpa_chunked(q, k, v, q_pos, k_pos, causal, window, chunk, f32=True):
+def _chunk_step(qg, kb, vb, live, m, l, acc, scale, acc_dt):
+    """One key chunk of the online softmax: the running max ``m``, sum
+    ``l`` and accumulator ``acc`` after the keys ``kb`` / values ``vb``
+    (``live``: bool (B, T, S) or None)."""
+    s = torch.einsum("btkgh,bskh->bkgts", qg, kb.to(F32)) * scale
+    if live is not None:
+        s = s.masked_fill(~live[:, None, None], float("-inf"))
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    # guard fully-masked rows
+    m_safe = torch.where(torch.isinf(m_new), 0.0, m_new)
+    p = torch.exp(s - m_safe[..., None])
+    p = torch.where(torch.isinf(s), 0.0, p)
+    corr = torch.exp(torch.where(torch.isinf(m), float("-inf"), m) - m_safe)
+    corr = torch.where(torch.isnan(corr), 0.0, corr).to(acc_dt)
+    l = l * corr + p.sum(dim=-1).to(acc_dt)
+    acc = acc * corr[..., None] + torch.einsum(
+        "bkgts,bskh->bkgth", p.to(vb.dtype), vb).to(acc_dt)
+    return m_new, l, acc
+
+
+def _sdpa_chunked(q, k, v, q_pos, k_pos, causal, window, chunk, f32=True,
+                  remat_chunk=False):
     """Online softmax over KV chunks (flash algorithm, plain PyTorch).  The
-    keys padded onto a ragged last chunk are masked (ROADMAP C7)."""
+    keys padded onto a ragged last chunk are masked (ROADMAP C7).  With
+    ``remat_chunk`` (and autograd recording) each chunk's step is
+    checkpointed: its backward recomputes the chunk's probabilities
+    instead of keeping them, as the reference's ``remat_chunk`` does."""
     acc_dt = F32 if f32 else torch.bfloat16
     B, T, H, hd = q.shape
     S, K = k.shape[1], k.shape[2]
@@ -153,25 +180,15 @@ def _sdpa_chunked(q, k, v, q_pos, k_pos, causal, window, chunk, f32=True):
     m = torch.full((B, K, G, T), float("-inf"), dtype=F32, device=q.device)
     l = torch.zeros((B, K, G, T), dtype=acc_dt, device=q.device)
     acc = torch.zeros((B, K, G, T, hd), dtype=acc_dt, device=q.device)
+    recompute = remat_chunk and torch.is_grad_enabled()
     for c in range(nc):
         cs = slice(c * chunk, (c + 1) * chunk)
-        kb, vb = k[:, cs], v[:, cs]
-        s = torch.einsum("btkgh,bskh->bkgts", qg, kb.to(F32)) * scale
         live = _live(q_pos, k_pos[:, cs], causal, window)
-        if live is not None:
-            s = s.masked_fill(~live[:, None, None], float("-inf"))
-        m_new = torch.maximum(m, s.amax(dim=-1))
-        # guard fully-masked rows
-        m_safe = torch.where(torch.isinf(m_new), 0.0, m_new)
-        p = torch.exp(s - m_safe[..., None])
-        p = torch.where(torch.isinf(s), 0.0, p)
-        corr = torch.exp(torch.where(torch.isinf(m), float("-inf"), m)
-                         - m_safe)
-        corr = torch.where(torch.isnan(corr), 0.0, corr).to(acc_dt)
-        l = l * corr + p.sum(dim=-1).to(acc_dt)
-        acc = acc * corr[..., None] + torch.einsum(
-            "bkgts,bskh->bkgth", p.to(vb.dtype), vb).to(acc_dt)
-        m = m_new
+        args = (qg, k[:, cs], v[:, cs], live, m, l, acc, scale, acc_dt)
+        if recompute:
+            m, l, acc = checkpoint(_chunk_step, *args, use_reentrant=False)
+        else:
+            m, l, acc = _chunk_step(*args)
     out = acc / torch.clamp_min(l, 1e-20)[..., None]
     out = out.permute(0, 3, 1, 2, 4).reshape(B, T, H, hd)
     return out.to(q.dtype)
@@ -250,7 +267,8 @@ def apply_attention(p, x, cfg: ModelConfig, *, positions, cache=None,
                                    and window is not None)
     elif impl == "chunked" and k.shape[1] > cfg.attn_chunk and T > 1:
         out = _sdpa_chunked(q, k, v, q_pos, k_pos, causal, window,
-                            cfg.attn_chunk, f32=cfg.attn_f32)
+                            cfg.attn_chunk, f32=cfg.attn_f32,
+                            remat_chunk=cfg.attn_remat_chunk)
     else:
         out = _sdpa_naive(q, k, v, q_pos, k_pos, causal, window)
     out = out.reshape(B, T, cfg.n_heads * hd)

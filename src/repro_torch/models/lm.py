@@ -29,12 +29,20 @@ encdec ``enc_layers`` (a list of dense blocks) and ``enc_norm``.  Matrix
 weights are in ``cfg.dtype`` except the Mamba2 projections (bf16, see
 ``models/ssm.py``); norm weights and the Mamba2 block's other leaves are
 f32.  A kind the reference does not know raises ``NotImplementedError``.
+
+Training (the reference's loss half): :func:`lm_loss` takes f32 masters
+(``init_params(..., masters=True)``) and casts them at use with
+:func:`cast_params`, so gradients land on the masters; the loss is the
+chunked cross-entropy :func:`chunked_ce` plus the MoE routing loss, and
+every layer's body runs under ``cfg.remat`` (:func:`_remat`).
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
+from ..runtime.tree import tree_leaves
 from . import layers as L
 from . import ssm as S
 from .config import ModelConfig
@@ -53,13 +61,15 @@ def require_ported(cfg: ModelConfig) -> None:
 # init
 # --------------------------------------------------------------------------- #
 
-def _init_block(gen: torch.Generator, cfg: ModelConfig, kind: str) -> dict:
+def _init_block(gen: torch.Generator, cfg: ModelConfig, kind: str,
+                masters: bool = False) -> dict:
     """One layer's params. kind: dense | moe | ssm | dec (an encdec
     decoder layer: dense, with cross-attention)."""
-    dt = L.dtype_of(cfg)
+    dt = L.F32 if masters else L.dtype_of(cfg)
     ones = lambda: torch.ones((cfg.d_model,), dtype=L.F32, device=gen.device)
     if kind == "ssm":
-        return {"ln1": ones(), "ssm": S.init_mamba2(gen, cfg)}
+        return {"ln1": ones(), "ssm": S.init_mamba2(
+            gen, cfg, proj_dtype=L.F32 if masters else S.BF16)}
     p = {"ln1": ones(), "attn": L.init_attention(gen, cfg, dt), "ln2": ones()}
     if kind == "moe":
         p["moe"] = L.init_moe(gen, cfg, dt)
@@ -71,12 +81,17 @@ def _init_block(gen: torch.Generator, cfg: ModelConfig, kind: str) -> dict:
     return p
 
 
-def init_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
+def init_params(gen: torch.Generator, cfg: ModelConfig,
+                masters: bool = False) -> dict:
     """Random weights on the generator's device, with the reference's
     distributions (``lm.py:61``, ``ssm.py:25``): embed N(0, 1) * 0.02,
-    every matrix N(0, 1) / sqrt(d_in), norms 1."""
+    every matrix N(0, 1) / sqrt(d_in), norms 1.  Stored as the serve path
+    uses them (see the module docstring), or with ``masters`` every leaf
+    in f32, the reference's masters for training: the same draws, so
+    ``cast_params(init_params(g, cfg, masters=True), cfg)`` equals
+    ``init_params(g', cfg)`` for a generator in the same state."""
     require_ported(cfg)
-    dt = L.dtype_of(cfg)
+    dt = L.F32 if masters else L.dtype_of(cfg)
     embed = torch.randn((cfg.vocab, cfg.d_model), generator=gen, dtype=L.F32,
                         device=gen.device)
     p = {"embed": embed.mul_(0.02).to(dt),
@@ -87,14 +102,45 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
     kind = {"hybrid": "ssm", "vlm": "dense", "encdec": "dec"}.get(cfg.kind,
                                                                   cfg.kind)
     if cfg.kind == "encdec":
-        p["enc_layers"] = [_init_block(gen, cfg, "dense")
+        p["enc_layers"] = [_init_block(gen, cfg, "dense", masters)
                            for _ in range(cfg.n_enc_layers)]
         p["enc_norm"] = torch.ones((cfg.d_model,), dtype=L.F32,
                                    device=gen.device)
-    p["layers"] = [_init_block(gen, cfg, kind) for _ in range(cfg.n_layers)]
+    p["layers"] = [_init_block(gen, cfg, kind, masters)
+                   for _ in range(cfg.n_layers)]
     if cfg.kind == "hybrid":
-        p["shared_attn"] = _init_block(gen, cfg, "dense")
+        p["shared_attn"] = _init_block(gen, cfg, "dense", masters)
     return p
+
+
+#: Norm weights (kept in f32); every other dense-block leaf is a matrix.
+NORMS = ("final_norm", "enc_norm", "ln1", "ln2", "ln_x", "q_norm", "k_norm")
+
+
+def cast_leaf(t: torch.Tensor, name: str, cfg: ModelConfig,
+              in_ssm: bool = False) -> torch.Tensor:
+    """The type a leaf named ``name`` is used in: a Mamba2 projection
+    bf16, any other leaf of a Mamba2 block f32; a norm weight f32; any
+    other matrix ``cfg.dtype``.  ``Tensor.to``: differentiable, and the
+    leaf itself where it has the type already."""
+    if in_ssm:
+        return t.to(S.BF16) if name in S.PROJECTIONS else t.to(L.F32)
+    return t.to(L.F32) if name in NORMS else t.to(L.dtype_of(cfg))
+
+
+def cast_params(params, cfg: ModelConfig) -> dict:
+    """The casts the reference makes at every use of its f32 masters,
+    made once for the whole tree (differentiably, so gradients land on
+    the masters): the serve path's types, :func:`cast_leaf`.  On params
+    already in those types it returns the same tensors."""
+    def walk(tree, in_ssm=False):
+        if isinstance(tree, list):
+            return [walk(v, in_ssm) for v in tree]
+        return {name: (walk(v, in_ssm or name == "ssm")
+                       if isinstance(v, (dict, list))
+                       else cast_leaf(v, name, cfg, in_ssm))
+                for name, v in tree.items()}
+    return walk(params)
 
 
 # --------------------------------------------------------------------------- #
@@ -142,35 +188,83 @@ def _groups(cfg: ModelConfig):
             for g in range(cfg.n_layers // every)]
 
 
+def _remat(cfg: ModelConfig, fn):
+    """``fn(lp, x, ...)``, a layer's body, under ``cfg.remat`` while
+    autograd records it (a layer whose params or input need a gradient):
+    ``"full"`` checkpoints the body (its backward recomputes the layer),
+    ``"dots"`` checkpoints it saving only the outputs of the plain matrix
+    products (``aten.mm``/``addmm``; the reference's
+    ``dots_with_no_batch_dims_saveable``: batched products are
+    recomputed), ``"none"`` saves everything.  Serving runs ``fn``
+    itself."""
+    if cfg.remat not in ("none", "dots", "full"):
+        raise ValueError(f"remat {cfg.remat!r}: none, dots or full")
+    if cfg.remat == "none":
+        return fn
+
+    def run(lp, x, *args, **kw):
+        if not torch.is_grad_enabled() or not (
+                x.requires_grad or any(t.requires_grad
+                                       for t in tree_leaves(lp))):
+            return fn(lp, x, *args, **kw)
+        extra = {} if cfg.remat == "full" else {"context_fn": _dots_saved}
+        return checkpoint(fn, lp, x, *args, use_reentrant=False, **extra,
+                          **kw)
+    return run
+
+
+def _dots_saved():
+    """Selective checkpointing that saves the plain matrix products."""
+    from torch.utils.checkpoint import (CheckpointPolicy,
+                                        create_selective_checkpoint_contexts)
+    saved = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+    def policy(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in saved
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+    return create_selective_checkpoint_contexts(policy)
+
+
 def forward_hidden(params, embeds, positions, cfg: ModelConfig,
                    enc_out=None):
     """embeds: (B,T,d) -> (final hidden (B,T,d), aux loss).  A loop over
-    the layers; the aux loss is the MoE blocks' routing losses summed (0
-    for the other kinds).  encdec: ``enc_out`` (B, S, d) is the encoder's
-    output (:func:`encode`) that every decoder layer cross-attends."""
+    the layers, each body under ``cfg.remat`` (:func:`_remat`; the
+    hybrid's shared block is not, as in the reference); the aux loss is
+    the MoE blocks' routing losses summed (0 for the other kinds).
+    encdec: ``enc_out`` (B, S, d) is the encoder's output (:func:`encode`)
+    that every decoder layer cross-attends."""
     require_ported(cfg)
     x = embeds
     aux = torch.zeros((), dtype=L.F32, device=x.device)
     layers = params["layers"]
     if cfg.kind == "encdec":
+        def dec(lp, x):
+            return _dense_block(lp, x, cfg, positions, causal=True,
+                                cross_kv=_cross_kv(lp, enc_out, cfg))[0]
+        dec = _remat(cfg, dec)
         for lp in layers:
-            x, _, _ = _dense_block(lp, x, cfg, positions, causal=True,
-                                   cross_kv=_cross_kv(lp, enc_out, cfg))
+            x = dec(lp, x)
     elif cfg.kind in ("dense", "vlm", "moe"):
-        for lp in layers:
+        def body(lp, x):
             x, _, a = _dense_block(lp, x, cfg, positions, causal=True,
                                    window=cfg.window)
+            return x, a
+        body = _remat(cfg, body)
+        for lp in layers:
+            x, a = body(lp, x)
             if a is not None:
                 aux = aux + a
-    elif cfg.kind == "ssm":
-        for lp in layers:
-            x, _ = _ssm_block(lp, x, cfg)
     else:
-        for grp in _groups(cfg):
-            for i in grp:
-                x, _ = _ssm_block(layers[i], x, cfg)
-            x, _, _ = _dense_block(params["shared_attn"], x, cfg, positions,
-                                   causal=True)
+        ssm = _remat(cfg, lambda lp, x: _ssm_block(lp, x, cfg)[0])
+        if cfg.kind == "ssm":
+            for lp in layers:
+                x = ssm(lp, x)
+        else:
+            for grp in _groups(cfg):
+                for i in grp:
+                    x = ssm(layers[i], x)
+                x, _, _ = _dense_block(params["shared_attn"], x, cfg,
+                                       positions, causal=True)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps, cfg.norm_f32)
     return x, aux
 
@@ -193,9 +287,11 @@ def encode(params, frame_embeds, cfg: ModelConfig):
     B, T, _ = frame_embeds.shape
     positions = torch.arange(T, dtype=torch.int32,
                              device=frame_embeds.device)[None].expand(B, T)
+    body = _remat(cfg, lambda lp, x: _dense_block(lp, x, cfg, positions,
+                                                  causal=False)[0])
     x = frame_embeds
     for lp in params["enc_layers"]:
-        x, _, _ = _dense_block(lp, x, cfg, positions, causal=False)
+        x = body(lp, x)
     return L.rms_norm(x, params["enc_norm"], cfg.norm_eps, cfg.norm_f32)
 
 
@@ -206,6 +302,67 @@ def embed_tokens(params, tokens, cfg: ModelConfig):
 def lm_head_weight(params, cfg: ModelConfig):
     return (params["embed"].T if cfg.tie_embeddings
             else params["lm_head"])
+
+
+# --------------------------------------------------------------------------- #
+# loss (chunked cross-entropy)
+# --------------------------------------------------------------------------- #
+
+def chunked_ce(hidden, w, labels, chunk=128):
+    """Mean cross-entropy of ``hidden @ w`` against ``labels``: hidden
+    (B,T,d), w (d,V), labels int (B,T) with -1 = ignore.  The logits go in
+    f32 one chunk of ``min(chunk, T)`` positions at a time (T must be a
+    multiple), each chunk's sum added in order, as the reference's
+    ``lax.scan`` does; the mean is over the labels not ignored (at least
+    one)."""
+    B, T, d = hidden.shape
+    c = min(chunk, T)
+    if T % c:
+        raise ValueError(f"chunked_ce: T = {T} is not a multiple of the "
+                         f"chunk {c}")
+    w = w.to(hidden.dtype)
+    tot = torch.zeros((), dtype=L.F32, device=hidden.device)
+    cnt = torch.zeros((), dtype=L.F32, device=hidden.device)
+    for i in range(T // c):
+        hc, yc = hidden[:, i * c:(i + 1) * c], labels[:, i * c:(i + 1) * c]
+        logits = (hc @ w).to(L.F32)
+        lse = torch.logsumexp(logits, dim=-1)
+        yl = logits.gather(-1, yc.clamp_min(0).long()[..., None])[..., 0]
+        mask = (yc >= 0).to(L.F32)
+        tot = tot + torch.sum((lse - yl) * mask)
+        cnt = cnt + torch.sum(mask)
+    return tot / torch.clamp_min(cnt, 1.0)
+
+
+def lm_loss(params, batch, cfg: ModelConfig, aux_weight=0.01):
+    """The training loss: chunked cross-entropy of the next tokens plus
+    ``aux_weight`` times the MoE routing loss.  batch: ``tokens`` and
+    ``labels`` (B, T) int, a vlm's ``vis_embed`` (B, n_vis, d) ahead of the
+    tokens (labels -1 over it), an encdec's ``frames`` (B, enc_seq, d)
+    through :func:`encode`.  ``params`` may be f32 masters: the loss casts
+    them (:func:`cast_params`) as the reference does at every use."""
+    require_ported(cfg)
+    params = cast_params(params, cfg)
+    tokens = batch["tokens"]
+    labels = batch["labels"]
+    B, T = tokens.shape
+    x = embed_tokens(params, tokens, cfg)
+    dev = x.device
+    enc_out = None
+    if cfg.kind == "vlm":
+        vis = batch["vis_embed"].to(dev, x.dtype)
+        x = torch.cat([vis, x], dim=1)
+        labels = torch.cat([torch.full((B, vis.shape[1]), -1,
+                                       dtype=labels.dtype, device=dev),
+                            labels.to(dev)], dim=1)
+    if cfg.kind == "encdec":
+        enc_out = encode(params, batch["frames"].to(dev, x.dtype), cfg)
+    Tt = x.shape[1]
+    positions = torch.arange(Tt, dtype=torch.int32, device=dev)[None].expand(
+        B, Tt)
+    hidden, aux = forward_hidden(params, x, positions, cfg, enc_out=enc_out)
+    loss = chunked_ce(hidden, lm_head_weight(params, cfg), labels.to(dev))
+    return loss + aux_weight * aux
 
 
 # --------------------------------------------------------------------------- #

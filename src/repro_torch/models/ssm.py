@@ -4,8 +4,10 @@
 Prefill runs the chunked SSD scan (:func:`ssd_chunked`): the plain
 chunked version for CPU tensors, the hand-written kernel
 (``kernels/csrc/ssd_scan.cu``, through :func:`repro_torch.kernels.ops.ssd_scan`)
-for CUDA tensors.  Decode is the O(1) recurrent step in plain PyTorch, as
-in the reference, which has no kernel for it.
+for CUDA tensors, with its hand-written backward
+(:class:`repro_torch.kernels.ssd_scan.SsdScanFn`) where a gradient is
+taken.  Decode is the O(1) recurrent step in plain PyTorch, as in the
+reference, which has no kernel for it.
 
 Shapes: x (B,T,H,P) heads x head_dim; B, C (B,T,N), one group shared
 across heads; A (H,) negative reals; dt (B,T,H) positive.
@@ -43,9 +45,11 @@ def _softplus(x):
     return x.clamp_min(0) + torch.log1p(torch.exp(-x.abs()))
 
 
-def init_mamba2(gen: torch.Generator, cfg: ModelConfig, d_model=None) -> dict:
+def init_mamba2(gen: torch.Generator, cfg: ModelConfig, d_model=None,
+                proj_dtype=BF16) -> dict:
     """Random weights with the reference's distributions (``ssm.py:25``):
-    projections N(0, 1) / sqrt(d_in), conv kernels N(0, 1) * 0.2 (drawn
+    projections N(0, 1) / sqrt(d_in) (stored in ``proj_dtype``: bf16 for
+    serving, f32 masters for training), conv kernels N(0, 1) * 0.2 (drawn
     independently; the reference draws conv_B and conv_C from one key),
     conv biases 0, A_log = log(linspace(1, 16, H)), D 1, dt_bias
     log(e - 1), norm 1."""
@@ -62,7 +66,7 @@ def init_mamba2(gen: torch.Generator, cfg: ModelConfig, d_model=None) -> dict:
         return torch.randn((K, c), generator=gen, dtype=F32,
                            device=dev).mul_(0.2)
 
-    p = {name: init_linear(gen, a, b, BF16) for name, a, b in (
+    p = {name: init_linear(gen, a, b, proj_dtype) for name, a, b in (
         ("w_z", d, d_in), ("w_x", d, d_in), ("w_B", d, N), ("w_C", d, N),
         ("w_dt", d, H), ("w_out", d_in, d))}
     p.update(conv_x=conv(d_in), conv_B=conv(N), conv_C=conv(N),
@@ -95,7 +99,8 @@ def ssd_chunked(x, dt, A, B_, C_, chunk):
     """Chunked SSD scan.  Returns (y f32, final state (B,H,N,P) f32).
 
     x (B,T,H,P), dt (B,T,H), A (H,), B_/C_ (B,T,N).  CPU tensors run the
-    plain chunked version, CUDA tensors the kernel."""
+    plain chunked version (autograd differentiates it), CUDA tensors the
+    kernel and, where a gradient is taken, its backward kernel."""
     return kops.ssd_scan(x.to(F32), dt, A, B_, C_, chunk, final_state=True)
 
 

@@ -17,6 +17,8 @@
     PYTHONPATH=src python -m repro_torch.profile --scenario \
         whisper-prefill-448 whisper-decode internvl2-prefill-1024 \
         internvl2-decode
+    PYTHONPATH=src python -m repro_torch.profile --scenario mamba2-train \
+        llama3-train
 
 Runs each scenario on the card twice (the first run warms up: it builds
 the kernels and PyTorch's caches) and profiles the second with
@@ -46,7 +48,12 @@ requests at positions 536-543 of a 544-slot cache); mamba2-2.7b
 cache's ``enc_out`` zero, as ``greedy_generate``'s); internvl2-26b at 8
 of its 48 layers (``SERVE_LAYERS``) ``internvl2-prefill-1024`` (4 x (256
 patch embeddings + 768 tokens)) and ``internvl2-decode`` (8 steps at
-positions 536-543).  It needs a GPU.
+positions 536-543); training cells run ``make_train_step`` from f32
+masters (seed 0) on synthetic 4 x 1024-token batches, two steps before
+the warm-up so that the caching allocator holds its blocks:
+``mamba2-train`` (mamba2-2.7b at 16 of its 64 layers, remat "full", the
+SSD scan and its backward through the kernels) and ``llama3-train``
+(llama3-8b at 2 of its 32 layers, chunked attention).  It needs a GPU.
 """
 from __future__ import annotations
 
@@ -164,12 +171,17 @@ SERVE = {"prefill-1000": ("llama3-8b", 4, 1000),
          "internvl2-decode": ("internvl2-26b", 4, 544)}
 #: Serve models profiled at a cut depth: model -> layers.
 SERVE_LAYERS = {"internvl2-26b": 8}
+#: training cell -> (model, layers, requests, tokens).
+TRAIN = {"mamba2-train": ("mamba2-2.7b", 16, 4, 1024),
+         "llama3-train": ("llama3-8b", 2, 4, 1024)}
 #: CUDA kernel names of the hand-written kernels (csrc/*.cu).
 OWN_KERNELS = ("strack_kernel", "roce_kernel", "serve_enqueue_kernel",
                "count_kernel", "scan_kernel", "resolve_kernel", "pfc_kernel",
                "fa_kernel", "tc_kernel", "dec_kernel",
                "ssd_cb_kernel", "ssd_state_kernel", "ssd_pass_kernel",
-               "ssd_out_kernel")
+               "ssd_out_kernel", "ssd_bwd_q_kernel", "ssd_bwd_pass_kernel",
+               "ssd_bwd_intra_kernel", "ssd_bwd_inter_kernel",
+               "ssd_bwd_sum_kernel")
 
 
 def _fabric_run(name: str):
@@ -225,6 +237,29 @@ def _serve_run(name: str, params, cfg):
     return once
 
 
+def _train_run(name: str):
+    from .configs import get_config
+    from .runtime.data import DataConfig, SyntheticDataset
+    from .runtime.optimizer import OptConfig
+    from .runtime.train import init_train_state, make_train_step
+    model, layers, B, T = TRAIN[name]
+    cfg = dataclasses.replace(get_config(model), n_layers=layers)
+    opt_cfg = OptConfig(lr=1e-3, warmup_steps=2, total_steps=50)
+    state = list(init_train_state(
+        torch.Generator(device="cuda").manual_seed(0), cfg, opt_cfg))
+    data = SyntheticDataset(DataConfig(vocab=cfg.vocab, seq=T,
+                                       global_batch=B, seed=0))
+    step = make_train_step(cfg, opt_cfg)
+
+    def once():
+        state[0], state[1], m = step(state[0], state[1], next(data))
+        return {"tokens": B * T, "loss": float(m["loss"])}
+
+    once()
+    once()
+    return once
+
+
 def profile(name: str, once) -> dict:
     from torch.profiler import ProfilerActivity, profile as tprofile
     once()
@@ -264,13 +299,13 @@ def profile(name: str, once) -> dict:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--scenario", nargs="+", choices=sorted({**FABRIC,
-                                                             **SERVE}),
+    ap.add_argument("--scenario", nargs="+",
+                    choices=sorted({**FABRIC, **SERVE, **TRAIN}),
                     default=["perm1024"])
     names = ap.parse_args().scenario
     if not torch.cuda.is_available():
         raise SystemExit("repro_torch.profile needs a CUDA device")
-    params = cfg = None
+    params = cfg = once = None
     for name in names:
         if name in SERVE and (cfg is None or cfg.name != SERVE[name][0]):
             from .configs import get_config
@@ -283,8 +318,13 @@ def main() -> None:
                                           model, get_config(model).n_layers))
             params = lm.init_params(
                 torch.Generator(device="cuda").manual_seed(0), cfg)
-        once = (_fabric_run(name) if name in FABRIC
-                else _serve_run(name, params, cfg))
+        if name in TRAIN:  # one model's training state on the card
+            params = cfg = once = None
+            torch.cuda.empty_cache()
+            once = _train_run(name)
+        else:
+            once = (_fabric_run(name) if name in FABRIC
+                    else _serve_run(name, params, cfg))
         print(json.dumps(profile(name, once), indent=1), flush=True)
 
 

@@ -1,1 +1,1 @@
-"""Serving steps of the language-model stack."""
+"""Serving and training steps of the language-model stack."""

@@ -1041,3 +1041,47 @@ def test_batched_kernels_match_plain_on_the_card(cuda):
                                 fk._tree_leaves(res_p[:11])):
                     assert torch.equal(a, b)
         st, _, _ = prog.tick(st, t)
+
+
+@pytest.mark.parametrize("B,T,H,P,N,chunk", [(2, 256, 4, 64, 128, 128),
+                                             (1, 96, 3, 16, 16, 16),
+                                             (2, 40, 2, 5, 7, 8)])
+def test_ssd_scan_backward_kernel_matches_twin(cuda, B, T, H, P, N, chunk):
+    """SsdScanFn's gradients (the backward kernel) against the plain twin's
+    (autograd through the plain scan) within 1e-4 of each gradient's
+    largest magnitude, the final state's gradient included; two calls give
+    the same bits."""
+    g = torch.Generator(device=cuda).manual_seed(B * T + N)
+    r = lambda *s: torch.randn(s, generator=g, device=cuda)
+    x, Bm, Cm, dy = r(B, T, H, P), r(B, T, N), r(B, T, N), r(B, T, H, P)
+    dt = torch.nn.functional.softplus(r(B, T, H) - 1.0)
+    A = -torch.linspace(1.0, 16.0, H, device=cuda)
+    dfin = r(B, H, N, P)
+    grads = []
+    for _ in range(2):
+        ins = [t.clone().requires_grad_(True) for t in (x, dt, A, Bm, Cm)]
+        y, st = ssd.SsdScanFn.apply(*ins, chunk)
+        grads.append(torch.autograd.grad((y * dy).sum() + (st * dfin).sum(),
+                                         ins))
+    want = ssd.ssd_scan_bwd_plain(dy, x, dt, A, Bm, Cm, chunk, dfin)
+    for a, a2, w in zip(*grads, want):
+        assert torch.equal(a, a2)
+        assert float((a - w).abs().max() / w.abs().max()) <= 1e-4
+
+
+def test_kernels_without_a_backward_refuse_tensors_that_need_one(cuda):
+    """The flash kernel hands back tensors autograd cannot see through:
+    CUDA inputs that need a gradient raise.  The SSD scan's wrapper runs
+    SsdScanFn, so its output carries the backward kernel."""
+    x = torch.randn(1, 32, 2, 16, device=cuda, requires_grad=True)
+    dt = torch.rand(1, 32, 2, device=cuda)
+    A = -torch.ones(2, device=cuda)
+    Bm = torch.randn(1, 32, 8, device=cuda)
+    y, _ = ssd.ssd_scan(x, dt, A, Bm, Bm.clone(), chunk=16)
+    assert y.grad_fn is not None and y.requires_grad
+    with torch.no_grad():
+        y, _ = ssd.ssd_scan(x, dt, A, Bm, Bm.clone(), chunk=16)
+    assert y.grad_fn is None
+    q = torch.randn(1, 2, 8, 64, device=cuda, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        fa.flash_attention(q, q.detach(), q.detach())

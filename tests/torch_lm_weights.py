@@ -49,6 +49,19 @@ SSM_SERVE_REF = {arch: dict(arch=arch, seed=0, batch=2, steps=32, new=4)
 #: patch embeddings from ``vis_embed(cfg, seed, batch)``.
 MM_SERVE_REF = {arch: dict(arch=arch, seed=0, batch=2, steps=12, new=4)
                 for arch in ("whisper-small", "internvl2-26b")}
+#: The committed training references (src/repro_torch/testdata/
+#: {llama3,mamba2,mixtral,whisper}_smoke_train_ref.json): the SMOKE
+#: configs in f32, weights from ``lm_weights(cfg, seed)`` as f32 masters,
+#: ``steps`` train steps of ``OptConfig(lr=1e-3, warmup_steps=2,
+#: total_steps=50)`` on ``SyntheticDataset(DataConfig(vocab, seq, batch,
+#: seed))`` batches (whisper's ``frames(cfg, seed, batch)`` in every
+#: batch); llama3 accumulates two micro-batches, mixtral compresses its
+#: gradients (int8 with error feedback).
+TRAIN_REF = {arch: dict(arch=arch, seed=0, batch=4, seq=32, steps=4,
+                        micro_batches=2 if arch == "llama3-8b" else 1,
+                        grad_compress=arch == "mixtral-8x22b")
+             for arch in ("llama3-8b", "mamba2-2.7b", "mixtral-8x22b",
+                          "whisper-small")}
 
 
 def lm_weights(cfg, seed: int) -> dict:
@@ -162,3 +175,40 @@ def prompt(cfg, seed: int, batch: int, length: int) -> np.ndarray:
     """int32 (batch, length) tokens in [0, vocab)."""
     rng = np.random.default_rng(seed + 1)
     return rng.integers(0, cfg.vocab, (batch, length)).astype(np.int32)
+
+
+def port_train_run(arch: str, device: str, steps=None) -> tuple:
+    """The port training the SMOKE config of ``arch`` as ``TRAIN_REF[arch]``
+    says, on ``device`` (what ``tests/torch_parity.py``'s ``jax_train_run``
+    does in the JAX package).  Returns (the batches' tokens (steps, B, T)
+    int32, per-step metrics ``{"loss", "grad_norm", "lr"}`` lists of
+    floats, the final (params, opt state))."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.convert import lm_params_from_jax
+    from repro_torch.runtime.data import DataConfig, SyntheticDataset
+    from repro_torch.runtime.optimizer import OptConfig, init_opt
+    from repro_torch.runtime.train import make_train_step
+    ref = TRAIN_REF[arch]
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
+    params = lm_params_from_jax(lm_weights(cfg, ref["seed"]), cfg, device,
+                                masters=True)
+    opt_cfg = OptConfig(lr=1e-3, warmup_steps=2, total_steps=50,
+                        grad_compress=ref["grad_compress"])
+    opt = init_opt(params, opt_cfg)
+    step = make_train_step(cfg, opt_cfg, micro_batches=ref["micro_batches"],
+                           device=device)
+    ds = SyntheticDataset(DataConfig(vocab=cfg.vocab, seq=ref["seq"],
+                                     global_batch=ref["batch"],
+                                     seed=ref["seed"]), device=device)
+    extra = ({"frames": torch.from_numpy(frames(cfg, ref["seed"],
+                                                ref["batch"])).to(device)}
+             if cfg.kind == "encdec" else {})
+    toks, metrics = [], {"loss": [], "grad_norm": [], "lr": []}
+    for s in range(ref["steps"] if steps is None else steps):
+        batch = dict(ds.batch_at(s), **extra)
+        params, opt, m = step(params, opt, batch)
+        toks.append(batch["tokens"].cpu().numpy())
+        for k in metrics:
+            metrics[k].append(float(m[k]))
+    return np.stack(toks), metrics, (params, opt)

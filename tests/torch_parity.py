@@ -13,8 +13,11 @@ under STrack and of perm1024 under RoCEv2 + PFC with entropy seeds 0-3,
 and perm1024's per-tick trace every 4 ticks; the soak of the 64-host
 default fleet over a clean and a ``CHAOS1024`` epoch and the event
 oracle's runs of that fleet and of the spot fleet; the llama3-8b,
-mamba2-2.7b, zamba2-2.7b, mixtral-8x22b and grok-1-314b SMOKE serve
-references) from the JAX package,
+mamba2-2.7b, zamba2-2.7b, mixtral-8x22b, grok-1-314b, whisper-small and
+internvl2-26b SMOKE serve references; the llama3-8b, mamba2-2.7b,
+mixtral-8x22b and whisper-small SMOKE training references, four steps
+each, ~30 s together: stems ``llama3_smoke_train`` ``mamba2_smoke_train``
+``mixtral_smoke_train`` ``whisper_smoke_train``) from the JAX package,
 all of them or those whose file stems are given:
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/torch_parity.py [STEM ...]
@@ -53,6 +56,11 @@ SSM_SERVE_REF_PATHS = {"mamba2-2.7b": REF_DIR / "mamba2_smoke_serve_ref.json",
 MM_SERVE_REF_PATHS = {
     "whisper-small": REF_DIR / "whisper_smoke_serve_ref.json",
     "internvl2-26b": REF_DIR / "internvl2_smoke_serve_ref.json"}
+TRAIN_REF_PATHS = {
+    arch: REF_DIR / f"{stem}_smoke_train_ref.json"
+    for arch, stem in (("llama3-8b", "llama3"), ("mamba2-2.7b", "mamba2"),
+                       ("mixtral-8x22b", "mixtral"),
+                       ("whisper-small", "whisper"))}
 
 #: Summary keys the reference files pin (ints exact, floats to 1e-6).
 REF_SUMMARY_KEYS = ("max_fct", "avg_fct", "unfinished", "drops", "pauses",
@@ -977,6 +985,81 @@ def mm_smoke_serve_reference(arch: str) -> dict:
     return out
 
 
+def smoke_cfgs(arch: str, **over) -> tuple:
+    """(the JAX package's config, the port's): the SMOKE config of
+    ``arch`` in f32 (unless ``over`` says otherwise) with ``over``
+    replaced."""
+    from repro.configs import get_config as j_get_config
+    from repro_torch.configs import get_config
+    over = {"dtype": "float32", **over}
+    return (dataclasses.replace(j_get_config(arch, smoke=True), **over),
+            dataclasses.replace(get_config(arch, smoke=True), **over))
+
+
+def train_batch(cfg, seed: int, b: int, t: int) -> dict:
+    """A numpy training batch from ``torch_lm_weights.prompt``: tokens and
+    the next tokens as labels, one label ignored (-1); an encdec's frames,
+    a vlm's patch embeddings."""
+    from torch_lm_weights import frames, prompt, vis_embed
+    toks = prompt(cfg, seed, b, t + 1)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:].copy()}
+    batch["labels"][0, 3] = -1
+    if cfg.kind == "encdec":
+        batch["frames"] = frames(cfg, seed, b)
+    if cfg.kind == "vlm":
+        batch["vis_embed"] = vis_embed(cfg, seed, b)
+    return batch
+
+
+def jax_train_run(arch: str, steps=None) -> tuple:
+    """The JAX package training the SMOKE config of ``arch`` as
+    ``TRAIN_REF[arch]`` says (f32 masters from ``torch_lm_weights``, the
+    reference's ``SyntheticDataset``, jitted ``make_train_step``).
+    Returns (the batches' tokens (steps, B, T) int32, per-step metrics
+    ``{"loss", "grad_norm", "lr"}`` lists of floats, the final (params,
+    opt state) with numpy leaves)."""
+    import jax
+    import jax.numpy as jnp
+    from repro.runtime.data import DataConfig, SyntheticDataset
+    from repro.runtime.optimizer import OptConfig, init_opt
+    from repro.runtime.train import make_train_step
+    from torch_lm_weights import TRAIN_REF, frames
+    ref = TRAIN_REF[arch]
+    cfg, params = jax_lm(arch, "float32", ref["seed"])
+    opt_cfg = OptConfig(lr=1e-3, warmup_steps=2, total_steps=50,
+                        grad_compress=ref["grad_compress"])
+    opt = init_opt(params, opt_cfg)
+    step = jax.jit(make_train_step(cfg, opt_cfg,
+                                   micro_batches=ref["micro_batches"]))
+    ds = SyntheticDataset(DataConfig(vocab=cfg.vocab, seq=ref["seq"],
+                                     global_batch=ref["batch"],
+                                     seed=ref["seed"]))
+    extra = ({"frames": jnp.asarray(frames(cfg, ref["seed"], ref["batch"]))}
+             if cfg.kind == "encdec" else {})
+    toks, metrics = [], {"loss": [], "grad_norm": [], "lr": []}
+    for s in range(ref["steps"] if steps is None else steps):
+        batch = dict(ds.batch_at(s), **extra)
+        params, opt, m = step(params, opt, batch)
+        toks.append(np.asarray(batch["tokens"]))
+        for k in metrics:
+            metrics[k].append(float(np.asarray(m[k])))
+    return (np.stack(toks), metrics,
+            jax.tree.map(np.asarray, (params, opt)))
+
+
+def smoke_train_reference(arch: str) -> dict:
+    """The committed training reference of ``arch`` (``TRAIN_REF``): the
+    batches' tokens and each step's loss, grad_norm and lr from the JAX
+    package (:func:`jax_train_run`)."""
+    from torch_lm_weights import TRAIN_REF
+    toks, metrics, _ = jax_train_run(arch)
+    rnd = lambda xs: [float(f"{x:.9g}") for x in xs]
+    return dict(TRAIN_REF[arch], dtype="float32",
+                opt=dict(lr=1e-3, warmup_steps=2, total_steps=50),
+                tokens=toks.tolist(),
+                **{k: rnd(v) for k, v in metrics.items()})
+
+
 def write_references() -> None:
     REF_DIR.mkdir(parents=True, exist_ok=True)
     makers = [(REF_PATH, perm1024_reference),
@@ -998,6 +1081,8 @@ def write_references() -> None:
                for name, path in COLLECTIVE_REF_PATHS.items()]
     makers += [(path, lambda n=name: sweep_reference(n))
                for name, path in SWEEP_REF_PATHS.items()]
+    makers += [(path, lambda a=arch: smoke_train_reference(a))
+               for arch, path in TRAIN_REF_PATHS.items()]
     makers += [(TRACE_REF_PATH, trace_reference),
                (SOAK_REF_PATH, soak_reference),
                (EVENTS_REF_PATH, events_reference)]
