@@ -329,14 +329,17 @@ Phases (any failure exits non-zero; nothing is caught):
   11. training (phase 10's weights freed first; `python3 chip_smoke.py
      --phase 11` runs the build and this phase alone, ~1.5 minutes of
      chip time): (a) the SSD scan's backward kernel (ssd_scan_bwd: five
-     launches, float32, sums in a fixed order) against its plain twin
+     launches, q, pass, w, dx and dbc; float32, sums in a fixed order, W
+     summed over head groups, no per-head dB or dC) against its plain twin
      (autograd through the plain scan) at mamba2-2.7b's layer shape (B 4,
      T 1024, H 80, P 64, N 128, chunk 128) and zamba2-2.7b's (N 64), each
      of dx, ddt, dA, dB, dC within SSD_TOL["float32"] of the twin's
-     largest magnitude, two calls equal bits; its device ms, the twin's,
-     the bound; (b) mamba2-2.7b (MAMBA2_LAYERS), bf16 over f32 masters,
-     remat "full", 3 steps of 4 x 1024 synthetic tokens through
-     make_train_step with the launch counts reset before and read after
+     largest magnitude, two calls equal bits; its device ms (and by
+     pass), the twin's, the bound, its scratch MB (the allocator's peak
+     over a call less the gradients); (b) mamba2-2.7b
+     (MAMBA2_LAYERS), bf16 over f32 masters, remat "full", 3 steps of 4
+     x 1024 synthetic tokens through make_train_step with the launch
+     counts reset before and read after
      (ssd_scan_bwd once a layer a step, ssd_scan twice: forward and
      recompute; the flash kernel never), the backward kernel against the
      twin again at the inputs of the step's first backward call, then
@@ -469,8 +472,8 @@ OWN_KERNELS = {
     "ssd_scan": ("ssd_cb_kernel", "ssd_state_kernel", "ssd_pass_kernel",
                  "ssd_out_kernel"),
     "ssd_scan_bwd": ("ssd_bwd_q_kernel", "ssd_bwd_pass_kernel",
-                     "ssd_bwd_intra_kernel", "ssd_bwd_inter_kernel",
-                     "ssd_bwd_sum_kernel"),
+                     "ssd_bwd_w_kernel", "ssd_bwd_dx_kernel",
+                     "ssd_bwd_dbc_kernel"),
 }
 
 
@@ -587,13 +590,14 @@ def wall_ms(fn, reps: int = 30) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def device_ms(fn, reps: int = 20) -> tuple:
+def device_ms(fn, reps: int = 20, times: dict | None = None) -> tuple:
     """Mean device time of one ``fn()`` call: the self device time of
     every kernel and memset it ran, summed from ``torch.profiler`` over
     ``reps`` calls (warmed up first).  Returns ``(ms, device event
-    names)``.  Every call runs the same device events, so a profile in
-    which some event was recorded a number of times that is not a
-    multiple of ``reps`` has lost records (late in a long process the
+    names)``; ``times``, where given, gets each event's ms a call.  Every
+    call runs the same device events, so a profile in which some event
+    was recorded a number of times that is not a multiple of ``reps`` has
+    lost records (late in a long process the
     profiler has returned a third of them) and is taken again, as is one
     that recorded no device event; after three such profiles the time
     comes from CUDA events around ``reps`` back-to-back calls (host gaps
@@ -610,14 +614,17 @@ def device_ms(fn, reps: int = 20) -> tuple:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        total_us, counts = 0.0, {}
+        total_us, counts, by_key = 0.0, {}, {}
         for ev in prof.key_averages():
             us = getattr(ev, "self_device_time_total",
                          getattr(ev, "self_cuda_time_total", 0))
             if us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
                 total_us += us
                 counts[ev.key] = ev.count
+                by_key[ev.key] = us / reps / 1e3
         if total_us > 0 and all(c % reps == 0 for c in counts.values()):
+            if times is not None:
+                times.update(by_key)
             return total_us / reps / 1e3, counts
         log(f"[profile] device events recorded for {reps} calls (attempt "
             f"{attempt + 1}): "
@@ -670,10 +677,11 @@ def bound_ms(n_bytes: float, n_ops: float,
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
-def own_device_ms(name: str, fn, reps: int = 20) -> float:
+def own_device_ms(name: str, fn, reps: int = 20,
+                  times: dict | None = None) -> float:
     """``device_ms`` of a wrapper call that may run its own kernels and
-    memsets only."""
-    ms, names = device_ms(fn, reps)
+    memsets only (``times``, where given, gets each one's ms a call)."""
+    ms, names = device_ms(fn, reps, times)
     if names is None:
         return ms
     for own in OWN_KERNELS[name]:
@@ -3066,7 +3074,12 @@ def ssd_bwd_timing(x, dt, A, B_, C_, dy, chunk, scratch) -> dict:
     last (G is 0 there without a final state's gradient), and Q_c and dy
     S_in^T in every chunk but the first (S_in is 0 there), L N P each;
     float32 at the CUDA cores' rate.  Bytes: x, dt, A, B, C and dy read,
-    dx, ddt, dA, dB and dC written once."""
+    dx, ddt, dA, dB and dC written once.  Also the kernel's device ms by
+    pass, and the MB of scratch it allocates beside the forward's, read
+    on the card: the caching allocator's peak over one call, less what
+    was allocated before it and the gradients' own bytes (logged beside
+    the same counted from ``_bwd_plan``'s shapes)."""
+    import torch
     from repro_torch.kernels import ssd_scan as ssd
     Bb, T, H, P = x.shape
     N = B_.shape[-1]
@@ -3081,9 +3094,26 @@ def ssd_bwd_timing(x, dt, A, B_, C_, dy, chunk, scratch) -> dict:
     run = lambda: ssd.ssd_scan_bwd(dy, x, dt, A, B_, C_, chunk,
                                    scratch=scratch)
     plain = lambda: ssd.ssd_scan_bwd_plain(dy, x, dt, A, B_, C_, chunk)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    grads = run()
+    torch.cuda.synchronize()
+    scratch_mb = (torch.cuda.max_memory_allocated() - before
+                  - sum(t.numel() * t.element_size() for t in grads)) / 1e6
+    del grads
+    plan_mb = sum(4 * math.prod(s) for s in
+                  ssd._bwd_plan(Bb, T, H, P, N, L).values()) / 1e6
+    log(f"[train] ssd_scan_bwd's scratch at x {tuple(x.shape)}, N {N}: "
+        f"{scratch_mb:.6f} MB on the card (peak over one call less the "
+        f"gradients); {plan_mb:.6f} MB counted from _bwd_plan's shapes")
+    times = {}
+    ms = own_device_ms("ssd_scan_bwd", run, times=times)
+    by_pass = {own: sum(v for k, v in times.items() if own in k)
+               for own in OWN_KERNELS["ssd_scan_bwd"]} if times else None
     return {"shape": f"x {tuple(x.shape)}, B/C {tuple(B_.shape)}, float32, "
                      f"chunk {L}",
-            "ms": own_device_ms("ssd_scan_bwd", run),
+            "ms": ms, "ms_by_pass": by_pass, "scratch_mb": scratch_mb,
             "plain_ms": device_ms(plain, reps=3)[0],
             "bound_ms": bnd, "bound_by": by, "library_ms": None,
             "wall_ms": wall_ms(run, reps=10),
@@ -3458,6 +3488,7 @@ def train_phase(dev) -> dict:
             "bound_ms": mam["bound_ms"], "bound_by": mam["bound_by"],
             "library_ms": None,
             "wall_ms": mam["wall_ms"], "plain_wall_ms": mam["plain_wall_ms"],
+            "ms_by_pass": mam["ms_by_pass"], "scratch_mb": mam["scratch_mb"],
             "shape": mam["shape"], "zamba2_n64": timing["zamba2"],
             "max_abs_err_by_case": errs,
             "train_mamba2": mamba2, "train_llama3": llama3,

@@ -74,20 +74,48 @@
 //            u_m = (w_m B_m G_c) . dtx_m
 //   dlam = the in-chunk reverse cumsum of dcs;  ddt = dlam A + ddtx . x;
 //   dx = dt ddtx;  dA = sum over (b, t) of dlam dt.
-//   ssd_bwd_q_kernel      per (b, h, chunk > 0): Q_c.
-//   ssd_bwd_pass_kernel   per (b, h), elementwise over N x P, the chunks
-//                         in reverse: G_c over Q_c in place.
-//   ssd_bwd_intra_kernel  per (b, h, chunk): DY, W and M in shared memory,
-//                         the intra part of dcs, sum_l M dy (into dx),
-//                         W B and W^T C (per-head dC and dB).
-//   ssd_bwd_inter_kernel  per (b, h, chunk): the G_c and S_in terms, dx,
-//                         ddt, and the chunk's part of dA.
-//   ssd_bwd_sum_kernel    dB and dC summed over the heads, dA over the
-//                         batch and the chunks.
-// Every sum runs in a fixed order (no atomics): two calls give the same
-// bits, which a bit-exact restart of training needs.  A thread of a
-// product owns rows ty + 16 i and columns tx + 16 j of its output; the
-// tiles sit in shared memory at odd row strides.  P is at most 64.
+// B and C are shared across heads, so dB and dC sum over the heads: W is
+// summed over them before its products with B and C, and each
+// carried-state term is one product per (b, chunk) over K = H P (a row of
+// dy or x at one (b, t) is contiguous over (h, p)).  No (B, H, T, N)
+// partials.
+//   ssd_bwd_q_kernel    per (b, h, chunk > 0): Q_c.
+//   ssd_bwd_pass_kernel per (b, h), elementwise over N x P, the chunks in
+//                       reverse: G_c over Q_c in place.
+//   ssd_bwd_w_kernel    per (b, chunk, HEAD_GROUP heads), the heads in
+//                       order: DY^T, W^T and E's sums above the diagonal
+//                       (dcs's intra part), W^T summed in registers; the
+//                       group's W^T, once (wg: 16.8 MB at mamba2's shape).
+//   ssd_bwd_dx_kernel   per (b, h, chunk): w o (B G_c), then + M^T dy over
+//                       the causal half: ddtx, dx, u, ddtx . x; C S_in for
+//                       dcs's C_l . (exp(cs_l) S_in dy_l); dcs, dlam, ddt
+//                       and the chunk's part of dA.
+//   ssd_bwd_dbc_kernel  per (b, chunk, dB or dC, 32 columns of N): W^T
+//                       summed over the groups in order and its product
+//                       with C or B, then sum_h (w o dt o x_h) G_c,h^T or
+//                       exp(cs) o dy_h S_in,h^T, the heads in order; each
+//                       written once.  One block sums dA over (b, chunk).
+// Every sum runs in a fixed order with no atomics (sums across lanes in
+// fixed shuffle trees, then the warps' sums in warp order): two calls give
+// the same bits, which a bit-exact restart of training needs.  Tiles come
+// in with cp.async; products read float4s of shared memory, a thread's
+// rows ty + 16 i (so that a warp's reads of rows whose k is contiguous
+// meet no bank twice); each kernel but the pass fits two blocks an SM.
+// Bound: float32 FMAs, 24.4 GFLOP at mamba2's layer shape (B 4, T 1024,
+// H 80, P 64, N 128, L 128, nc 8), 0.364 ms at 67 TFLOP/s (chip_smoke.py
+// ssd_bwd_timing: the causal halves of DY and M^T dy, W's two products
+// once per (b, chunk), four L N P products a head).  The kernels'
+// products at that shape, with no final state's gradient: 14.90 G FMAs,
+//   q    (nc-1) B H L N P                                       2.349 G
+//   w    nc B H (L (L+16) / 2) P  (16 x 16 tiles on and above
+//        the diagonal)                                          1.510 G
+//   dx   2 (nc-1) B H L N P (B G_c, C S_in)
+//        + nc B H (L (L+16) / 2) P (M^T dy)                     6.208 G
+//   dbc  2 nc B L L N (W's two, dense) + 2 (nc-1) B L N H P     4.832 G
+// and 0.073 G of row factors in dbc.  C S_in for dcs is the L N P product
+// a head beyond the bound; the diagonal tiles and W's dense products add
+// the rest.
+// P is at most 64.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -568,9 +596,11 @@ int launch(const SsdArgs& a, cudaStream_t stream) {
 
 // ---- backward -------------------------------------------------------------
 
-constexpr int MAX_PB = 64;       // P, at most, in the backward
-constexpr int LDL = MAX_L + 1;   // row stride of (., L) and (., N) tiles
-constexpr int LDQ = MAX_PB + 1;  // row stride of (., P) tiles
+constexpr int MAX_PB = PW;       // P, at most, in the backward
+constexpr int HEAD_GROUP = 10;   // heads whose W one block of pass b3 sums
+constexpr int DBC_COLS = 32;     // columns of N a block of pass b5 sums
+constexpr int NWARP = NT / 32;
+constexpr unsigned FULL = 0xffffffffu;
 
 }  // namespace
 
@@ -586,51 +616,117 @@ struct SsdBwdArgs {
   const float* cbt;     // the forward's scratch (B, nc, L, L)
   const float* cs;      // the forward's scratch (B, H, nc, L)
   const float* st;      // the forward's scratch (B, H, nc, N, P): S_in
-  float* dx;            // (B,T,H,P): sum_l M dy first, then dx
+  float* dx;            // (B,T,H,P)
   float* ddt;           // (B,T,H)
   float* dA;            // (H,)
   float* dB;            // (B,T,N)
   float* dC;            // (B,T,N)
   float* gs;            // scratch (B, H, nc, N, P): Q_c, then G_c
   float* dcs;           // scratch (B, H, nc, L): the intra part of dcs
-  float* dBh;           // scratch (B, H, T, N): dB of each head
-  float* dCh;           // scratch (B, H, T, N): dC of each head
+  float* wg;            // scratch (B, nc, ng, L, L): W^T summed over a group
   float* dAp;           // scratch (B, H, nc): dA of each (b, h, chunk)
   int Bb, T, H, P, N, L;
 };
 
 namespace {
 
-// dst[r*ld + c] = src[r*rs + c] for r < R, c < C; 0 elsewhere up to
-// (Rp, Cp).
-__device__ __forceinline__ void stage(float* dst, int ld, const float* src,
-                                      long long rs, int R, int C, int Rp,
-                                      int Cp) {
-  for (int e = threadIdx.x; e < Rp * Cp; e += NT) {
-    const int r = e / Cp, c = e - r * Cp;
-    dst[r * ld + c] = (r < R && c < C) ? src[r * rs + c] : 0.f;
+// acc[i][j] += sum_{k < K} A[i*16*lda + k] * B[j*16*ldb + k], in order over
+// k (K a multiple of 4, float4 reads); A and B point at the thread's row ty
+// and column tx.  UPPER: only j >= i (the rest lies below the diagonal).
+template <int RI, int CJ, bool UPPER>
+__device__ __forceinline__ void mm_nt(float (&acc)[RI][CJ], const float* A,
+                                      int lda, const float* B, int ldb,
+                                      int K) {
+  for (int k = 0; k < K; k += 4) {
+    float4 av[RI];
+#pragma unroll
+    for (int i = 0; i < RI; ++i) av[i] = ld4(A + i * 16 * lda + k);
+#pragma unroll
+    for (int j = 0; j < CJ; ++j) {
+      const float4 b = ld4(B + j * 16 * ldb + k);
+#pragma unroll
+      for (int i = 0; i < RI; ++i) {
+        if (UPPER && j < i) continue;
+        float s = acc[i][j];
+        s = __fmaf_rn(av[i].x, b.x, s);
+        s = __fmaf_rn(av[i].y, b.y, s);
+        s = __fmaf_rn(av[i].z, b.z, s);
+        s = __fmaf_rn(av[i].w, b.w, s);
+        acc[i][j] = s;
+      }
+    }
   }
 }
 
-// acc[i][j] += sum_{k < K} A[i*16*ar + k*ak] * Bm[k*bk + j*16*bc], in
-// order over k; A and Bm already point at the thread's row ty and column
-// tx.
-template <int RI, int CJ>
-__device__ __forceinline__ void mm(float (&acc)[RI][CJ], const float* A,
-                                   int ar, int ak, const float* Bm, int bk,
-                                   int bc, int K) {
-  for (int k = 0; k < K; ++k) {
-    float av[RI], bv[CJ];
-#pragma unroll
-    for (int i = 0; i < RI; ++i) av[i] = A[i * 16 * ar + k * ak];
-#pragma unroll
-    for (int j = 0; j < CJ; ++j) bv[j] = Bm[k * bk + j * 16 * bc];
+// acc[i][t] += sum_{k < K} A[i*16*lda + k] * B[k*ldb + t], in order over k
+// (K a multiple of 4): A points at the thread's row ty (rows ty + 16 i),
+// B at its four columns.  CAUSAL: row block i only from k = 16 i on (A is
+// 0 below that).
+template <int RI, bool CAUSAL>
+__device__ __forceinline__ void mm_tn(float (&acc)[RI][4], const float* A,
+                                      int lda, const float* B, int ldb,
+                                      int K) {
+  for (int k = 0; k < K; k += 4) {
+    const int kb = k >> 4;
+    float4 av[RI];
 #pragma unroll
     for (int i = 0; i < RI; ++i)
+      if (!CAUSAL || i <= kb) av[i] = ld4(A + i * 16 * lda + k);
 #pragma unroll
-      for (int j = 0; j < CJ; ++j)
-        acc[i][j] = __fmaf_rn(av[i], bv[j], acc[i][j]);
+    for (int t = 0; t < 4; ++t) {
+      const float4 b = ld4(B + (k + t) * ldb);
+#pragma unroll
+      for (int i = 0; i < RI; ++i) {
+        if (CAUSAL && i > kb) continue;
+        const float x = t == 0 ? av[i].x
+                        : t == 1 ? av[i].y
+                        : t == 2 ? av[i].z
+                                 : av[i].w;
+        acc[i][0] = __fmaf_rn(x, b.x, acc[i][0]);
+        acc[i][1] = __fmaf_rn(x, b.y, acc[i][1]);
+        acc[i][2] = __fmaf_rn(x, b.z, acc[i][2]);
+        acc[i][3] = __fmaf_rn(x, b.w, acc[i][3]);
+      }
+    }
   }
+}
+
+// The sum of v over a half-warp's 16 lanes in a fixed tree; every lane gets
+// the same bits.
+__device__ __forceinline__ float half_warp_sum(float v) {
+  v += __shfl_xor_sync(FULL, v, 8);
+  v += __shfl_xor_sync(FULL, v, 4);
+  v += __shfl_xor_sync(FULL, v, 2);
+  v += __shfl_xor_sync(FULL, v, 1);
+  return v;
+}
+
+// The sum of v over the block: each warp's lanes in a fixed tree, then the
+// warps' sums in warp order (red: NWARP slots of shared memory).  Every
+// thread calls it and gets the same bits.
+template <typename F>
+__device__ __forceinline__ F block_sum(F v, F* red) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
+  __syncthreads();  // red's last readers are done
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  F s = red[0];
+#pragma unroll
+  for (int w = 1; w < NWARP; ++w) s += red[w];
+  return s;
+}
+
+// Columns p0..p0+3 of a row of P (0 past P), 16 bytes at once where `vec`.
+__device__ __forceinline__ void get4(float (&v)[4], const float* row, int p0,
+                                     int P, bool vec) {
+  if (vec && p0 + 3 < P) {
+    const float4 u = ld4(row + p0);
+    v[0] = u.x, v[1] = u.y, v[2] = u.z, v[3] = u.w;
+    return;
+  }
+#pragma unroll
+  for (int t = 0; t < 4; ++t) v[t] = p0 + t < P ? row[p0 + t] : 0.f;
 }
 
 // One block's (b, h, chunk) of the backward: blockIdx (chunk, h, b).
@@ -654,37 +750,40 @@ __device__ __forceinline__ BItem bitem(const SsdBwdArgs& a, int c) {
 }
 
 // ---- b1. Q_c = sum_l exp(cs_l) C_l (x) dy_l, chunks 1.. ------------------
-constexpr size_t BQ_SMEM = sizeof(float) * (MAX_L * LDL + MAX_L * LDQ + MAX_L);
+// As ssd_state_kernel: a thread sums rows n0..n0+3 of Q and the columns of
+// outer8 at q0, in order over l.
+constexpr size_t BQ_SMEM = sizeof(float) * (MAX_L + MAX_L * LD + MAX_L * LDP);
 
-__global__ void __launch_bounds__(NT, 1) ssd_bwd_q_kernel(const SsdBwdArgs a) {
+__global__ void __launch_bounds__(NT, 2) ssd_bwd_q_kernel(const SsdBwdArgs a) {
   extern __shared__ float smem[];
-  float* cm = smem;               // C o exp(cs): cm[l*LDL + n]
-  float* dys = cm + MAX_L * LDL;  // dy: dys[l*LDQ + p]
-  float* css = dys + MAX_L * LDQ;
+  float* es = smem;              // exp(cs)
+  float* cm = es + MAX_L;        // C, then C o exp(cs): cm[l*LD + n]
+  float* dys = cm + MAX_L * LD;  // dy: dys[l*LDP + p]
   const BItem it = bitem(a, blockIdx.x + 1);
   const int N = a.N, L = a.L, H = a.H, P = a.P, tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-  stage(cm, LDL, a.Cm + it.row0 * N, N, L, N, MAX_L, MAX_N);
-  stage(dys, LDQ, a.dy + (it.row0 * H + it.h) * P, (long long)H * P, L, P,
-        MAX_L, MAX_PB);
-  if (tid < MAX_L) css[tid] = tid < L ? a.cs[it.bhc * L + tid] : 0.f;
+  const int N4 = (N + 3) & ~3;
+  cp_tile(dys, LDP, a.dy + (it.row0 * H + it.h) * P, (long long)H * P, L, L,
+          P, PW);
+  cp_tile(cm, LD, a.Cm + it.row0 * N, N, L, L, N, N4);
+  if (tid < L) es[tid] = expf(a.cs[it.bhc * L + tid]);
+  cp_wait();
   __syncthreads();
-  for (int e = tid; e < L * MAX_N; e += NT) {
-    const int l = e / MAX_N;
-    cm[l * LDL + e - l * MAX_N] *= expf(css[l]);
-  }
+  scale_rows(cm, LD, es, L, N4);
   __syncthreads();
-  float acc[8][4];
+  const int n0 = 4 * (tid >> 3), q0 = 4 * (tid & 7);
+  if (n0 >= N) return;
+  float acc[4][8];
   zero(acc);
-  mm(acc, cm + ty, 1, LDL, dys + tx, LDQ, 1, L);
+  for (int l = 0; l < L; ++l)
+    outer8(acc, ld4(cm + l * LD + n0), dys + l * LDP + q0);
   float* q = a.gs + it.bhc * N * P;
+  const bool vec = P % 4 == 0 && (reinterpret_cast<uintptr_t>(q) & 15) == 0;
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = ty + 16 * i, p = tx + 16 * j;
-      if (n < N && p < P) q[n * P + p] = acc[i][j];
-    }
+  for (int i = 0; i < 4; ++i) {
+    if (n0 + i >= N) break;
+    put_row(q + (size_t)(n0 + i) * P, q0, P, vec, acc[i]);
+    put_row(q + (size_t)(n0 + i) * P, q0 + 32, P, vec, acc[i] + 4);
+  }
 }
 
 // ---- b2. G_c, the chunks in reverse, per (b, h) --------------------------
@@ -720,292 +819,394 @@ __global__ void __launch_bounds__(PASS_NT) ssd_bwd_pass_kernel(
   }
 }
 
-// ---- b3. the intra-chunk terms, per (b, h, chunk) ------------------------
-constexpr size_t BI_SMEM =
-    sizeof(float) * (2 * MAX_L * LDL + 2 * MAX_L * LDQ + 2 * MAX_L +
-                     2 * 16 * MAX_L);
+// ---- b3. W summed over a group of heads; dcs's intra part ----------------
+// Per (b, chunk, group of HEAD_GROUP heads), the heads in order: DY^T =
+// dtx dy^T above the diagonal (a thread's rows m = ty + 16 i, columns
+// l = tx + 16 j, j >= i), W^T = DY^T o D^T summed into registers, E's row
+// and column sums (a half-warp's shuffles; the warps' parts in order) into
+// dcs; at the end the group's W^T, once.
+constexpr size_t BW_SMEM =
+    sizeof(float) * (2 * MAX_L * LDP + 3 * MAX_L + NWARP * MAX_L);
 
-__global__ void __launch_bounds__(NT, 1) ssd_bwd_intra_kernel(
-    const SsdBwdArgs a) {
+__global__ void __launch_bounds__(NT, 2) ssd_bwd_w_kernel(const SsdBwdArgs a) {
   extern __shared__ float smem[];
-  float* W = smem;                 // W[l*LDL + m]
-  float* M = W + MAX_L * LDL;      // M[l*LDL + m], then B, then C
-  float* dys = M + MAX_L * LDL;    // dy[l*LDQ + p]
-  float* dtxs = dys + MAX_L * LDQ; // dt*x[l*LDQ + p]
-  float* dts = dtxs + MAX_L * LDQ;
-  float* css = dts + MAX_L;
-  float* rpart = css + MAX_L;      // rpart[tx*MAX_L + l]: E's row sums
-  float* cpart = rpart + 16 * MAX_L;  // cpart[ty*MAX_L + m]: column sums
-  const BItem it = bitem(a, blockIdx.x);
-  const int N = a.N, L = a.L, H = a.H, P = a.P, T = a.T, tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
+  float* dys = smem;               // dy[l*LDP + p]
+  float* dtx = dys + MAX_L * LDP;  // dt*x[m*LDP + p]
+  float* dts = dtx + MAX_L * LDP;  // dt
+  float* css = dts + MAX_L;        // cs
+  float* cole = css + MAX_L;       // sum_l E[l][m]
+  float* rowp = cole + MAX_L;      // rowp[w*MAX_L + l]: sum_m E[l][m], by warp
+  const int L = a.L, H = a.H, P = a.P, nc = a.T / L, tid = threadIdx.x;
+  const int c = blockIdx.x, g = blockIdx.y, b = blockIdx.z;
+  const int tx = tid & 15, ty = tid >> 4, lane = tid & 31, warp = tid >> 5;
+  const int P4 = (P + 3) & ~3, ng = (H + HEAD_GROUP - 1) / HEAD_GROUP;
   const long long hp = (long long)H * P;
-  stage(dys, LDQ, a.dy + (it.row0 * H + it.h) * P, hp, L, P, MAX_L, MAX_PB);
-  stage(dtxs, LDQ, a.x + (it.row0 * H + it.h) * P, hp, L, P, MAX_L, MAX_PB);
-  if (tid < MAX_L) {
-    dts[tid] = tid < L ? a.dt[(it.row0 + tid) * H + it.h] : 0.f;
-    css[tid] = tid < L ? a.cs[it.bhc * L + tid] : 0.f;
-  }
-  __syncthreads();
-  for (int e = tid; e < MAX_L * MAX_PB; e += NT) {
-    const int l = e / MAX_PB;
-    float* q = dtxs + l * LDQ + e - l * MAX_PB;
-    *q = dts[l] * *q;
-  }
-  __syncthreads();
-
-  // DY[l][m] = dy_l . dtx_m; then W, M and E's row and column sums
-  {
+  const long long row0 = (long long)b * a.T + (long long)c * L;
+  const size_t bc = (size_t)b * nc + c;
+  const float* cbt = a.cbt + bc * L * L;
+  float ws[8][8];  // W^T of the group's heads so far (j >= i)
+  zero(ws);
+  for (int h = g * HEAD_GROUP; h < min(H, (g + 1) * HEAD_GROUP); ++h) {
+    const size_t bhc = ((size_t)b * H + h) * nc + c;
+    __syncthreads();  // the last head's tiles and sums are read
+    cp_tile(dys, LDP, a.dy + row0 * hp + (long long)h * P, hp, L, MAX_L, P,
+            PW);
+    cp_tile(dtx, LDP, a.x + row0 * hp + (long long)h * P, hp, L, MAX_L, P,
+            PW);
+    if (tid < MAX_L) {
+      dts[tid] = tid < L ? a.dt[(row0 + tid) * H + h] : 0.f;
+      css[tid] = tid < L ? a.cs[bhc * L + tid] : 0.f;
+    }
+    cp_wait();
+    __syncthreads();
+    scale_rows(dtx, LDP, dts, MAX_L, PW);
+    __syncthreads();
     float acc[8][8];
     zero(acc);
-    mm(acc, dys + ty * LDQ, LDQ, 1, dtxs + tx * LDQ, 1, LDQ, P);
-    const float* cbt = a.cbt + it.bc * L * L;
-    float rs[8], cs_[8];
+    mm_nt<8, 8, true>(acc, dtx + ty * LDP, LDP, dys + tx * LDP, LDP, P4);
+    float er[8], ec[8];  // E^T's sums along this thread's rows / columns
 #pragma unroll
-    for (int i = 0; i < 8; ++i) rs[i] = cs_[i] = 0.f;
+    for (int i = 0; i < 8; ++i) er[i] = ec[i] = 0.f;
 #pragma unroll
     for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int l = ty + 16 * i, m = tx + 16 * j;
+      for (int j = i; j < 8; ++j) {
+        const int m = ty + 16 * i, l = tx + 16 * j;
         const bool live = l < L && m <= l;
         const float d = live ? expf(css[l] - css[m]) : 0.f;
-        const float cb = live ? cbt[m * L + l] : 0.f;
+        const float cb = live ? __ldg(cbt + m * L + l) : 0.f;
         const float w = acc[i][j] * d;
         const float e = w * cb;
-        W[l * LDL + m] = w;
-        M[l * LDL + m] = cb * d;
-        rs[i] += e;
-        cs_[j] += e;
+        ws[i][j] += w;
+        er[i] += e;
+        ec[j] += e;
       }
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
-      rpart[tx * MAX_L + ty + 16 * i] = rs[i];
-      cpart[ty * MAX_L + tx + 16 * i] = cs_[i];
+      const float v = half_warp_sum(er[i]);
+      if (tx == 0) cole[ty + 16 * i] = v;
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float v = ec[j] + __shfl_xor_sync(FULL, ec[j], 16);
+      if (lane < 16) rowp[warp * MAX_L + tx + 16 * j] = v;
+    }
+    __syncthreads();
+    if (tid < L) {
+      float v = rowp[tid];
+      for (int w = 1; w < NWARP; ++w) v += rowp[w * MAX_L + tid];
+      a.dcs[bhc * L + tid] = v - cole[tid];
     }
   }
-  __syncthreads();
-  if (tid < L) {
-    float v = 0.f;
-    for (int t = 0; t < 16; ++t) v += rpart[t * MAX_L + tid];
-    for (int t = 0; t < 16; ++t) v -= cpart[t * MAX_L + tid];
-    a.dcs[it.bhc * L + tid] = v;
-  }
-  // sum_l M[l][m] dy_l into dx (the inter kernel adds the rest)
-  {
-    float acc[8][4];
-    zero(acc);
-    mm(acc, M + ty, 1, LDL, dys + tx, LDQ, 1, L);
+  float* out = a.wg + (bc * ng + g) * L * L;
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int m = ty + 16 * i, p = tx + 16 * j;
-        if (m < L && p < P) a.dx[(it.row0 + m) * hp + it.h * P + p] = acc[i][j];
-      }
-  }
-  __syncthreads();
-  float* out_h = nullptr;
-  const size_t hrow = ((size_t)it.b * H + it.h) * T + (size_t)it.c * L;
-  for (int pass = 0; pass < 2; ++pass) {
-    // pass 0: dC_l = sum_m W[l][m] B_m;  pass 1: dB_m = sum_l W[l][m] C_l
-    stage(M, LDL, (pass ? a.Cm : a.Bm) + it.row0 * N, N, L, N, MAX_L, MAX_N);
-    __syncthreads();
-    float acc[8][8];
-    zero(acc);
-    if (pass == 0)
-      mm(acc, W + ty * LDL, LDL, 1, M + tx, LDL, 1, L);
-    else
-      mm(acc, W + ty, 1, LDL, M + tx, LDL, 1, L);
-    out_h = (pass ? a.dBh : a.dCh) + hrow * N;
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int r = ty + 16 * i, n = tx + 16 * j;
-        if (r < L && n < N) out_h[(size_t)r * N + n] = acc[i][j];
-      }
-    __syncthreads();
-  }
+    for (int j = i; j < 8; ++j) {
+      const int m = ty + 16 * i, l = tx + 16 * j;
+      if (l < L && m <= l) out[m * L + l] = ws[i][j];
+    }
 }
 
-// ---- b4. the carried-state terms, dx, ddt and dA, per (b, h, chunk) ------
-constexpr size_t BX_SMEM =
-    sizeof(float) * (MAX_L * LDL + 4 * MAX_L * LDQ + 5 * MAX_L +
-                     3 * 16 * MAX_L + NT);
+// ---- b4. dx, ddt and dA's part, per (b, h, chunk) -------------------------
+// Three products of (L, P) tiles, a thread's rows ty + 16 i and columns
+// p0..p0+3: w o (B G_c) (not in the last chunk without a final state's
+// gradient), then + M^T dy (ddtx: dx, ddtx . x), then C S_in (not in chunk
+// 0: C_l . (exp(cs_l) S_in dy_l) = exp(cs_l) dy_l . (C S_in)_l).  The
+// per-row sums over p by half-warp shuffles; the chunk's sums, dlam's
+// reverse cumsum and dA's part in fixed trees.
+constexpr size_t BD_SMEM = sizeof(double) * NWARP +
+                           sizeof(float) * (NWARP + MAX_L * LD + MAX_L * LDP +
+                                            6 * MAX_L);
 
-__global__ void __launch_bounds__(NT, 1) ssd_bwd_inter_kernel(
+__global__ void __launch_bounds__(NT, 2) ssd_bwd_dx_kernel(
     const SsdBwdArgs a) {
-  static_assert(MAX_N == MAX_L, "the (., N) and (., L) tiles share strides");
   extern __shared__ float smem[];
-  float* Bs = smem;                  // B[m*LDL + n]
-  float* Gs = Bs + MAX_L * LDL;      // G_c[n*LDQ + p]
-  float* Ss = Gs + MAX_N * LDQ;      // S_in[n*LDQ + p]
-  float* dys = Ss + MAX_N * LDQ;     // dy[l*LDQ + p]
-  float* dtxs = dys + MAX_L * LDQ;   // dt*x[l*LDQ + p]
-  float* dts = dtxs + MAX_L * LDQ;
-  float* css = dts + MAX_L;
-  float* dcs = css + MAX_L;          // dcs, then dlam
-  float* xd = dcs + MAX_L;           // ddtx . x
-  float* uu = xd + MAX_L;            // u
-  float* up = uu + MAX_L;            // up[tx*MAX_L + m]: parts of u
-  float* xp = up + 16 * MAX_L;       // parts of ddtx . x
-  float* cp = xp + 16 * MAX_L;       // parts of C_l . dC2_l
-  float* red = cp + 16 * MAX_L;      // <G_c, S_in> by thread
+  double* redd = reinterpret_cast<double*>(smem);  // the warps' sums
+  float* red = reinterpret_cast<float*>(redd + NWARP);
+  float* t1 = red + NWARP;         // B, then M^T, then C: t1[r*LD + k]
+  float* t2 = t1 + MAX_L * LD;     // G_c, then dy, then S_in: t2[k*LDP + p]
+  float* dts = t2 + MAX_L * LDP;   // dt
+  float* css = dts + MAX_L;        // cs
+  float* ws = css + MAX_L;         // exp(cs_L - cs)
+  float* uu = ws + MAX_L;          // u
+  float* xd = uu + MAX_L;          // ddtx . x
+  float* ct = xd + MAX_L;          // C_l . (exp(cs_l) S_in dy_l)
   const BItem it = bitem(a, blockIdx.x);
-  const int N = a.N, L = a.L, H = a.H, P = a.P, T = a.T, tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
+  const int N = a.N, L = a.L, H = a.H, P = a.P, tid = threadIdx.x;
+  const int tx = tid & 15, ty = tid >> 4, p0 = 4 * tx;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int N4 = (N + 3) & ~3, L4 = (L + 3) & ~3;
   const long long hp = (long long)H * P;
   const size_t np = (size_t)N * P;
-  stage(Bs, LDL, a.Bm + it.row0 * N, N, L, N, MAX_L, MAX_N);
-  stage(Gs, LDQ, a.gs + it.bhc * np, P, N, P, MAX_N, MAX_PB);
-  stage(Ss, LDQ, a.st + it.bhc * np, P, N, P, MAX_N, MAX_PB);
-  stage(dys, LDQ, a.dy + (it.row0 * H + it.h) * P, hp, L, P, MAX_L, MAX_PB);
-  stage(dtxs, LDQ, a.x + (it.row0 * H + it.h) * P, hp, L, P, MAX_L, MAX_PB);
+  const long long o0 = it.row0 * hp + (long long)it.h * P;
+  const float* xh = a.x + o0;  // x of row m: xh + m * hp
+  const float* dyh = a.dy + o0;
+  float* dxh = a.dx + o0;
+  const bool vec = P % 4 == 0 && (reinterpret_cast<uintptr_t>(a.x) & 15) == 0 &&
+                   (reinterpret_cast<uintptr_t>(a.dy) & 15) == 0 &&
+                   (reinterpret_cast<uintptr_t>(a.dx) & 15) == 0;
+  const bool has_g = it.c + 1 < it.nc || a.dfinal != nullptr;
+  const bool has_s = it.c > 0;
+  if (has_g) {
+    cp_tile(t1, LD, a.Bm + it.row0 * N, N, L, MAX_L, N, N4);
+    cp_tile(t2, LDP, a.gs + it.bhc * np, P, N, N4, P, PW);
+  }
   if (tid < MAX_L) {
     dts[tid] = tid < L ? a.dt[(it.row0 + tid) * H + it.h] : 0.f;
     css[tid] = tid < L ? a.cs[it.bhc * L + tid] : 0.f;
-  }
-  __syncthreads();
-  for (int e = tid; e < MAX_L * MAX_PB; e += NT) {
-    const int l = e / MAX_PB;
-    float* q = dtxs + l * LDQ + e - l * MAX_PB;
-    *q = dts[l] * *q;
+    uu[tid] = xd[tid] = ct[tid] = 0.f;
   }
   __syncthreads();
   const float cl = css[L - 1];
+  if (tid < MAX_L) ws[tid] = tid < L ? expf(cl - css[tid]) : 0.f;
+  cp_wait();
+  __syncthreads();
 
-  // ddtx = (sum_l M dy, from the intra kernel) + w_m B_m G_c; dx; u; ddtx.x
-  {
-    float acc[8][4];
-    zero(acc);
-    mm(acc, Bs + ty * LDL, LDL, 1, Gs + tx, LDQ, 1, N);
+  // w_m (B G_c)_m, and u_m = that . dtx_m
+  float acc[8][4];
+  zero(acc);
+  if (has_g) {
+    mm_tn<8, false>(acc, t1 + ty * LD, LD, t2 + p0, LDP, N4);
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const int m = ty + 16 * i;
-      const bool in = m < L;
-      const float w = in ? expf(cl - css[m]) : 0.f;
-      float us = 0.f, xs = 0.f;
+      float us = 0.f;
+      if (m < L) {
+        float xv[4];
+        get4(xv, xh + m * hp, p0, P, vec);
+        const float w = ws[m];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int p = tx + 16 * j;
-        if (!in || p >= P) continue;
-        const float v = acc[i][j] * w;
-        us += v * dtxs[m * LDQ + p];
-        const long long o = (it.row0 + m) * hp + it.h * P + p;
-        const float dd = a.dx[o] + v;
-        xs += dd * a.x[o];
-        a.dx[o] = dts[m] * dd;
+        for (int t = 0; t < 4; ++t) {
+          const float v = acc[i][t] * w;
+          us += v * (dts[m] * xv[t]);
+          acc[i][t] = v;
+        }
       }
-      up[tx * MAX_L + m] = us;
-      xp[tx * MAX_L + m] = xs;
+      us = half_warp_sum(us);
+      if (tx == 0) uu[m] = us;
     }
   }
-  const size_t hrow = ((size_t)it.b * H + it.h) * T + (size_t)it.c * L;
-  // dB_m += w_m G_c dtx_m
-  {
-    float acc[8][8];
-    zero(acc);
-    mm(acc, dtxs + ty * LDQ, LDQ, 1, Gs + tx * LDQ, 1, LDQ, P);
-    float* dbh = a.dBh + hrow * N;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int m = ty + 16 * i;
-      if (m >= L) continue;
-      const float w = expf(cl - css[m]);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int n = tx + 16 * j;
-        if (n < N) dbh[(size_t)m * N + n] += acc[i][j] * w;
-      }
-    }
+  __syncthreads();  // B and G_c are read
+
+  // ddtx = that + M^T dy, M^T[m][l] = (C B^T)^T[m][l] exp(cs_l - cs_m) for
+  // m <= l < L (the masked exponential: no inf reaches a product)
+  cp_tile(t2, LDP, dyh, hp, L, L4, P, PW);
+  const float* cbt = a.cbt + it.bc * L * L;
+  for (int e = tid; e < MAX_L * L4; e += NT) {
+    const int m = e / L4, l = e - m * L4;
+    t1[m * LD + l] =
+        (m <= l && l < L) ? cbt[m * L + l] * expf(css[l] - css[m]) : 0.f;
   }
-  // dC_l += exp(cs_l) S_in dy_l;  C_l . that, for dcs
-  {
-    float acc[8][8];
+  cp_wait();
+  __syncthreads();
+  mm_tn<8, true>(acc, t1 + ty * LD, LD, t2 + p0, LDP, L4);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int m = ty + 16 * i;
+    float xs = 0.f;
+    if (m < L) {
+      float xv[4], d[4];
+      get4(xv, xh + m * hp, p0, P, vec);
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        xs += acc[i][t] * xv[t];
+        d[t] = dts[m] * acc[i][t];
+      }
+      put_row(dxh + m * hp, p0, P, vec, d);
+    }
+    xs = half_warp_sum(xs);
+    if (tx == 0) xd[m] = xs;
+  }
+  __syncthreads();  // M^T and dy are read
+
+  // exp(cs_l) dy_l . (C S_in)_l; <G_c, S_in>
+  float gsum = 0.f;
+  if (has_s) {
+    cp_tile(t1, LD, a.Cm + it.row0 * N, N, L, MAX_L, N, N4);
+    cp_tile(t2, LDP, a.st + it.bhc * np, P, N, N4, P, PW);
+    cp_wait();
+    __syncthreads();
     zero(acc);
-    mm(acc, dys + ty * LDQ, LDQ, 1, Ss + tx * LDQ, 1, LDQ, P);
-    float* dch = a.dCh + hrow * N;
+    mm_tn<8, false>(acc, t1 + ty * LD, LD, t2 + p0, LDP, N4);
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const int l = ty + 16 * i;
       float s = 0.f;
       if (l < L) {
-        const float e = expf(css[l]);
+        float dv[4];
+        get4(dv, dyh + l * hp, p0, P, vec);
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int n = tx + 16 * j;
-          if (n >= N) continue;
-          const float v = acc[i][j] * e;
-          dch[(size_t)l * N + n] += v;
-          s += v * a.Cm[(it.row0 + l) * N + n];
-        }
+        for (int t = 0; t < 4; ++t) s += acc[i][t] * dv[t];
       }
-      cp[tx * MAX_L + l] = s;
+      s = half_warp_sum(s);
+      if (tx == 0) ct[l] = s * expf(css[l]);
+    }
+    if (has_g) {
+      const float* gc = a.gs + it.bhc * np;
+      float s = 0.f;
+      for (int e = tid; e < N * P; e += NT) {
+        const int n = e / P;
+        s += gc[e] * t2[n * LDP + e - n * P];
+      }
+      gsum = block_sum(s, red);
     }
   }
-  // <G_c, S_in>, by thread
-  {
-    float s = 0.f;
-    for (int e = tid; e < N * P; e += NT) {
-      const int n = e / P, p = e - n * P;
-      s += Gs[n * LDQ + p] * Ss[n * LDQ + p];
+  __syncthreads();  // uu, xd and ct are in
+  const float usum = block_sum(tid < L ? uu[tid] : 0.f, red);
+
+  // dcs; dlam, its in-chunk reverse cumsum (in double: a warp's lanes by
+  // shuffles, then the later warps' sums in order); dA's part
+  double run = 0.0;
+  if (warp < MAX_L / 32) {  // one l a thread
+    float v = 0.f;
+    if (tid < L) {
+      v = a.dcs[it.bhc * L + tid] + ct[tid] - uu[tid];
+      if (tid == L - 1) v += expf(cl) * gsum + usum;
     }
-    red[tid] = s;
-  }
-  __syncthreads();
-  if (tid < L) {
-    float u = 0.f, x = 0.f, c = 0.f;
-    for (int t = 0; t < 16; ++t) u += up[t * MAX_L + tid];
-    for (int t = 0; t < 16; ++t) x += xp[t * MAX_L + tid];
-    for (int t = 0; t < 16; ++t) c += cp[t * MAX_L + tid];
-    uu[tid] = u;
-    xd[tid] = x;
-    dcs[tid] = a.dcs[it.bhc * L + tid] + c - u;
-  }
-  __syncthreads();
-  if (tid == 0) {
-    float gs = 0.f, us = 0.f;
-    for (int t = 0; t < NT; ++t) gs += red[t];
-    for (int l = 0; l < L; ++l) us += uu[l];
-    dcs[L - 1] += expf(cl) * gs + us;
-    // dlam: the in-chunk reverse cumsum of dcs; dA's part in order.  In
-    // double: dA sums B x T terms of both signs (the plain twin's float32
-    // sums carry their own rounding, which the tolerance covers)
-    double run = 0.0, da = 0.0;
-    for (int l = L - 1; l >= 0; --l) {
-      run += (double)dcs[l];
-      dcs[l] = (float)run;
-      da += run * (double)dts[l];
+    run = (double)v;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const double up = __shfl_down_sync(FULL, run, o);
+      if (lane + o < 32) run += up;
     }
-    a.dAp[it.bhc] = (float)da;
+    if (lane == 0) redd[warp] = run;
   }
   __syncthreads();
-  if (tid < L)
-    a.ddt[(it.row0 + tid) * H + it.h] = dcs[tid] * a.A[it.h] + xd[tid];
+  double da = 0.0;
+  if (warp < MAX_L / 32) {
+    for (int w = MAX_L / 32 - 1; w > warp; --w) run += redd[w];
+    if (tid < L) {
+      a.ddt[(it.row0 + tid) * H + it.h] = (float)run * a.A[it.h] + xd[tid];
+      da = run * (double)dts[tid];
+    }
+  }
+  da = block_sum(da, redd);
+  if (tid == 0) a.dAp[it.bhc] = (float)da;
 }
 
-// ---- b5. dB and dC over the heads, dA over (b, chunk), in order ----------
-__global__ void __launch_bounds__(NT) ssd_bwd_sum_kernel(const SsdBwdArgs a) {
-  const int H = a.H, nc = a.T / a.L;
-  const size_t TN = (size_t)a.T * a.N, total = (size_t)a.Bb * TN;
-  for (size_t e = (size_t)blockIdx.x * NT + threadIdx.x; e < total;
-       e += (size_t)gridDim.x * NT) {
-    const size_t b = e / TN, r = e - b * TN;
-    float sb = 0.f, sc = 0.f;
-    for (int h = 0; h < H; ++h) {
-      const size_t o = ((size_t)b * H + h) * TN + r;
-      sb += a.dBh[o];
-      sc += a.dCh[o];
+// ---- b5. dB and dC once per (b, chunk, DBC_COLS columns); dA -------------
+// A block's rows are all L of the chunk (a thread's ty + 16 i), its
+// columns n0 + tx + 16 j.  dC = W B + sum_h exp(cs_h) o (dy_h S_in,h^T)
+// and dB = W^T C + sum_h (w_h o dt_h) o (x_h G_c,h^T): W summed over the
+// groups in order, then the heads in order, K = P each, two heads' tiles
+// in flight (cp.async).  No dC term in chunk 0 (S_in is 0), no dB term in
+// the last chunk without a final state's gradient (G is 0).
+constexpr size_t BBC_SMEM =
+    sizeof(float) * (2 * MAX_L * LDP + 2 * DBC_COLS * LDP + 2 * MAX_L);
+
+__global__ void __launch_bounds__(NT, 2) ssd_bwd_dbc_kernel(
+    const SsdBwdArgs a) {
+  static_assert(MAX_L * LD <= 2 * MAX_L * LDP, "W^T fits the row tiles");
+  static_assert(MAX_L * (DBC_COLS + 1) <= 2 * DBC_COLS * LDP,
+                "B or C fits the column tiles");
+  extern __shared__ float smem[];
+  float* at = smem;  // W^T[m*LD + l]; then dy or x of a head, two buffers
+  float* bt = at + 2 * MAX_L * LDP;  // B or C[k*(DBC_COLS+1) + n]; then
+                                     // S_in or G_c rows n0.., two buffers
+  float* fac = bt + 2 * DBC_COLS * LDP;  // the rows' factors, two buffers
+  const int L = a.L, N = a.N, H = a.H, P = a.P, nc = a.T / L;
+  const int c = blockIdx.x, b = blockIdx.z, tid = threadIdx.x;
+  const int nq = (N + DBC_COLS - 1) / DBC_COLS, role = blockIdx.y / nq;
+  const int n0 = (blockIdx.y - role * nq) * DBC_COLS;
+  const int nw = min(DBC_COLS, N - n0);
+  const int tx = tid & 15, ty = tid >> 4;
+  const int P4 = (P + 3) & ~3, ng = (H + HEAD_GROUP - 1) / HEAD_GROUP;
+  const long long hp = (long long)H * P;
+  const long long row0 = (long long)b * a.T + (long long)c * L;
+  const size_t bc = (size_t)b * nc + c, np = (size_t)N * P;
+
+  // W^T = sum over the groups, in order (0 where m > l)
+  const float* wg = a.wg + bc * ng * L * L;
+  for (int e = tid; e < MAX_L * MAX_L; e += NT) {
+    const int m = e / MAX_L, l = e - m * MAX_L;
+    float v = 0.f;
+    if (m <= l && l < L) {
+      v = wg[m * L + l];
+      for (int gi = 1; gi < ng; ++gi) v += wg[(size_t)gi * L * L + m * L + l];
     }
-    a.dB[e] = sb;
-    a.dC[e] = sc;
+    at[m * LD + l] = v;
   }
-  if (blockIdx.x == 0)
-    for (int h = threadIdx.x; h < H; h += NT) {
+  const float* src = role ? a.Cm : a.Bm;
+  for (int e = tid; e < MAX_L * DBC_COLS; e += NT) {
+    const int k = e / DBC_COLS, n = e - k * DBC_COLS;
+    bt[k * (DBC_COLS + 1) + n] =
+        (k < L && n < nw) ? src[(row0 + k) * N + n0 + n] : 0.f;
+  }
+  __syncthreads();
+  // dC: sum_m W[l][m] B[m][n] (W[l][m] = W^T[m][l]); dB: sum_l W^T[m][l]
+  // C[l][n]
+  float acc[8][2];
+  zero(acc);
+  for (int k = 0; k < L; ++k) {
+    float av[8], bv[2];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      av[i] = role ? at[(ty + 16 * i) * LD + k] : at[k * LD + ty + 16 * i];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) bv[j] = bt[k * (DBC_COLS + 1) + tx + 16 * j];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) acc[i][j] = __fmaf_rn(av[i], bv[j], acc[i][j]);
+  }
+
+  if (role ? (c + 1 < nc || a.dfinal != nullptr) : c > 0) {
+    const float* asrc = (role ? a.x : a.dy) + row0 * hp;
+    const float* bsrc = (role ? a.gs : a.st) + (size_t)n0 * P;
+    auto issue = [&](int h, int buf) {
+      const size_t bhc = ((size_t)b * H + h) * nc + c;
+      cp_tile(at + buf * MAX_L * LDP, LDP, asrc + (long long)h * P, hp, L,
+              MAX_L, P, PW);
+      cp_tile(bt + buf * DBC_COLS * LDP, LDP, bsrc + bhc * np, P, nw,
+              DBC_COLS, P, PW);
+      if (tid < MAX_L) {
+        float f = 0.f;
+        if (tid < L) {
+          const float* cs = a.cs + bhc * L;
+          f = role ? expf(cs[L - 1] - cs[tid]) * a.dt[(row0 + tid) * H + h]
+                   : expf(cs[tid]);
+        }
+        fac[buf * MAX_L + tid] = f;
+      }
+    };
+    __syncthreads();  // W^T and B or C are read
+    issue(0, 0);
+    for (int h = 0; h < H; ++h) {
+      const int cur = h & 1;
+      cp_wait();
+      __syncthreads();  // head h is in; head h - 1's buffers are read
+      if (h + 1 < H) issue(h + 1, cur ^ 1);
+      float t[8][2];
+      zero(t);
+      mm_nt<8, 2, false>(t, at + cur * MAX_L * LDP + ty * LDP, LDP,
+                         bt + cur * DBC_COLS * LDP + tx * LDP, LDP, P4);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float f = fac[cur * MAX_L + ty + 16 * i];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) acc[i][j] = __fmaf_rn(f, t[i][j], acc[i][j]);
+      }
+    }
+  }
+  float* out = role ? a.dB : a.dC;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = ty + 16 * i;
+    if (r >= L) break;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int n = tx + 16 * j;
+      if (n < nw) out[(row0 + r) * N + n0 + n] = acc[i][j];
+    }
+  }
+  // dA over the batch and the chunks, in order, in double
+  if (c == 0 && blockIdx.y == 0 && b == 0)
+    for (int h = tid; h < H; h += NT) {
       double s = 0.0;
-      for (int b = 0; b < a.Bb; ++b)
-        for (int c = 0; c < nc; ++c) s += a.dAp[((size_t)b * H + h) * nc + c];
+      for (int bb = 0; bb < a.Bb; ++bb)
+        for (int cc = 0; cc < nc; ++cc)
+          s += a.dAp[((size_t)bb * H + h) * nc + cc];
       a.dA[h] = (float)s;
     }
 }
@@ -1014,11 +1215,13 @@ int launch_bwd(const SsdBwdArgs& a, cudaStream_t stream) {
   static int opted = -1;
   if (opted != 0) {
     opted = opt_in(ssd_bwd_q_kernel, BQ_SMEM);
-    if (!opted) opted = opt_in(ssd_bwd_intra_kernel, BI_SMEM);
-    if (!opted) opted = opt_in(ssd_bwd_inter_kernel, BX_SMEM);
+    if (!opted) opted = opt_in(ssd_bwd_w_kernel, BW_SMEM);
+    if (!opted) opted = opt_in(ssd_bwd_dx_kernel, BD_SMEM);
+    if (!opted) opted = opt_in(ssd_bwd_dbc_kernel, BBC_SMEM);
     if (opted) return opted;
   }
-  const int nc = a.T / a.L;
+  const int nc = a.T / a.L, ng = (a.H + HEAD_GROUP - 1) / HEAD_GROUP;
+  const int nq = (a.N + DBC_COLS - 1) / DBC_COLS;
   const long long np = (long long)a.N * a.P;
   int err;
   if (nc > 1) {
@@ -1028,13 +1231,11 @@ int launch_bwd(const SsdBwdArgs& a, cudaStream_t stream) {
   const int nb = (int)((np + PASS_NT * PASS_EL - 1) / (PASS_NT * PASS_EL));
   ssd_bwd_pass_kernel<<<dim3(nb, a.H, a.Bb), PASS_NT, 0, stream>>>(a);
   if ((err = (int)cudaGetLastError())) return err;
-  ssd_bwd_intra_kernel<<<dim3(nc, a.H, a.Bb), NT, BI_SMEM, stream>>>(a);
+  ssd_bwd_w_kernel<<<dim3(nc, ng, a.Bb), NT, BW_SMEM, stream>>>(a);
   if ((err = (int)cudaGetLastError())) return err;
-  ssd_bwd_inter_kernel<<<dim3(nc, a.H, a.Bb), NT, BX_SMEM, stream>>>(a);
+  ssd_bwd_dx_kernel<<<dim3(nc, a.H, a.Bb), NT, BD_SMEM, stream>>>(a);
   if ((err = (int)cudaGetLastError())) return err;
-  const long long total = (long long)a.Bb * a.T * a.N;
-  const int sb = (int)std::min<long long>((total + NT - 1) / NT, 4096);
-  ssd_bwd_sum_kernel<<<sb, NT, 0, stream>>>(a);
+  ssd_bwd_dbc_kernel<<<dim3(nc, 2 * nq, a.Bb), NT, BBC_SMEM, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -1052,6 +1253,7 @@ extern "C" int ssd_scan_bwd(const SsdBwdArgs* a, cudaStream_t stream) {
     return (int)cudaErrorInvalidValue;
   return launch_bwd(*a, stream);
 }
+
 
 // x_bf16 / bc_bf16: 1 for bfloat16 x (and y) / B and C, 0 for float32.
 // Four launches on `stream`; returns cudaGetLastError() after the first

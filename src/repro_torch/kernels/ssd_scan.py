@@ -19,7 +19,9 @@ scratch the backward reads (C B^T, cs and each chunk's incoming state),
 and its backward is :func:`ssd_scan_bwd`, the hand-written backward
 kernel (``ssd_scan_bwd`` in ``csrc/ssd_scan.cu``, five launches, float32,
 P up to 64, every sum in a fixed order so that two calls give the same
-bits), one ``launches["ssd_scan_bwd"]`` a call.  Its plain twin,
+bits; W summed over groups of heads, and dB and dC written once from
+products over the heads, with no per-head partials), one
+``launches["ssd_scan_bwd"]`` a call.  Its plain twin,
 :func:`ssd_scan_bwd_plain`, is autograd through the plain chunked scan;
 CPU tensors take it.  The TPU kernel has no backward: the reference
 trains through XLA's gradient of the jnp ``ssd_chunked``.  The forward
@@ -46,6 +48,9 @@ MAX_CHUNK = 128
 MAX_STATE = 128
 #: Largest head dimension the backward takes.
 MAX_HEAD_DIM_BWD = 64
+#: Heads whose W one block of the backward sums (``HEAD_GROUP`` in
+#: ``csrc/ssd_scan.cu``).
+HEAD_GROUP = 10
 
 _TYPES = (torch.float32, torch.bfloat16)
 
@@ -82,22 +87,24 @@ class SsdBwdArgs(Structure):
 
     _fields_ = ([(n, c_void_p) for n in (
         "x", "dt", "A", "Bm", "Cm", "dy", "dfinal", "cbt", "cs", "st", "dx",
-        "ddt", "dA", "dB", "dC", "gs", "dcs", "dBh", "dCh", "dAp")]
+        "ddt", "dA", "dB", "dC", "gs", "dcs", "wg", "dAp")]
         + [(n, c_int) for n in ("Bb", "T", "H", "P", "N", "L")])
 
 
 def _bwd_plan(Bb: int, T: int, H: int, P: int, N: int, L: int) -> dict:
     """The backward's float32 scratch, ``{name: shape}`` in the order of
     ``SsdBwdArgs``: each chunk's Q_c, then G_c; the intra part of dcs;
-    dB and dC of each head; dA of each (b, h, chunk)."""
+    W^T summed over each group of ``HEAD_GROUP`` heads, per (b, chunk);
+    dA of each (b, h, chunk).  dB and dC have no per-head scratch."""
     if L > MAX_CHUNK or N > MAX_STATE or P > MAX_HEAD_DIM_BWD:
         raise ValueError(f"ssd_scan backward kernel: chunk length {L} (at "
                          f"most {MAX_CHUNK}), state size {N} (at most "
                          f"{MAX_STATE}), head dim {P} (at most "
                          f"{MAX_HEAD_DIM_BWD})")
     nc = T // L
+    ng = -(-H // HEAD_GROUP)
     return {"gs": (Bb, H, nc, N, P), "dcs": (Bb, H, nc, L),
-            "dBh": (Bb, H, T, N), "dCh": (Bb, H, T, N), "dAp": (Bb, H, nc)}
+            "wg": (Bb, nc, ng, L, L), "dAp": (Bb, H, nc)}
 
 
 def _declare(lib: ctypes.CDLL) -> None:

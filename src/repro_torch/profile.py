@@ -180,8 +180,8 @@ OWN_KERNELS = ("strack_kernel", "roce_kernel", "serve_enqueue_kernel",
                "fa_kernel", "tc_kernel", "dec_kernel",
                "ssd_cb_kernel", "ssd_state_kernel", "ssd_pass_kernel",
                "ssd_out_kernel", "ssd_bwd_q_kernel", "ssd_bwd_pass_kernel",
-               "ssd_bwd_intra_kernel", "ssd_bwd_inter_kernel",
-               "ssd_bwd_sum_kernel")
+               "ssd_bwd_w_kernel", "ssd_bwd_dx_kernel",
+               "ssd_bwd_dbc_kernel")
 
 
 def _fabric_run(name: str):

@@ -103,10 +103,11 @@ def test_kernel_structs_match_their_ctypes_bindings():
     another, which no CPU run would show); so does flash attention's
     ``FaArgs`` (every route's arguments, the decode split's scratch and
     counters among them) its mirror in ``kernels/flash_attention.py``, and
-    the SSD scan's ``SsdArgs`` (its four launches' scratch among them) its
-    mirror in ``kernels/ssd_scan.py``; and the serve kernel's bucket slots,
-    the PFC warp's counters and the STrack transition's block of warps
-    (the source index's flows a block) their Python mirrors."""
+    the SSD scan's ``SsdArgs`` and ``SsdBwdArgs`` (their launches' scratch
+    among them) their mirrors in ``kernels/ssd_scan.py``; and the serve
+    kernel's bucket slots, the PFC warp's counters and the STrack
+    transition's block of warps (the source index's flows a block) their
+    Python mirrors."""
     from pathlib import Path
     from repro_torch.kernels import _cuda_bind as B
     from repro_torch.kernels import flash_attention as fa
@@ -128,7 +129,8 @@ def test_kernel_structs_match_their_ctypes_bindings():
                                ("PfcParams", B.PfcParams),
                                ("PfcIn", B.PfcIn), ("PfcState", B.PfcPtrs)],
              "flash_attention": [("FaArgs", fa.FaArgs)],
-             "ssd_scan": [("SsdArgs", ssd.SsdArgs)]}
+             "ssd_scan": [("SsdArgs", ssd.SsdArgs),
+                          ("SsdBwdArgs", ssd.SsdBwdArgs)]}
     for source, structs in pairs.items():
         text = (csrc / f"{source}.cu").read_text()
         for name, cls in structs:

@@ -1045,12 +1045,15 @@ def test_batched_kernels_match_plain_on_the_card(cuda):
 
 @pytest.mark.parametrize("B,T,H,P,N,chunk", [(2, 256, 4, 64, 128, 128),
                                              (1, 96, 3, 16, 16, 16),
-                                             (2, 40, 2, 5, 7, 8)])
+                                             (2, 40, 2, 5, 7, 8),
+                                             (2, 256, 80, 64, 128, 128),
+                                             (1, 64, 13, 8, 12, 32)])
 def test_ssd_scan_backward_kernel_matches_twin(cuda, B, T, H, P, N, chunk):
     """SsdScanFn's gradients (the backward kernel) against the plain twin's
     (autograd through the plain scan) within 1e-4 of each gradient's
     largest magnitude, the final state's gradient included; two calls give
-    the same bits."""
+    the same bits.  H 80 sums W over eight head groups, H 13 over a group
+    and a part of one."""
     g = torch.Generator(device=cuda).manual_seed(B * T + N)
     r = lambda *s: torch.randn(s, generator=g, device=cuda)
     x, Bm, Cm, dy = r(B, T, H, P), r(B, T, N), r(B, T, N), r(B, T, H, P)

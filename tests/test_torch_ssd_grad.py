@@ -31,6 +31,12 @@ CASES = [  # B, T, H, P, N, chunk
     (1, 40, 2, 5, 7, 8),
     (2, 24, 4, 8, 4, 24),
     (1, 64, 2, 64, 32, 32),
+    # H not a multiple of the head group: kernel_model runs in float64,
+    # where the order of the groups' sum cannot change a result, so this
+    # case checks the model's slicing into groups; the float32 order at
+    # the kernel's group boundaries is held on the card by
+    # tests/test_torch_cuda.py's (1, 64, 13, 8, 12, 32) and H 80 cases.
+    (1, 32, 13, 8, 8, 16),
 ]
 
 
@@ -76,10 +82,13 @@ def test_plain_ssd_gradients_match_jax(case, with_final):
 
 def kernel_model(x, dt, A, Bm, Cm, chunk, dy, dfinal=None):
     """The backward kernel's algorithm (``csrc/ssd_scan.cu``, the comment
-    above ``SsdBwdArgs``) in plain PyTorch, float64: the forward's chunk
-    states S_in; Q_c; the reverse pass G_c; per chunk DY, W, M and E, the
-    intra and carried-state terms, dcs, its reverse cumsum dlam; dB and dC
-    summed over the heads, dA over the batch and the chunks."""
+    above ``SsdBwdArgs``) in plain PyTorch, float64, pass by pass: the
+    forward's chunk states S_in; Q_c and the reverse pass G_c (b1, b2); per
+    (b, chunk, group of ``HEAD_GROUP`` heads) DY, W and E's sums, W summed
+    over the group's heads (b3); per head w o (B G_c) + M^T dy, u, ddtx . x
+    and exp(cs) dy . (C S_in), dcs, dlam, ddt, dx and dA's part (b4); the
+    groups' W summed and its products with B and C, then the carried-state
+    terms as one product per (b, chunk) over K = H P (b5)."""
     f = torch.float64
     x, dt, A, Bm, Cm, dy = (t.to(f) for t in (x, dt, A, Bm, Cm, dy))
     Bb, T, H, P = x.shape
@@ -98,6 +107,7 @@ def kernel_model(x, dt, A, Bm, Cm, chunk, dy, dfinal=None):
         s_in[:, c] = s
         s = torch.exp(cl[:, c, 0])[..., None, None] * s + torch.einsum(
             "bln,blh,blhp->bhnp", Bc[:, c], w[:, c], dtx[:, c])
+    # b1, b2
     q = torch.einsum("bcln,bclh,bclhp->bchnp", Cc, torch.exp(cs), dyc)
     g = torch.zeros(Bb, nc, H, N, P, dtype=f)
     cur = (torch.zeros(Bb, H, N, P, dtype=f) if dfinal is None
@@ -105,29 +115,40 @@ def kernel_model(x, dt, A, Bm, Cm, chunk, dy, dfinal=None):
     for c in range(nc - 1, -1, -1):
         g[:, c] = cur
         cur = torch.exp(cl[:, c, 0])[..., None, None] * cur + q[:, c]
+    # b3: W of each head, summed over a group of heads in head order
     tri = torch.tril(torch.ones(L, L, dtype=torch.bool))
     diff = cs[:, :, :, None, :] - cs[:, :, None, :, :]    # (B,nc,L,L,H)
     D = torch.where(tri[..., None], torch.exp(diff.clamp_max(0)), 0.0)
     CB = torch.einsum("bcln,bcmn->bclm", Cc, Bc)[..., None]
-    DY = torch.einsum("bclhp,bcmhp->bclmh", dyc, dtx)
-    W, M = DY * D, CB * D
+    W = torch.einsum("bclhp,bcmhp->bclmh", dyc, dtx) * D
     E = W * CB
     dcs = E.sum(3) - E.sum(2)                              # (B,nc,L,H)
+    G = ssd.HEAD_GROUP
+    wg = torch.stack([W[..., h0:h0 + G].sum(-1)
+                      for h0 in range(0, H, G)], 2)        # (B,nc,ng,L,L)
+    # b4: per head
     bg = torch.einsum("bcmn,bchnp->bcmhp", Bc, g) * w[..., None]
-    ddtx = torch.einsum("bclmh,bclhp->bcmhp", M, dyc) + bg
-    dC2 = torch.einsum("bclhp,bchnp->bclhn", dyc, s_in) \
-        * torch.exp(cs)[..., None]
-    dC = torch.einsum("bclmh,bcmn->bcln", W, Bc) + dC2.sum(3)
-    dB = torch.einsum("bclmh,bcln->bcmn", W, Cc) + torch.einsum(
-        "bcmhp,bchnp->bcmn", dtx * w[..., None], g)
     u = (bg * dtx).sum(-1)
-    dcs = dcs + (dC2 * Cc[:, :, :, None, :]).sum(-1) - u
+    M = CB * D
+    ddtx = bg + torch.einsum("bclmh,bclhp->bcmhp", M, dyc)
+    y_in = torch.einsum("bcln,bchnp->bclhp", Cc, s_in)
+    dcs = dcs + torch.exp(cs) * (dyc * y_in).sum(-1) - u
     dcs[:, :, -1] += (torch.exp(cl[:, :, 0])
                       * (g * s_in).sum((-1, -2)) + u.sum(2))
     dlam = torch.flip(torch.cumsum(torch.flip(dcs, [2]), 2), [2])
     ddt = dlam * A + (ddtx * xc).sum(-1)
     dx = dtc[..., None] * ddtx
     dA = (dlam * dtc).sum((0, 1, 2))
+    # b5: the groups' W, then K = H P products shared by every head
+    ws = wg.sum(2)
+    ey = (torch.exp(cs)[..., None] * dyc).reshape(Bb, nc, L, H * P)
+    wx = ((w * dtc)[..., None] * xc).reshape(Bb, nc, L, H * P)
+    s_k = s_in.permute(0, 1, 3, 2, 4).reshape(Bb, nc, N, H * P)
+    g_k = g.permute(0, 1, 3, 2, 4).reshape(Bb, nc, N, H * P)
+    dC = (torch.einsum("bclm,bcmn->bcln", ws, Bc)
+          + torch.einsum("bclk,bcnk->bcln", ey, s_k))
+    dB = (torch.einsum("bclm,bcln->bcmn", ws, Cc)
+          + torch.einsum("bcmk,bcnk->bcmn", wx, g_k))
     return (dx.reshape(x.shape), ddt.reshape(dt.shape), dA,
             dB.reshape(Bm.shape), dC.reshape(Cm.shape))
 
@@ -165,12 +186,24 @@ def test_ssd_scan_fn_on_the_cpu_is_the_plain_scan():
 
 
 def test_backward_plan_limits():
-    assert ssd._bwd_plan(4, 1024, 80, 64, 128, 128)["gs"] == (4, 80, 8, 128,
-                                                              64)
+    plan = ssd._bwd_plan(4, 1024, 80, 64, 128, 128)
+    assert plan == {"gs": (4, 80, 8, 128, 64), "dcs": (4, 80, 8, 128),
+                    "wg": (4, 8, 8, 128, 128), "dAp": (4, 80, 8)}
+    assert ssd._bwd_plan(1, 32, 13, 8, 8, 16)["wg"] == (1, 2, 2, 16, 16)
     for shape in ((1, 64, 2, 65, 16, 16), (1, 256, 2, 16, 129, 128),
                   (1, 512, 2, 16, 16, 256)):
         with pytest.raises(ValueError, match="backward kernel"):
             ssd._bwd_plan(*shape)
+
+
+def test_head_group_mirrors_the_kernel():
+    """The wrapper sizes the group partials of W with the kernel's own
+    ``HEAD_GROUP``."""
+    import re
+    from pathlib import Path
+    text = (Path(ssd.__file__).parent / "csrc" / "ssd_scan.cu").read_text()
+    assert int(re.search(r"constexpr int HEAD_GROUP = (\d+);", text)
+               .group(1)) == ssd.HEAD_GROUP
 
 
 def test_backward_kernel_needs_the_forward_scratch():
